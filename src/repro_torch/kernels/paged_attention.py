@@ -1,0 +1,61 @@
+"""Launch wrapper for the hand-written Hopper paged decode attention
+kernel (``csrc/paged_attention.cu``).
+
+Replaces the Pallas TPU kernel
+``repro/kernels/paged_attention.py::paged_attention_pallas``: one decode
+query per row over fp paged KV through a block table, f32 online softmax,
+out ``(B, KV, G, hd)`` f32, zeros for a row of length 0.  The source note
+in ``csrc/paged_attention.cu`` says what bounds it and how its design
+answers that.  This wrapper checks device, types, shapes and contiguity,
+allocates the output and launches on the current stream; it never falls
+back to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 96, 128)
+MAX_GROUP = 128  # query heads per KV head (4 per warp, 32 warps)
+
+
+def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, block_tables: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """``q`` (B, KV, G, hd); pools (NB, bs, KV, hd) of q's dtype;
+    ``block_tables`` (B, nb) int32; ``lengths`` (B,) int32 ->
+    (B, KV, G, hd) float32."""
+    dev = q.device
+    tensors = (q, k_pool, v_pool, block_tables, lengths)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("paged_attention_cuda needs CUDA tensors on one device")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"q and both pools must share bf16 or f32, got "
+                        f"{q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    B, KV, G, hd = q.shape
+    NB, bs, KVk, hdk = k_pool.shape
+    nb = block_tables.shape[1]
+    if (KVk, hdk) != (KV, hd) or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool {tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
+                         f"does not match q {tuple(q.shape)}")
+    if tuple(block_tables.shape) != (B, nb) or tuple(lengths.shape) != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {B}")
+    if hd not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(f"head dim {hd} (want one of {HEAD_DIMS}) or group "
+                         f"{G} (max {MAX_GROUP}) not supported")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention_cuda needs contiguous inputs")
+    build.require_sm90(dev)
+    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
+    err = build.library("paged_attention").paged_attention_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, KV, G, hd, bs, nb, hd ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, f"paged_attention (B={B}, KV={KV}, G={G}, hd={hd}, bs={bs})")
+    return out

@@ -13,3 +13,5 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs an sm_90 CUDA card; skipped elsewhere")
