@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/qmm.py::qmm_pallas, both of
 // its bodies:
-//   _qmm_bitserial_kernel (qmm.py:78)  -> qmm_bitserial_kernel below
+//   _qmm_bitserial_kernel (qmm.py:78)  -> bitserial.cuh, tagged qmm_bitserial
 //   _qmm_dequant_kernel   (qmm.py:57)  -> qmm_dequant_kernel below
 // Both compute the function of kernels/ref.py::qmm_ref:
 //   y[M,N] = x[M,K] @ ((u - n) / n * scale),  u = sum_b 2^b plane_b,
@@ -20,15 +20,8 @@
 // operand is never padded or rewritten.  Ragged edges (N = 13696,
 // K/8 = 1712 at glm4-9b) are masked in the kernel.
 //
-// bitserial (M <= 32, decode): GEMV-shaped.  A block owns 64 columns and
-// up to 8 rows; its 256 threads split K into 16 interleaved slices (an
-// in-block split-K, reduced through shared memory in a fixed order, so
-// the result is deterministic).  A thread loads one 32-bit word per plane
-// (4 columns) and rebuilds the 4 unsigned codes of one K row with
-// shift/mask/or on the packed word -- never an int tile -- then does one
-// f32 FMA per (row, column).  The rank-1 offset n * rowsum(x) is computed
-// once per row tile, not per plane, and applied in the epilogue:
-//   y = (sum_k x*u - n * rowsum(x)) / n * scale.
+// bitserial (M <= 32, decode): GEMV-shaped, csrc/bitserial.cuh with one
+// matrix (the same body computes the fused decode's q|k|v projections).
 // Known limit: at N = 256 (wk, wv) the grid has 4 blocks; a split-K
 // across blocks is the first fix (PERF.md).
 //
@@ -42,121 +35,13 @@
 // Plain C interface (built with nvcc, loaded with ctypes).  Kernels
 // allocate nothing; the entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitserial.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+using bitserial::to_f32;
 
-// ------------------------------------------------------------ bitserial
-constexpr int BS_THREADS = 256;
-constexpr int BS_TX = 16;                    // threads along N (4 columns each)
-constexpr int BS_TK = BS_THREADS / BS_TX;    // interleaved K slices
-constexpr int BS_COLS = BS_TX * 4;           // columns per block
-constexpr int BS_KC = 512;                   // K rows of x staged per chunk
-constexpr int BS_SMEM = BS_TK * 8 * BS_COLS; // floats: max(x chunk, reduction)
-
-template <typename T, int MT, bool VEC4>
-__global__ void __launch_bounds__(BS_THREADS)
-qmm_bitserial_kernel(const T* __restrict__ x, const uint8_t* __restrict__ planes,
-                     const float* __restrict__ scale, float* __restrict__ y,
-                     int M, int K, int N, int bits) {
-    static_assert(MT * BS_KC <= BS_SMEM && BS_TK * MT * BS_COLS <= BS_SMEM, "smem");
-    __shared__ __align__(16) float smem[BS_SMEM];
-    __shared__ float rowsum[MT];
-    float* xs = smem;                            // [MT][BS_KC] during the K loop
-
-    const int tid = threadIdx.x;
-    const int tx = tid % BS_TX;
-    const int tk = tid / BS_TX;
-    const int warp = tid / 32, lane = tid % 32;
-    const int m0 = blockIdx.y * MT;
-    const int col0 = blockIdx.x * BS_COLS + tx * 4;
-    const int K8 = K / 8;
-
-    if (tid < MT) rowsum[tid] = 0.f;
-    float acc[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[m][v] = 0.f;
-
-    for (int kc0 = 0; kc0 < K; kc0 += BS_KC) {
-        __syncthreads();
-        for (int i = tid; i < MT * BS_KC; i += BS_THREADS) {
-            const int m = i / BS_KC, kk = i % BS_KC;
-            const int gm = m0 + m, gk = kc0 + kk;
-            xs[i] = (gm < M && gk < K) ? to_f32(x[(size_t)gm * K + gk]) : 0.f;
-        }
-        __syncthreads();
-        // offset term: rowsum over the whole K, once per row tile
-        if (warp < MT) {
-            float s = 0.f;
-            for (int kk = lane; kk < BS_KC; kk += 32) s += xs[warp * BS_KC + kk];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-            if (lane == 0) rowsum[warp] += s;
-        }
-        if (col0 < N) {
-            const int nk8 = min(BS_KC, K - kc0) / 8;
-            for (int r = tk; r < nk8; r += BS_TK) {
-                const int j = kc0 / 8 + r;
-                uint32_t w[8];
-#pragma unroll
-                for (int b = 0; b < 8; ++b) {
-                    w[b] = 0u;
-                    if (b < bits) {
-                        const uint8_t* p = planes + ((size_t)b * K8 + j) * N + col0;
-                        if (VEC4) {
-                            w[b] = __ldg(reinterpret_cast<const uint32_t*>(p));
-                        } else {
-#pragma unroll
-                            for (int v = 0; v < 4; ++v)
-                                if (col0 + v < N) w[b] |= (uint32_t)__ldg(p + v) << (8 * v);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    // unsigned codes of K row 8j+i for 4 columns, one per byte
-                    uint32_t u = 0u;
-#pragma unroll
-                    for (int b = 0; b < 8; ++b)
-                        if (b < bits) u |= ((w[b] >> i) & 0x01010101u) << b;
-                    const float u0 = (float)(u & 0xffu), u1 = (float)((u >> 8) & 0xffu);
-                    const float u2 = (float)((u >> 16) & 0xffu), u3 = (float)(u >> 24);
-#pragma unroll
-                    for (int m = 0; m < MT; ++m) {
-                        const float xv = xs[m * BS_KC + r * 8 + i];
-                        acc[m][0] = fmaf(xv, u0, acc[m][0]);
-                        acc[m][1] = fmaf(xv, u1, acc[m][1]);
-                        acc[m][2] = fmaf(xv, u2, acc[m][2]);
-                        acc[m][3] = fmaf(xv, u3, acc[m][3]);
-                    }
-                }
-            }
-        }
-    }
-    __syncthreads();
-    float* red = smem;                           // [BS_TK][MT][BS_COLS]
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) red[(tk * MT + m) * BS_COLS + tx * 4 + v] = acc[m][v];
-    __syncthreads();
-    const float nl = bits > 1 ? (float)((1 << (bits - 1)) - 1) : 1.f;
-    for (int i = tid; i < MT * BS_COLS; i += BS_THREADS) {
-        const int m = i / BS_COLS, c = i % BS_COLS;
-        const int gm = m0 + m, gn = blockIdx.x * BS_COLS + c;
-        if (gm >= M || gn >= N) continue;
-        float s = 0.f;
-        for (int t = 0; t < BS_TK; ++t) s += red[(t * MT + m) * BS_COLS + c];
-        y[(size_t)gm * N + gn] = (s - nl * rowsum[m]) / nl * scale[gn];
-    }
-}
+struct qmm_bitserial;   // names the bit-serial kernel's instances
 
 // -------------------------------------------------------------- dequant
 constexpr int DQ_THREADS = 256;
@@ -240,16 +125,6 @@ qmm_dequant_kernel(const T* __restrict__ x, const uint8_t* __restrict__ planes,
     }
 }
 
-template <typename T, int MT>
-void launch_bitserial(const T* x, const uint8_t* planes, const float* scale, float* y,
-                      int M, int K, int N, int bits, bool vec4, cudaStream_t st) {
-    dim3 grid((N + BS_COLS - 1) / BS_COLS, (M + MT - 1) / MT);
-    if (vec4)
-        qmm_bitserial_kernel<T, MT, true><<<grid, BS_THREADS, 0, st>>>(x, planes, scale, y, M, K, N, bits);
-    else
-        qmm_bitserial_kernel<T, MT, false><<<grid, BS_THREADS, 0, st>>>(x, planes, scale, y, M, K, N, bits);
-}
-
 template <typename T>
 void launch(const T* x, const uint8_t* planes, const float* scale, float* y,
             int M, int K, int N, int bits, int path, cudaStream_t st) {
@@ -258,11 +133,9 @@ void launch(const T* x, const uint8_t* planes, const float* scale, float* y,
         qmm_dequant_kernel<T><<<grid, DQ_THREADS, 0, st>>>(x, planes, scale, y, M, K, N, bits);
         return;
     }
-    const bool vec4 = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(planes) % 4 == 0);
-    if (M <= 1) launch_bitserial<T, 1>(x, planes, scale, y, M, K, N, bits, vec4, st);
-    else if (M <= 2) launch_bitserial<T, 2>(x, planes, scale, y, M, K, N, bits, vec4, st);
-    else if (M <= 4) launch_bitserial<T, 4>(x, planes, scale, y, M, K, N, bits, vec4, st);
-    else launch_bitserial<T, 8>(x, planes, scale, y, M, K, N, bits, vec4, st);
+    bitserial::Mats mats{};
+    bitserial::add(mats, planes, scale, N, bits);
+    bitserial::launch<qmm_bitserial>(x, mats, y, M, K, st);
 }
 
 }  // namespace

@@ -4,8 +4,8 @@ Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds.  Libraries go to
 ``src/repro_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the source and flags, so an edited source rebuilds and an unchanged one
-is reused.  Nothing is built at import: :func:`library` builds on first
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is reused.  Nothing is built at import: :func:`library` builds on first
 use, and :func:`build_all` starts every ``nvcc`` at once (set-up time for
 ``chip_smoke.py``).
 """
@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
-SOURCES = ("qmm", "paged_attention")
+SOURCES = ("qmm", "paged_attention", "paged_attention_quant", "fused_decode")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -44,6 +44,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -104,6 +105,23 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_attention_launch.argtypes = [P, P, P, P, P, P, I,
                                                I, I, I, I, I, I, F, P]
         lib.paged_attention_launch.restype = I
+    elif name == "paged_attention_quant":
+        # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out,
+        # dtype, packed4, B, KV, G, hd, bs, nb, scale, stream
+        lib.paged_attention_quant_launch.argtypes = [P] * 8 + [I] * 8 + [F, P]
+        lib.paged_attention_quant_launch.restype = I
+    elif name == "fused_decode":
+        # proj, act_dtype, k_pool, v_pool, k_scale, v_scale, block_tables,
+        # lengths, cos, sin, qmax, out, kc, vc, ksc, vsc, packed4, B, KV, G,
+        # hd, bs, nb, scale, stream
+        lib.fused_attend_launch.argtypes = [P, I] + [P] * 14 + [I] * 7 + [F, P]
+        lib.fused_attend_launch.restype = I
+        # x, act_dtype, (planes, scale, bits) x 3, proj, k_pool, v_pool,
+        # k_scale, v_scale, block_tables, lengths, cos, sin, qmax, out, kc,
+        # vc, ksc, vsc, packed4, B, D, KV, G, hd, bs, nb, scale, stream
+        lib.fused_decode_launch.argtypes = ([P, I] + [P, P, I] * 3 + [P] * 15
+                                            + [I] * 8 + [F, P])
+        lib.fused_decode_launch.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -14,6 +14,13 @@ These wrappers own the shape normalisation the kernels do not: batch
 dims are flattened to rows and restored after.  Ragged edges (N or K not
 a multiple of the tile, as at d_ff = 13696) are masked inside the
 kernels, so nothing is padded here.
+
+Quantized KV: ``paged_attention`` takes the quantized-block kernel when
+scales are passed, and ``fused_qkv_paged_decode`` runs the fused QKV +
+RoPE + KV-quantize + attention kernel.  The reference gates its fused
+Pallas kernel on the packed planes fitting 8 MiB of TPU VMEM; the Hopper
+kernel streams the planes from device memory, so on the card the fused
+op always launches it.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 from repro_torch.kernels import ref as kref
 
 counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
-          "plain": 0}
+          "paged_attention_quant": 0, "fused_qkv_paged_decode": 0, "plain": 0}
 
 
 def reset_counts() -> None:
@@ -72,22 +79,85 @@ def qmm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
 
 def paged_attention(
     q: torch.Tensor,             # (B, 1, H, hd) — one new token per sequence
-    k_pool: torch.Tensor,        # (NB, bs, KV, hd) — one layer's paged blocks
-    v_pool: torch.Tensor,        # same shape as k_pool
+    k_pool: torch.Tensor,        # (NB, bs, KV, hd[/2]) — one layer's paged blocks
+    v_pool: torch.Tensor,        # same container as k_pool
     block_tables: torch.Tensor,  # (B, nb) int32
     lengths: torch.Tensor,       # (B,) int32 effective lengths
+    k_scale: torch.Tensor | None = None,  # (NB, bs, KV) f32 — quantized pools
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Decode attention over a paged fp KV pool -> (B, 1, H, hd) in
-    ``q``'s dtype."""
+    """Decode attention over a paged KV pool -> (B, 1, H, hd) in ``q``'s
+    dtype.  Passing ``k_scale``/``v_scale`` selects the quantized-block
+    path (int8 codes, or nibble-packed uint8 at uniform int4).  An f32
+    pool (the kv-oracle's) with a bf16 ``q`` attends in f32: the cast is
+    exact, and it is what the reference's kernel does inside."""
     B, _, H, hd = q.shape
     KV = k_pool.shape[2]
+    quantized = k_scale is not None
     if _on_cuda(q):
-        from repro_torch.kernels.paged_attention import paged_attention_cuda
+        q4 = q.reshape(B, KV, H // KV, hd)
+        if quantized:
+            from repro_torch.kernels.paged_attention_quant import (
+                paged_attention_quant_cuda)
 
-        out = paged_attention_cuda(q.reshape(B, KV, H // KV, hd).contiguous(),
-                                   k_pool, v_pool, block_tables, lengths)
-        counts["paged_attention"] += 1
+            out = paged_attention_quant_cuda(q4.contiguous(), k_pool, v_pool, k_scale,
+                                             v_scale, block_tables, lengths)
+            counts["paged_attention_quant"] += 1
+        else:
+            from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+            if k_pool.dtype == torch.float32:
+                q4 = q4.float()
+            out = paged_attention_cuda(q4.contiguous(), k_pool, v_pool,
+                                       block_tables, lengths)
+            counts["paged_attention"] += 1
         return out.reshape(B, 1, H, hd).to(q.dtype)
     counts["plain"] += 1
-    return kref.paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                    lengths).to(q.dtype)
+    if quantized:
+        out = kref.quant_paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                             block_tables, lengths)
+    else:
+        out = kref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths)
+    return out.to(q.dtype)
+
+
+def fused_qkv_paged_decode(
+    x: torch.Tensor,             # (B, D) post-norm hidden, one token per row
+    wq, wk, wv,                  # quant.pack.Packed projection weights
+    k_pool, v_pool,              # quantized paged blocks (pre-write)
+    k_scale, v_scale,            # (NB, bs, KV) f32
+    block_tables: torch.Tensor,  # (B, nb) int32
+    lengths: torch.Tensor,       # (B,) int32 — lengths BEFORE the new token
+    qmax,                        # 0-d f32 — this layer's KV code ceiling
+    *,
+    rope_theta: float,
+    num_heads: int,
+    num_kv_heads: int,
+):
+    """Fused bit-serial QKV + RoPE + KV-quantize + paged attention.
+
+    Returns ``(attn (B, 1, H, hd) in x.dtype, k_codes, v_codes, k_sc,
+    v_sc)``: the new token's codes (nibble-packed for a uint8 pool) and
+    scales, which the caller scatters into the pool (write-then-attend ≡
+    the kernel's attend-with-the-new-token-last).  The RoPE rows are
+    computed here, in torch, and passed to the kernel."""
+    from repro_torch.models.common import rope_cos_sin
+
+    B = x.shape[0]
+    H, KV = num_heads, num_kv_heads
+    hd = wq.scale.shape[-1] // H
+    cos, sin = rope_cos_sin(lengths, hd, rope_theta)          # (B, hd/2)
+    if _on_cuda(x):
+        from repro_torch.kernels.fused_decode import fused_qkv_paged_decode_cuda
+
+        qmax = torch.as_tensor(qmax, dtype=torch.float32, device=x.device)
+        out, kc, vc, ks, vs = fused_qkv_paged_decode_cuda(
+            x.contiguous(), wq, wk, wv, k_pool, v_pool, k_scale, v_scale,
+            block_tables, lengths, cos, sin, qmax, H)
+        counts["fused_qkv_paged_decode"] += 1
+        return out.reshape(B, 1, H, hd).to(x.dtype), kc, vc, ks, vs
+    counts["plain"] += 1
+    out, kc, vc, ks, vs = kref.fused_qkv_paged_decode_ref(
+        x, wq, wk, wv, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+        cos, sin, qmax, H, KV)
+    return out.to(x.dtype), kc, vc, ks, vs

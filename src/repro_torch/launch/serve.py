@@ -14,11 +14,14 @@ cpu`` takes the plain versions of the kernels.  ``--min-prompt-len``
 draws each prompt's length in ``[min, --prompt-len]`` (after the
 reference's draws, so without it the workload is the reference's).
 
+``--kv-bits B [B ...]`` quantizes the paged KV blocks (one width, or one
+per layer; uniform 4 bits packs two codes per byte), and ``--kv-oracle``
+stores their exact quantize-dequantize values in f32 instead.
+
 Flags of the reference that this port does not have yet are refused
 with the ROADMAP item that brings them: ``--mode static``, ``--cache
-slot``, ``--kv-bits``, ``--prefix-cache``, ``--tenants``, ``--spec-k``,
-``--ckpt-dir``.  Host sampling without the lookahead pipeline is the only
-decode path.
+slot``, ``--prefix-cache``, ``--tenants``, ``--spec-k``, ``--ckpt-dir``.
+Host sampling without the lookahead pipeline is the only decode path.
 """
 from __future__ import annotations
 
@@ -37,7 +40,6 @@ from repro_torch.train.serve import quantize_for_serving
 _UNPORTED = (  # (flag test, flag, ROADMAP item)
     (lambda a: a.mode != "continuous", "--mode static", "slice A, item 3 (rest)"),
     (lambda a: a.cache != "paged", "--cache slot", "slice A, item 3 (rest)"),
-    (lambda a: a.kv_bits, "--kv-bits", "slice A, item 4"),
     (lambda a: a.prefix_cache, "--prefix-cache", "slice A, item 5"),
     (lambda a: a.tenants, "--tenants", "slice A, item 5"),
     (lambda a: a.spec_k, "--spec-k", "slice A, item 7"),
@@ -64,7 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "oversubscribes and may preempt)")
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="fixed prefill chunk length")
-    ap.add_argument("--kv-bits", type=int, nargs="+", default=None)
+    ap.add_argument("--kv-bits", type=int, nargs="+", default=None,
+                    help="quantize KV blocks: one width, or one per layer")
+    ap.add_argument("--kv-oracle", action="store_true",
+                    help="with --kv-bits: store exact QDQ values in f32")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--tenants", type=int, default=0)
     ap.add_argument("--requests", type=int, default=8,
@@ -151,6 +156,11 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
     """Serve the synthetic workload, print the summary, return the engine."""
     from repro_torch.obs.trace import Tracer
 
+    kv_kw = {}
+    if args.kv_bits:
+        kv_kw["kv_bits"] = (args.kv_bits[0] if len(args.kv_bits) == 1
+                            else args.kv_bits)
+        kv_kw["kv_oracle"] = args.kv_oracle
     tracer = Tracer(enabled=True) if args.trace else None
     if tracer is not None:
         tracer.name_thread("serve-loop")
@@ -158,12 +168,14 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
                          max_len=args.prompt_len + args.gen + 1,
                          block_size=args.block_size, num_blocks=args.num_blocks,
                          prefill_chunk=args.prefill_chunk, tracer=tracer,
-                         device=args.device)
+                         device=args.device, **kv_kw)
     drive(engine, synthetic_workload(args, cfg.vocab_size), args.arrival_every,
           SamplingParams(temperature=args.temperature), args.metrics_interval)
     m = engine.metrics()
+    kv = (f", KV blocks at {args.kv_bits} bits" + (" (f32 oracle)" if args.kv_oracle else "")
+          if args.kv_bits else "")
     print(f"served {args.requests} requests on {args.num_slots} paged rows "
-          f"(avg policy {policy.average_bits():.1f} bits) on {args.device}")
+          f"(avg policy {policy.average_bits():.1f} bits{kv}) on {args.device}")
     print(f"tokens/s={m['tokens_per_s']:.1f} occupancy={m['mean_occupancy']:.2f} "
           f"decode_steps={m['decode_steps']} tokens={m['tokens_total']} "
           f"preemptions={m['preemptions']} "

@@ -76,16 +76,24 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos/sin (..., head_dim/2) float32 of each (int) position."""
+    ang = positions[..., None].float() * rope_freqs(head_dim, theta, device=positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of ``x`` (..., hd) in float32; cos/sin broadcast
+    to (..., hd/2).  The fused decode kernel repeats this arithmetic."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 1e4) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S) int32."""
-    hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, device=x.device)
-    ang = positions[..., None].float() * inv            # (..., S, hd/2)
-    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    cos, sin = rope_cos_sin(positions, x.shape[-1], theta)   # (..., S, hd/2)
+    return rope_rotate(x, cos[..., None, :], sin[..., None, :]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,14 @@
 
 Ported: ``init`` (stacked training layout), the paged serving path —
 fixed-shape chunked prefill (``prefill_chunk`` over ``_chunk_body``) and
-the one-token ``decode_step`` over a ``PagedCachePool`` with fp blocks —
-and the quantization API (``quant_groups``, ``frozen_bits``).  Every
-packed matmul goes through ``apply_linear`` -> ``kernels.ops.qmm`` and
-every decode attention through ``kernels.ops.paged_attention``, so on
-the card the two hand-written Hopper kernels carry the whole path.
+the one-token ``decode_step`` over a ``PagedCachePool`` with fp blocks,
+quantized KV blocks (int8, or nibble-packed int4) or the fp32 kv-oracle
+— and the quantization API (``quant_groups``, ``kv_quant_groups``,
+``frozen_bits``).  Every packed matmul goes through ``apply_linear`` ->
+``kernels.ops.qmm``, every decode attention through
+``kernels.ops.paged_attention``, and a quantized-KV decode step with
+packed q/k/v through ``kernels.ops.fused_qkv_paged_decode``, so on the
+card the hand-written Hopper kernels carry the whole path.
 
 Params are plain dicts of tensors with the reference's structure: the
 training layout stacks each repeated leaf along a leading layer axis in
@@ -16,9 +19,8 @@ matrices and a ``QDQ`` embedding.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): MoE, hybrid and other families, M-RoPE and absolute-sinusoid
-positions, sliding-window (ring) caches, the quantized KV cache, the
-speculative ``verify_chunk``, and the full-sequence ``forward`` /
-``prefill``.
+positions, sliding-window (ring) caches, the speculative
+``verify_chunk``, and the full-sequence ``forward`` / ``prefill``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import gather_dequant
 from repro_torch.models.common import (
     apply_linear,
     apply_rope,
@@ -40,7 +43,8 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.models.model import QuantGroup
-from repro_torch.quant.pack import QDQ
+from repro_torch.quant.pack import (QDQ, Packed, kv_dequantize, kv_pack_int4,
+                                    kv_qdq, kv_quantize)
 
 
 def _index(tree, i: int):
@@ -106,18 +110,53 @@ class TransformerLM:
         return params
 
     # ------------------------------------------------------------- sublayers
+    def _fused_decode_attn(self, h, p, cache, layer):
+        """Quantized-KV decode with packed q/k/v: bit-serial QKV + RoPE +
+        KV-quantize + paged attention in one op
+        (``kernels.ops.fused_qkv_paged_decode``), then the new token's
+        codes and scales written into the pool in place.  Writing after
+        attending is write-then-attend: the op folds the new token in from
+        its own quantized values."""
+        cfg = self.cfg
+        kc, vc, length = cache["k"][layer], cache["v"][layer], cache["length"]
+        ksc, vsc = cache["k_scale"][layer], cache["v_scale"][layer]
+        bt = cache["block_tables"]                          # (B, nb)
+        out, k_codes, v_codes, k_sc, v_sc = kops.fused_qkv_paged_decode(
+            h[:, 0], p["attn"]["wq"], p["attn"]["wk"], p["attn"]["wv"],
+            kc, vc, ksc, vsc, bt, length, cache["kv_qmax"][layer],
+            rope_theta=cfg.rope_theta, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads)
+        phys, sub = self._write_slot(bt, length, kc.shape[1])
+        kc[phys, sub] = k_codes
+        vc[phys, sub] = v_codes
+        ksc[phys, sub] = k_sc
+        vsc[phys, sub] = v_sc
+        return out
+
+    @staticmethod
+    def _write_slot(bt, length, bs: int):
+        """(physical block, offset) of each row's new token: logical slot
+        ``min(length, Tc - 1)`` through the block table."""
+        Tc = bt.shape[1] * bs
+        slot = torch.clamp(length, max=Tc - 1).long()
+        phys = bt.long().gather(1, (slot // bs)[:, None])[:, 0]
+        return phys, slot % bs
+
     def _attn(self, x, p, positions, cache, layer):
         """Residual attention sublayer, one-token decode over the paged
         pool: write the new K/V into its owning block, then attend by block
-        table (``kernels.ops.paged_attention``)."""
+        table (``kernels.ops.paged_attention``).  A quantized pool with
+        packed q/k/v takes the fused op instead."""
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
         if "block_tables" not in cache:
             raise not_ported("slot-pool decode", "slice A, item 3 (rest)")
-        if "k_scale" in cache or "kv_qmax" in cache:
-            raise not_ported("quantized KV blocks", "slice A, item 4")
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if (S == 1 and "k_scale" in cache
+                and all(isinstance(p["attn"][m], Packed) for m in ("wq", "wk", "wv"))):
+            out = self._fused_decode_attn(h, p, cache, layer)
+            return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         q = apply_linear(h, p["attn"]["wq"]).reshape(B, S, H, hd)
         k = apply_linear(h, p["attn"]["wk"]).reshape(B, S, KV, hd)
         v = apply_linear(h, p["attn"]["wv"]).reshape(B, S, KV, hd)
@@ -125,18 +164,37 @@ class TransformerLM:
         k = apply_rope(k, positions, cfg.rope_theta)
         kc, vc, length = cache["k"][layer], cache["v"][layer], cache["length"]
         bt = cache["block_tables"]                          # (B, nb) int32
-        bs = kc.shape[1]
-        Tc = bt.shape[1] * bs                               # tokens per sequence
-        slot = torch.clamp(length, max=Tc - 1).long()
-        phys = bt.long().gather(1, (slot // bs)[:, None])[:, 0]
-        sub = slot % bs
+        phys, sub = self._write_slot(bt, length, kc.shape[1])
+        eff_len = torch.clamp(length + 1, max=bt.shape[1] * kc.shape[1]).to(torch.int32)
         # the reference rebuilds the pool functionally
         # (cache["k"].at[layer].set(...)); here the new token is written
         # into the pool where it lies
-        kc[phys, sub] = k[:, 0].to(kc.dtype)
-        vc[phys, sub] = v[:, 0].to(vc.dtype)
-        eff_len = torch.clamp(length + 1, max=Tc).to(torch.int32)
-        out = kops.paged_attention(q, kc, vc, bt, eff_len)
+        if "k_scale" in cache:
+            # quantized blocks, unfused (dense q/k/v): quantize the new
+            # token, write codes + per-(token, head) scales, attend with
+            # dequantization in the kernel
+            qmax = cache["kv_qmax"][layer]
+            k_codes, k_sc = kv_quantize(k[:, 0], qmax)
+            v_codes, v_sc = kv_quantize(v[:, 0], qmax)
+            if kc.dtype == torch.uint8:  # nibble-packed uniform int4
+                k_codes, v_codes = kv_pack_int4(k_codes), kv_pack_int4(v_codes)
+            ksc, vsc = cache["k_scale"][layer], cache["v_scale"][layer]
+            kc[phys, sub] = k_codes
+            vc[phys, sub] = v_codes
+            ksc[phys, sub] = k_sc
+            vsc[phys, sub] = v_sc
+            out = kops.paged_attention(q, kc, vc, bt, eff_len, ksc, vsc)
+        else:
+            if "kv_qmax" in cache:
+                # fp-KV oracle: store the quantize-dequantize value, exactly
+                # what the quantized read path reconstructs, in f32 blocks
+                qmax = cache["kv_qmax"][layer]
+                k_w, v_w = kv_qdq(k[:, 0], qmax), kv_qdq(v[:, 0], qmax)
+            else:
+                k_w, v_w = k[:, 0], v[:, 0]
+            kc[phys, sub] = k_w.to(kc.dtype)
+            vc[phys, sub] = v_w.to(vc.dtype)
+            out = kops.paged_attention(q, kc, vc, bt, eff_len)
         out = apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         return x + out
 
@@ -224,8 +282,6 @@ class TransformerLM:
         cfg = self.cfg
         B, C, D = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-        if "k_scale" in cache or "kv_qmax" in cache:
-            raise not_ported("quantized KV blocks", "slice A, item 4")
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q = apply_linear(h, p["attn"]["wq"]).reshape(B, C, H, hd)
         k = apply_linear(h, p["attn"]["wk"]).reshape(B, C, KV, hd)
@@ -233,24 +289,52 @@ class TransformerLM:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-        kc, vc = cache["k"][layer], cache["v"][layer]      # (NB, bs, KV, hd)
+        kc, vc = cache["k"][layer], cache["v"][layer]      # (NB, bs, KV, hd[/2])
         bt = cache["block_tables"][rows.long()].long()     # (B, nb)
         bs = kc.shape[1]
         nb = bt.shape[1]
         Tc = nb * bs
-        k_ctx = kc[bt].reshape(B, Tc, KV, hd)              # gathered copies
-        v_ctx = vc[bt].reshape(B, Tc, KV, hd)
+        quant = "k_scale" in cache
+        oracle = not quant and "kv_qmax" in cache
+        if quant:
+            # dequantize the gathered context: codes · per-(token, head)
+            # scale, the same f32 values an oracle pool stores
+            ksc, vsc = cache["k_scale"][layer], cache["v_scale"][layer]
+            k_ctx = gather_dequant(kc, ksc, bt)
+            v_ctx = gather_dequant(vc, vsc, bt)
+        else:
+            k_ctx = kc[bt].reshape(B, Tc, KV, hd)          # gathered copies
+            v_ctx = vc[bt].reshape(B, Tc, KV, hd)
+        # the pool stores QDQ values, so in-chunk keys attend through the
+        # same quantize-dequantize: a token scored inside a chunk then
+        # matches the same token scored one decode step later
+        k_att, v_att = k, v
+        if quant or oracle:
+            qmax = cache["kv_qmax"][layer]
+            k_codes, k_sc = kv_quantize(k, qmax)           # (B, C, KV, hd), (B, C, KV)
+            v_codes, v_sc = kv_quantize(v, qmax)
+            k_att, v_att = kv_dequantize(k_codes, k_sc), kv_dequantize(v_codes, v_sc)
         s_idx = torch.arange(Tc, device=x.device)[None, :]
         ctx_pos = torch.where(s_idx < starts[:, None], s_idx, -1)
-        out = chunk_attention(q, k_ctx, v_ctx, ctx_pos, k, v, positions)
+        out = chunk_attention(q, k_ctx, v_ctx, ctx_pos, k_att, v_att, positions)
 
         i_idx = torch.arange(C, device=x.device)[None, :]
         blk = bt.gather(1, torch.clamp(positions // bs, 0, nb - 1).long())
         keep = i_idx < valids[:, None]                     # (B, C)
         sub = (positions % bs).long()
         # in place, as in _attn (the reference scatters with mode="drop")
-        kc[blk[keep], sub[keep]] = k[keep].to(kc.dtype)
-        vc[blk[keep], sub[keep]] = v[keep].to(vc.dtype)
+        phys, sub = blk[keep], sub[keep]
+        if quant:
+            if kc.dtype == torch.uint8:
+                k_codes, v_codes = kv_pack_int4(k_codes), kv_pack_int4(v_codes)
+            kc[phys, sub] = k_codes[keep]
+            vc[phys, sub] = v_codes[keep]
+            ksc[phys, sub] = k_sc[keep]
+            vsc[phys, sub] = v_sc[keep]
+        else:
+            # the oracle writes the QDQ values it attended; fp writes raw k/v
+            kc[phys, sub] = k_att[keep].to(kc.dtype)
+            vc[phys, sub] = v_att[keep].to(vc.dtype)
 
         out = apply_linear(out.reshape(B, C, H * hd), p["attn"]["wo"])
         return x + out
@@ -319,6 +403,20 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             add("lm_head", ("lm_head",), None, (D, cfg.vocab_size), D * cfg.vocab_size)
         return groups
+
+    def kv_quant_groups(self, seq_len: int = 4096) -> list[QuantGroup]:
+        """Per-layer KV-cache bitwidth groups: one pseudo-group per layer
+        named ``kv.L{l:02d}`` whose "weights" are the K+V token activations
+        a sequence of ``seq_len`` stores for that layer.  ``n_macs=0``: KV
+        bits buy cache bytes, not multiply precision.  ``path=("kv", l)``
+        is virtual: the serving pool's ``kv_bits`` consumes these groups,
+        never the params."""
+        cfg = self.cfg
+        kv_hd = cfg.num_kv_heads * cfg.hd
+        return [QuantGroup(f"kv.L{l:02d}", ("kv", l), l,
+                           (seq_len, cfg.num_kv_heads, cfg.hd),
+                           2 * seq_len * kv_hd, 0)
+                for l in range(cfg.num_layers)]
 
     def frozen_bits(self) -> dict[str, int]:
         """Groups the agent may not touch (kept at 8 bits), per config."""

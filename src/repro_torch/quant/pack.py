@@ -11,8 +11,11 @@ rows ``8j..8j+7`` (row ``8j+i`` in bit ``i``), ``N`` minor-most.
 Reconstruction:  ``W = (Σ_b 2^b · plane_b − n) / n · scale``
 Bit-serial GEMM: ``x @ W = (Σ_b 2^b (x @ plane_b) − n · rowsum(x)) / n · scale``
 
-The quantized-KV helpers (``kv_quantize`` and friends) wait for the
-quantized KV pool (ROADMAP slice A item 4).
+Quantized-KV helpers (``kv_quantize`` and friends, the numerics of the
+quantized paged pool): per-(token, KV-head) symmetric codes with
+``scale = amax / qmax``, and the nibble-packed uint8 container of uniform
+4-bit pools.  They are bitwise the reference's: ``torch.round`` is
+half-to-even like ``jnp.round`` and ``x / safe`` is a true division.
 """
 from __future__ import annotations
 
@@ -102,3 +105,51 @@ def dequant_packed(packed: torch.Tensor, scale: torch.Tensor, bits: int):
     """Reconstruct float32 weights from packed planes + per-column scale."""
     n = float(2 ** (bits - 1) - 1) if bits > 1 else 1.0
     return unpack_bitplanes(packed, bits).float() / n * scale
+
+
+# --------------------------------------------------------------------------
+# Quantized-KV helpers: the one source of KV numerics for the pool, the
+# model and the plain kernel versions, so the fp-KV oracle parity is exact.
+
+
+def kv_quantize(x: torch.Tensor, qmax):
+    """Per-(token, KV-head) symmetric quantization of new KV vectors.
+
+    ``x``: float (..., KV, hd); ``qmax``: code ceiling ``2^(b-1) - 1`` (a
+    number or a 0-d tensor).  Returns ``(codes int8 (..., KV, hd), scale
+    float32 (..., KV))`` with ``scale = amax(|x|) / qmax`` over the head
+    dim.  All-zero vectors get scale 0 and codes 0."""
+    x = x.float()
+    qmax = torch.as_tensor(qmax, dtype=torch.float32, device=x.device)
+    scale = x.abs().amax(dim=-1) / qmax
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))[..., None]
+    codes = torch.clamp(torch.round(x / safe), -qmax, qmax).to(torch.int8)
+    return codes, scale
+
+
+def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """codes int (..., KV, hd) + scale f32 (..., KV) -> float32 values."""
+    return codes.float() * scale.float()[..., None]
+
+
+def kv_qdq(x: torch.Tensor, qmax) -> torch.Tensor:
+    """Quantize-dequantize: exactly ``kv_dequantize(*kv_quantize(x,
+    qmax))``, the value an fp-KV oracle pool stores."""
+    return kv_dequantize(*kv_quantize(x, qmax))
+
+
+def kv_pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Nibble-pack int8 codes in [-7, 7]: (..., hd) -> (..., hd//2) uint8,
+    ``u = c + 8``, the even head index in the low nibble."""
+    if codes.shape[-1] % 2:
+        raise ValueError(f"head dim {codes.shape[-1]} must be even for int4 packing")
+    u = (codes.to(torch.int32) + 8).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def kv_unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`kv_pack_int4`: (..., hd//2) uint8 -> (..., hd) int8."""
+    lo = (packed & 0x0F).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1],
+                                                 packed.shape[-1] * 2)

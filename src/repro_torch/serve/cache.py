@@ -1,5 +1,5 @@
 """Paged KV-cache pool for continuous batching (torch port of
-``repro.serve.cache.PagedCachePool``, fp blocks).
+``repro.serve.cache.PagedCachePool``: fp or quantized blocks).
 
 Transformer K/V lives as fixed-size *blocks* in one ``(L, num_blocks,
 block_size, KV, hd)`` pool per leaf and each sequence owns an ordered
@@ -18,12 +18,30 @@ The pool tensors live on the model's device and the model writes them in
 place; ``step_cache`` hands out the leaves plus a device copy of the
 block tables, re-uploaded only after a table changed.
 
-Ported so far: fp blocks with ``prefix_cache=False``.  The prefix-cache
-hooks the scheduler and engine call (``record_tokens``, ``record_token``,
+Quantized-KV block layout (``kv_bits=...``), as the reference's:
+
+- code leaves ``"k"``/``"v"``: ``(L, num_blocks, block_size, KV, hd)``
+  int8 symmetric codes in ``[-qmax, qmax]``, or, when every layer is
+  4-bit, ``(L, num_blocks, block_size, KV, hd//2)`` uint8 with two codes
+  nibble-packed per byte (``quant.pack.kv_pack_int4``);
+- scale leaves ``"k_scale"``/``"v_scale"``: ``(L, num_blocks,
+  block_size, KV)`` float32, one absmax scale per (token, KV head),
+  written by the same step that writes the codes; they ride in
+  ``paged_keys`` and count toward ``cache_bytes``;
+- ``"kv_qmax"``: ``(L,)`` float32 per-layer code ceiling ``2^(bits-1) -
+  1``: per-layer bitwidths are data, not shape.
+
+``kv_oracle=True`` (requires ``kv_bits``) keeps ``"k"``/``"v"`` as
+float32 leaves holding the exact quantize-dequantize values
+(``quant.pack.kv_qdq``) and no scale leaves: the quantized path's
+``codes · scale`` is bitwise these floats, so the two pools give the same
+tokens exactly.
+
+Ported so far: ``prefix_cache=False``.  The prefix-cache hooks the
+scheduler and engine call (``record_tokens``, ``record_token``,
 ``cow_for_write``) keep the reference's disabled early returns, and
-``map_shared`` is absent, so the scheduler maps nothing.  Quantized KV
-blocks (``kv_bits``), prefix caching, mesh placement and the slot pool
-are later ROADMAP items.
+``map_shared`` is absent, so the scheduler maps nothing.  Prefix caching,
+mesh placement and the slot pool are later ROADMAP items.
 
 Allocator invariants (as the reference's): an id is returned at most once
 until freed and a double free raises; ``ensure`` never over-allocates and
@@ -33,6 +51,7 @@ from __future__ import annotations
 
 import heapq
 
+import numpy as np
 import torch
 
 from repro_torch import not_ported
@@ -50,6 +69,11 @@ class PagedCachePool:
     ``num_blocks`` physical blocks *including* the reserved garbage block
                   0.  Default allocates full capacity (num_seqs ×
                   blocks_per_seq + 1); pass less to oversubscribe.
+    ``kv_bits``   quantize the KV blocks: an int (uniform) or one int per
+                  layer, each in 2..8.  Uniform 4 selects the
+                  nibble-packed uint8 container.
+    ``kv_oracle`` with ``kv_bits``: store the exact QDQ values in float32
+                  instead of codes (the token-parity oracle).
     """
 
     tracer = NULL_TRACER  # the engine points this at its tracer
@@ -57,22 +81,31 @@ class PagedCachePool:
     def __init__(self, model, num_seqs: int, max_len: int, *,
                  block_size: int = 16, num_blocks: int | None = None,
                  dtype=None, device=None, kv_bits=None,
-                 prefix_cache: bool = False):
+                 kv_oracle: bool = False, prefix_cache: bool = False):
         if num_seqs < 1:
             raise ValueError("num_seqs must be >= 1")
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
-        if kv_bits is not None:
-            raise not_ported("quantized KV blocks (kv_bits)", "slice A, item 4")
+        if kv_oracle and kv_bits is None:
+            raise ValueError("kv_oracle requires kv_bits")
         if prefix_cache:
             raise not_ported("prefix caching", "slice A, item 5")
         self.num_seqs = self.num_slots = num_seqs  # num_slots: engine compat
         self.max_len = max_len
-        self.kv_bits = None
-        self.kv_oracle = False
         self.prefix_cache = False
         template = model.init_cache(num_seqs, max_len, dtype, device=device)
         self.paged_keys = tuple(k for k in PAGED_KEYS if k in template)
+        L = template["k"].shape[0]
+        if kv_bits is not None:
+            bits = ([int(kv_bits)] * L if isinstance(kv_bits, (int, np.integer))
+                    else [int(b) for b in kv_bits])
+            if len(bits) != L:
+                raise ValueError(f"kv_bits has {len(bits)} entries for {L} layers")
+            if any(not 2 <= b <= 8 for b in bits):
+                raise ValueError(f"kv_bits entries must be in 2..8: {bits}")
+            kv_bits = bits
+        self.kv_bits = kv_bits
+        self.kv_oracle = bool(kv_oracle)
         T = template["k"].shape[2]                      # (L, B, T, KV, hd)
         self.block_size = min(block_size, T)
         self.blocks_per_seq = -(-T // self.block_size)
@@ -85,16 +118,34 @@ class PagedCachePool:
         self.num_blocks = usable + 1  # + reserved garbage block 0
         self.device = template["k"].device
 
+        pack4 = (self.kv_bits is not None and not self.kv_oracle
+                 and all(b == 4 for b in self.kv_bits))
+        KV = template["k"].shape[3]
         self.cache = {}
         for key, leaf in template.items():
             if key in self.paged_keys:
-                L, _, _, KV, hd = leaf.shape
+                hd, dt = leaf.shape[4], leaf.dtype
+                if self.kv_bits is not None:
+                    # oracle: f32 QDQ values; else int8 codes, or packed int4
+                    dt = (torch.float32 if self.kv_oracle
+                          else torch.uint8 if pack4 else torch.int8)
+                    hd = hd // 2 if pack4 else hd
                 self.cache[key] = torch.zeros(
                     (L, self.num_blocks, self.block_size, KV, hd),
-                    dtype=leaf.dtype, device=self.device)
+                    dtype=dt, device=self.device)
             else:
                 self.cache[key] = leaf
         del template
+        if self.kv_bits is not None:
+            self.cache["kv_qmax"] = torch.tensor(
+                [float(2 ** (b - 1) - 1) for b in self.kv_bits],
+                dtype=torch.float32, device=self.device)
+            if not self.kv_oracle:
+                for key in ("k_scale", "v_scale"):
+                    self.cache[key] = torch.zeros(
+                        (L, self.num_blocks, self.block_size, KV),
+                        dtype=torch.float32, device=self.device)
+                self.paged_keys = self.paged_keys + ("k_scale", "v_scale")
 
         self.block_tables = torch.zeros(
             (num_seqs, self.blocks_per_seq), dtype=torch.int32)  # host copy
@@ -209,3 +260,8 @@ class PagedCachePool:
         cache = dict(cache)
         cache.pop("block_tables", None)  # host copy is authoritative
         self.cache = cache
+
+    def cache_bytes(self) -> int:
+        """Paged-leaf bytes (the number "equal cache bytes" compares)."""
+        return sum(self.cache[k].numel() * self.cache[k].element_size()
+                   for k in self.paged_keys)

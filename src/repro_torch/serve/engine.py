@@ -17,14 +17,15 @@ host from the per-request numpy streams (``Request.select_token``), bit
 for bit as the reference's ``sample_device=False`` path.
 
 On the card every packed matmul is the hand-written ``qmm`` kernel and
-every decode attention the hand-written ``paged_attention`` kernel
-(``kernels.ops``).  There is no jit, so the ``recompiles`` metric is
-always 0.  Metric keys are byte-compatible with the reference.
+every decode attention a hand-written paged-attention kernel
+(``kernels.ops``); with ``kv_bits`` the pool holds quantized blocks and a
+decode step with packed q/k/v runs the fused QKV + paged-decode kernel.
+There is no jit, so the ``recompiles`` metric is always 0.  Metric keys
+are byte-compatible with the reference.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``cache="slot"``, ``kv_bits``/``kv_oracle``, prefix caching,
-on-device sampling and the lookahead pipeline, speculative decoding,
-mesh placement.
+item): ``cache="slot"``, prefix caching, on-device sampling and the
+lookahead pipeline, speculative decoding, mesh placement.
 """
 from __future__ import annotations
 
@@ -59,9 +60,6 @@ class ServeEngine:
                  pipeline: bool = False, device=None):
         if cache != "paged":
             raise not_ported(f"cache={cache!r}", "slice A, item 3 (rest)")
-        if kv_bits is not None or kv_oracle:
-            raise not_ported("quantized KV blocks (kv_bits / kv_oracle)",
-                             "slice A, item 4")
         if prefix_cache:
             raise not_ported("prefix caching", "slice A, item 5")
         if sample_device or pipeline:
@@ -82,7 +80,8 @@ class ServeEngine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.pool = PagedCachePool(model, num_slots, max_len,
                                    block_size=block_size,
-                                   num_blocks=num_blocks, device=self.device)
+                                   num_blocks=num_blocks, device=self.device,
+                                   kv_bits=kv_bits, kv_oracle=kv_oracle)
         self.prefill_chunk = prefill_chunk
         self.pool.tracer = self.tracer
         self.queue = AdmissionQueue(max_pending)
@@ -366,6 +365,9 @@ class ServeEngine:
             "evictions": pool.prefix_evictions,
             "cached_blocks": pool.prefix_cached_blocks,
         }
+        if pool.kv_bits is not None:
+            out["kv_bits"] = list(pool.kv_bits)
+            out["kv_oracle"] = pool.kv_oracle
         return out
 
     def output(self, request_id: int) -> list[int]:

@@ -6,7 +6,12 @@ only the port.  Run there with
 
 Tolerance: both versions sum exact f32 products (bf16 activations times
 integer codes, or bf16 scores) in different orders over up to K = 13696
-terms, so 1e-4 * max|plain| — the bound chip_smoke.py states.
+terms, so 1e-4 * max|plain| — the bound chip_smoke.py states.  The fused
+decode's projections sum in another order than the plain version's
+dequant-form matmul, so its new-token codes may move by one step where a
+value sits on a rounding edge: scales within 2^-7 relative, codes within
++-1, output within 2e-2 * max|plain|; its attention half alone, on the
+same projections, gives codes and scales bitwise.
 """
 import numpy as np
 import pytest
@@ -81,4 +86,88 @@ def test_ops_counts_kernel_launches_on_the_card(sm90):
     ops.qmm(x, planes, scale, bits=4)
     ops.qmm(torch.cat([x] * 10), planes, scale, bits=4)
     assert ops.counts == {"qmm_bitserial": 1, "qmm_dequant": 1,
-                          "paged_attention": 0, "plain": 0}
+                          "paged_attention": 0, "paged_attention_quant": 0,
+                          "fused_qkv_paged_decode": 0, "plain": 0}
+
+
+def _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev):
+    from repro_torch.quant.pack import kv_pack_int4, kv_quantize
+
+    qmax = float(2 ** (kv_bits - 1) - 1)
+    out = []
+    for _ in range(2):
+        codes, scale = kv_quantize(torch.randn((NB, bs, KV, hd), generator=gen, device=dev), qmax)
+        out.append((kv_pack_int4(codes) if kv_bits == 4 else codes, scale))
+    (kc, ks), (vc, vs) = out
+    return kc, vc, ks, vs, qmax
+
+
+def _tables(B, nb, lengths, dev):
+    NB = B * nb + 1
+    perm = torch.from_numpy(np.random.default_rng(2).permutation(NB - 1) + 1)
+    bt = perm[:B * nb].reshape(B, nb).to(dev, torch.int32)
+    return NB, bt, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("lengths", [[1, 16, 17, 300], [0, 5, 64, 33]])
+def test_paged_attention_quant_kernel_matches_plain(sm90, kv_bits, lengths):
+    from repro_torch.kernels.paged_attention_quant import paged_attention_quant_cuda
+
+    B, KV, G, hd, bs, nb = 4, 2, 16, 128, 16, 19
+    gen = torch.Generator(device=sm90).manual_seed(3)
+    NB, bt, ln = _tables(B, nb, lengths, sm90)
+    kc, vc, ks, vs, _ = _quant_pool(NB, bs, KV, hd, kv_bits, gen, sm90)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=sm90).to(torch.bfloat16)
+    got = paged_attention_quant_cuda(q, kc, vc, ks, vs, bt, ln).reshape(B, 1, KV * G, hd)
+    torch.cuda.synchronize()
+    plain = tref.quant_paged_attention_ref(q.reshape(B, 1, KV * G, hd).float(),
+                                           kc, vc, ks, vs, bt, ln)
+    live = ln > 0
+    err = (got[live] - plain[live]).abs().max().item()
+    assert err <= 1e-4 * plain[live].abs().max().item()
+    assert not got[~live].any()  # a dead row is exact zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("bits", [(4, 4, 4), (4, 3, 8)], ids=["4-4-4", "4-3-8"])
+def test_fused_decode_kernel_matches_plain(sm90, kv_bits, bits):
+    from repro_torch.kernels.fused_decode import (fused_attend_cuda,
+                                                  fused_qkv_paged_decode_cuda)
+    from repro_torch.models.common import rope_cos_sin
+    from repro_torch.quant.pack import Packed, kv_unpack_int4
+
+    B, KV, G, hd, bs, nb, D = 4, 2, 16, 128, 16, 19, 4096
+    H = KV * G
+    gen = torch.Generator(device=sm90).manual_seed(4)
+    NB, bt, ln = _tables(B, nb, [0, 16, 41, nb * bs - 1], sm90)
+    kc, vc, ks, vs, qmax = _quant_pool(NB, bs, KV, hd, kv_bits, gen, sm90)
+    ws = []
+    for n, b in zip((H * hd, KV * hd, KV * hd), bits):
+        planes, scale = pack_weight(torch.randn((D, n), generator=gen, device=sm90) * D ** -0.5, b)
+        ws.append(Packed(planes, scale, b))
+    x = torch.randn((B, D), generator=gen, device=sm90).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(ln, hd, 1e4)
+    qm = torch.tensor(qmax, device=sm90)
+    got = fused_qkv_paged_decode_cuda(x, *ws, kc, vc, ks, vs, bt, ln, cos, sin, qm, H)
+    torch.cuda.synchronize()
+    plain = tref.fused_qkv_paged_decode_ref(x, *ws, kc, vc, ks, vs, bt, ln, cos, sin, qm, H, KV)
+    out, po = got[0].reshape(B, 1, H, hd), plain[0].float()
+    assert (out - po).abs().max().item() <= 2e-2 * po.abs().max().item()
+    for g, p in zip(got[3:], plain[3:]):
+        assert ((g - p).abs() <= 2.0 ** -7 * p.abs()).all()
+    unpack = kv_unpack_int4 if kv_bits == 4 else (lambda c: c)
+    for g, p in zip(got[1:3], plain[1:3]):
+        assert (unpack(g).int() - unpack(p).int()).abs().max().item() <= 1
+    # the attention half alone, on the plain version's own projections
+    proj = torch.cat([tref.qmm_ref(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    got_b = fused_attend_cuda(proj, torch.bfloat16, kc, vc, ks, vs, bt, ln, cos, sin, qm, H)
+    torch.cuda.synchronize()
+    plain_b = tref.fused_decode_attend_ref(proj, kc, vc, ks, vs, bt, ln, cos, sin, qm, H, KV,
+                                           torch.bfloat16)
+    for g, p in zip(got_b[1:], plain_b[1:]):
+        assert torch.equal(g, p)
+    ob, pb = got_b[0].reshape(B, 1, H, hd), plain_b[0].float()
+    assert (ob - pb).abs().max().item() <= 1e-2 * pb.abs().max().item()
