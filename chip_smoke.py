@@ -22,34 +22,54 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relative, codes within +-1 (the differing count is printed), output
    within 2e-2 * max|plain|; its attention launch alone, fed the plain
    version's own projections, gives codes and scales bitwise (output
-   within 1e-2 * max|plain|: the plain version rounds it to bf16).  For
-   each shape: kernel, plain and library yardstick times (median of
-   per-launch CUDA-event times, L2 flushed before each launch) and the
-   bound from bytes and operations.
-3. Three paths end to end, each through the launcher's continuous path at
-   glm4-9b's published widths (40 layers, d_model 4096, vocab 151552),
-   random weights from seed 0, 8 requests, 4 rows, block 16, prompts of
-   40-64 tokens, prefill chunk 64, gen 16-32, greedy:
+   within 1e-2 * max|plain|: the plain version rounds it to bf16).  The
+   WRPN fake-quant at every ResNet-20 and LeNet weight shape, glm4-9b's
+   wg (4096, 13696) and a ragged (7, 300), bits 1-8, 16 and 32, f32 and
+   bf16: bitwise (max|kernel - plain| == 0), and the STE's forward and
+   gradient mask bitwise against the plain ones.  For each shape: kernel,
+   plain and library yardstick times (median of per-launch CUDA-event
+   times, L2 flushed before each launch, the start event held behind a
+   device spin that covers the wrapper's host work) and the bound from
+   bytes and operations.
+3. Five paths end to end.  Three serve through the launcher's continuous
+   path at glm4-9b's published widths (40 layers, d_model 4096, vocab
+   151552), random weights from seed 0, 8 requests, 4 rows, block 16,
+   prompts of 40-64 tokens, prefill chunk 64, gen 16-32, greedy:
    a. ``--bits 4``, fp KV blocks: qmm bit-serial, qmm dequant and fp
       paged attention;
    b. ``--bits 4 --kv-bits 4``: the fused QKV + paged decode over packed
       int4 blocks;
    c. ``--bits 16 --kv-bits 8``: dense bf16 q/k/v, quantized paged
       attention over int8 blocks.
+   Two run the ReLeQ search, every QAT forward through the fake-quant
+   kernel:
+   d. the quickstart twin (``repro_torch.launch.quickstart``) on LeNet at
+      the reference quickstart's steps: pretrain 300, 30 episodes with 2
+      retrain steps, long retrain 150;
+   e. ResNet-20 at full width (20 quantized layers, 268,336 weights,
+      cifar-like 32x32x3, batch 128, validation 2 x 256): pretrain
+      ``RESNET20_PRETRAIN`` steps,
+      ``RESNET20_EPISODES`` episodes in ``episode_end`` mode with 2
+      retrain steps, long retrain 200 at the best policy.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
-   the plain-version counter must be 0.
+   the plain-version counter must be 0; the fp accuracy of d and e must
+   clear the floors below, and their search records must be whole.
 4. Output checks: re-prefilling request 0's prompt on path a's weights
    gives finite (1, 1, 151552) logits whose argmax is the token the run
-   emitted; and a small model with head dim 128 gives the same logits on
-   the card (kernels) as on the CPU (plain versions) within 2e-2 *
-   max|cpu| (bf16 activations round differently on each side), with fp,
-   int4 and int8 KV blocks.
+   emitted; a small model with head dim 128 gives the same logits on the
+   card (kernels) as on the CPU (plain versions) within 2e-2 * max|cpu|
+   (bf16 activations round differently on each side), with fp, int4 and
+   int8 KV blocks; and one ResNet-20 QAT step at a mixed policy from
+   path e's params gives the same params on the card as on the CPU within
+   1e-4 * max|param| (f32 convolutions, TF32 off, summed in other orders)
+   and the same validation accuracy.
 
-5. Where the time goes (read only, after the checks): for each path, four
-   requests decode on its served model; a few decode steps are timed by
-   the host clock, then a few more are traced with ``torch.profiler`` to
-   split the device time by kernel and give the device's idle share.
+5. Where the time goes (read only, after the checks): for each serving
+   path, four requests decode on its served model; a few decode steps are
+   timed by the host clock, then a few more are traced with
+   ``torch.profiler`` to split the device time by kernel and give the
+   device's idle share.  The same for ResNet-20 QAT train steps.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -79,6 +99,15 @@ GLM4_QMM = [  # (name, K, N, bits, calls per decode step / prefill chunk)
 ]
 EXTRA_BITS = [("wq@2b", 4096, 4096, 2, 0), ("wq@3b", 4096, 4096, 3, 0),
               ("wq@8b", 4096, 4096, 8, 0)]
+# dense f32 operations per second outside the tensor cores (data sheets)
+F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12, "H200": 67e12}
+FQ_BITS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32)
+FQ_EXTRA = [("glm4-9b wg", (4096, 13696)), ("ragged", (7, 300))]
+FQ_OPS = 7                 # f32 operations per element: div, 2 compares, mul, rint, div, mul
+LENET_FP_ACC_MIN = 0.80    # the port on the CPU reaches 0.873 at the same 300 steps
+RESNET20_PRETRAIN = 600      # the port on the CPU leaves chance level at 350-450 steps
+RESNET20_FP_ACC_MIN = 0.90   # ... and reaches 1.0000 at 500 and 600 steps (PERF.md)
+RESNET20_EPISODES = 110      # about 30 s of search on the card
 
 
 def fail(msg: str) -> None:
@@ -95,26 +124,50 @@ def card_peaks(name: str):
 
 class Timer:
     """Median per-launch time in ms from CUDA events, with the 50 MB L2
-    flushed (a 256 MB memset) before every launch."""
+    flushed (a 256 MB memset) before every launch.
+    The start event is enqueued behind a device-side spin
+    (``torch.cuda._sleep``) that outlasts the host's work from there to
+    the launch itself (the wrapper's Python checks), so the timed window
+    holds the launch and not the host: the spin is measured with two more
+    events, and a sample whose host enqueue took longer than its spin is
+    dropped and retaken with a spin twice as long (up to ~16 ms; a
+    function that waits on the device itself is then timed as it is, and
+    counted in ``uncovered``)."""
+
+    CYCLES = 2_000_000          # ~1 ms at the H100's SM clock
+    MAX_CYCLES = 32_000_000
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        self.retaken = 0
+        self.uncovered = 0
 
     def __call__(self, fn, iters: int = 15, warmup: int = 2) -> float:
         torch = self.torch
         times = []
-        for i in range(iters + warmup):
+        cycles = self.CYCLES
+        while len(times) < iters + warmup:
             self.flush.zero_()
+            spin0 = torch.cuda.Event(enable_timing=True)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            spin0.record()
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
             start.record()
             fn()
             end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
-            if i >= warmup:
-                times.append(start.elapsed_time(end))
-        return statistics.median(times)
+            if host_ms >= spin0.elapsed_time(start):
+                if cycles < self.MAX_CYCLES:
+                    cycles *= 2
+                    self.retaken += 1
+                    continue
+                self.uncovered += 1      # fn waits on the device itself
+            times.append(start.elapsed_time(end))
+        return statistics.median(times[warmup:])
 
 
 def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
@@ -391,6 +444,285 @@ def check_fused_decode(torch, timer, peaks, rows):
     return worst
 
 
+def weight_shapes(net: str):
+    """(layer, shape) of every quantized weight of ``net``, in the port's
+    layout (OIHW convs, (n_in, n_out) fc)."""
+    from repro_torch.cnn.models import build_cnn
+
+    params = build_cnn(net).init(0, device="cpu")
+    return [(name, tuple(p["w"].shape)) for name, p in params.items()]
+
+
+def check_fake_quant(torch, timer, peaks, rows):
+    """The fake-quant kernel against its plain version, bitwise, at every
+    ResNet-20 and LeNet weight shape, glm4-9b's wg and a ragged shape,
+    bits 1-8, 16 and 32, f32 and bf16; the STE's forward and gradient
+    mask against the plain ones.  Times at bits 4."""
+    from repro_torch.kernels.fake_quant import fake_quant_cuda
+    from repro_torch.kernels.ref import fake_quant_ref
+    from repro_torch.quant.wrpn import _levels, fake_quant_ste, tensor_scale
+
+    f32_peak = next((v for k, v in F32_PEAKS.items() if k in torch.cuda.get_device_name(0)),
+                    F32_PEAKS["H100"])
+    resnet = weight_shapes("resnet20")
+    calls = {}
+    for _, shape in resnet:
+        calls[shape] = calls.get(shape, 0) + 1
+    shapes = [("resnet20", shape) for shape in calls]
+    shapes += [("lenet", shape) for _, shape in weight_shapes("lenet")] + FQ_EXTRA
+    bits_vec = torch.tensor(FQ_BITS, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for label, shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            w = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            scale = tensor_scale(w)
+            what = f"fake_quant {label} {shape} {str(dtype)[6:]}"
+            for i, bits in enumerate(FQ_BITS):
+                got = fake_quant_cuda(w, bits_vec[i], scale)
+                torch.cuda.synchronize()
+                plain = fake_quant_ref(w, bits_vec[i], scale)
+                err = (got.float() - plain.float()).abs().max().item()
+                if not torch.equal(got, plain):
+                    fail(f"{what} bits={bits}: kernel != plain (max diff {err:.3g})")
+                worst = max(worst, err)
+            if label != "glm4-9b wg":     # the STE: kernel forward, plain backward
+                cot = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for bits in (2, 4, 32):
+                    leaf = w.clone().requires_grad_(True)
+                    out = fake_quant_ste(leaf, torch.tensor(bits, dtype=torch.int32,
+                                                            device="cuda"))
+                    (g,) = torch.autograd.grad(out, leaf, cot)
+                    mask = (w.abs().float() <= scale).to(dtype)
+                    if not (torch.equal(out, fake_quant_ref(w, bits, scale))
+                            and torch.equal(g, cot * mask)):
+                        fail(f"{what}: the STE's forward or gradient mask differs "
+                             f"from the plain version at bits={bits}")
+            b4 = bits_vec[3]
+            n = float(_levels(b4))
+            lib_scale = float(scale) / n
+            esize = w.element_size()
+            b_ms, b_by = bound_ms(2 * w.numel() * esize + 8, FQ_OPS * w.numel(),
+                                  (peaks[0], f32_peak))
+            row = {"kernel": "fake_quant", "shape": label, "dims": list(shape),
+                   "dtype": str(dtype)[6:], "calls_per_forward":
+                   calls.get(shape, 0) if label == "resnet20" and dtype == torch.float32 else 0,
+                   "bits_checked": list(FQ_BITS), "max_abs_err": 0.0,
+                   "ms": timer(lambda: fake_quant_cuda(w, b4, scale)),
+                   "plain_ms": timer(lambda: fake_quant_ref(w, b4, scale), iters=5),
+                   "library_ms": timer(lambda: torch.fake_quantize_per_tensor_affine(
+                       w, lib_scale, 0, -int(n), int(n))),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            print(f"  {what:42s} bitwise at bits {FQ_BITS[0]}..{FQ_BITS[-1]} "
+                  f"kernel={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                  f"fake_quantize_per_tensor_affine={row['library_ms']:.4f} "
+                  f"bound={b_ms:.6f} ms")
+            del w
+    return worst
+
+
+def releq_quickstart(torch):
+    """Phase 3d: the quickstart twin on LeNet at the reference
+    quickstart's steps, on the card, with its own zeroed counters."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    if counts["fake_quant"] <= 0 or counts["plain"] != 0:
+        fail(f"[lenet quickstart] fake_quant launches / plain calls: {counts}")
+    if not out["fp_acc"] >= LENET_FP_ACC_MIN:
+        fail(f"[lenet quickstart] fp accuracy {out['fp_acc']:.4f} < {LENET_FP_ACC_MIN}")
+    check_search_record("lenet quickstart", out["task"], out["result"], 30, out["rel_acc"])
+    print(f"[lenet quickstart] wall {wall:.2f} s ({out['wall']}), launch counts {counts}")
+    return {"fp_acc": out["fp_acc"], "best_bits": out["bits"], "avg_bits": out["avg_bits"],
+            "rel_acc": out["rel_acc"], "stripes_speedup": out["stripes_speedup"],
+            "tvm_cpu_speedup": out["tvm_cpu_speedup"],
+            "energy_reduction": out["energy_reduction"], "wall_s": out["wall"],
+            "total_s": wall, "counts": counts}
+
+
+def check_search_record(label, task, res, episodes, rel_acc):
+    """The search record is whole and consistent, and the long retrain's
+    relative accuracy is a finite positive number."""
+    if len(res.episodes) != episodes or set(res.best_bits) != set(task.names):
+        fail(f"[{label}] search record has {len(res.episodes)} episodes, "
+             f"best bits {res.best_bits}")
+    if res.best_reward != max(e["reward"] for e in res.episodes):
+        fail(f"[{label}] best reward is not the best episode's")
+    for name, b in task.frozen.items():
+        if res.best_bits[name] != b:
+            fail(f"[{label}] frozen layer {name} left {b} bits")
+    if not (math.isfinite(rel_acc) and rel_acc > 0):
+        fail(f"[{label}] relative accuracy after the long retrain is {rel_acc}")
+
+
+def timed(fn, spent: dict, key: str):
+    """``fn`` adding its wall time (to the device's end) to ``spent[key]``."""
+    import torch
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[key] += time.perf_counter() - t0
+        return out
+
+    return wrapper
+
+
+def releq_resnet20(torch):
+    """Phase 3e: the ReLeQ search at ResNet-20's full width on the card:
+    pretrain, search (episode_end, 2 retrain steps), long retrain."""
+    import numpy as np
+
+    from repro_torch.cnn import CNNTask
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.search import ReLeQSearch
+    from repro_torch.kernels import ops
+
+    ops.reset_counts()
+    wall = {}
+    t0 = time.perf_counter()
+    task = CNNTask("resnet20", seed=0, device="cuda")
+    n_w = sum(g.n_weights for g in task.groups)
+    if len(task.groups) != 20 or n_w != 268_336:
+        fail(f"resnet20 has {len(task.groups)} quantized layers and {n_w} weights, "
+             f"not 20 and 268,336")
+    fp_acc = task.pretrain(RESNET20_PRETRAIN)
+    torch.cuda.synchronize()
+    wall["pretrain_s"] = time.perf_counter() - t0
+    if not fp_acc >= RESNET20_FP_ACC_MIN:
+        fail(f"[resnet20] fp accuracy {fp_acc:.4f} < {RESNET20_FP_ACC_MIN}")
+    t0 = time.perf_counter()
+    factory = task.make_env_factory(retrain_steps=2, eval_mode="episode_end")
+    search = ReLeQSearch(factory, seed=0, device="cuda")
+    spent = {"short_retrain_s": 0.0, "ppo_update_s": 0.0}
+    task.evaluate_bits = timed(task.evaluate_bits, spent, "short_retrain_s")
+    search.ppo.update = timed(search.ppo.update, spent, "ppo_update_s")
+    res = search.run(RESNET20_EPISODES)
+    torch.cuda.synchronize()
+    wall["search_s"] = time.perf_counter() - t0
+    wall.update(spent)
+    wall["acting_and_env_s"] = wall["search_s"] - sum(spent.values())
+    bits = res.best_bits
+    t0 = time.perf_counter()
+    rel = task.long_retrain(bits, steps=200)
+    torch.cuda.synchronize()
+    wall["long_retrain_s"] = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    if counts["fake_quant"] <= 0 or counts["plain"] != 0:
+        fail(f"[resnet20] fake_quant launches / plain calls: {counts}")
+    check_search_record("resnet20", task, res, RESNET20_EPISODES, rel)
+    vec = [bits[n] for n in task.names]
+    out = {"fp_acc": fp_acc, "best_bits": bits, "best_reward": res.best_reward,
+           "avg_bits": float(np.mean(vec)),
+           "avg_bits_searched": res.average_bits([n for n in task.names
+                                                  if n not in task.frozen]),
+           "rel_acc": rel,
+           "stripes_speedup": cm.speedup_vs_8bit(cm.stripes_time, vec, task.groups),
+           "tvm_cpu_speedup": cm.speedup_vs_8bit(cm.tvm_cpu_time, vec, task.groups),
+           "energy_reduction": cm.energy_reduction_vs_8bit(vec, task.groups),
+           "episodes": RESNET20_EPISODES, "cache": res.cache_stats, "wall_s": wall,
+           "pretrain_steps_per_s": RESNET20_PRETRAIN / wall["pretrain_s"],
+           "long_retrain_steps_per_s": 200 / wall["long_retrain_s"],
+           "episodes_per_s": RESNET20_EPISODES / wall["search_s"], "counts": counts}
+    print(f"[resnet20] fp accuracy {fp_acc:.4f} (floor {RESNET20_FP_ACC_MIN}); "
+          f"best bits {vec}; avg bits {out['avg_bits']:.2f} "
+          f"({out['avg_bits_searched']:.2f} over the 18 searched layers); "
+          f"relative accuracy after the long retrain {rel:.4f}")
+    print(f"[resnet20] Stripes speedup {out['stripes_speedup']:.2f}x, TVM-CPU speedup "
+          f"{out['tvm_cpu_speedup']:.2f}x, Stripes energy reduction "
+          f"{out['energy_reduction']:.2f}x vs 8-bit")
+    print(f"[resnet20] wall: pretrain {wall['pretrain_s']:.2f} s "
+          f"({out['pretrain_steps_per_s']:.1f} train steps/s), search "
+          f"{wall['search_s']:.2f} s ({out['episodes_per_s']:.2f} episodes/s: short retrains "
+          f"{wall['short_retrain_s']:.2f} s, PPO updates {wall['ppo_update_s']:.2f} s, "
+          f"acting and env {wall['acting_and_env_s']:.2f} s; cache {res.cache_stats}), "
+          f"long retrain {wall['long_retrain_s']:.2f} s "
+          f"({out['long_retrain_steps_per_s']:.1f} steps/s); launch counts {counts}")
+    return task, out
+
+
+def resnet_step_card_vs_cpu(torch, task):
+    """Phase 4: one ResNet-20 QAT train step at a fixed mixed policy from
+    the same (pretrained) params, on the card (kernel) and on the CPU
+    (plain version): params within 1e-4 * max|param|, equal accuracies."""
+    from repro_torch.cnn import CNNTask
+
+    bits = {n: (2, 3, 4, 5, 6, 8, 32)[i % 7] for i, n in enumerate(task.names)}
+    cpu = CNNTask("resnet20", seed=0, device="cpu")
+    cpu.params = {n: {k: t.cpu() for k, t in p.items()} for n, p in task.params.items()}
+    cpu.mom = cpu._zeros_like(cpu.params)
+    card = CNNTask("resnet20", seed=0, device="cuda")
+    card.params, card.mom = task.params, card._zeros_like(task.params)
+    pg, _ = card.train(1, bits)
+    pc, _ = cpu.train(1, bits)
+    top = max(t.abs().max().item() for p in pc.values() for t in p.values())
+    err = max((pg[n][k].cpu() - pc[n][k]).abs().max().item() for n in pc for k in pc[n])
+    if not err <= 1e-4 * top:
+        fail(f"resnet20 train step: card vs CPU params differ by {err:.3g} > 1e-4 * {top:.3g}")
+    acc_g, acc_c = card.accuracy(pg, bits), cpu.accuracy(pc, bits)
+    if acc_g != acc_c:
+        fail(f"resnet20 train step: card accuracy {acc_g} != CPU accuracy {acc_c}")
+    print(f"resnet20 QAT step (bits {list(bits.values())}): card vs CPU params max diff "
+          f"{err:.3e} ({err / top:.2e} of max|param|); accuracy {acc_g:.4f} on both")
+    return {"max_abs_err": err, "rel_err": err / top, "accuracy": acc_g}
+
+
+def profile_qat_step(torch, task, timed=5, traced=3):
+    """Phase 5: ResNet-20 QAT train steps at a mixed policy: host-clock
+    step time, then a torch.profiler trace for device time by family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bits = {n: (2, 3, 4, 5, 6, 8, 32)[i % 7] for i, n in enumerate(task.names)}
+    t0 = time.perf_counter()
+    for i in range(timed):                            # the numpy batch synthesis alone
+        task.data.batch(task.batch, 1_000_000 + i, "train")
+    batch_ms = (time.perf_counter() - t0) / timed * 1e3
+    params, mom = task.train(2, bits)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, mom = task.train(timed, bits, params, mom)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        task.train(traced, bits, params, mom)
+        torch.cuda.synchronize()
+    fams: dict[str, float] = {}
+    launches: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = ev.key
+        fam = ("fake_quant" if "fake_quant_kernel" in name
+               else "memcpy/memset" if "emcpy" in name or "emset" in name
+               else "convolution" if any(k in name.lower() for k in (
+                   "conv", "xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop",
+                   "nchwtonhwc", "nhwctonchw"))
+               else "other torch kernels")
+        fams[fam] = fams.get(fam, 0.0) + ev.self_device_time_total / traced / 1e3
+        launches[fam] = launches.get(fam, 0) + ev.count / traced
+    busy = sum(fams.values())
+    if busy <= 0:
+        print("  QAT step: the profiler saw no device time (not measured)")
+        return {"step_ms": step_ms, "batch_synthesis_ms": batch_ms, "device_ms": None}
+    print(f"  resnet20 QAT step (batch {task.batch}, host clock, untraced) = {step_ms:.2f} ms, "
+          f"of which {batch_ms:.2f} ms synthesize the numpy batch; device busy "
+          f"{busy:.3f} ms/step -> idle share {1 - busy / step_ms:.3f}")
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"    {fam:22s} {ms:8.3f} ms/step {launches[fam]:6.0f} launches/step")
+    return {"step_ms": step_ms, "batch_synthesis_ms": batch_ms, "device_ms": busy,
+            "families_ms": fams, "launches_per_step": launches,
+            "idle_share": 1 - busy / step_ms}
+
+
 def per_step(rows, kernel, pick):
     """Sum the per-shape numbers over one main-path step:
     ``pick(row) -> calls`` of that shape per step."""
@@ -626,6 +958,9 @@ def main() -> None:
     pa_err = check_paged_attention(torch, timer, peaks, rows)
     paq_err = check_paged_attention_quant(torch, timer, peaks, rows)
     fused_err = check_fused_decode(torch, timer, peaks, rows)
+    fq_err = check_fake_quant(torch, timer, peaks, rows)
+    print(f"timer: {timer.retaken} samples retaken behind a longer spin, "
+          f"{timer.uncovered} timed with host work inside")
     del timer
     torch.cuda.empty_cache()
 
@@ -655,6 +990,23 @@ def main() -> None:
                       ("qmm_bitserial", "paged_attention_quant"))
     print("phase 5c: decode step breakdown, int8 KV blocks")
     breakdown["int8 KV"] = profile_decode(torch, int8["engine"], int8["work"])
+    del int8["engine"], int8["sparams"], int8["model"]
+    torch.cuda.empty_cache()
+
+    # ---- the ReLeQ search loop: LeNet quickstart twin, ResNet-20 at full width.
+    # Deterministic cuDNN algorithms: ResNet-20's early training is chaotic
+    # (the step at which it leaves chance level moves with the summation
+    # order), so the accuracy floors below need a run that repeats.
+    torch.backends.cudnn.deterministic = True
+    print("phase 3d: the quickstart twin on LeNet (pretrain 300, 30 episodes, long retrain 150)")
+    lenet = releq_quickstart(torch)
+    print(f"phase 3e: ReLeQ search on ResNet-20 at full width (pretrain {RESNET20_PRETRAIN}, "
+          f"{RESNET20_EPISODES} episodes at episode_end, long retrain 200)")
+    task, resnet = releq_resnet20(torch)
+    print("phase 4e: one ResNet-20 QAT step, card against CPU")
+    resnet["card_vs_cpu"] = resnet_step_card_vs_cpu(torch, task)
+    print("phase 5e: ResNet-20 QAT step breakdown")
+    qat_breakdown = profile_qat_step(torch, task)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -669,6 +1021,7 @@ def main() -> None:
 
     attn_q = per_step(rows, "paged_attention_quant", main_int("int8"))
     fused = per_step(rows, "fused_qkv_paged_decode", main_int("int4"))
+    fq = per_step(rows, "fake_quant", lambda r: r["calls_per_forward"])
     counts = {"fp KV": fp_summary["counts"], "int4 KV": int4["counts"], "int8 KV": int8["counts"]}
     kernels = [
         {"name": "qmm_bitserial", "route": "cuda", "source": "src/repro_torch/csrc/qmm.cu",
@@ -691,6 +1044,9 @@ def main() -> None:
          "replaces": "src/repro/kernels/fused_decode.py:63",
          "launches": counts["int4 KV"]["fused_qkv_paged_decode"], "max_abs_err": fused_err,
          **fused},
+        {"name": "fake_quant", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/fake_quant.py:33",
+         "launches": resnet["counts"]["fake_quant"], "max_abs_err": fq_err, **fq},
     ]
     serve = {label: {"metrics": {k: v for k, v in r["metrics"].items() if k != "requests"},
                      "requests": r["metrics"]["requests"], "counts": r["counts"],
@@ -706,8 +1062,11 @@ def main() -> None:
                          "lm_head); qmm_dequant: one 64-token prefill chunk (280 "
                          "layer calls); paged_attention, paged_attention_quant (int8) "
                          "and fused_qkv_paged_decode (int4): 40 calls at the 'main' "
-                         "lengths; fused library_ms is a sum (matmul + SDPA)",
+                         "lengths; fused library_ms is a sum (matmul + SDPA); "
+                         "fake_quant: one ResNet-20 QAT forward (20 calls, f32)",
         "serve": serve, "decode_breakdown": breakdown,
+        "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
+                  "qat_step_breakdown": qat_breakdown},
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line)

@@ -55,3 +55,26 @@ def params_from_numpy(tree, device=None):
         return tensor_from_numpy(node, device)
 
     return walk(tree)
+
+
+def cnn_params_from_numpy(tree, device=None):
+    """Reference CNN params ``{layer: {"w", "b"}}`` as numpy -> the port's
+    (``cnn.models``): conv weights HWIO ``(k, k, c_in, c_out)`` -> OIHW,
+    depthwise ``(k, k, 1, c)`` -> ``(c, 1, k, k)`` (the same permutation);
+    fc weights and biases unchanged."""
+    device = resolve_device(device)
+    out = {}
+    for name, p in tree.items():
+        w = tensor_from_numpy(p["w"], device)
+        if w.ndim == 4:
+            w = w.permute(3, 2, 0, 1).contiguous()
+        out[name] = {"w": w, "b": tensor_from_numpy(p["b"], device)}
+    return out
+
+
+def agent_params_from_numpy(tree, device=None):
+    """Reference agent params (``core.agent.init_agent``'s nested dict) as
+    numpy -> the port's: the same layout, as tensors on ``device``."""
+    device = resolve_device(device)
+    return {k: {n: tensor_from_numpy(a, device) for n, a in p.items()}
+            for k, p in tree.items()}

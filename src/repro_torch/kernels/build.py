@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
-SOURCES = ("qmm", "paged_attention", "paged_attention_quant", "fused_decode")
+SOURCES = ("qmm", "paged_attention", "paged_attention_quant", "fused_decode",
+           "fake_quant")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -122,6 +123,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fused_decode_launch.argtypes = ([P, I] + [P, P, I] * 3 + [P] * 15
                                             + [I] * 8 + [F, P])
         lib.fused_decode_launch.restype = I
+    elif name == "fake_quant":
+        # w, out, bits, scale, numel, dtype, vectorized, stream
+        lib.fake_quant_launch.argtypes = [P, P, P, P, ctypes.c_int64, I, I, P]
+        lib.fake_quant_launch.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -15,6 +15,8 @@ dims are flattened to rows and restored after.  Ragged edges (N or K not
 a multiple of the tile, as at d_ff = 13696) are masked inside the
 kernels, so nothing is padded here.
 
+``fake_quant`` is the QAT quantizer's forward (``quant.wrpn.fake_quant_ste``).
+
 Quantized KV: ``paged_attention`` takes the quantized-block kernel when
 scales are passed, and ``fused_qkv_paged_decode`` runs the fused QKV +
 RoPE + KV-quantize + attention kernel.  The reference gates its fused
@@ -31,7 +33,8 @@ import torch
 from repro_torch.kernels import ref as kref
 
 counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
-          "paged_attention_quant": 0, "fused_qkv_paged_decode": 0, "plain": 0}
+          "paged_attention_quant": 0, "fused_qkv_paged_decode": 0, "fake_quant": 0,
+          "plain": 0}
 
 
 def reset_counts() -> None:
@@ -45,6 +48,31 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type != "cpu":
         raise ValueError(f"no kernel or plain version for device {t.device}")
     return False
+
+
+def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """WRPN QDQ of an arbitrary-shape tensor at a per-tensor scale, with
+    ``bits`` (an int, or an int32 tensor on ``w``'s device) as data.
+    ``scale=None`` takes ``tensor_scale(w)``.  Batch dims are flattened to
+    rows, as the reference's ``ops.fake_quant`` does; the kernel walks the
+    flat rows without tiles or padding."""
+    from repro_torch.quant.wrpn import tensor_scale
+
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=w.device)
+    if scale is None:
+        scale = tensor_scale(w)
+    scale = scale.to(torch.float32).reshape(())
+    shape = w.shape
+    w2 = w.reshape(-1, shape[-1]) if w.ndim != 2 else w
+    if _on_cuda(w):
+        from repro_torch.kernels.fake_quant import fake_quant_cuda
+
+        out = fake_quant_cuda(w2.contiguous(), bits, scale)
+        counts["fake_quant"] += 1
+    else:
+        out = kref.fake_quant_ref(w2, bits, scale)
+        counts["plain"] += 1
+    return out.reshape(shape)
 
 
 def qmm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,

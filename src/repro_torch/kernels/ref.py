@@ -11,6 +11,14 @@ import torch
 
 from repro_torch.quant.pack import (kv_dequantize, kv_pack_int4, kv_quantize,
                                     kv_unpack_int4, unpack_bitplanes)
+from repro_torch.quant.wrpn import fake_quant as _fake_quant
+
+
+def fake_quant_ref(w: torch.Tensor, bits, scale: torch.Tensor) -> torch.Tensor:
+    """WRPN mid-tread QDQ with an externally supplied per-tensor scale,
+    op for op ``repro.quant.wrpn.fake_quant``; ``bits`` an int or an
+    int32 tensor on ``w``'s device."""
+    return _fake_quant(w, bits, scale=scale)
 
 
 def dequant_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:

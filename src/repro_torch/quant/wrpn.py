@@ -7,8 +7,15 @@ with ``s = max|w|`` per tensor (``axis=None``) or per output column
 (``axis=0``).  Every function repeats the reference's arithmetic op for op
 (including the dtype in which the ``eps`` floor is taken), so codes,
 scales and QDQ values are bitwise equal to the JAX package on equal
-inputs.  The straight-through estimator (``fake_quant_ste``) belongs to
-the QAT loop and is not ported yet (ROADMAP slice B).
+inputs.
+
+``bits`` may be an int or an int32 tensor on ``w``'s device (a layer's
+entry of the QAT bits vector): the ``bits >= 32`` pass-through is a
+``torch.where`` and the level count is computed from integers, so no
+value leaves the device.  :func:`fake_quant_ste` is the QAT quantizer:
+its forward is the hand-written fake-quant kernel on a CUDA tensor
+(``kernels.ops.fake_quant``), its backward the clipped straight-through
+estimator.
 """
 from __future__ import annotations
 
@@ -18,9 +25,13 @@ import torch
 FP_BITS = 32
 
 
-def _levels(bits: int) -> float:
-    """Number of positive quantization steps: 2^(k-1) - 1 (one bit = sign)."""
-    return max(2.0 ** (bits - 1.0) - 1.0, 1.0)
+def _levels(bits: torch.Tensor) -> torch.Tensor:
+    """Number of positive quantization steps, 2^(k-1) - 1 (one bit =
+    sign), at least 1, as f32.  Taken from integers: the shift never
+    reaches 1 << 31, and the f32 conversion rounds as the reference's
+    ``2.0 ** (bits - 1.0) - 1.0`` does (both exact below 2^24)."""
+    shift = (bits.clamp(2, FP_BITS - 1) - 1).to(torch.int64)
+    return torch.where(bits >= 2, (1 << shift) - 1, 1).float()
 
 
 def tensor_scale(w: torch.Tensor, axis=None, eps: float = 1e-8) -> torch.Tensor:
@@ -36,18 +47,55 @@ def tensor_scale(w: torch.Tensor, axis=None, eps: float = 1e-8) -> torch.Tensor:
     return s.float()
 
 
-def fake_quant(w: torch.Tensor, bits: int, scale: torch.Tensor | None = None,
+def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None,
                axis=None) -> torch.Tensor:
-    """Quantize-dequantize (no STE).  ``bits >= FP_BITS`` returns ``w``."""
-    if bits >= FP_BITS:
-        return w
+    """Quantize-dequantize (no STE).  ``bits >= FP_BITS`` returns ``w``.
+
+    ``bits``: an int or an int32 tensor (0-d, or broadcastable against
+    ``w``) on ``w``'s device."""
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=w.device)
     if scale is None:
         scale = tensor_scale(w, axis=axis)
     n = _levels(bits)
     # f32 division, as jnp promotes bf16 / f32 (a 0-d torch scale would not)
     wc = torch.clamp(w.float() / scale, -1.0, 1.0)
     wq = torch.round(wc * n) / n * scale
-    return wq.to(w.dtype)
+    return torch.where(bits >= FP_BITS, w, wq.to(w.dtype))
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """Forward: the fake-quant kernel (plain version on a CPU tensor).
+    Backward: identity inside the clip region, zero outside; the scale is
+    a constant (``repro.quant.wrpn._fq_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, w, bits, scale):
+        from repro_torch.kernels import ops
+
+        ctx.save_for_backward(w, scale)
+        return ops.fake_quant(w, bits, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, scale = ctx.saved_tensors
+        # compared in f32, as jnp promotes a bf16 |w| against the f32 scale
+        inside = (w.abs().float() <= scale).to(g.dtype)
+        return g * inside, None, None
+
+
+def fake_quant_ste(w: torch.Tensor, bits, axis=None) -> torch.Tensor:
+    """fake_quant with a straight-through estimator, at the per-tensor
+    max|w| scale (the paper's choice, ``axis=None``).  ``bits``: an int or
+    an int32 tensor on ``w``'s device.  The per-column scale (``axis=0``)
+    belongs to the LM QAT path, which is not ported."""
+    if axis is not None:
+        from repro_torch import not_ported
+
+        raise not_ported("fake_quant_ste with a per-column scale (the LM QAT path)",
+                         "slice B, item 8")
+    scale = tensor_scale(w.detach())
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=w.device)
+    return _FakeQuantSTE.apply(w, bits, scale)
 
 
 def quantize_to_int(w: torch.Tensor, bits: int,

@@ -11,7 +11,8 @@ decode's projections sum in another order than the plain version's
 dequant-form matmul, so its new-token codes may move by one step where a
 value sits on a rounding edge: scales within 2^-7 relative, codes within
 +-1, output within 2e-2 * max|plain|; its attention half alone, on the
-same projections, gives codes and scales bitwise.
+same projections, gives codes and scales bitwise.  The fake-quant kernel
+is elementwise IEEE f32 in the plain version's order: bitwise.
 """
 import numpy as np
 import pytest
@@ -87,7 +88,7 @@ def test_ops_counts_kernel_launches_on_the_card(sm90):
     ops.qmm(torch.cat([x] * 10), planes, scale, bits=4)
     assert ops.counts == {"qmm_bitserial": 1, "qmm_dequant": 1,
                           "paged_attention": 0, "paged_attention_quant": 0,
-                          "fused_qkv_paged_decode": 0, "plain": 0}
+                          "fused_qkv_paged_decode": 0, "fake_quant": 0, "plain": 0}
 
 
 def _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev):
@@ -171,3 +172,56 @@ def test_fused_decode_kernel_matches_plain(sm90, kv_bits, bits):
         assert torch.equal(g, p)
     ob, pb = got_b[0].reshape(B, 1, H, hd), plain_b[0].float()
     assert (ob - pb).abs().max().item() <= 1e-2 * pb.abs().max().item()
+
+
+FQ_SHAPES = [(16, 3, 3, 3), (64, 64, 3, 3), (16, 10), (7, 300), (4096, 13696)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FQ_SHAPES, ids=str)
+def test_fake_quant_kernel_matches_plain_bitwise(sm90, shape, dtype):
+    from repro_torch.kernels.fake_quant import fake_quant_cuda
+    from repro_torch.quant.wrpn import tensor_scale
+
+    gen = torch.Generator(device=sm90).manual_seed(5)
+    w = torch.randn(shape, generator=gen, device=sm90).to(dtype)
+    w.view(-1)[:2] = 0.0
+    scale = tensor_scale(w)
+    bits_vec = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8, 16, 32], dtype=torch.int32, device=sm90)
+    for i in range(bits_vec.numel()):
+        got = fake_quant_cuda(w, bits_vec[i], scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tref.fake_quant_ref(w, bits_vec[i], scale)), int(bits_vec[i])
+    # a view 4 bytes past an aligned base takes the scalar path
+    flat = w.reshape(-1)[1:]
+    got = fake_quant_cuda(flat, bits_vec[2], scale)
+    assert torch.equal(got, tref.fake_quant_ref(flat, bits_vec[2], scale))
+
+
+@pytest.mark.gpu
+def test_fake_quant_kernel_keeps_nan_and_ops_counts_it(sm90):
+    w = torch.tensor([[float("nan"), 0.5, -2.0, 1.0, 0.25, -0.0, 3.0]], device=sm90)
+    scale = torch.tensor(2.0, device=sm90)
+    ops.reset_counts()
+    got = ops.fake_quant(w, torch.tensor(3, dtype=torch.int32, device=sm90), scale)
+    assert ops.counts["fake_quant"] == 1 and ops.counts["plain"] == 0
+    plain = tref.fake_quant_ref(w, 3, scale)
+    assert torch.isnan(got[0, 0]) and torch.equal(got[0, 1:], plain[0, 1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 32])
+def test_fake_quant_ste_on_the_card_matches_the_cpu(sm90, bits):
+    from repro_torch.quant.wrpn import fake_quant_ste
+
+    w_cpu = torch.randn((32, 16, 3, 3), generator=torch.Generator().manual_seed(bits))
+    cot = torch.randn(w_cpu.shape, generator=torch.Generator().manual_seed(99))
+    grads, vals = [], []
+    for dev in (sm90, torch.device("cpu")):
+        w = w_cpu.to(dev).requires_grad_(True)
+        out = fake_quant_ste(w, torch.tensor(bits, dtype=torch.int32, device=dev))
+        (g,) = torch.autograd.grad(out, w, cot.to(dev))
+        vals.append(out.detach().cpu())
+        grads.append(g.cpu())
+    assert torch.equal(vals[0], vals[1]) and torch.equal(grads[0], grads[1])
