@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Device and build: print the card (``nvidia-smi`` name and power
    limit) and the torch/CUDA versions, then build every kernel from
    ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per source, all
-   at once) and print ptxas' register/shared-memory report.
+   at once) and print ptxas' register/shared-memory report and, where
+   ``cuobjdump`` exists, the qmm library's count of ``HGMMA``
+   (tensor-core) instructions: its dequant body must have some.
 2. Kernels against their plain versions at the main paths' shapes, after
    ``torch.cuda.synchronize()``: qmm bit-serial at M in {1, 4, 16} and
    dequant at M in {64, 256} for every glm4-9b (K, N, bits), plus bits
@@ -15,7 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention at B=4, KV=2, G=16, hd=128, bs=16 with lengths {1, 16, 17,
    300} and {41, 58, 73, 96} and shuffled blocks.  Pass when
    max|kernel - plain| <= 1e-4 * max|plain| (both are f32 sums taken in
-   different orders).  The fused QKV + paged decode at the same shapes
+   different orders); qmm dequant and fp paged attention must also give
+   bitwise-equal outputs on two calls (split-K and split-KV sum their
+   partials in a fixed order), and the fp attention's split plan must
+   launch more than B * KV CTAs at the main lengths.  The fused QKV + paged decode at the same shapes
    (D=4096, 4-bit q/k/v, int8 and int4 pools): its projections sum in
    another order than the plain version's dequant-form matmul, so a new
    K/V code on a rounding edge may move by one: scales within 2^-7
@@ -53,7 +58,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       retrain steps, long retrain 200 at the best policy.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
-   the plain-version counter must be 0; the fp accuracy of d and e must
+   the plain-version counter must be 0; the serving paths print the p50
+   and max time to first token; the fp accuracy of d and e must
    clear the floors below, and their search records must be whole.
 4. Output checks: re-prefilling request 0's prompt on path a's weights
    gives finite (1, 1, 151552) logits whose argmax is the token the run
@@ -170,13 +176,29 @@ class Timer:
         return statistics.median(times[warmup:])
 
 
+def tensor_core_count(build):
+    """HGMMA instructions in the qmm library, the one with a tensor-core
+    body, from ``cuobjdump -sass`` (None where the tool is missing)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("  cuobjdump not found: HGMMA count not measured")
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.library_path("qmm"))], capture_output=True,
+                          text=True, timeout=300).stdout
+    count = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"  HGMMA instructions in libqmm (cuobjdump -sass): {count}")
+    return count
+
+
 def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / peaks[0], flops / peaks[1]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_qmm(torch, timer, peaks, rows):
-    from repro_torch.kernels.qmm import qmm_cuda
+    from repro_torch.kernels.qmm import dequant_plan, qmm_cuda
     from repro_torch.kernels.ref import dequant_ref, qmm_ref
     from repro_torch.quant.pack import pack_weight
 
@@ -191,7 +213,10 @@ def check_qmm(torch, timer, peaks, rows):
             for M in Ms:
                 x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
                 got = qmm_cuda(x, planes, scale, bits, path)
+                again = qmm_cuda(x, planes, scale, bits, path)
                 torch.cuda.synchronize()
+                if path == "dequant" and not torch.equal(got, again):
+                    fail(f"qmm_dequant {name} M={M}: two calls differ")
                 plain = qmm_ref(x, planes, scale, bits)
                 err = (got - plain).abs().max().item()
                 ref_max = plain.abs().max().item()
@@ -201,8 +226,10 @@ def check_qmm(torch, timer, peaks, rows):
                 worst = max(worst, err)
                 nbytes = M * K * 2 + planes.numel() + N * 4 + M * N * 4
                 b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peaks)
+                plan = dequant_plan(M, K, N, bits) if path == "dequant" else None
                 row = {"kernel": f"qmm_{path}", "shape": name, "M": M, "K": K,
                        "N": N, "bits": bits, "max_abs_err": err,
+                       "plan": plan._asdict() if plan else None,
                        "rel_err": err / ref_max,
                        "ms": timer(lambda: qmm_cuda(x, planes, scale, bits, path)),
                        "plain_ms": timer(lambda: qmm_ref(x, planes, scale, bits), iters=5),
@@ -212,8 +239,10 @@ def check_qmm(torch, timer, peaks, rows):
                 print(f"  qmm_{path:9s} {name:8s} M={M:3d} K={K:5d} N={N:6d} "
                       f"b={bits} err={err:.2e} (rel {row['rel_err']:.1e}) "
                       f"kernel={row['ms']:.4f} plain={row['plain_ms']:.4f} "
-                      f"matmul={row['library_ms']:.4f} bound={b_ms:.4f} ms")
-                del got, plain
+                      f"matmul={row['library_ms']:.4f} bound={b_ms:.4f} ms"
+                      + (f" [{plan.ctas} CTAs of {plan.kgroups} warpgroups, "
+                         f"{plan.splits} K splits, bitwise on 2 calls]" if plan else ""))
+                del got, again, plain
         del planes, scale, dense
         torch.cuda.empty_cache()
     return worst
@@ -258,7 +287,7 @@ def sdpa_over_pages(torch, q, kg, vg, lengths):
 
 
 def check_paged_attention(torch, timer, peaks, rows):
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, split_plan
     from repro_torch.kernels.ref import paged_attention_ref
 
     B, KV, G, hd, bs = 4, 2, 16, 128, 16
@@ -274,7 +303,13 @@ def check_paged_attention(torch, timer, peaks, rows):
         ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         q4 = q.reshape(B, KV, G, hd)
         got = paged_attention_cuda(q4, kp, vp, bt, ln).reshape(B, 1, H, hd)
+        again = paged_attention_cuda(q4, kp, vp, bt, ln).reshape(B, 1, H, hd)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"paged_attention {label}: two calls differ")
+        pps, splits = split_plan(nb)
+        if label == "main" and splits <= 1:
+            fail(f"paged_attention {label}: {B * KV * splits} CTAs, not more than B * KV")
         plain = paged_attention_ref(q.float(), kp.float(), vp.float(), bt, ln)
         err = (got - plain).abs().max().item()
         ref_max = plain.abs().max().item()
@@ -288,6 +323,7 @@ def check_paged_attention(torch, timer, peaks, rows):
         b_ms, b_by = bound_ms(nbytes, 4.0 * live * H * hd, peaks)
         row = {"kernel": "paged_attention", "shape": label, "lengths": lengths,
                "B": B, "KV": KV, "G": G, "hd": hd, "bs": bs, "max_abs_err": err,
+               "pages_per_split": pps, "splits": splits, "ctas": B * KV * splits,
                "rel_err": err / ref_max,
                "ms": timer(lambda: paged_attention_cuda(q4, kp, vp, bt, ln)),
                "plain_ms": timer(lambda: paged_attention_ref(q, kp, vp, bt, ln)),
@@ -296,7 +332,8 @@ def check_paged_attention(torch, timer, peaks, rows):
         print(f"  paged_attention {label:6s} lengths={lengths} err={err:.2e} "
               f"(rel {row['rel_err']:.1e}) kernel={row['ms']:.4f} "
               f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f} "
-              f"bound={b_ms:.4f} ms")
+              f"bound={b_ms:.4f} ms [{B * KV * splits} CTAs: {splits} splits of {pps} "
+              f"page(s), bitwise on 2 calls]")
     return worst
 
 
@@ -785,6 +822,9 @@ def serve_path(torch, label, flags, need, built=None):
           f"p99={m['decode_step_p99_ms']:.3f} ms decode_steps={m['decode_steps']} "
           f"tokens={m['tokens_total']} wall={wall_s:.2f} s "
           f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ttft = sorted(r["ttft_s"] for r in m["requests"])
+    print(f"[{label}] time to first token: p50 {statistics.median(ttft):.4f} s, "
+          f"max {ttft[-1]:.4f} s over {len(ttft)} requests")
     print(f"[{label}] tokens per request: {[r['new_tokens'] for r in m['requests']]}")
     print(f"[{label}] launch counts on the path: {counts}")
     return {"args": args, "cfg": cfg, "model": model, "sparams": sparams,
@@ -927,6 +967,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
+    def phase(title: str) -> None:
+        print(f"{title} [{time.perf_counter() - t_start:.1f} s]")
+
     # ---- phase 1: device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -949,11 +992,13 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    if tensor_core_count(build) == 0:
+        fail("the qmm library has no HGMMA instruction")
 
     # ---- phase 2: kernels against their plain versions
     timer = Timer(torch)
     rows: list[dict] = []
-    print("phase 2: kernels against their plain versions (times in ms)")
+    phase("phase 2: kernels against their plain versions (times in ms)")
     qmm_err = check_qmm(torch, timer, peaks, rows)
     pa_err = check_paged_attention(torch, timer, peaks, rows)
     paq_err = check_paged_attention_quant(torch, timer, peaks, rows)
@@ -965,30 +1010,30 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phases 3-5, path a (fp KV blocks): serve, check outputs, profile
-    print("phase 3a: glm4-9b serving end to end, --bits 4, fp KV blocks")
+    phase("phase 3a: glm4-9b serving end to end, --bits 4, fp KV blocks")
     fp = serve_path(torch, "fp KV", ["--bits", "4"],
                     ("qmm_bitserial", "qmm_dequant", "paged_attention"))
     check_outputs(torch, fp["cfg"], fp["model"], fp["sparams"], fp["engine"], fp["work"])
-    print("phase 5a: decode step breakdown, fp KV blocks")
+    phase("phase 5a: decode step breakdown, fp KV blocks")
     breakdown = {"fp KV": profile_decode(torch, fp["engine"], fp["work"])}
 
     # ---- path b: the same 4-bit weights over packed int4 KV blocks
-    print("phase 3b: glm4-9b serving end to end, --bits 4 --kv-bits 4 (fused decode)")
+    phase("phase 3b: glm4-9b serving end to end, --bits 4 --kv-bits 4 (fused decode)")
     built = tuple(fp[k] for k in ("cfg", "model", "sparams", "policy"))
     fp_summary = {k: fp[k] for k in ("metrics", "counts", "setup_s", "wall_s", "peak_mem_gib")}
     del fp
     int4 = serve_path(torch, "int4 KV", ["--bits", "4", "--kv-bits", "4"],
                       ("qmm_bitserial", "qmm_dequant", "fused_qkv_paged_decode"), built)
-    print("phase 5b: decode step breakdown, int4 KV blocks")
+    phase("phase 5b: decode step breakdown, int4 KV blocks")
     breakdown["int4 KV"] = profile_decode(torch, int4["engine"], int4["work"])
     del built, int4["engine"], int4["sparams"], int4["model"]
     torch.cuda.empty_cache()
 
     # ---- path c: dense bf16 q/k/v over int8 KV blocks (fresh ~19 GB weights)
-    print("phase 3c: glm4-9b serving end to end, --bits 16 --kv-bits 8 (dense q/k/v)")
+    phase("phase 3c: glm4-9b serving end to end, --bits 16 --kv-bits 8 (dense q/k/v)")
     int8 = serve_path(torch, "int8 KV", ["--bits", "16", "--kv-bits", "8"],
                       ("qmm_bitserial", "paged_attention_quant"))
-    print("phase 5c: decode step breakdown, int8 KV blocks")
+    phase("phase 5c: decode step breakdown, int8 KV blocks")
     breakdown["int8 KV"] = profile_decode(torch, int8["engine"], int8["work"])
     del int8["engine"], int8["sparams"], int8["model"]
     torch.cuda.empty_cache()
@@ -998,14 +1043,14 @@ def main() -> None:
     # (the step at which it leaves chance level moves with the summation
     # order), so the accuracy floors below need a run that repeats.
     torch.backends.cudnn.deterministic = True
-    print("phase 3d: the quickstart twin on LeNet (pretrain 300, 30 episodes, long retrain 150)")
+    phase("phase 3d: the quickstart twin on LeNet (pretrain 300, 30 episodes, long retrain 150)")
     lenet = releq_quickstart(torch)
-    print(f"phase 3e: ReLeQ search on ResNet-20 at full width (pretrain {RESNET20_PRETRAIN}, "
+    phase(f"phase 3e: ReLeQ search on ResNet-20 at full width (pretrain {RESNET20_PRETRAIN}, "
           f"{RESNET20_EPISODES} episodes at episode_end, long retrain 200)")
     task, resnet = releq_resnet20(torch)
-    print("phase 4e: one ResNet-20 QAT step, card against CPU")
+    phase("phase 4e: one ResNet-20 QAT step, card against CPU")
     resnet["card_vs_cpu"] = resnet_step_card_vs_cpu(torch, task)
-    print("phase 5e: ResNet-20 QAT step breakdown")
+    phase("phase 5e: ResNet-20 QAT step breakdown")
     qat_breakdown = profile_qat_step(torch, task)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}

@@ -43,7 +43,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/{name}.cu`` is (or will be) built."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -52,7 +53,7 @@ def _target(name: str) -> Path:
 
 def _start(name: str):
     """Start one nvcc (or return None if the library is already built)."""
-    out = _target(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,7 +89,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             _declare(name, lib)
             _libs[name] = lib
         return lib
@@ -97,14 +98,14 @@ def library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "qmm":
-        # x, x_dtype, planes, scale, y, M, K, N, bits, path, stream
-        lib.qmm_launch.argtypes = [P, I, P, P, P, I, I, I, I, I, P]
+        # x, x_dtype, planes, scale, y, ws, M, K, N, bits, path, token_tile,
+        # kgroups, splits, stream
+        lib.qmm_launch.argtypes = [P, I, P, P, P, P] + [I] * 8 + [P]
         lib.qmm_launch.restype = I
     elif name == "paged_attention":
-        # q, k_pool, v_pool, block_tables, lengths, out, dtype,
-        # B, KV, G, hd, bs, nb, scale, stream
-        lib.paged_attention_launch.argtypes = [P, P, P, P, P, P, I,
-                                               I, I, I, I, I, I, F, P]
+        # q, k_pool, v_pool, block_tables, lengths, out, ws, arrived, dtype,
+        # B, KV, G, hd, bs, nb, pages_per_split, scale, stream
+        lib.paged_attention_launch.argtypes = [P] * 8 + [I] * 8 + [F, P]
         lib.paged_attention_launch.restype = I
     elif name == "paged_attention_quant":
         # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out,
@@ -136,7 +137,7 @@ def check(err: int, what: str) -> None:
 
         try:
             msg = torch.cuda.cudart().cudaGetErrorString(err)
-        except (AttributeError, RuntimeError):
+        except (AttributeError, RuntimeError, TypeError):
             msg = "see cudaError_t"
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 

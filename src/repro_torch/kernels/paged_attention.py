@@ -7,10 +7,13 @@ query per row over fp paged KV through a block table, f32 online softmax,
 out ``(B, KV, G, hd)`` f32, zeros for a row of length 0.  The source note
 in ``csrc/paged_attention.cu`` says what bounds it and how its design
 answers that.  This wrapper checks device, types, shapes and contiguity,
-allocates the output and launches on the current stream; it never falls
+picks the split-KV plan (:func:`split_plan`), allocates the output and
+the split workspace and launches on the current stream; it never falls
 back to the plain version.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,6 +22,37 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 96, 128)
 MAX_GROUP = 128  # query heads per KV head (4 per warp, 32 warps)
+MAX_SPLITS = 16  # split-KV CTAs per (row, KV head)
+
+
+def split_plan(nb: int) -> tuple[int, int]:
+    """``(pages_per_split, splits)`` for a block table ``nb`` pages wide:
+    one page per split up to ``MAX_SPLITS`` pages, then the fewest pages
+    per split that keep ``MAX_SPLITS`` splits.  It reads the table's width
+    only: the lengths live on the device, and reading them would put a
+    host sync in every layer of every decode step."""
+    pps = max(1, math.ceil(nb / MAX_SPLITS))
+    return pps, math.ceil(nb / pps)
+
+
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """int32 arrival counters of the split-KV kernels, one per (row, KV
+    head): zeroed once here, and left zero by every launch (the last split
+    CTA of a row and head resets its counter)."""
+    buf = _counters.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _counters[dev] = buf
+    return buf
+
+
+def split_workspace_numel(B: int, KV: int, G: int, hd: int, splits: int) -> int:
+    """f32 elements of the split workspace (``csrc/split_kv.cuh``): the
+    partial accumulators (B, KV, S, G, hd), then (m, l) per head."""
+    return B * KV * splits * G * (hd + 2) if splits > 1 else 0
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -52,10 +86,15 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_attention_cuda needs contiguous inputs")
     build.require_sm90(dev)
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
+    pps, splits = split_plan(nb)
+    n_ws = split_workspace_numel(B, KV, G, hd, splits)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev) if n_ws else None
+    arrived = arrival_counters(dev, B * KV) if n_ws else None
     err = build.library("paged_attention").paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, KV, G, hd, bs, nb, hd ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if ws is None else ws.data_ptr(),
+        None if arrived is None else arrived.data_ptr(), _DTYPES[q.dtype], B, KV,
+        G, hd, bs, nb, pps, hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"paged_attention (B={B}, KV={KV}, G={G}, hd={hd}, bs={bs})")
     return out

@@ -12,7 +12,9 @@ dequant-form matmul, so its new-token codes may move by one step where a
 value sits on a rounding edge: scales within 2^-7 relative, codes within
 +-1, output within 2e-2 * max|plain|; its attention half alone, on the
 same projections, gives codes and scales bitwise.  The fake-quant kernel
-is elementwise IEEE f32 in the plain version's order: bitwise.
+is elementwise IEEE f32 in the plain version's order: bitwise.  The
+split-K qmm dequant body and the split-KV attention add their partials in
+a fixed order, so two calls on the same inputs are bitwise equal.
 """
 import numpy as np
 import pytest
@@ -225,3 +227,108 @@ def test_fake_quant_ste_on_the_card_matches_the_cpu(sm90, bits):
         vals.append(out.detach().cpu())
         grads.append(g.cpu())
     assert torch.equal(vals[0], vals[1]) and torch.equal(grads[0], grads[1])
+
+
+# ---- the wgmma dequant body (bf16 x), its f32 SIMT route and split-K
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("M", [33, 64, 65, 256, 300])
+@pytest.mark.parametrize("K,N", [(4096, 256), (13696, 300), (136, 13), (4096, 13696)])
+def test_qmm_dequant_tensor_cores_match_plain(sm90, K, N, M, bits):
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, bits, sm90, seed=3 * bits + M)
+    got = qmm_cuda(x, planes, scale, bits, "dequant")
+    torch.cuda.synchronize()
+    plain = tref.qmm_ref(x, planes, scale, bits)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [33, 64, 130])
+@pytest.mark.parametrize("K,N", [(4096, 256), (136, 13)])
+def test_qmm_dequant_f32_activations_take_the_simt_body(sm90, K, N, M):
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=sm90)   # not bf16-representable
+    got = qmm_cuda(x, planes, scale, 4, "dequant")
+    torch.cuda.synchronize()
+    plain = tref.qmm_ref(x, planes, scale, 4)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(64, 4096, 256), (64, 13696, 4096), (300, 4096, 4096),
+                                   (64, 136, 13)])
+def test_qmm_dequant_is_bitwise_repeatable(sm90, M, K, N):
+    from repro_torch.kernels.qmm import dequant_plan, qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=7)
+    first = qmm_cuda(x, planes, scale, 4, "dequant")
+    second = qmm_cuda(x, planes, scale, 4, "dequant")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), dequant_plan(M, K, N)
+
+
+# ---- split-KV fp paged attention
+def _paged_case(dev, B, KV, G, hd, bs, nb, lengths, dtype, seed):
+    NB = B * nb + 1
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((NB, bs, KV, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((NB, bs, KV, hd), generator=gen, device=dev).to(dtype)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(NB - 1) + 1)
+    bt = perm[:B * nb].reshape(B, nb).to(dev, torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, ln
+
+
+def _check_paged(q, kp, vp, bt, ln):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    B, KV, G, hd = q.shape
+    got = paged_attention_cuda(q, kp, vp, bt, ln)
+    again = paged_attention_cuda(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # split order fixed: bitwise repeatable
+    got = got.reshape(B, 1, KV * G, hd)
+    plain = tref.paged_attention_ref(q.reshape(B, 1, KV * G, hd).float(), kp.float(),
+                                     vp.float(), bt, ln)
+    live = ln > 0
+    if live.any():
+        err = (got[live] - plain[live]).abs().max().item()
+        assert err <= 1e-4 * plain[live].abs().max().item()
+    assert not got[~live].any()          # a dead row is exact zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("lengths,nb", [
+    ([16, 32, 48, 96], 6),        # every row ends on a page (= split) boundary
+    ([0, 1, 33, 96], 6),          # a dead row; a token past a 32-token tile
+    ([5, 0, 17, 40], 64),         # table far wider than any row: many empty splits
+    ([512, 511, 257, 1], 40),     # 3 pages per split: ends on and off split edges
+], ids=["page-ends", "dead-row", "wide-table", "multi-page-splits"])
+def test_paged_attention_split_kv_matches_plain(sm90, lengths, nb, dtype):
+    case = _paged_case(sm90, 4, 2, 16, 128, 16, nb, lengths, dtype, seed=sum(lengths) + nb)
+    _check_paged(*case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 16, 128])
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_paged_attention_head_dims_and_groups(sm90, hd, G):
+    case = _paged_case(sm90, 3, 2, G, hd, 16, 9, [0, 70, 144], torch.bfloat16, seed=hd + G)
+    _check_paged(*case)
+
+
+@pytest.mark.gpu
+def test_paged_attention_launches_more_ctas_than_rows_times_heads(sm90):
+    from repro_torch.kernels.paged_attention import split_plan
+
+    nb = -(-96 // 16)                    # the served cells' main lengths, block 16
+    _, splits = split_plan(nb)
+    assert splits > 1
+    case = _paged_case(sm90, 4, 2, 16, 128, 16, nb, [41, 58, 73, 96], torch.bfloat16, seed=9)
+    _check_paged(*case)
