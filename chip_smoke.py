@@ -20,14 +20,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    different orders); qmm dequant and fp paged attention must also give
    bitwise-equal outputs on two calls (split-K and split-KV sum their
    partials in a fixed order), and the fp attention's split plan must
-   launch more than B * KV CTAs at the main lengths.  The fused QKV + paged decode at the same shapes
+   launch more than B * KV CTAs at the main lengths; the quantized
+   attention too, both.  The fused QKV + paged decode at the same shapes
    (D=4096, 4-bit q/k/v, int8 and int4 pools): its projections sum in
    another order than the plain version's dequant-form matmul, so a new
    K/V code on a rounding edge may move by one: scales within 2^-7
    relative, codes within +-1 (the differing count is printed), output
    within 2e-2 * max|plain|; its attention launch alone, fed the plain
    version's own projections, gives codes and scales bitwise (output
-   within 1e-2 * max|plain|: the plain version rounds it to bf16).  The
+   within 1e-2 * max|plain|: the plain version rounds it to bf16); its two
+   launches run apart, the projection's split partials finished by the
+   plain twin between them, give the whole op's outputs, codes and scales
+   bitwise; two calls give bitwise-equal outputs, codes and scales, and its
+   attention launch runs more than B * KV CTAs.  Its projection launch (A) and its
+   attention launch (B) are timed alone as well as together.  The
    WRPN fake-quant at every ResNet-20 and LeNet weight shape, glm4-9b's
    wg (4096, 13696) and a ragged (7, 300), bits 1-8, 16 and 32, f32 and
    bf16: bitwise (max|kernel - plain| == 0), and the STE's forward and
@@ -75,7 +81,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    path, four requests decode on its served model; a few decode steps are
    timed by the host clock, then a few more are traced with
    ``torch.profiler`` to split the device time by kernel and give the
-   device's idle share.  The same for ResNet-20 QAT train steps.
+   device's idle share (the fused decode's two launches as two
+   families).  The same for ResNet-20 QAT train steps.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -338,6 +345,7 @@ def check_paged_attention(torch, timer, peaks, rows):
 
 
 def check_paged_attention_quant(torch, timer, peaks, rows):
+    from repro_torch.kernels.paged_attention import split_plan
     from repro_torch.kernels.paged_attention_quant import paged_attention_quant_cuda
     from repro_torch.kernels.ref import gather_dequant, quant_paged_attention_ref
 
@@ -354,7 +362,14 @@ def check_paged_attention_quant(torch, timer, peaks, rows):
             q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
             q4 = q.reshape(B, KV, G, hd)
             got = paged_attention_quant_cuda(q4, kc, vc, ks, vs, bt, ln).reshape(B, 1, H, hd)
+            again = paged_attention_quant_cuda(q4, kc, vc, ks, vs, bt, ln).reshape(B, 1, H, hd)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"paged_attention_quant {container} {label}: two calls differ")
+            pps, splits = split_plan(nb)
+            if label == "main" and splits <= 1:
+                fail(f"paged_attention_quant {container} {label}: {B * KV * splits} CTAs, "
+                     f"not more than B * KV")
             plain = quant_paged_attention_ref(q.float(), kc, vc, ks, vs, bt, ln)
             err = (got - plain).abs().max().item()
             ref_max = plain.abs().max().item()
@@ -372,7 +387,8 @@ def check_paged_attention_quant(torch, timer, peaks, rows):
                                       gather_dequant(vc, vs, bl).to(torch.bfloat16), ln)
             row = {"kernel": "paged_attention_quant", "shape": label, "container": container,
                    "lengths": lengths, "B": B, "KV": KV, "G": G, "hd": hd, "bs": bs,
-                   "max_abs_err": err, "rel_err": err / ref_max,
+                   "max_abs_err": err, "rel_err": err / ref_max, "pages_per_split": pps,
+                   "splits": splits, "ctas": B * KV * splits,
                    "ms": timer(lambda: paged_attention_quant_cuda(q4, kc, vc, ks, vs, bt, ln)),
                    "plain_ms": timer(lambda: quant_paged_attention_ref(q, kc, vc, ks, vs, bt, ln)),
                    "library_ms": timer(library), "bound_ms": b_ms, "bound_by": b_by}
@@ -380,16 +396,18 @@ def check_paged_attention_quant(torch, timer, peaks, rows):
             print(f"  paged_attention_quant {container} {label:6s} err={err:.2e} "
                   f"(rel {row['rel_err']:.1e}) kernel={row['ms']:.4f} "
                   f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f} "
-                  f"bound={b_ms:.4f} ms")
+                  f"bound={b_ms:.4f} ms [{B * KV * splits} CTAs: {splits} splits of {pps} "
+                  f"page(s), bitwise on 2 calls]")
     return worst
 
 
 def check_fused_decode(torch, timer, peaks, rows):
-    from repro_torch.kernels.fused_decode import (fused_attend_cuda,
-                                                  fused_qkv_paged_decode_cuda)
-    from repro_torch.kernels.ref import (dequant_ref, fused_decode_attend_ref,
-                                         fused_qkv_paged_decode_ref, gather_dequant,
-                                         qmm_ref)
+    from repro_torch.kernels.fused_decode import (attend_plan, fused_attend_cuda,
+                                                  fused_project_cuda,
+                                                  fused_qkv_paged_decode_cuda, project_plan)
+    from repro_torch.kernels.ref import (dequant_ref, finish_projection,
+                                         fused_decode_attend_ref, fused_qkv_paged_decode_ref,
+                                         gather_dequant, qmm_ref)
     from repro_torch.models.common import rope_cos_sin
     from repro_torch.quant.pack import Packed, kv_unpack_int4, pack_weight
 
@@ -416,12 +434,19 @@ def check_fused_decode(torch, timer, peaks, rows):
             qm = torch.tensor(qmax, device="cuda")
             args = (kc, vc, ks, vs, bt, ln, cos, sin, qm)
             got = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+            again = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
             torch.cuda.synchronize()
+            what = f"fused_qkv_paged_decode {container} {label}"
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{what}: two calls differ in out, codes or scales")
+            pps, splits = attend_plan(nb)
+            pplan = project_plan(B, D, [w.scale.numel() for w in ws])
+            if label == "main" and splits <= 1:     # page splits, besides the new token's CTA
+                fail(f"{what}: {B * KV * (splits + 1)} attend CTAs over {splits} page split")
             plain = fused_qkv_paged_decode_ref(x, *ws, *args, H, KV)
             out, po = got[0].reshape(B, 1, H, hd), plain[0].float()
             err = (out - po).abs().max().item()
             ref_max = po.abs().max().item()
-            what = f"fused_qkv_paged_decode {container} {label}"
             if not math.isfinite(err) or err > 2e-2 * ref_max:
                 fail(f"{what}: max|kernel-plain| {err:.3g} > 2e-2 * {ref_max:.3g}")
             for g, p in zip(got[3:], plain[3:]):
@@ -444,6 +469,15 @@ def check_fused_decode(torch, timer, peaks, rows):
             err_b = (got_b[0].reshape(B, 1, H, hd) - plain_b[0].float()).abs().max().item()
             if not math.isfinite(err_b) or err_b > 1e-2 * plain_b[0].float().abs().max().item():
                 fail(f"{what}: the attention launch alone differs by {err_b:.3g}")
+            # the whole op sums (A)'s split partials in (B)'s prologue: the
+            # two launches run apart, the partials finished by the plain
+            # twin in between, must give the same out, codes and scales
+            staged = fused_attend_cuda(finish_projection(fused_project_cuda(x, *ws, H, KV), *ws),
+                                       torch.bfloat16, *args, H)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, p) for g, p in zip(got, staged)):
+                fail(f"{what}: the whole op differs from its two launches run apart "
+                     f"({pplan.splits} K splits)")
             worst = max(worst, err)
             live = sum(lengths)
             hds = kc.shape[-1]
@@ -462,10 +496,28 @@ def check_fused_decode(torch, timer, peaks, rows):
                 torch.matmul(x, dense)
                 attn()
 
+            # each launch alone: (A) the split-K projection, (B) the attend
+            # launch on finished projections; their bounds split the bytes.
+            # (A)'s bound writes the finished (B, ntot) projections once:
+            # its split workspace is the design's cost, not the function's
+            p_bytes = x.numel() * 2 + w_bytes + B * dense.shape[1] * 4
+            pb_ms, _ = bound_ms(p_bytes, 2.0 * B * D * dense.shape[1], peaks)
+            ab_ms, _ = bound_ms(nbytes - x.numel() * 2 - w_bytes + proj.numel() * 4,
+                                4.0 * (live + B) * H * hd, peaks)
+            alone = {"project_ms": timer(lambda: fused_project_cuda(x, *ws, H, KV)),
+                     "project_library_ms": timer(lambda: torch.matmul(x, dense)),
+                     "project_bound_ms": pb_ms,
+                     "attend_ms": timer(lambda: fused_attend_cuda(proj, torch.bfloat16, *args,
+                                                                  H)),
+                     "attend_library_ms": timer(attn), "attend_bound_ms": ab_ms}
+
             row = {"kernel": "fused_qkv_paged_decode", "shape": label, "container": container,
                    "lengths": lengths, "B": B, "D": D, "KV": KV, "G": G, "hd": hd, "bs": bs,
                    "bits": [w.bits for w in ws], "max_abs_err": err, "rel_err": err / ref_max,
                    "codes_differing": n_diff, "codes": n_codes, "attend_alone_err": err_b,
+                   "project_plan": pplan._asdict(), "project_ctas": pplan.ctas,
+                   "pages_per_split": pps, "splits": splits, "attend_ctas": B * KV * (splits + 1),
+                   **alone,
                    "ms": timer(lambda: fused_qkv_paged_decode_cuda(x, *ws, *args, H)),
                    "plain_ms": timer(lambda: fused_qkv_paged_decode_ref(x, *ws, *args, H, KV)),
                    "library_ms": timer(composed),
@@ -477,7 +529,12 @@ def check_fused_decode(torch, timer, peaks, rows):
                   f"(rel {row['rel_err']:.1e}) codes differing {n_diff}/{n_codes} "
                   f"attend-alone err={err_b:.2e} kernel={row['ms']:.4f} "
                   f"plain={row['plain_ms']:.4f} matmul+sdpa (sum)={row['library_ms']:.4f} "
-                  f"bound={b_ms:.4f} ms")
+                  f"bound={b_ms:.4f} ms; bitwise on 2 calls and with its launches apart")
+            print(f"    (A) projection alone {row['project_ms']:.4f} ms (matmul "
+                  f"{row['project_library_ms']:.4f}, bound {pb_ms:.4f}) [{pplan.ctas} CTAs: "
+                  f"{pplan.splits} K splits]; (B) attend alone {row['attend_ms']:.4f} ms (sdpa "
+                  f"{row['attend_library_ms']:.4f}, bound {ab_ms:.4f}) [{B * KV * (splits + 1)} "
+                  f"CTAs: {splits} splits of {pps} page(s) + the new token]")
     return worst
 
 
@@ -760,10 +817,11 @@ def profile_qat_step(torch, task, timed=5, traced=3):
             "idle_share": 1 - busy / step_ms}
 
 
-def per_step(rows, kernel, pick):
-    """Sum the per-shape numbers over one main-path step:
-    ``pick(row) -> calls`` of that shape per step."""
+def per_step(rows, kernel, pick, extra=()):
+    """Sum the per-shape numbers (and the ``extra`` keys) over one
+    main-path step: ``pick(row) -> calls`` of that shape per step."""
     out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    out.update({key: 0.0 for key in extra})
     bound_by = set()
     for row in rows:
         n = pick(row) if row["kernel"] == kernel else 0
@@ -930,8 +988,8 @@ def profile_decode(torch, engine, work, timed=4, traced=4):
         if us <= 0:
             continue
         name = ev.key
-        fam = ("qmm" if "qmm_" in name else "fused_qkv_paged_decode"
-               if "fused_project" in name or "fused_attend" in name
+        fam = ("qmm" if "qmm_" in name else "fused_project" if "fused_project" in name
+               else "fused_attend" if "fused_attend" in name
                else "paged_attention_quant" if "paged_attention_quant" in name
                else "paged_attention" if "paged_attention" in name
                else "memcpy/memset" if "emcpy" in name or "emset" in name
@@ -1065,7 +1123,9 @@ def main() -> None:
         return lambda r: 40 if r["shape"] == "main" and r["container"] == container else 0
 
     attn_q = per_step(rows, "paged_attention_quant", main_int("int8"))
-    fused = per_step(rows, "fused_qkv_paged_decode", main_int("int4"))
+    fused = per_step(rows, "fused_qkv_paged_decode", main_int("int4"),
+                     [f"{launch}_{key}" for launch in ("project", "attend")
+                      for key in ("ms", "library_ms", "bound_ms")])
     fq = per_step(rows, "fake_quant", lambda r: r["calls_per_forward"])
     counts = {"fp KV": fp_summary["counts"], "int4 KV": int4["counts"], "int8 KV": int8["counts"]}
     kernels = [
@@ -1107,7 +1167,9 @@ def main() -> None:
                          "lm_head); qmm_dequant: one 64-token prefill chunk (280 "
                          "layer calls); paged_attention, paged_attention_quant (int8) "
                          "and fused_qkv_paged_decode (int4): 40 calls at the 'main' "
-                         "lengths; fused library_ms is a sum (matmul + SDPA); "
+                         "lengths; fused library_ms is a sum (matmul + SDPA), its "
+                         "project_* and attend_* keys time launch (A) and launch (B) "
+                         "alone against matmul and SDPA; "
                          "fake_quant: one ResNet-20 QAT forward (20 calls, f32)",
         "serve": serve, "decode_breakdown": breakdown,
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the two redesigned kernels goes, on the card.
+"""Where the time of the redesigned kernels goes, on the card.
 
-    python3 scripts/kernel_ablation.py
+    python3 scripts/kernel_ablation.py [qmm] [pa] [paq] [fused]
+
+(the sections named, all four by default)
 
 1. qmm dequant (bf16 x, M = 64, 4-bit, glm4-9b's wq and wg shapes): the
    kernel as built, and copies of ``csrc/qmm.cu`` with parts of its K loop
@@ -15,6 +17,16 @@
    73, 96}): the kernel, and copies without the split combine
    (``nocombine``), without the score and P.V loop (``nocompute``), both,
    and one that returns at once (``empty``: launch and scheduling).
+4. Quantized paged attention (``paq``; same shapes, int8 and packed int4):
+   the same cuts of ``csrc/paged_attention_quant.cu`` and of the sweep in
+   ``csrc/kv_attention.cuh``.
+5. The fused decode (``fused``; glm4-9b's 4-bit q|k|v, D = 4096, packed
+   int4 pool, lengths {41, 58, 73, 96}): launch (A), the split-K
+   projection, at 1, 2, 4 and 8 K splits; launch (B), the attend launch
+   on finished projections, whole and with the same cuts; both launches
+   at several K and page splits, and at the plan with (B) launched as a
+   programmatic dependent of (A) and as an ordinary launch (``nopdl``),
+   alternated three times.
 
 Times: CUDA events per call (L2 flushed, ``chip_smoke.Timer``) and the
 kernels' device time from ``torch.profiler``.  The copies are built with
@@ -35,9 +47,11 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.paged_attention import arrival_counters  # noqa: E402
+from repro_torch.kernels.fused_decode import attend_plan, project_plan  # noqa: E402
+from repro_torch.kernels.paged_attention import arrival_counters, split_plan  # noqa: E402
 from repro_torch.kernels.qmm import dequant_plan, dequant_smem  # noqa: E402
-from repro_torch.quant.pack import pack_weight  # noqa: E402
+from repro_torch.models.common import rope_cos_sin  # noqa: E402
+from repro_torch.quant.pack import kv_pack_int4, kv_quantize, pack_weight  # noqa: E402
 
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablation"
 
@@ -64,19 +78,41 @@ PA_CUTS = {
 }
 PA_VARIANTS = {"full": (), "nocombine": ("NOCOMBINE",), "nocompute": ("NOCOMPUTE",),
                "nocompute+nocombine": ("NOCOMPUTE", "NOCOMBINE"), "empty": ("EMPTY",)}
+# the quantized sweep (kv_attention.cuh) without its tile loop
+SWEEP_NOCOMPUTE = ("    for (int it = 0; it < ntiles; ++it) {",
+                   "    wg::cp_async_wait<0>();\n    __syncthreads();\n"
+                   "    for (int it = 0; it < 0; ++it) {")
+PAQ_CUTS = {
+    "EMPTY": PA_CUTS["EMPTY"],
+    "NOCOMBINE": PA_CUTS["NOCOMBINE"],
+    "NOCOMPUTE": SWEEP_NOCOMPUTE,
+}
+ATTEND_CUTS = {
+    "EMPTY": PA_CUTS["EMPTY"],
+    "NOCOMBINE": ("    if (splitkv::arrive_last(a.arrived + bk, S + 1))", "    if (false)"),
+    "NOCOMPUTE": SWEEP_NOCOMPUTE,
+    "NOPDL": ("    cfg.numAttrs = pdl ? 1 : 0;", "    cfg.numAttrs = 0;"),
+}
 
 
 def patched(source: str, cuts: dict, names, tag: str) -> Path:
-    text = (build.CSRC / source).read_text()
+    """A copy of csrc/{source} and the shared headers in a directory of its
+    own, each cut applied to the source if it holds the cut's line, else
+    to the one header that does."""
+    files = {f.name: f.read_text() for f in [build.CSRC / source, *build.CSRC.glob("*.cuh")]}
     for name in names:
         old, new = cuts[name]
-        if old not in text:
-            sys.exit(f"kernel_ablation: csrc/{source} no longer holds the line cut by {name}")
-        text = text.replace(old, new)
-    text = text.replace('#include "', f'#include "{build.CSRC}/')
-    path = OUT / f"{tag}.cu"
-    path.write_text(text)
-    return path
+        holders = [f for f, text in files.items() if old in text]
+        if source in holders:
+            holders = [source]
+        if len(holders) != 1:
+            sys.exit(f"kernel_ablation: {len(holders)} files of csrc hold the line cut by {name}")
+        files[holders[0]] = files[holders[0]].replace(old, new)
+    out = OUT / tag
+    out.mkdir(parents=True, exist_ok=True)
+    for f, text in files.items():
+        (out / f).write_text(text)
+    return out / source
 
 
 def build_all(jobs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
@@ -103,20 +139,44 @@ def device_ms(timer, fn, key: str) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: needs a CUDA card")
+    sections = set(sys.argv[1:]) or {"qmm", "pa", "paq", "fused"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
     OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {f"qmm_{v}": patched("qmm.cu", QMM_CUTS, cuts, f"qmm_{v.replace(' ', '_')}")
-            for v, cuts in QMM_VARIANTS.items()}
-    jobs.update({f"pa_{v}": patched("paged_attention.cu", PA_CUTS, cuts,
-                                    f"pa_{v.replace('+', '_')}")
-                 for v, cuts in PA_VARIANTS.items()})
+    jobs = {}
+    if "qmm" in sections:
+        jobs.update({f"qmm_{v}": patched("qmm.cu", QMM_CUTS, cuts, f"qmm_{v.replace(' ', '_')}")
+                     for v, cuts in QMM_VARIANTS.items()})
+    if "pa" in sections:
+        jobs.update({f"pa_{v}": patched("paged_attention.cu", PA_CUTS, cuts,
+                                        f"pa_{v.replace('+', '_')}")
+                     for v, cuts in PA_VARIANTS.items()})
+    if "paq" in sections:
+        jobs.update({f"paq_{v}": patched("paged_attention_quant.cu", PAQ_CUTS, cuts,
+                                         f"paq_{v.replace('+', '_')}")
+                     for v, cuts in PA_VARIANTS.items()})
+    if "fused" in sections:
+        jobs.update({f"fd_{v}": patched("fused_decode.cu", ATTEND_CUTS, cuts,
+                                        f"fd_{v.replace('+', '_')}")
+                     for v, cuts in PA_VARIANTS.items()})
+        jobs["fd_nopdl"] = patched("fused_decode.cu", ATTEND_CUTS, ("NOPDL",), "fd_nopdl")
     libs = build_all(jobs)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     timer = cs.Timer(torch)
-    stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "qmm" in sections:
+        qmm_section(libs, timer, gen)
+    if "pa" in sections:
+        pa_section(libs, timer, gen)
+    if "paq" in sections:
+        paq_section(libs, timer, gen)
+    if "fused" in sections:
+        fused_section(libs, timer, gen)
+
+
+def qmm_section(libs, timer, gen) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
 
     print("qmm dequant, M=64, 4-bit: events ms / device ms per call")
     shapes = {}
@@ -158,6 +218,10 @@ def main() -> None:
                 cells.append(f"kg{kg}/s{splits}{mark} {timer(fn):.4f}")
         print(f"  {name}: " + "  ".join(cells), flush=True)
 
+
+def pa_section(libs, timer, gen) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    stream = torch.cuda.current_stream().cuda_stream
     print("fp paged attention, main lengths {41, 58, 73, 96}: events ms / device ms per call")
     B, KV, G, hd, bs, nb = 4, 2, 16, 128, 16, 6
     NB = B * nb + 1
@@ -182,6 +246,137 @@ def main() -> None:
             cells.append(f"{-(-nb // pps)} splits {timer(fn):.4f} / "
                          f"{device_ms(timer, fn, 'paged'):.4f}")
         print(f"  {variant:20s} " + "   ".join(cells), flush=True)
+
+
+
+MAIN = [41, 58, 73, 96]
+
+
+def quant_inputs(gen, B, KV, hd, bs, nb, kv_bits):
+    """A quantized pool pair over shuffled pages, as chip_smoke.py's."""
+    qmax = float(2 ** (kv_bits - 1) - 1)
+    NB, bt = cs.block_tables(torch, B, nb, nb)
+    pools = []
+    for _ in range(2):
+        codes, scale = kv_quantize(torch.randn((NB, bs, KV, hd), generator=gen, device="cuda"),
+                                   qmax)
+        pools.append((kv_pack_int4(codes) if kv_bits == 4 else codes, scale))
+    (kc, ks), (vc, vs) = pools
+    return kc, vc, ks, vs, bt, qmax
+
+
+def paq_section(libs, timer, gen) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    B, KV, G, hd, bs = 4, 2, 16, 128, 16
+    nb = -(-max(MAIN) // bs)
+    pps, splits = split_plan(nb)
+    ln = torch.tensor(MAIN, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    out = torch.empty((B, KV, G, hd), device="cuda")
+    ws = torch.empty(B * KV * 16 * G * (hd + 2), device="cuda")
+    arrived = arrival_counters(torch.device("cuda", torch.cuda.current_device()), B * KV)
+    print(f"quantized paged attention, main lengths {MAIN}, {splits} splits: "
+          "events ms / device ms per call")
+    pools = {c: quant_inputs(gen, B, KV, hd, bs, nb, bits) for c, bits in (("int8", 8), ("int4", 4))}
+    for variant in PA_VARIANTS:
+        lib = libs[f"paq_{variant}"]
+        build._declare("paged_attention_quant", lib)
+        for container, (kc, vc, ks, vs, bt, _) in pools.items():
+            cells = []
+            for p in (1, 2, nb):
+                fn = (lambda kc=kc, vc=vc, ks=ks, vs=vs, bt=bt, p=p, p4=int(container == "int4"):
+                      lib.paged_attention_quant_launch(
+                          q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
+                          vs.data_ptr(), bt.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                          ws.data_ptr(), arrived.data_ptr(), 1, p4, B, KV, G, hd, bs, nb, p,
+                          hd ** -0.5, stream))
+                mark = "*" if p == pps else ""
+                cells.append(f"{-(-nb // p)} splits{mark} {timer(fn):.4f} / "
+                             f"{device_ms(timer, fn, 'paged'):.4f}")
+            print(f"  {variant:20s} {container} " + "   ".join(cells), flush=True)
+
+
+def fused_section(libs, timer, gen) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    B, KV, G, hd, bs, D = 4, 2, 16, 128, 16, 4096
+    H = KV * G
+    widths = (H * hd, KV * hd, KV * hd)
+    ntot = sum(widths)
+    nb = -(-(max(MAIN) + 1) // bs)
+    pps, splits = attend_plan(nb)
+    plan = project_plan(B, D, widths)
+    mats = [pack_weight(torch.randn((D, n), generator=gen, device="cuda") * D ** -0.5, 4)
+            for n in widths]
+    x = torch.randn((B, D), generator=gen, device="cuda").to(torch.bfloat16)
+    w_args = [a for planes, scale in mats for a in (planes.data_ptr(), scale.data_ptr(), 4)]
+    proj = torch.empty((plan.chunks, B, ntot), device="cuda")
+    lib = libs["fd_full"]
+    build._declare("fused_decode", lib)
+    print(f"fused decode (A), the split-K projection, B={B}: events ms / device ms per call "
+          f"(plan: {plan.splits} splits, {plan.ctas} CTAs)")
+    cells = []
+    for s in (1, 2, 4, 8):
+        fn = (lambda s=s: lib.fused_project_launch(
+            x.data_ptr(), 1, *w_args, proj.data_ptr(), B, D, widths[0], widths[1], s, stream))
+        cells.append(f"{s} splits {timer(fn):.4f} / {device_ms(timer, fn, 'fused_project'):.4f}")
+    print("  " + "   ".join(cells), flush=True)
+
+    kc, vc, ks, vs, bt, qmax = quant_inputs(gen, B, KV, hd, bs, nb, 4)
+    ln = torch.tensor(MAIN, dtype=torch.int32, device="cuda")
+    cos, sin = rope_cos_sin(ln, hd, 1e4)
+    qm = torch.tensor(qmax, device="cuda")
+    fin = torch.randn((B, ntot), generator=gen, device="cuda")
+    outs = [torch.empty((B, KV, G, hd), device="cuda"),
+            torch.empty((B, KV, hd // 2), dtype=torch.uint8, device="cuda"),
+            torch.empty((B, KV, hd // 2), dtype=torch.uint8, device="cuda"),
+            torch.empty((B, KV), device="cuda"), torch.empty((B, KV), device="cuda")]
+    ws = torch.empty(B * KV * 16 * G * (hd + 2), device="cuda")
+    arrived = arrival_counters(torch.device("cuda", torch.cuda.current_device()), B * KV)
+    print(f"fused decode (B), the attend launch on finished projections, int4 pool, "
+          f"page splits + the new token (plan: {splits}): events ms / device ms per call")
+    for variant in PA_VARIANTS:
+        lib = libs[f"fd_{variant}"]
+        build._declare("fused_decode", lib)
+        cells = []
+        for p in (1, 2, nb):
+            fn = (lambda lib=lib, p=p: lib.fused_attend_launch(
+                fin.data_ptr(), 1, kc.data_ptr(), vc.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                bt.data_ptr(), ln.data_ptr(), cos.data_ptr(), sin.data_ptr(), qm.data_ptr(),
+                *(t.data_ptr() for t in outs), ws.data_ptr(), arrived.data_ptr(), 1, B, KV, G,
+                hd, bs, nb, p, hd ** -0.5, stream))
+            mark = "*" if p == pps else ""
+            cells.append(f"{-(-nb // p)} splits{mark} {timer(fn):.4f} / "
+                         f"{device_ms(timer, fn, 'fused_attend'):.4f}")
+        print(f"  {variant:20s} " + "   ".join(cells), flush=True)
+
+    print(f"fused decode, both launches (A) + (B), int4 pool: events ms / device ms per call "
+          f"(plan: {plan.splits} K splits, {splits} page splits)")
+
+    def whole(lib, p, s):
+        return lambda: lib.fused_decode_launch(
+            x.data_ptr(), 1, *w_args, proj.data_ptr(), s, kc.data_ptr(), vc.data_ptr(),
+            ks.data_ptr(), vs.data_ptr(), bt.data_ptr(), ln.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), qm.data_ptr(), *(t.data_ptr() for t in outs), ws.data_ptr(),
+            arrived.data_ptr(), 1, B, D, KV, G, hd, bs, nb, p, hd ** -0.5, stream)
+
+    lib = libs["fd_full"]
+    build._declare("fused_decode", lib)
+    for p in (1, 2):
+        cells = []
+        for s in (2, 4, 8):
+            fn = whole(lib, p, s)
+            mark = "*" if (p, s) == (pps, plan.splits) else ""
+            cells.append(f"{s} K splits{mark} {timer(fn):.4f} / "
+                         f"{device_ms(timer, fn, 'fused'):.4f}")
+        print(f"  {-(-nb // p)} page splits: " + "   ".join(cells), flush=True)
+
+    print("fused decode, both launches at the plan, (B) a programmatic dependent of (A) "
+          "(pdl) or not (nopdl): events ms per call, alternated")
+    build._declare("fused_decode", libs["fd_nopdl"])
+    for rep in range(3):
+        cells = [f"{tag} {timer(whole(libs[lib], pps, plan.splits)):.4f}"
+                 for tag, lib in (("pdl", "fd_full"), ("nopdl", "fd_nopdl"))]
+        print(f"  round {rep + 1}: " + "   ".join(cells), flush=True)
 
 
 if __name__ == "__main__":

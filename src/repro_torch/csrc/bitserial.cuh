@@ -20,9 +20,12 @@
 // tile and applied in the epilogue.  Column tiles of the matrices follow
 // each other along blockIdx.x, so the CTAs of all three are in flight at
 // once and each plane byte is read once per row tile.  Ragged N and K/8
-// are masked in the kernel.  Known limit: latency-bound (a 512-row K chunk
-// costs ~6 us with two barriers and dependent loads); N = 256 alone gives
-// 4 CTAs.
+// are masked in the kernel.  A cross-CTA split-K along blockIdx.z is the
+// caller's choice (splits > 1): split s walks K chunks [s * chunks /
+// splits, (s + 1) * chunks / splits) and writes its raw partial, which the
+// caller sums in split order and finishes (/ n * scale).  Known limit:
+// latency-bound (a 512-row K chunk costs ~6 us with two barriers and
+// dependent loads); N = 256 alone gives 4 CTAs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,7 +70,8 @@ inline void add(Mats& s, const void* planes, const void* scale, int N, int bits)
 // kernel's symbol, so a profile tells qmm from the fused projection.
 template <typename Tag, typename T, int MT, bool VEC4>
 __global__ void __launch_bounds__(THREADS)
-bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int M, int K) {
+bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int M, int K,
+                 int splits) {
     static_assert(MT * KC <= SMEM && TK * MT * COLS <= SMEM, "smem");
     __shared__ __align__(16) float smem[SMEM];
     __shared__ float rowsum[MT];
@@ -87,6 +91,11 @@ bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int 
     const int tile_col0 = ((int)blockIdx.x - mat.tile0) * COLS;
     const int col0 = tile_col0 + tx * 4;
     const int K8 = K / 8;
+    // this split's K rows: whole chunks of KC
+    const int split = blockIdx.z;
+    const int chunks = (K + KC - 1) / KC;
+    const int k_begin = split * chunks / splits * KC;
+    const int k_end = min(K, (split + 1) * chunks / splits * KC);
 
     if (tid < MT) rowsum[tid] = 0.f;
     float acc[MT][4];
@@ -95,7 +104,7 @@ bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int 
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[m][v] = 0.f;
 
-    for (int kc0 = 0; kc0 < K; kc0 += KC) {
+    for (int kc0 = k_begin; kc0 < k_end; kc0 += KC) {
         __syncthreads();
         for (int i = tid; i < MT * KC; i += THREADS) {
             const int m = i / KC, kk = i % KC;
@@ -103,7 +112,7 @@ bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int 
             xs[i] = (gm < M && gk < K) ? to_f32(x[(size_t)gm * K + gk]) : 0.f;
         }
         __syncthreads();
-        // offset term: rowsum over the whole K, once per row tile
+        // offset term: rowsum over the split's K, once per row tile
         if (warp < MT) {
             float s = 0.f;
             for (int kk = lane; kk < KC; kk += 32) s += xs[warp * KC + kk];
@@ -151,6 +160,10 @@ bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int 
             }
         }
     }
+    // the K loop is done: a grid launched as this one's programmatic
+    // dependent may start its preamble (it waits for this grid's results
+    // itself); without such a dependent this is a no-op
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     __syncthreads();
     float* red = smem;                           // [TK][MT][COLS]
 #pragma unroll
@@ -165,31 +178,36 @@ bitserial_kernel(const T* __restrict__ x, Mats mats, float* __restrict__ y, int 
         if (gm >= M || gn >= N) continue;
         float s = 0.f;
         for (int t = 0; t < TK; ++t) s += red[(t * MT + m) * COLS + c];
-        y[(size_t)gm * mats.ntot + mat.col_off + gn] = (s - nl * rowsum[m]) / nl * mat.scale[gn];
+        if (splits == 1)
+            y[(size_t)gm * mats.ntot + mat.col_off + gn] = (s - nl * rowsum[m]) / nl * mat.scale[gn];
+        else     // this split's raw partial
+            y[((size_t)split * M + gm) * mats.ntot + mat.col_off + gn] = s - nl * rowsum[m];
     }
 }
 
 template <typename Tag, typename T, int MT>
-void launch_mt(const T* x, const Mats& mats, float* y, int M, int K, bool vec4,
+void launch_mt(const T* x, const Mats& mats, float* y, int M, int K, int splits, bool vec4,
                cudaStream_t st) {
-    dim3 grid(mats.tiles, (M + MT - 1) / MT);
+    dim3 grid(mats.tiles, (M + MT - 1) / MT, splits);
     if (vec4)
-        bitserial_kernel<Tag, T, MT, true><<<grid, THREADS, 0, st>>>(x, mats, y, M, K);
+        bitserial_kernel<Tag, T, MT, true><<<grid, THREADS, 0, st>>>(x, mats, y, M, K, splits);
     else
-        bitserial_kernel<Tag, T, MT, false><<<grid, THREADS, 0, st>>>(x, mats, y, M, K);
+        bitserial_kernel<Tag, T, MT, false><<<grid, THREADS, 0, st>>>(x, mats, y, M, K, splits);
 }
 
-// y (M, mats.ntot) f32 = x (M, K) @ [dequant(m_0) | dequant(m_1) | ...]
+// splits == 1: y (M, mats.ntot) f32 = x (M, K) @ [dequant(m_0) | dequant(m_1)
+// | ...].  splits > 1 (at most ceil(K / KC)): y (splits, M, mats.ntot),
+// split s's raw partial sum_k x * u - n * rowsum(x) over its K chunks.
 template <typename Tag, typename T>
-void launch(const T* x, const Mats& mats, float* y, int M, int K, cudaStream_t st) {
+void launch(const T* x, const Mats& mats, float* y, int M, int K, int splits, cudaStream_t st) {
     bool vec4 = true;
     for (int i = 0; i < mats.count; ++i)
         vec4 = vec4 && mats.m[i].N % 4 == 0 &&
                reinterpret_cast<uintptr_t>(mats.m[i].planes) % 4 == 0;
-    if (M <= 1) launch_mt<Tag, T, 1>(x, mats, y, M, K, vec4, st);
-    else if (M <= 2) launch_mt<Tag, T, 2>(x, mats, y, M, K, vec4, st);
-    else if (M <= 4) launch_mt<Tag, T, 4>(x, mats, y, M, K, vec4, st);
-    else launch_mt<Tag, T, 8>(x, mats, y, M, K, vec4, st);
+    if (M <= 1) launch_mt<Tag, T, 1>(x, mats, y, M, K, splits, vec4, st);
+    else if (M <= 2) launch_mt<Tag, T, 2>(x, mats, y, M, K, splits, vec4, st);
+    else if (M <= 4) launch_mt<Tag, T, 4>(x, mats, y, M, K, splits, vec4, st);
+    else launch_mt<Tag, T, 8>(x, mats, y, M, K, splits, vec4, st);
 }
 
 }  // namespace bitserial

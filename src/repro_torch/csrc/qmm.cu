@@ -454,9 +454,9 @@ extern "C" int qmm_launch(const void* x, int x_dtype, const void* planes,
         bitserial::Mats mats{};
         bitserial::add(mats, p, s, N, bits);
         if (x_dtype == 1)
-            bitserial::launch<qmm_bitserial>(static_cast<const __nv_bfloat16*>(x), mats, out, M, K, st);
+            bitserial::launch<qmm_bitserial>(static_cast<const __nv_bfloat16*>(x), mats, out, M, K, 1, st);
         else
-            bitserial::launch<qmm_bitserial>(static_cast<const float*>(x), mats, out, M, K, st);
+            bitserial::launch<qmm_bitserial>(static_cast<const float*>(x), mats, out, M, K, 1, st);
         return (int)cudaGetLastError();
     }
     if (x_dtype == 0) {   // f32 activations: the f32 SIMT body

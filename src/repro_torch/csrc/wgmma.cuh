@@ -1,5 +1,6 @@
-// Hopper warpgroup MMA and asynchronous-copy helpers (sm_90a), shared by
-// the qmm dequant body.  One warpgroup (128 threads) issues
+// Hopper warpgroup MMA and asynchronous-copy helpers (sm_90a): the MMA for
+// the qmm dequant body, the copies also for the paged attention kernels.
+// One warpgroup (128 threads) issues
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, with A (64 x 16) in
 // registers and B (16 x N) in shared memory, K-major with the 128-byte
 // swizzle: row r of B's N dimension is 128 bytes (64 bf16 of K) at r * 128,
@@ -20,6 +21,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 }
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4-byte cp.async (through L1), zero-filling the destination when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -108,21 +108,27 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.paged_attention_launch.argtypes = [P] * 8 + [I] * 8 + [F, P]
         lib.paged_attention_launch.restype = I
     elif name == "paged_attention_quant":
-        # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out,
-        # dtype, packed4, B, KV, G, hd, bs, nb, scale, stream
-        lib.paged_attention_quant_launch.argtypes = [P] * 8 + [I] * 8 + [F, P]
+        # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out, ws,
+        # arrived, dtype, packed4, B, KV, G, hd, bs, nb, pages_per_split,
+        # scale, stream
+        lib.paged_attention_quant_launch.argtypes = [P] * 10 + [I] * 9 + [F, P]
         lib.paged_attention_quant_launch.restype = I
     elif name == "fused_decode":
         # proj, act_dtype, k_pool, v_pool, k_scale, v_scale, block_tables,
-        # lengths, cos, sin, qmax, out, kc, vc, ksc, vsc, packed4, B, KV, G,
-        # hd, bs, nb, scale, stream
-        lib.fused_attend_launch.argtypes = [P, I] + [P] * 14 + [I] * 7 + [F, P]
+        # lengths, cos, sin, qmax, out, kc, vc, ksc, vsc, ws, arrived,
+        # packed4, B, KV, G, hd, bs, nb, pages_per_split, scale, stream
+        lib.fused_attend_launch.argtypes = [P, I] + [P] * 16 + [I] * 8 + [F, P]
         lib.fused_attend_launch.restype = I
-        # x, act_dtype, (planes, scale, bits) x 3, proj, k_pool, v_pool,
-        # k_scale, v_scale, block_tables, lengths, cos, sin, qmax, out, kc,
-        # vc, ksc, vsc, packed4, B, D, KV, G, hd, bs, nb, scale, stream
-        lib.fused_decode_launch.argtypes = ([P, I] + [P, P, I] * 3 + [P] * 15
-                                            + [I] * 8 + [F, P])
+        # x, act_dtype, (planes, scale, bits) x 3, proj, B, D, Nq, Nkv,
+        # splits, stream
+        lib.fused_project_launch.argtypes = [P, I] + [P, P, I] * 3 + [P] + [I] * 5 + [P]
+        lib.fused_project_launch.restype = I
+        # x, act_dtype, (planes, scale, bits) x 3, proj, splits, k_pool,
+        # v_pool, k_scale, v_scale, block_tables, lengths, cos, sin, qmax,
+        # out, kc, vc, ksc, vsc, ws, arrived, packed4, B, D, KV, G, hd, bs,
+        # nb, pages_per_split, scale, stream
+        lib.fused_decode_launch.argtypes = ([P, I] + [P, P, I] * 3 + [P, I] + [P] * 16
+                                            + [I] * 9 + [F, P])
         lib.fused_decode_launch.restype = I
     elif name == "fake_quant":
         # w, out, bits, scale, numel, dtype, vectorized, stream

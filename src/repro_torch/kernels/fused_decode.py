@@ -7,22 +7,80 @@ bit-serial q/k/v projections off the packed planes, RoPE from the passed
 cos/sin rows, ``kv_quantize`` of the new K/V (codes and scales returned
 for the caller to scatter) and attention over the pre-write quantized
 pool with the new token folded in last.  One C entry point makes two
-launches (projection across column tiles, then one CTA per (row, KV
-head)); the source note says why.  ``fused_attend_cuda`` runs the second
-launch alone on projections the caller gives, so it can be held bitwise
-against the plain version.  These wrappers check device, types, shapes
-and contiguity, allocate outputs and scratch and launch on the current
-stream; they never fall back to the plain version.
+launches: (A) the projection across column tiles and K splits
+(:func:`project_plan`), (B) one CTA per (row, KV head, split) of the
+pre-write pages plus one for the new token (:func:`attend_plan`); the
+source note says why.  ``fused_project_cuda`` runs (A) alone and
+``fused_attend_cuda`` runs (B) alone on finished projections the caller
+gives, so it can be held bitwise against the plain version.  These
+wrappers check device, types, shapes and contiguity, allocate outputs and
+scratch and launch on the current stream; they never fall back to the
+plain version.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import MAX_GROUP
+from repro_torch.kernels.paged_attention import (MAX_GROUP, MAX_SPLITS, arrival_counters,
+                                                 split_workspace_numel)
 from repro_torch.kernels.paged_attention_quant import check_quant_pool
+from repro_torch.kernels.qmm import SMS
 
 _ACT = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 512        # K rows a bit-serial CTA stages at a time (bitserial.cuh KC)
+COLS = 64          # columns per bit-serial CTA (bitserial.cuh COLS)
+PROJECT_CTAS = 4 * SMS   # launch (A) aims at four CTAs per SM
+
+
+def attend_plan(nb: int) -> tuple[int, int]:
+    """``(pages_per_split, splits)`` of launch (B) for a block table ``nb``
+    pages wide: as ``paged_attention.split_plan``, but at most
+    ``MAX_SPLITS - 1`` page splits, so that with the new token's partial
+    the combine takes at most ``MAX_SPLITS``.  The table's width only."""
+    pps = max(1, math.ceil(nb / (MAX_SPLITS - 1)))
+    return pps, math.ceil(nb / pps)
+
+
+class ProjectPlan(NamedTuple):
+    """Grid of launch (A): ``col_tiles`` x ``row_tiles`` x ``splits`` CTAs
+    of the bit-serial body; split ``s`` walks K chunks ``[s * chunks //
+    splits, (s + 1) * chunks // splits)`` of ``CHUNK`` rows."""
+    col_tiles: int
+    row_tiles: int
+    chunks: int
+    splits: int
+
+    @property
+    def ctas(self) -> int:
+        return self.col_tiles * self.row_tiles * self.splits
+
+    def k_ranges(self, D: int) -> list[tuple[int, int]]:
+        """The K rows ``[lo, hi)`` of each split, in split order."""
+        return [(s * self.chunks // self.splits * CHUNK,
+                 min(D, (s + 1) * self.chunks // self.splits * CHUNK))
+                for s in range(self.splits)]
+
+    def workspace_numel(self, B: int, ntot: int) -> int:
+        """f32 elements of (A)'s output: the finished (B, ntot) projections
+        at one split, else each split's raw partial (splits, B, ntot)."""
+        return self.splits * B * ntot
+
+
+def project_plan(B: int, D: int, widths) -> ProjectPlan:
+    """Launch (A) for ``B`` rows of width ``D`` against matrices of
+    ``widths`` columns: the bit-serial body's row tile (1, 2, 4 or 8 rows,
+    as ``bitserial::launch``), 64-column tiles, and as many K splits as
+    bring the grid to ``PROJECT_CTAS`` (at most one per 512-row chunk)."""
+    row_tile = 1 if B <= 1 else 2 if B <= 2 else 4 if B <= 4 else 8
+    row_tiles = -(-B // row_tile)
+    col_tiles = sum(-(-n // COLS) for n in widths)
+    chunks = -(-D // CHUNK)
+    splits = min(chunks, max(1, -(-PROJECT_CTAS // (col_tiles * row_tiles))))
+    return ProjectPlan(col_tiles, row_tiles, chunks, splits)
 
 
 def _outputs(B, KV, G, hd, pool, dev):
@@ -60,12 +118,21 @@ def _attend_checks(B, num_heads, k_pool, v_pool, k_scale, v_scale, block_tables,
     return KV, packed4, nb
 
 
+def _attend_workspace(B, KV, G, hd, nb, dev):
+    """Launch (B)'s plan, partial workspace (S + 1 partials per row and
+    KV head) and arrival counters."""
+    pps, splits = attend_plan(nb)
+    ws = torch.empty(split_workspace_numel(B, KV, G, hd, splits + 1), dtype=torch.float32,
+                     device=dev)
+    return pps, ws, arrival_counters(dev, B * KV)
+
+
 def fused_attend_cuda(proj: torch.Tensor, act_dtype: torch.dtype, k_pool, v_pool,
                       k_scale, v_scale, block_tables, lengths, cos, sin,
                       qmax: torch.Tensor, num_heads: int):
-    """Phase (B) alone: ``proj`` (B, H*hd + 2*KV*hd) f32 projections ->
-    ``(out (B, KV, G, hd) f32, k_codes, v_codes (B, KV, hds), k_sc,
-    v_sc (B, KV) f32)``, as :func:`fused_qkv_paged_decode_cuda`."""
+    """Phase (B) alone: ``proj`` (B, H*hd + 2*KV*hd) f32 finished
+    projections -> ``(out (B, KV, G, hd) f32, k_codes, v_codes (B, KV,
+    hds), k_sc, v_sc (B, KV) f32)``, as :func:`fused_qkv_paged_decode_cuda`."""
     dev = proj.device
     if dev.type != "cuda" or proj.dtype != torch.float32 or not proj.is_contiguous():
         raise ValueError("proj must be a contiguous float32 CUDA tensor")
@@ -81,33 +148,24 @@ def fused_attend_cuda(proj: torch.Tensor, act_dtype: torch.dtype, k_pool, v_pool
     build.require_sm90(dev)
     G = num_heads // KV
     outs = _outputs(B, KV, G, hd, k_pool, dev)
+    pps, ws, arrived = _attend_workspace(B, KV, G, hd, nb, dev)
     err = build.library("fused_decode").fused_attend_launch(
         proj.data_ptr(), _ACT[act_dtype], k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
         lengths.data_ptr(), cos.data_ptr(), sin.data_ptr(), qmax.data_ptr(),
-        *(t.data_ptr() for t in outs), packed4, B, KV, G, hd, k_pool.shape[1], nb,
-        hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in outs), ws.data_ptr(), arrived.data_ptr(), packed4, B, KV,
+        G, hd, k_pool.shape[1], nb, pps, hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"fused_attend (B={B}, KV={KV}, G={G}, hd={hd})")
     return outs
 
 
-def fused_qkv_paged_decode_cuda(x: torch.Tensor, wq, wk, wv, k_pool, v_pool,
-                                k_scale, v_scale, block_tables, lengths, cos, sin,
-                                qmax: torch.Tensor, num_heads: int):
-    """``x`` (B, D) bf16 or f32; ``wq``/``wk``/``wv`` ``Packed`` with
-    planes (bits, D/8, N) uint8 and scale (1, N) f32; quantized pools and
-    scales as ``paged_attention_quant_cuda``; ``lengths`` (B,) int32
-    before the new token; ``cos``/``sin`` (B, hd/2) f32 RoPE rows at
-    ``lengths``; ``qmax`` one f32 element on the card.  Returns ``(out
-    (B, KV, G, hd) f32, k_codes, v_codes (B, KV, hds) in the pool's dtype,
-    k_sc, v_sc (B, KV) f32)``."""
+def _weight_checks(x: torch.Tensor, wq, wk, wv, H: int, KV: int):
+    """Validate x and the three packed matrices; return (B, D, hd)."""
     dev = x.device
     if dev.type != "cuda" or x.dtype not in _ACT or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous bf16/f32 CUDA tensor, got "
                          f"{x.dtype} on {x.device}")
     B, D = x.shape
-    H = num_heads
-    KV = k_pool.shape[2]
     hd = wq.scale.shape[-1] // H
     for name, w, n in (("wq", wq, H * hd), ("wk", wk, KV * hd), ("wv", wv, KV * hd)):
         if not 2 <= w.bits <= 8 or tuple(w.planes.shape) != (w.bits, D // 8, n):
@@ -121,20 +179,67 @@ def fused_qkv_paged_decode_cuda(x: torch.Tensor, wq, wk, wv, k_pool, v_pool,
             raise ValueError(f"{name} must be contiguous on {dev}")
     if D % 8:
         raise ValueError(f"d_model {D} must be a multiple of 8")
+    return B, D, hd
+
+
+def _weight_args(wq, wk, wv):
+    return [a for w in (wq, wk, wv) for a in (w.planes.data_ptr(), w.scale.data_ptr(), w.bits)]
+
+
+def fused_project_cuda(x: torch.Tensor, wq, wk, wv, num_heads: int, num_kv_heads: int,
+                       splits: int | None = None) -> torch.Tensor:
+    """Phase (A) alone: ``x`` (B, D) and the three packed matrices as
+    :func:`fused_qkv_paged_decode_cuda` -> (splits, B, H*hd + 2*KV*hd)
+    f32: the finished projections at one split, else each split's raw
+    partial (``kernels.ref.finish_projection`` finishes them).  ``splits``
+    defaults to :func:`project_plan`'s; another count is a test hook, for
+    the card tests' sweep over split counts."""
+    H, KV = num_heads, num_kv_heads
+    B, D, hd = _weight_checks(x, wq, wk, wv, H, KV)
+    build.require_sm90(x.device)
+    plan = project_plan(B, D, (H * hd, KV * hd, KV * hd))
+    splits = plan.splits if splits is None else splits
+    if not 1 <= splits <= plan.chunks:
+        raise ValueError(f"{splits} K splits of {plan.chunks} chunks")
+    proj = torch.empty((splits, B, (H + 2 * KV) * hd), dtype=torch.float32, device=x.device)
+    err = build.library("fused_decode").fused_project_launch(
+        x.data_ptr(), _ACT[x.dtype], *_weight_args(wq, wk, wv), proj.data_ptr(), B, D,
+        H * hd, KV * hd, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"fused_project (B={B}, D={D}, H={H}, KV={KV}, hd={hd}, "
+                     f"splits={splits})")
+    return proj
+
+
+def fused_qkv_paged_decode_cuda(x: torch.Tensor, wq, wk, wv, k_pool, v_pool,
+                                k_scale, v_scale, block_tables, lengths, cos, sin,
+                                qmax: torch.Tensor, num_heads: int):
+    """``x`` (B, D) bf16 or f32; ``wq``/``wk``/``wv`` ``Packed`` with
+    planes (bits, D/8, N) uint8 and scale (1, N) f32; quantized pools and
+    scales as ``paged_attention_quant_cuda``; ``lengths`` (B,) int32
+    before the new token; ``cos``/``sin`` (B, hd/2) f32 RoPE rows at
+    ``lengths``; ``qmax`` one f32 element on the card.  Returns ``(out
+    (B, KV, G, hd) f32, k_codes, v_codes (B, KV, hds) in the pool's dtype,
+    k_sc, v_sc (B, KV) f32)``."""
+    dev = x.device
+    H = num_heads
+    KV = k_pool.shape[2]
+    B, D, hd = _weight_checks(x, wq, wk, wv, H, KV)
     KV, packed4, nb = _attend_checks(B, H, k_pool, v_pool, k_scale, v_scale,
                                      block_tables, lengths, cos, sin, qmax, hd, dev)
     build.require_sm90(dev)
     G = H // KV
-    proj = torch.empty((B, (H + 2 * KV) * hd), dtype=torch.float32, device=dev)
+    ntot = (H + 2 * KV) * hd
+    plan = project_plan(B, D, (H * hd, KV * hd, KV * hd))
+    proj = torch.empty(plan.workspace_numel(B, ntot), dtype=torch.float32, device=dev)
     outs = _outputs(B, KV, G, hd, k_pool, dev)
+    pps, ws, arrived = _attend_workspace(B, KV, G, hd, nb, dev)
     err = build.library("fused_decode").fused_decode_launch(
-        x.data_ptr(), _ACT[x.dtype], wq.planes.data_ptr(), wq.scale.data_ptr(), wq.bits,
-        wk.planes.data_ptr(), wk.scale.data_ptr(), wk.bits,
-        wv.planes.data_ptr(), wv.scale.data_ptr(), wv.bits, proj.data_ptr(),
+        x.data_ptr(), _ACT[x.dtype], *_weight_args(wq, wk, wv), proj.data_ptr(), plan.splits,
         k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        qmax.data_ptr(), *(t.data_ptr() for t in outs), packed4, B, D, KV, G, hd,
-        k_pool.shape[1], nb, hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        qmax.data_ptr(), *(t.data_ptr() for t in outs), ws.data_ptr(), arrived.data_ptr(),
+        packed4, B, D, KV, G, hd, k_pool.shape[1], nb, pps, hd ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"fused_qkv_paged_decode (B={B}, D={D}, H={H}, KV={KV}, "
                      f"hd={hd}, bits={wq.bits}/{wk.bits}/{wv.bits})")
     return outs

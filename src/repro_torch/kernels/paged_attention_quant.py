@@ -8,15 +8,18 @@ int4) with per-(token, KV head) f32 scales, dequantized in registers as
 ``codes * scale``; f32 online softmax; out ``(B, KV, G, hd)`` f32, zeros
 for a row of length 0.  The source note says what bounds it and how its
 design answers that.  This wrapper checks device, types, shapes and
-contiguity, allocates the output and launches on the current stream; it
-never falls back to the plain version.
+contiguity, takes the split-KV plan of the fp kernel
+(``paged_attention.split_plan``), allocates the output and the split
+workspace and launches on the current stream; it never falls back to the
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import HEAD_DIMS, MAX_GROUP
+from repro_torch.kernels.paged_attention import (HEAD_DIMS, MAX_GROUP, arrival_counters,
+                                                 split_plan, split_workspace_numel)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CONTAINERS = {torch.int8: 0, torch.uint8: 1}   # int8 codes / packed int4
@@ -71,11 +74,16 @@ def paged_attention_quant_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_attention_quant_cuda needs contiguous inputs")
     build.require_sm90(dev)
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
+    pps, splits = split_plan(nb)
+    n_ws = split_workspace_numel(B, KV, G, hd, splits)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev) if n_ws else None
+    arrived = arrival_counters(dev, B * KV) if n_ws else None
     err = build.library("paged_attention_quant").paged_attention_quant_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], packed4, B, KV, G, hd, bs, nb,
-        hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if arrived is None else arrived.data_ptr(), _DTYPES[q.dtype], packed4, B, KV,
+        G, hd, bs, nb, pps, hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"paged_attention_quant (B={B}, KV={KV}, G={G}, hd={hd}, "
                      f"bs={bs}, {'int4' if packed4 else 'int8'})")
     return out

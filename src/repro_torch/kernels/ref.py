@@ -88,6 +88,22 @@ def quant_paged_attention_ref(
                             gather_dequant(v_pool, v_scale, bt), lengths)
 
 
+def finish_projection(proj: torch.Tensor, wq, wk, wv) -> torch.Tensor:
+    """Plain twin of the fused decode's attend prologue: the projection
+    launch's output ``proj`` (splits, B, ntot) -> the finished (B, ntot)
+    projections: the raw partials summed in split order, then ``/ n *
+    scale`` of each column's matrix.  One split is already finished."""
+    if proj.shape[0] == 1:
+        return proj[0]
+    s = proj[0]
+    for p in proj[1:]:
+        s = s + p
+    n = torch.cat([torch.full((w.scale.numel(),), float(2 ** (w.bits - 1) - 1),
+                              device=proj.device) for w in (wq, wk, wv)])
+    scale = torch.cat([w.scale.reshape(-1) for w in (wq, wk, wv)])
+    return s / n * scale
+
+
 def fused_decode_attend_ref(
     proj: torch.Tensor,          # (B, H*hd + 2*KV*hd) f32: q | k | v projections
     k_pool, v_pool,              # quantized blocks (pre-write)

@@ -332,3 +332,163 @@ def test_paged_attention_launches_more_ctas_than_rows_times_heads(sm90):
     assert splits > 1
     case = _paged_case(sm90, 4, 2, 16, 128, 16, nb, [41, 58, 73, 96], torch.bfloat16, seed=9)
     _check_paged(*case)
+
+
+# ---- split-KV quantized paged attention (int8 codes, packed int4)
+def _quant_case(dev, B, KV, G, hd, bs, nb, lengths, kv_bits, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    NB, bt, ln = _tables(B, nb, lengths, dev)
+    kc, vc, ks, vs, _ = _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+    return q, kc, vc, ks, vs, bt, ln
+
+
+def _check_paged_quant(q, kc, vc, ks, vs, bt, ln):
+    from repro_torch.kernels.paged_attention_quant import paged_attention_quant_cuda
+
+    B, KV, G, hd = q.shape
+    got = paged_attention_quant_cuda(q, kc, vc, ks, vs, bt, ln)
+    again = paged_attention_quant_cuda(q, kc, vc, ks, vs, bt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # split order fixed: bitwise repeatable
+    got = got.reshape(B, 1, KV * G, hd)
+    plain = tref.quant_paged_attention_ref(q.reshape(B, 1, KV * G, hd).float(), kc, vc, ks, vs,
+                                           bt, ln)
+    live = ln > 0
+    if live.any():
+        err = (got[live] - plain[live]).abs().max().item()
+        assert err <= 1e-4 * plain[live].abs().max().item()
+    assert not got[~live].any()          # a dead row is exact zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("lengths,nb", [
+    ([16, 32, 48, 96], 6),        # every row ends on a page (= split) boundary
+    ([0, 1, 33, 96], 6),          # a dead row; a token past a 32-token tile
+    ([5, 0, 17, 40], 64),         # table far wider than any row: many empty splits
+    ([512, 511, 257, 1], 40),     # 3 pages per split: ends on and off split edges
+], ids=["page-ends", "dead-row", "wide-table", "multi-page-splits"])
+def test_paged_attention_quant_split_kv_matches_plain(sm90, lengths, nb, kv_bits):
+    case = _quant_case(sm90, 4, 2, 16, 128, 16, nb, lengths, kv_bits, seed=sum(lengths) + nb)
+    _check_paged_quant(*case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("G", [1, 16, 128])
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_paged_attention_quant_head_dims_and_groups(sm90, hd, G, kv_bits):
+    # a table of 20 pages: wider than 16, so splits hold 2 pages
+    case = _quant_case(sm90, 3, 2, G, hd, 16, 20, [0, 70, 300], kv_bits, seed=hd + G + kv_bits)
+    _check_paged_quant(*case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_paged_attention_quant_launches_more_ctas_than_rows_times_heads(sm90, kv_bits):
+    from repro_torch.kernels.paged_attention import split_plan
+
+    nb = -(-96 // 16)                    # the served cells' main lengths, block 16
+    _, splits = split_plan(nb)
+    assert splits > 1
+    case = _quant_case(sm90, 4, 2, 16, 128, 16, nb, [41, 58, 73, 96], kv_bits, seed=9)
+    _check_paged_quant(*case)
+
+
+# ---- the fused decode's split-K projection and split-KV attend launch
+def _fused_case(dev, kv_bits, lengths, nb, bits=(4, 4, 4), B=4, seed=5):
+    from repro_torch.models.common import rope_cos_sin
+    from repro_torch.quant.pack import Packed
+
+    KV, G, hd, bs, D = 2, 16, 128, 16, 4096
+    H = KV * G
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    NB, bt, ln = _tables(B, nb, lengths, dev)
+    kc, vc, ks, vs, qmax = _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev)
+    ws = []
+    for n, b in zip((H * hd, KV * hd, KV * hd), bits):
+        planes, scale = pack_weight(torch.randn((D, n), generator=gen, device=dev) * D ** -0.5, b)
+        ws.append(Packed(planes, scale, b))
+    x = torch.randn((B, D), generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(ln, hd, 1e4)
+    return x, ws, (kc, vc, ks, vs, bt, ln, cos, sin, torch.tensor(qmax, device=dev)), H, KV
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_fused_decode_is_bitwise_repeatable(sm90, kv_bits):
+    from repro_torch.kernels.fused_decode import fused_qkv_paged_decode_cuda
+
+    x, ws, args, H, _ = _fused_case(sm90, kv_bits, [41, 58, 73, 96], 7)
+    first = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+    second = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):      # out, codes and scales
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 3, 8, None], ids=["s1", "s2", "s3", "s8", "plan"])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_fused_projection_split_k_matches_plain(sm90, B, splits):
+    from repro_torch.kernels.fused_decode import fused_project_cuda
+
+    x, ws, _, H, KV = _fused_case(sm90, 4, [0] * B, 1, bits=(4, 3, 8), B=B)
+    partials = fused_project_cuda(x, *ws, H, KV, splits)
+    again = fused_project_cuda(x, *ws, H, KV, splits)
+    torch.cuda.synchronize()
+    assert torch.equal(partials, again)
+    got = tref.finish_projection(partials, *ws)
+    plain = torch.cat([tref.qmm_ref(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("B,lengths,nb,bits", [
+    (4, [41, 58, 73, 96], 7, (4, 4, 4)),                  # the main lengths
+    (8, [0, 3, 16, 17, 40, 63, 90, 111], 8, (4, 3, 8)),   # three bit widths: three n's
+    (1, [17], 2, (2, 5, 4)),
+], ids=["main", "mixed-bits", "one-row"])
+def test_fused_decode_matches_its_launches_alone(sm90, kv_bits, B, lengths, nb, bits):
+    """The whole op finishes (A)'s split partials in (B)'s prologue; run
+    alone, (A)'s partials finished by the plain twin and fed to (B) as
+    finished projections must give the same out, codes and scales."""
+    from repro_torch.kernels.fused_decode import (fused_attend_cuda, fused_project_cuda,
+                                                  fused_qkv_paged_decode_cuda, project_plan)
+
+    x, ws, args, H, KV = _fused_case(sm90, kv_bits, lengths, nb, bits=bits, B=B, seed=B)
+    assert project_plan(B, x.shape[1], [w.scale.numel() for w in ws]).splits > 1
+    whole = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+    proj = tref.finish_projection(fused_project_cuda(x, *ws, H, KV), *ws)
+    staged = fused_attend_cuda(proj, torch.bfloat16, *args, H)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, staged):      # out, codes and scales
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("lengths,nb", [
+    ([0, 16, 47, 95], 6),         # a new row; ends on a page edge; the new token fills a page
+    ([0, 5, 17, 40], 64),         # a table far wider than any row: 2 pages per split
+    ([479, 300, 257, 1], 40),     # 3 pages per split
+], ids=["page-ends", "wide-table", "multi-page-splits"])
+def test_fused_attend_split_kv_matches_plain(sm90, lengths, nb, kv_bits):
+    from repro_torch.kernels.fused_decode import fused_attend_cuda
+
+    x, ws, args, H, KV = _fused_case(sm90, kv_bits, lengths, nb, seed=nb)
+    proj = torch.cat([tref.qmm_ref(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    got = fused_attend_cuda(proj, torch.bfloat16, *args, H)
+    again = fused_attend_cuda(proj, torch.bfloat16, *args, H)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    plain = tref.fused_decode_attend_ref(proj, *args, H, KV, torch.bfloat16)
+    for g, p in zip(got[1:], plain[1:]):     # codes and scales: bitwise
+        assert torch.equal(g, p)
+    B, hd = x.shape[0], proj.shape[1] // (H + 2 * KV)
+    # the plain version rounds its output to bf16: 1e-2 * max|plain|
+    og, op = got[0].reshape(B, 1, H, hd), plain[0].float()
+    assert (og - op).abs().max().item() <= 1e-2 * op.abs().max().item()
