@@ -11,13 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``cuobjdump`` exists, the qmm library's count of ``HGMMA``
    (tensor-core) instructions: its dequant body must have some.
 2. Kernels against their plain versions at the main paths' shapes, after
-   ``torch.cuda.synchronize()``: qmm bit-serial at M in {1, 4, 16} and
+   ``torch.cuda.synchronize()``: qmm bit-serial at M in {1, 4, 16, 32} and
    dequant at M in {64, 256} for every glm4-9b (K, N, bits), plus bits
    {2, 3, 8} at (4096, 4096); fp and quantized (int8, packed int4) paged
    attention at B=4, KV=2, G=16, hd=128, bs=16 with lengths {1, 16, 17,
    300} and {41, 58, 73, 96} and shuffled blocks.  Pass when
    max|kernel - plain| <= 1e-4 * max|plain| (both are f32 sums taken in
-   different orders); qmm dequant and fp paged attention must also give
+   different orders); both qmm bodies and fp paged attention must also give
    bitwise-equal outputs on two calls (split-K and split-KV sum their
    partials in a fixed order), and the fp attention's split plan must
    launch more than B * KV CTAs at the main lengths; the quantized
@@ -72,7 +72,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    emitted; a small model with head dim 128 gives the same logits on the
    card (kernels) as on the CPU (plain versions) within 2e-2 * max|cpu|
    (bf16 activations round differently on each side), with fp, int4 and
-   int8 KV blocks; and one ResNet-20 QAT step at a mixed policy from
+   int8 KV blocks; the same model served by ``ServeEngine`` on the card
+   and on the CPU (6 requests on 4 rows, prompts of 9-40 tokens, 36
+   greedy tokens each, block 16) gives the same greedy streams with fp,
+   int4 and int8 KV blocks, or diverges only where the CPU's top-2 logit
+   margin is within 2e-2 * max|logit| (the first divergence and its margin
+   are printed); and one ResNet-20 QAT step at a mixed policy from
    path e's params gives the same params on the card as on the CPU within
    1e-4 * max|param| (f32 convolutions, TF32 off, summed in other orders)
    and the same validation accuracy.
@@ -205,7 +210,7 @@ def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
 
 
 def check_qmm(torch, timer, peaks, rows):
-    from repro_torch.kernels.qmm import dequant_plan, qmm_cuda
+    from repro_torch.kernels.qmm import bitserial_plan, dequant_plan, qmm_cuda
     from repro_torch.kernels.ref import dequant_ref, qmm_ref
     from repro_torch.quant.pack import pack_weight
 
@@ -216,14 +221,14 @@ def check_qmm(torch, timer, peaks, rows):
         planes, scale = pack_weight(w, bits)
         dense = dequant_ref(planes, scale, bits).to(torch.bfloat16)  # yardstick
         del w
-        for path, Ms in (("bitserial", (1, 4, 16)), ("dequant", (64, 256))):
+        for path, Ms in (("bitserial", (1, 4, 16, 32)), ("dequant", (64, 256))):
             for M in Ms:
                 x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
                 got = qmm_cuda(x, planes, scale, bits, path)
                 again = qmm_cuda(x, planes, scale, bits, path)
                 torch.cuda.synchronize()
-                if path == "dequant" and not torch.equal(got, again):
-                    fail(f"qmm_dequant {name} M={M}: two calls differ")
+                if not torch.equal(got, again):
+                    fail(f"qmm_{path} {name} M={M}: two calls differ")
                 plain = qmm_ref(x, planes, scale, bits)
                 err = (got - plain).abs().max().item()
                 ref_max = plain.abs().max().item()
@@ -233,10 +238,10 @@ def check_qmm(torch, timer, peaks, rows):
                 worst = max(worst, err)
                 nbytes = M * K * 2 + planes.numel() + N * 4 + M * N * 4
                 b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peaks)
-                plan = dequant_plan(M, K, N, bits) if path == "dequant" else None
+                plan = (dequant_plan if path == "dequant" else bitserial_plan)(M, K, N, bits)
                 row = {"kernel": f"qmm_{path}", "shape": name, "M": M, "K": K,
                        "N": N, "bits": bits, "max_abs_err": err,
-                       "plan": plan._asdict() if plan else None,
+                       "plan": plan._asdict(),
                        "rel_err": err / ref_max,
                        "ms": timer(lambda: qmm_cuda(x, planes, scale, bits, path)),
                        "plain_ms": timer(lambda: qmm_ref(x, planes, scale, bits), iters=5),
@@ -248,7 +253,9 @@ def check_qmm(torch, timer, peaks, rows):
                       f"kernel={row['ms']:.4f} plain={row['plain_ms']:.4f} "
                       f"matmul={row['library_ms']:.4f} bound={b_ms:.4f} ms"
                       + (f" [{plan.ctas} CTAs of {plan.kgroups} warpgroups, "
-                         f"{plan.splits} K splits, bitwise on 2 calls]" if plan else ""))
+                         f"{plan.splits} K splits, bitwise on 2 calls]" if path == "dequant"
+                         else f" [{plan.ctas} CTAs of {plan.warps} warps, {plan.splits} K "
+                              f"splits, bitwise on 2 calls]"))
                 del got, again, plain
         del planes, scale, dense
         torch.cuda.empty_cache()
@@ -893,8 +900,8 @@ def serve_path(torch, label, flags, need, built=None):
 
 def check_outputs(torch, cfg, model, sparams, engine, work):
     """Full width: request 0 re-prefilled gives finite logits whose argmax
-    is the emitted first token.  Small width: card vs CPU logits, with fp,
-    int4 and int8 KV blocks."""
+    is the emitted first token.  Small width: card vs CPU logits and served
+    greedy streams, with fp, int4 and int8 KV blocks."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -920,8 +927,76 @@ def check_outputs(torch, cfg, model, sparams, engine, work):
                                 head_dim=128, d_ff=688, vocab_size=1000)
     sm = build_model(small)
     params = sm.init(seed=5, device="cpu")
+    streams = {}
     for kv_bits in (None, 4, 8):
         small_model_card_vs_cpu(torch, sm, params, kv_bits)
+        streams[f"kv_bits={kv_bits}"] = served_streams_card_vs_cpu(torch, sm, params, kv_bits)
+    return streams
+
+
+STREAM_GEN = 36          # greedy tokens per request: past two 16-token block edges
+
+
+def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
+    """The small model served by the port's ServeEngine on the card
+    (kernels) and on the CPU (plain versions): 6 requests on 4 rows,
+    greedy.  Equal streams, or a first divergence where the CPU's top-2
+    logit margin is within the bf16 logit bound (2e-2 * max|logit|)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.serve import quantize_for_serving
+
+    rng = np.random.default_rng(9)
+    work = [(rng.integers(0, sm.cfg.vocab_size, int(n)), STREAM_GEN)
+            for n in (9, 40, 17, 31, 24, 16)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sp = quantize_for_serving(sm, params, policy_for(sm, 4), device=dev)
+        eng = ServeEngine(sm, sp, num_slots=4, max_len=40 + STREAM_GEN + 1, block_size=16,
+                          prefill_chunk=16, device=dev, kv_bits=kv_bits)
+        margins = {}
+        for prompt, n in work:
+            req = eng.requests[eng.submit(prompt, n)]
+            margins[req.request_id] = store = []
+
+            def select(row, _orig=req.select_token, _store=store):
+                top = np.sort(np.asarray(row, np.float64))[-2:]
+                _store.append((float(top[1] - top[0]), float(np.abs(row).max())))
+                return _orig(row)
+
+            req.select_token = select
+        ops.reset_counts()
+        eng.run_until_drained()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if ops.counts["plain"] != 0 or ops.counts["qmm_bitserial"] <= 0:
+                fail(f"served streams (kv_bits={kv_bits}): card launch counts {ops.counts}")
+        runs[dev] = ([eng.output(r) for r in range(len(work))], margins)
+    kv = f"kv_bits={kv_bits}" if kv_bits else "fp KV"
+    out = {"requests": len(work), "tokens_per_request": STREAM_GEN, "diverged": []}
+    for rid in range(len(work)):
+        got, want = runs["cuda"][0][rid], runs["cpu"][0][rid]
+        if len(got) != STREAM_GEN or len(want) != STREAM_GEN:
+            fail(f"served streams ({kv}): request {rid} emitted {len(got)} / {len(want)} tokens")
+        if got == want:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin, top = runs["cpu"][1][rid][i]
+        print(f"  served streams ({kv}): request {rid} first diverges at token {i} "
+              f"(card {got[i]}, cpu {want[i]}); CPU top-2 margin {margin:.4g}, "
+              f"bound 2e-2 * {top:.4g} = {2e-2 * top:.4g}")
+        out["diverged"].append({"request": rid, "token": i, "margin": margin,
+                                "bound": 2e-2 * top})
+        if margin > 2e-2 * top:
+            fail(f"served streams ({kv}): request {rid} diverged at token {i} where the "
+                 f"CPU's top-2 margin {margin:.4g} exceeds 2e-2 * max|logit| = {2e-2 * top:.4g}")
+    print(f"served streams ({kv}): {len(work)} requests x {STREAM_GEN} greedy tokens, card vs "
+          f"CPU: {len(work) - len(out['diverged'])} equal, {len(out['diverged'])} diverged "
+          f"within the bound")
+    return out
 
 
 def small_model_card_vs_cpu(torch, sm, params, kv_bits):
@@ -1071,7 +1146,8 @@ def main() -> None:
     phase("phase 3a: glm4-9b serving end to end, --bits 4, fp KV blocks")
     fp = serve_path(torch, "fp KV", ["--bits", "4"],
                     ("qmm_bitserial", "qmm_dequant", "paged_attention"))
-    check_outputs(torch, fp["cfg"], fp["model"], fp["sparams"], fp["engine"], fp["work"])
+    streams = check_outputs(torch, fp["cfg"], fp["model"], fp["sparams"], fp["engine"],
+                            fp["work"])
     phase("phase 5a: decode step breakdown, fp KV blocks")
     breakdown = {"fp KV": profile_decode(torch, fp["engine"], fp["work"])}
 
@@ -1171,7 +1247,7 @@ def main() -> None:
                          "project_* and attend_* keys time launch (A) and launch (B) "
                          "alone against matmul and SDPA; "
                          "fake_quant: one ResNet-20 QAT forward (20 calls, f32)",
-        "serve": serve, "decode_breakdown": breakdown,
+        "serve": serve, "decode_breakdown": breakdown, "served_streams": streams,
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
                   "qat_step_breakdown": qat_breakdown},
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))

@@ -1,10 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of the redesigned kernels goes, on the card.
 
-    python3 scripts/kernel_ablation.py [qmm] [pa] [paq] [fused]
+    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused]
 
-(the sections named, all four by default)
+(the sections named, all five by default)
 
+0. qmm bit-serial (``bitserial``; bf16 x, M = 4, glm4-9b's decode shapes:
+   wq, wk, wg and wd at 4 bits, the lm_head at 8): the kernel as built, and
+   copies of ``csrc/bitserial.cuh`` with parts taken out -- the loads of
+   later K steps (``noload``: only the first three steps are staged), the
+   code build (``nocode``: constant A fragments, so no plane fragment
+   loads and no bit gather either), the mma (``nomma``) and the split
+   cluster combine (``nocombine``) -- as "loads only" (nocode + nomma),
+   "code build only" (noload + nomma), "products only" (noload + nocode)
+   and "no combine"; copies with a deeper ring (6 or 8 slots), 256-K
+   steps, or the plane loads without their L2 prefetch hint (whole and
+   loads only); then the kernel over other launch plans: warps per CTA
+   (column tiles of 16 * warps) x K splits (``qmm_launch`` takes them as
+   data).
 1. qmm dequant (bf16 x, M = 64, 4-bit, glm4-9b's wq and wg shapes): the
    kernel as built, and copies of ``csrc/qmm.cu`` with parts of its K loop
    taken out -- the loads of later K steps (``noload``), the decode of the
@@ -36,6 +49,7 @@ card's name and power limit are printed first.  Needs an sm_90 card.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -49,11 +63,34 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.fused_decode import attend_plan, project_plan  # noqa: E402
 from repro_torch.kernels.paged_attention import arrival_counters, split_plan  # noqa: E402
-from repro_torch.kernels.qmm import dequant_plan, dequant_smem  # noqa: E402
+from repro_torch.kernels.qmm import bitserial_plan, dequant_plan, dequant_smem  # noqa: E402
 from repro_torch.models.common import rope_cos_sin  # noqa: E402
 from repro_torch.quant.pack import kv_pack_int4, kv_quantize, pack_weight  # noqa: E402
 
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablation"
+
+BS_CUTS = {
+    "NOLOAD": ("        if (nx < n)\n            load_step<NT, BITS>(",
+               "        if (false)\n            load_step<NT, BITS>("),
+    "NOCODE": ("            codes_to_a<BITS>(af, c, s);",
+               "            af[0] = af[1] = af[2] = af[3] = 0x3F803F80u + s + h;"),
+    "NOMMA": ("            for (int j = 0; j < NT; ++j) mma_bf16(acc[j], af, x_pair(xb[j][0], s), "
+              "x_pair(xb[j][1], s));",
+              "            for (int j = 0; j < NT; ++j)\n                acc[j][0] += __uint_as_float("
+              "af[0] ^ af[1] ^ af[2] ^ af[3] ^ x_pair(xb[j][0], s) ^ x_pair(xb[j][1], s));"),
+    "NOCOMBINE": ("    if (a.cluster) {\n        // qmm: split 0", "    if (false) {\n        // qmm: split 0"),
+    "STAGES6": ("constexpr int STAGES = 4;", "constexpr int STAGES = 6;"),
+    "STAGES8": ("constexpr int STAGES = 4;", "constexpr int STAGES = 8;"),
+    "STEP256": ("constexpr int STEP = 128; ", "constexpr int STEP = 256; "),
+    "NOL2PF": ("cp.async.cg.shared.global.L2::256B [%0]", "cp.async.cg.shared.global [%0]"),
+}
+BS_VARIANTS = {"full": (), "loads only": ("NOCODE", "NOMMA"),
+               "code build only": ("NOLOAD", "NOMMA"), "products only": ("NOLOAD", "NOCODE"),
+               "no combine": ("NOCOMBINE",), "6 stages": ("STAGES6",), "8 stages": ("STAGES8",),
+               "256-K steps": ("STEP256",), "no L2 prefetch hint": ("NOL2PF",),
+               "loads only, no L2 hint": ("NOCODE", "NOMMA", "NOL2PF")}
+BS_SHAPES = [("wq", 4096, 4096, 4), ("wk", 4096, 256, 4), ("wg", 4096, 13696, 4),
+             ("wd", 13696, 4096, 4), ("lm_head", 4096, 151552, 8)]
 
 QMM_CUTS = {
     "NOLOAD": ("    if (nx < n) tc_load<NT, BITS>(ring + (nx % TC_STAGES) * S::SLOT, g, c0 + nx * kg, r128);",
@@ -93,6 +130,11 @@ ATTEND_CUTS = {
     "NOCOMPUTE": SWEEP_NOCOMPUTE,
     "NOPDL": ("    cfg.numAttrs = pdl ? 1 : 0;", "    cfg.numAttrs = 0;"),
 }
+
+
+def bs_tag(variant: str) -> str:
+    """A file-name-safe tag of a bit-serial variant."""
+    return "bs_" + re.sub(r"[^A-Za-z0-9]+", "_", variant)
 
 
 def patched(source: str, cuts: dict, names, tag: str) -> Path:
@@ -139,12 +181,15 @@ def device_ms(timer, fn, key: str) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: needs a CUDA card")
-    sections = set(sys.argv[1:]) or {"qmm", "pa", "paq", "fused"}
+    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
+    if "bitserial" in sections:
+        jobs.update({bs_tag(v): patched("qmm.cu", BS_CUTS, cuts, bs_tag(v))
+                     for v, cuts in BS_VARIANTS.items()})
     if "qmm" in sections:
         jobs.update({f"qmm_{v}": patched("qmm.cu", QMM_CUTS, cuts, f"qmm_{v.replace(' ', '_')}")
                      for v, cuts in QMM_VARIANTS.items()})
@@ -164,6 +209,8 @@ def main() -> None:
     libs = build_all(jobs)
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "bitserial" in sections:
+        bitserial_section(libs, timer, gen)
     if "qmm" in sections:
         qmm_section(libs, timer, gen)
     if "pa" in sections:
@@ -174,8 +221,55 @@ def main() -> None:
         fused_section(libs, timer, gen)
 
 
+def bitserial_section(libs, timer, gen) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    M = 4
+    print(f"qmm bit-serial, M={M}: events ms / device ms per call")
+    shapes = {}
+    for name, K, N, bits in BS_SHAPES:
+        planes, scale = pack_weight(torch.randn((K, N), generator=gen, device="cuda")
+                                    * K ** -0.5, bits)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        shapes[name] = (x, planes, scale, K, N, bits)
+
+    def call(lib, x, planes, scale, K, N, bits, warps, splits):
+        y = torch.empty((M, N), device="cuda")
+        return lambda: lib.qmm_launch(x.data_ptr(), 1, planes.data_ptr(), scale.data_ptr(),
+                                      y.data_ptr(), None, M, K, N, bits, 0, 0, warps, splits,
+                                      stream)
+
+    for variant in BS_VARIANTS:
+        lib = libs[bs_tag(variant)]
+        build._declare("qmm", lib)
+        cells = []
+        for name, (x, planes, scale, K, N, bits) in shapes.items():
+            plan = bitserial_plan(M, K, N, bits)
+            fn = call(lib, x, planes, scale, K, N, bits, plan.warps, plan.splits)
+            cells.append(f"{name} {timer(fn):.4f} / {device_ms(timer, fn, 'qmm'):.4f}")
+        print(f"  {variant:21s} " + "   ".join(cells), flush=True)
+
+    print(f"qmm bit-serial, M={M}, launch plans (warps w, K splits s; * the plan's): events ms")
+    lib = libs[bs_tag("full")]
+    for name, (x, planes, scale, K, N, bits) in shapes.items():
+        plan = bitserial_plan(M, K, N, bits)
+        cells = []
+        for warps in (1, 2, 4, 8):
+            tiles = -(-N // (16 * warps))
+            if tiles > 4 * 132 and warps < plan.warps:
+                continue
+            seen = set()
+            for target in (132, 264, 396, 528, 792):
+                splits = max(1, min(plan.steps // 2, -(-target // tiles), 16))
+                if splits in seen:
+                    continue
+                seen.add(splits)
+                fn = call(lib, x, planes, scale, K, N, bits, warps, splits)
+                mark = "*" if (warps, splits) == (plan.warps, plan.splits) else ""
+                cells.append(f"w{warps}/s{splits}{mark} {timer(fn):.4f}")
+        print(f"  {name}: " + "  ".join(cells), flush=True)
+
+
 def qmm_section(libs, timer, gen) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
 
     print("qmm dequant, M=64, 4-bit: events ms / device ms per call")
@@ -194,7 +288,7 @@ def qmm_section(libs, timer, gen) -> None:
 
     for variant in QMM_VARIANTS:
         lib = libs[f"qmm_{variant}"]
-        lib.qmm_launch.argtypes = [P, I, P, P, P, P] + [I] * 8 + [P]
+        build._declare("qmm", lib)
         cells = []
         for name, (x, planes, scale, K, N) in shapes.items():
             plan = dequant_plan(64, K, N)
@@ -315,7 +409,7 @@ def fused_section(libs, timer, gen) -> None:
     print(f"fused decode (A), the split-K projection, B={B}: events ms / device ms per call "
           f"(plan: {plan.splits} splits, {plan.ctas} CTAs)")
     cells = []
-    for s in (1, 2, 4, 8):
+    for s in (1, 2, 4, plan.splits, 8, 16):
         fn = (lambda s=s: lib.fused_project_launch(
             x.data_ptr(), 1, *w_args, proj.data_ptr(), B, D, widths[0], widths[1], s, stream))
         cells.append(f"{s} splits {timer(fn):.4f} / {device_ms(timer, fn, 'fused_project'):.4f}")
@@ -363,7 +457,7 @@ def fused_section(libs, timer, gen) -> None:
     build._declare("fused_decode", lib)
     for p in (1, 2):
         cells = []
-        for s in (2, 4, 8):
+        for s in (2, 4, plan.splits, 8):
             fn = whole(lib, p, s)
             mark = "*" if (p, s) == (pps, plan.splits) else ""
             cells.append(f"{s} K splits{mark} {timer(fn):.4f} / "

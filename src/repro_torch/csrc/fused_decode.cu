@@ -27,13 +27,14 @@
 // across columns and K, while the attention needs a whole head's k/v (the
 // amax over hd).  So one C entry point makes two launches on one stream:
 //   (A) every row of x against every q|k|v column tile: qmm's bit-serial
-//       body (bitserial.cuh, tagged fused_project) over the three
-//       matrices at once, with a deterministic split-K: a grid of (72
-//       column tiles at glm4-9b, row tiles, splits) CTAs, split s walking
-//       its own range of 512-row K chunks and writing its raw partial
-//       (sum x*u - n*rowsum) to a (splits, B, ntot) f32 workspace
-//       (kernels/fused_decode.py::project_plan).  A CTA holds up to 8
-//       rows, so at B <= 8 each plane byte is read once per call.
+//       body (bitserial.cuh, tagged fused_project; the tensor-core body for
+//       bf16 x) over the three matrices at once, with a deterministic
+//       split-K: a grid of (72 column tiles at glm4-9b, splits, row tiles)
+//       CTAs, split s walking its own range of 128-row K steps and writing
+//       its raw partial (sum x*(u-n)) to a (splits, B, ntot) f32 workspace
+//       (kernels/fused_decode.py::project_plan, the split rule of qmm's
+//       bitserial_plan).  A CTA holds up to 32 rows, so at B <= 32 each
+//       plane byte is read once per call.
 //   (B) fused_attend_kernel over a (B, KV, S + 1) grid (S from the block
 //       table's width: kernels/fused_decode.py::attend_plan), launched as
 //       a programmatic dependent of (A): a CTA reads its page ids and
@@ -64,6 +65,7 @@ namespace {
 using namespace kvattn;
 
 struct fused_project;   // names phase (A)'s bit-serial kernel instances
+constexpr int PROJECT_WARPS = 4;   // (A)'s CTAs: 64 columns (fused_decode.py COLS)
 
 // ------------------------------------------------------------- (B) attention
 // round through the activation dtype (identity for f32)
@@ -353,10 +355,11 @@ extern "C" int fused_attend_launch(const void* proj, int act_dtype, const void* 
     return attend(act_dtype, packed4, hd, a, false, static_cast<cudaStream_t>(stream));
 }
 
-// Phase (A) alone: x (B, D) of act_dtype; each matrix's planes (bits,
-// D/8, N) uint8 and scale (1, N) f32, N = H*hd for q and KV*hd for k and
-// v.  proj (splits, B, ntot) f32: with splits == 1 the finished
-// projections, else split s's raw partial over its K chunks.
+// Phase (A) alone: x (B, D) of act_dtype (bf16 16-byte aligned); each
+// matrix's planes (bits, D/8, N) uint8 and scale (1, N) f32, N = H*hd for
+// q and KV*hd for k and v.  proj (splits, B, ntot) f32: with splits == 1
+// the finished projections, else split s's raw partial over its K steps
+// (splits <= ceil(D / 128)).
 extern "C" int fused_project_launch(const void* x, int act_dtype, const void* q_planes,
                                     const void* q_scale, int q_bits, const void* k_planes,
                                     const void* k_scale_w, int k_bits, const void* v_planes,
@@ -365,8 +368,7 @@ extern "C" int fused_project_launch(const void* x, int act_dtype, const void* q_
     const int bits[3] = {q_bits, k_bits, v_bits};
     for (int b : bits)
         if (b < 2 || b > 8) return (int)cudaErrorInvalidValue;
-    if (B <= 0 || D <= 0 || D % 8 || Nq <= 0 || Nkv <= 0 || splits < 1 ||
-        splits > (D + bitserial::KC - 1) / bitserial::KC || (act_dtype != 0 && act_dtype != 1))
+    if (B <= 0 || D <= 0 || D % 8 || Nq <= 0 || Nkv <= 0 || (act_dtype != 0 && act_dtype != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     bitserial::Mats mats{};
@@ -375,11 +377,10 @@ extern "C" int fused_project_launch(const void* x, int act_dtype, const void* q_
     bitserial::add(mats, v_planes, v_scale_w, Nkv, v_bits);
     float* y = static_cast<float*>(proj);
     if (act_dtype == 1)
-        bitserial::launch<fused_project>(static_cast<const __nv_bfloat16*>(x), mats, y, B, D,
-                                         splits, st);
-    else
-        bitserial::launch<fused_project>(static_cast<const float*>(x), mats, y, B, D, splits, st);
-    return (int)cudaGetLastError();
+        return bitserial::launch<fused_project>(static_cast<const __nv_bfloat16*>(x), mats, y,
+                                                B, D, splits, PROJECT_WARPS, 0, st);
+    return bitserial::launch_simt<fused_project>(static_cast<const float*>(x), mats, y, B, D,
+                                                 splits, st);
 }
 
 // The whole fused decode: (A) then (B) on one stream.  proj (splits, B,

@@ -13,9 +13,11 @@
 // of the f32 sum differs from the plain version.
 //
 // bitserial (M <= 32, decode): GEMV-shaped and bound by the bytes of the
-// planes, csrc/bitserial.cuh with one matrix (the same body computes the
-// fused decode's q|k|v projections).  Known limit: at N = 256 (wk, wv)
-// the grid has 4 blocks; a split-K across blocks is the first fix.
+// planes: csrc/bitserial.cuh with one matrix (the same body computes the
+// fused decode's q|k|v projections).  bf16 x takes its tensor-core body
+// (mma.sync) over the grid of kernels/qmm.py::bitserial_plan: column tiles
+// x K splits, the splits of a tile one cluster that sums them in split
+// order (one launch, bitwise repeatable); f32 x its SIMT body, unsplit.
 //
 // dequant, bf16 x (M > 32, every prefill chunk): what bounds it.  A
 // 64-token chunk does 2*64 flops per weight over bits/8 bytes per weight:
@@ -435,13 +437,15 @@ int launch_tc_bits(int bits, const __nv_bfloat16* x, const uint8_t* planes, cons
 }  // namespace
 
 // x_dtype: 0 = float32, 1 = bfloat16.  path: 0 = bitserial, 1 = dequant.
-// token_tile (64 or 256), kgroups (warpgroups per CTA sharing its K
-// steps) and splits: the dequant body's plan for bf16 x
-// (kernels/qmm.py::dequant_plan); ws: its (splits, M, N) f32 workspace
-// when splits > 1.
+// The plan (kernels/qmm.py) for bf16 x: dequant, token_tile (64 or 256),
+// groups (warpgroups per CTA sharing its K steps) and splits
+// (dequant_plan), ws its (splits, M, N) f32 workspace when splits > 1;
+// bitserial, groups (warps per CTA, 16 columns each) and splits <= 16
+// (bitserial_plan; token_tile and ws unused).  f32 x ignores the plan:
+// the SIMT bodies, unsplit.
 extern "C" int qmm_launch(const void* x, int x_dtype, const void* planes,
                           const void* scale, void* y, void* ws, int M, int K, int N,
-                          int bits, int path, int token_tile, int kgroups, int splits,
+                          int bits, int path, int token_tile, int groups, int splits,
                           void* stream) {
     if (M <= 0 || N <= 0 || K <= 0 || K % 8 || bits < 2 || bits > 8 ||
         (path != 0 && path != 1) || (x_dtype != 0 && x_dtype != 1))
@@ -453,11 +457,11 @@ extern "C" int qmm_launch(const void* x, int x_dtype, const void* planes,
     if (path == 0) {
         bitserial::Mats mats{};
         bitserial::add(mats, p, s, N, bits);
-        if (x_dtype == 1)
-            bitserial::launch<qmm_bitserial>(static_cast<const __nv_bfloat16*>(x), mats, out, M, K, 1, st);
-        else
-            bitserial::launch<qmm_bitserial>(static_cast<const float*>(x), mats, out, M, K, 1, st);
-        return (int)cudaGetLastError();
+        if (x_dtype == 0)
+            return bitserial::launch_simt<qmm_bitserial>(static_cast<const float*>(x), mats, out,
+                                                         M, K, 1, st);
+        return bitserial::launch<qmm_bitserial>(static_cast<const __nv_bfloat16*>(x), mats, out,
+                                                M, K, splits, groups, 1, st);
     }
     if (x_dtype == 0) {   // f32 activations: the f32 SIMT body
         dim3 grid((N + DQ_BN - 1) / DQ_BN, (M + DQ_BM - 1) / DQ_BM);
@@ -466,14 +470,14 @@ extern "C" int qmm_launch(const void* x, int x_dtype, const void* planes,
         return (int)cudaGetLastError();
     }
     const int chunks = (K + TC_BK - 1) / TC_BK;
-    if (splits < 1 || splits > chunks || (splits > 1 && ws == nullptr) || kgroups < 1 ||
-        kgroups > (token_tile == 64 ? 4 : 1) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    if (splits < 1 || splits > chunks || (splits > 1 && ws == nullptr) || groups < 1 ||
+        groups > (token_tile == 64 ? 4 : 1) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     float* w = static_cast<float*>(ws);
     switch (token_tile) {
-        case 64: return launch_tc_bits<64>(bits, xb, p, s, out, w, M, K, N, kgroups, splits, st);
-        case 256: return launch_tc_bits<256>(bits, xb, p, s, out, w, M, K, N, kgroups, splits, st);
+        case 64: return launch_tc_bits<64>(bits, xb, p, s, out, w, M, K, N, groups, splits, st);
+        case 256: return launch_tc_bits<256>(bits, xb, p, s, out, w, M, K, N, groups, splits, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -99,7 +99,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "qmm":
         # x, x_dtype, planes, scale, y, ws, M, K, N, bits, path, token_tile,
-        # kgroups, splits, stream
+        # groups, splits, stream
         lib.qmm_launch.argtypes = [P, I, P, P, P, P] + [I] * 8 + [P]
         lib.qmm_launch.restype = I
     elif name == "paged_attention":

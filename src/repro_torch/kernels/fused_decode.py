@@ -28,12 +28,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import (MAX_GROUP, MAX_SPLITS, arrival_counters,
                                                  split_workspace_numel)
 from repro_torch.kernels.paged_attention_quant import check_quant_pool
-from repro_torch.kernels.qmm import SMS
+from repro_torch.kernels.qmm import BS_COLS, BS_CTAS, BS_ROWS, BS_STEP, bitserial_splits
 
 _ACT = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 512        # K rows a bit-serial CTA stages at a time (bitserial.cuh KC)
-COLS = 64          # columns per bit-serial CTA (bitserial.cuh COLS)
-PROJECT_CTAS = 4 * SMS   # launch (A) aims at four CTAs per SM
+CHUNK = BS_STEP        # K rows of one bit-serial step: the unit of (A)'s splits
+COLS = BS_COLS         # columns per bit-serial CTA (fused_decode.cu PROJECT_WARPS)
+PROJECT_CTAS = BS_CTAS   # launch (A) aims at qmm's bit-serial grid
 
 
 def attend_plan(nb: int) -> tuple[int, int]:
@@ -47,7 +47,7 @@ def attend_plan(nb: int) -> tuple[int, int]:
 
 class ProjectPlan(NamedTuple):
     """Grid of launch (A): ``col_tiles`` x ``row_tiles`` x ``splits`` CTAs
-    of the bit-serial body; split ``s`` walks K chunks ``[s * chunks //
+    of the bit-serial body; split ``s`` walks K steps ``[s * chunks //
     splits, (s + 1) * chunks // splits)`` of ``CHUNK`` rows."""
     col_tiles: int
     row_tiles: int
@@ -72,15 +72,14 @@ class ProjectPlan(NamedTuple):
 
 def project_plan(B: int, D: int, widths) -> ProjectPlan:
     """Launch (A) for ``B`` rows of width ``D`` against matrices of
-    ``widths`` columns: the bit-serial body's row tile (1, 2, 4 or 8 rows,
-    as ``bitserial::launch``), 64-column tiles, and as many K splits as
-    bring the grid to ``PROJECT_CTAS`` (at most one per 512-row chunk)."""
-    row_tile = 1 if B <= 1 else 2 if B <= 2 else 4 if B <= 4 else 8
-    row_tiles = -(-B // row_tile)
+    ``widths`` columns: the bit-serial body's row tiles (32 rows), its
+    ``COLS``-column tiles of each matrix, and the K splits of qmm's rule
+    (``kernels.qmm.bitserial_splits``) over all of them."""
+    row_tiles = -(-B // BS_ROWS)
     col_tiles = sum(-(-n // COLS) for n in widths)
     chunks = -(-D // CHUNK)
-    splits = min(chunks, max(1, -(-PROJECT_CTAS // (col_tiles * row_tiles))))
-    return ProjectPlan(col_tiles, row_tiles, chunks, splits)
+    return ProjectPlan(col_tiles, row_tiles, chunks,
+                       bitserial_splits(col_tiles * row_tiles, chunks))
 
 
 def _outputs(B, KV, G, hd, pool, dev):
@@ -182,6 +181,12 @@ def _weight_checks(x: torch.Tensor, wq, wk, wv, H: int, KV: int):
     return B, D, hd
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself, or a copy where (A)'s cp.async of 16-byte pieces of a bf16
+    x needs one."""
+    return x.clone() if x.dtype == torch.bfloat16 and x.data_ptr() % 16 else x
+
+
 def _weight_args(wq, wk, wv):
     return [a for w in (wq, wk, wv) for a in (w.planes.data_ptr(), w.scale.data_ptr(), w.bits)]
 
@@ -202,6 +207,7 @@ def fused_project_cuda(x: torch.Tensor, wq, wk, wv, num_heads: int, num_kv_heads
     if not 1 <= splits <= plan.chunks:
         raise ValueError(f"{splits} K splits of {plan.chunks} chunks")
     proj = torch.empty((splits, B, (H + 2 * KV) * hd), dtype=torch.float32, device=x.device)
+    x = _aligned(x)
     err = build.library("fused_decode").fused_project_launch(
         x.data_ptr(), _ACT[x.dtype], *_weight_args(wq, wk, wv), proj.data_ptr(), B, D,
         H * hd, KV * hd, splits, torch.cuda.current_stream(x.device).cuda_stream)
@@ -233,6 +239,7 @@ def fused_qkv_paged_decode_cuda(x: torch.Tensor, wq, wk, wv, k_pool, v_pool,
     proj = torch.empty(plan.workspace_numel(B, ntot), dtype=torch.float32, device=dev)
     outs = _outputs(B, KV, G, hd, k_pool, dev)
     pps, ws, arrived = _attend_workspace(B, KV, G, hd, nb, dev)
+    x = _aligned(x)
     err = build.library("fused_decode").fused_decode_launch(
         x.data_ptr(), _ACT[x.dtype], *_weight_args(wq, wk, wv), proj.data_ptr(), plan.splits,
         k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),

@@ -13,8 +13,9 @@ value sits on a rounding edge: scales within 2^-7 relative, codes within
 +-1, output within 2e-2 * max|plain|; its attention half alone, on the
 same projections, gives codes and scales bitwise.  The fake-quant kernel
 is elementwise IEEE f32 in the plain version's order: bitwise.  The
-split-K qmm dequant body and the split-KV attention add their partials in
-a fixed order, so two calls on the same inputs are bitwise equal.
+split-K qmm bodies (bit-serial and dequant) and the split-KV attention add
+their partials in a fixed order, so two calls on the same inputs are
+bitwise equal.
 """
 import numpy as np
 import pytest
@@ -229,6 +230,90 @@ def test_fake_quant_ste_on_the_card_matches_the_cpu(sm90, bits):
     assert torch.equal(vals[0], vals[1]) and torch.equal(grads[0], grads[1])
 
 
+# ---- the bit-serial body: tensor cores (bf16 x), split-K with an in-launch
+# combine, its f32 SIMT route
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 20, 32])
+@pytest.mark.parametrize("K,N", [(4096, 256), (13696, 300), (136, 13), (1000, 4096)])
+def test_qmm_bitserial_tensor_cores_match_plain(sm90, K, N, M, bits):
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, bits, sm90, seed=5 * bits + M)
+    got = qmm_cuda(x, planes, scale, bits, "bitserial")
+    again = qmm_cuda(x, planes, scale, bits, "bitserial")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # splits summed in a fixed order
+    plain = tref.qmm_ref(x, planes, scale, bits)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [33, 70])
+@pytest.mark.parametrize("K,N", [(4096, 256), (136, 13)])
+def test_qmm_bitserial_more_rows_than_a_cta_holds(sm90, K, N, M):
+    from repro_torch.kernels.qmm import bitserial_plan, qmm_cuda
+
+    assert bitserial_plan(M, K, N).row_tiles == -(-M // 32) >= 2
+    x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M)
+    got = qmm_cuda(x, planes, scale, 4, "bitserial")
+    torch.cuda.synchronize()
+    plain = tref.qmm_ref(x, planes, scale, 4)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_offset", [0, 1], ids=["x-aligned", "x-unaligned"])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 300)])
+def test_qmm_bitserial_unaligned_planes(sm90, K, N, x_offset):
+    """Planes whose base is not 16-byte aligned take the plain-load staging;
+    an x view off its 16-byte boundary is copied by the wrapper."""
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(4, K, N, 4, sm90, seed=11)
+    buf = torch.empty(planes.numel() + 1, dtype=torch.uint8, device=sm90)
+    shifted = buf[1:].view(planes.shape)
+    shifted.copy_(planes)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    xbuf = torch.empty(x.numel() + x_offset, dtype=x.dtype, device=sm90)
+    xv = xbuf[x_offset:].view(x.shape)
+    xv.copy_(x)
+    got = qmm_cuda(xv, shifted, scale, 4, "bitserial")
+    torch.cuda.synchronize()
+    plain = tref.qmm_ref(x, planes, scale, 4)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 9, 32])
+@pytest.mark.parametrize("K,N", [(4096, 256), (136, 13)])
+def test_qmm_bitserial_f32_activations_take_the_simt_body(sm90, K, N, M):
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=sm90)   # not bf16-representable
+    got = qmm_cuda(x, planes, scale, 4, "bitserial")
+    torch.cuda.synchronize()
+    plain = tref.qmm_ref(x, planes, scale, 4)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 16, 32])
+@pytest.mark.parametrize("K,N,bits", [(4096, 4096, 4), (4096, 256, 4), (4096, 13696, 4),
+                                      (13696, 4096, 4), (4096, 151552, 8)])
+def test_qmm_bitserial_is_bitwise_repeatable_at_glm4(sm90, K, N, bits, M):
+    from repro_torch.kernels.qmm import bitserial_plan, qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, bits, sm90, seed=M)
+    first = qmm_cuda(x, planes, scale, bits, "bitserial")
+    second = qmm_cuda(x, planes, scale, bits, "bitserial")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), bitserial_plan(M, K, N, bits)
+    plain = tref.qmm_ref(x, planes, scale, bits)
+    assert (first - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
 # ---- the wgmma dequant body (bf16 x), its f32 SIMT route and split-K
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
@@ -429,12 +514,19 @@ def test_fused_decode_is_bitwise_repeatable(sm90, kv_bits):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("splits", [1, 2, 3, 8, None], ids=["s1", "s2", "s3", "s8", "plan"])
-@pytest.mark.parametrize("B", [1, 4, 8])
-def test_fused_projection_split_k_matches_plain(sm90, B, splits):
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8, 32, None],
+                         ids=["s1", "s2", "s3", "s8", "s32", "plan"])
+@pytest.mark.parametrize("B", [1, 4, 8, 33])
+def test_fused_projection_split_k_matches_plain(sm90, B, splits, act):
+    """Launch (A)'s raw partials (dequant form, one set per K split),
+    finished by the plain twin of (B)'s prologue, against the plain
+    projections; bf16 x takes the tensor-core body, f32 x the SIMT one."""
     from repro_torch.kernels.fused_decode import fused_project_cuda
 
     x, ws, _, H, KV = _fused_case(sm90, 4, [0] * B, 1, bits=(4, 3, 8), B=B)
+    if act == torch.float32:
+        x = x.float() + 1e-3 * torch.randn(x.shape, device=sm90)
     partials = fused_project_cuda(x, *ws, H, KV, splits)
     again = fused_project_cuda(x, *ws, H, KV, splits)
     torch.cuda.synchronize()

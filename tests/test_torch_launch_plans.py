@@ -1,8 +1,13 @@
-"""Launch plans of the split-K qmm dequant body, the split-KV paged
-attention (fp and quantized) and the fused decode's two launches, held on
-the CPU: CTA counts at glm4-9b's shapes, K ranges, workspace sizes, and
-torch models of split-and-combine against the JAX package's Pallas
-kernels (interpret mode).
+"""Launch plans of the split-K qmm bodies (bit-serial and dequant), the
+split-KV paged attention (fp and quantized) and the fused decode's two
+launches, held on the CPU: CTA counts at glm4-9b's shapes, K ranges,
+workspace and shared-memory sizes, and torch models of split-and-combine
+against the JAX package's Pallas kernels (interpret mode).
+
+The bit-serial model mirrors ``csrc/bitserial.cuh``: each split of
+``bitserial_plan`` (whole 128-row K steps) leaves the dequant-form partial
+sum x * (u - n) over its K range, and split 0 of the tile's cluster sums
+the partials in split order and applies ``/ n * scale`` once.
 
 The models mirror ``csrc/paged_attention.cu``, ``csrc/kv_attention.cuh``
 and ``csrc/split_kv.cuh``: each split of ``split_plan(nb)`` pages leaves
@@ -10,8 +15,8 @@ and ``csrc/split_kv.cuh``: each split of ``split_plan(nb)`` pages leaves
 acc = 0), the quantized sweep folding 32-token tiles of dequantized codes
 in turn; the combine takes m = max m_s, l = sum l_s e^{m_s - m}, out =
 sum acc_s e^{m_s - m} / max(l, 1e-20).  The fused decode's model sums
-its projection's split-K partials (sum x*u - n*rowsum over each split's
-512-row chunks) in split order and finishes them once, and appends the new
+its projection's split-K partials (sum x*(u - n) over each split's
+128-row steps) in split order and finishes them once, and appends the new
 token's partial (m = its score, l = 1, acc = its dequantized v) after
 ``attend_plan(nb)``'s page splits.  Tolerance 1e-5 * max|ref| in f32:
 both sides sum the same exact products in other orders.
@@ -27,14 +32,17 @@ import torch
 import torch_parity  # noqa: F401  (sets torch's CPU threads)
 from repro.kernels.fused_decode import fused_qkv_paged_decode_pallas
 from repro.kernels.paged_attention import paged_attention_pallas, paged_attention_quant_pallas
+from repro.kernels.qmm import qmm_pallas
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.fused_decode import CHUNK, PROJECT_CTAS, attend_plan, project_plan
+from repro_torch.kernels.fused_decode import (CHUNK, COLS, PROJECT_CTAS, attend_plan,
+                                              project_plan)
 from repro_torch.kernels.paged_attention import MAX_SPLITS, split_plan, split_workspace_numel
 from repro_torch.models.common import rope_cos_sin, rope_rotate
 from repro_torch.quant.pack import (Packed, kv_dequantize, kv_pack_int4, kv_quantize,
                                     pack_weight, unpack_bitplanes)
-from repro_torch.kernels.qmm import (SMEM_MAX, SMS, TILE_K, dequant_plan,
-                                     dequant_smem)
+from repro_torch.kernels.qmm import (BS_MAX_SPLITS, BS_MIN_STEPS, BS_STEP, SMEM_MAX, SMS, TILE_K,
+                                     bitserial_plan, bitserial_smem, bitserial_splits,
+                                     dequant_plan, dequant_smem)
 
 GLM4_QMM = [  # (K, N, bits) of every packed matrix of glm4-9b at the served policy
     (4096, 4096, 4), (4096, 256, 4), (4096, 13696, 4), (13696, 4096, 4),
@@ -80,6 +88,101 @@ def test_qmm_plan_fits_shared_memory(M, bits):
         plan = dequant_plan(M, K, N, bits)
         assert plan.kgroups >= 1
         assert dequant_smem(plan.token_tile, bits, plan.kgroups) <= SMEM_MAX
+
+
+# ---- the bit-serial body (csrc/bitserial.cuh): decode rows, M <= 32
+DECODE_M = [1, 4, 16, 32]
+
+
+@pytest.mark.parametrize("M", DECODE_M)
+@pytest.mark.parametrize("K,N,bits", GLM4_QMM)
+def test_bitserial_plan_fills_the_card_at_decode(K, N, bits, M):
+    plan = bitserial_plan(M, K, N, bits)
+    assert plan.ctas >= SMS
+    assert plan.row_tiles == 1                 # every row in one CTA: planes read once
+    assert plan.col_tiles * 16 * plan.warps >= N > (plan.col_tiles - 1) * 16 * plan.warps
+    assert plan.splits == 1 or plan.ctas <= 2 * 3 * SMS   # no more split than the rule asks
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 20, 32, 33, 70])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 256), (13696, 4096), (136, 13),
+                                 (13696, 300), (8, 5), (1000, 96)])
+def test_bitserial_plan_k_ranges_cover_k_once(M, K, N):
+    plan = bitserial_plan(M, K, N)
+    ranges = plan.k_ranges(K)
+    assert len(ranges) == plan.splits >= 1
+    covered = [k for lo, hi in ranges for k in range(lo, hi)]
+    assert covered == list(range(K))                     # every row once, in order
+    for lo, hi in ranges:
+        assert lo % BS_STEP == 0 and hi > lo            # whole steps, none empty
+    if plan.splits > 1:                                  # a split keeps its steps
+        assert plan.steps // plan.splits >= BS_MIN_STEPS and plan.splits <= BS_MAX_SPLITS
+    assert plan.row_tiles * 32 >= M > (plan.row_tiles - 1) * 32
+    assert plan.warps in (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("M", DECODE_M)
+def test_bitserial_plan_workspace_and_shared_memory_fit(M, bits):
+    """qmm's splits of a tile are one cluster (at most 16 CTAs, H100's
+    non-portable size) whose combine scratch -- each thread's accumulators,
+    4 floats per n8 tile -- reuses the CTA's ring: no workspace in device
+    memory."""
+    for K, N, _ in GLM4_QMM:
+        plan = bitserial_plan(M, K, N, bits)
+        assert 1 <= plan.splits <= BS_MAX_SPLITS == 16
+        smem = bitserial_smem(M, bits, plan.warps)
+        assert smem <= SMEM_MAX
+        assert 32 * plan.warps * -(-M // 8) * 4 * 4 <= smem
+    # three CTAs per SM fit their shared memory at every decode width
+    assert 3 * bitserial_smem(M, bits) <= 228 * 1024
+
+
+@pytest.mark.parametrize("B", [1, 4, 32, 40])
+@pytest.mark.parametrize("D,widths", [(4096, (4096, 256, 256)), (1536, (64, 32, 32)),
+                                      (13696, (300, 8, 8))])
+def test_project_plan_agrees_with_bitserial_plan(B, D, widths):
+    plan = project_plan(B, D, widths)
+    assert CHUNK == BS_STEP and COLS == 64                 # the body's own constants
+    assert plan.splits == bitserial_splits(plan.col_tiles * plan.row_tiles, plan.chunks)
+    one = project_plan(B, D, widths[:1])
+    qplan = bitserial_plan(B, D, widths[0], warps=4)
+    assert (one.col_tiles, one.row_tiles, one.chunks, one.splits) == (
+        qplan.col_tiles, qplan.row_tiles, qplan.steps, qplan.splits)
+    assert one.k_ranges(D) == qplan.k_ranges(D)
+
+
+def _bitserial_model(x, planes, scale, bits, plan, K):
+    """Torch model of the bit-serial body: dequant-form partials per split,
+    summed in split order, finished once."""
+    n = float(2 ** (bits - 1) - 1)
+    codes = unpack_bitplanes(planes, bits).float()          # u - n
+    parts = [x[:, lo:hi] @ codes[lo:hi] for lo, hi in plan.k_ranges(K)]
+    s = parts[0]
+    for p_ in parts[1:]:
+        s = s + p_
+    return s / n * scale
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 96), (5, 1000, 96), (32, 2048, 64),
+                                   (40, 1024, 32)])
+def test_bitserial_model_matches_pallas(M, K, N, bits):
+    rng = np.random.default_rng(M * 10 + bits)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) * K ** -0.5
+    planes, scale = pack_weight(w, bits)
+    plan = bitserial_plan(M, K, N, bits)
+    assert plan.splits > 1                                   # the cluster combine runs
+    xt = torch.from_numpy(np.asarray(x, np.float32))
+    got = _bitserial_model(xt, planes, scale, bits, plan, K).numpy()
+    bk = 200 if K % 256 else 256
+    ref = np.asarray(qmm_pallas(x, jnp.asarray(planes.numpy()), jnp.asarray(scale.numpy()),
+                                bits=bits, path="bitserial", block=(M, N, bk), interpret=True))
+    # both sum exact f32 products x * (u - n) in other orders
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    plain = tref.qmm_ref(xt, planes, scale, bits).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5 * np.abs(plain).max())
 
 
 def test_attention_split_plan_reads_the_table_width_only():
@@ -246,7 +349,7 @@ def test_project_plan_fills_the_card_at_glm4(B):
     plan = project_plan(B, D, widths)
     assert plan.col_tiles == 72 and plan.row_tiles == 1
     assert plan.ctas >= SMS and plan.ctas >= PROJECT_CTAS
-    assert 2 <= plan.splits <= plan.chunks == 8
+    assert 2 <= plan.splits <= plan.chunks == 32
     ranges = plan.k_ranges(D)
     assert ranges[0][0] == 0 and ranges[-1][1] == D
     for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
@@ -266,11 +369,9 @@ def test_project_plan_k_ranges_cover_k_once(B, D):
 
 
 def _split_k_projection(x, w, plan, D):
-    """(A)'s raw partials of one matrix, sum x*u - n*rowsum(x) per split."""
-    n = float(2 ** (w.bits - 1) - 1)
-    u = unpack_bitplanes(w.planes, w.bits).float() + n      # unsigned codes
-    return [x[:, lo:hi] @ u[lo:hi] - n * x[:, lo:hi].sum(dim=1, keepdim=True)
-            for lo, hi in plan.k_ranges(D)]
+    """(A)'s raw partials of one matrix, sum x*(u - n) per split."""
+    codes = unpack_bitplanes(w.planes, w.bits).float()      # u - n
+    return [x[:, lo:hi] @ codes[lo:hi] for lo, hi in plan.k_ranges(D)]
 
 
 def _fused_model(x, ws, kc, vc, ks, vs, bt, ln, cos, sin, qmax, H, KV, act):
@@ -323,7 +424,7 @@ def test_fused_decode_model_matches_pallas(kv_bits, lengths, nb):
     tb = torch.from_numpy(bt)
     got = _fused_model(xt, ws, kc, vc, ks, vs, tb, torch.from_numpy(ln), cos, sin, qmax, H, KV,
                        torch.bfloat16)
-    assert got[-1].splits == 3                               # (A) split in three
+    assert got[-1].splits == 6                               # (A) split in six
     assert attend_plan(nb)[0] == (2 if nb == 20 else 1)
     ref = fused_qkv_paged_decode_pallas(
         x, *jw, *(jnp.asarray(t.numpy()) for t in (kc, vc, ks, vs)), jnp.asarray(bt),
