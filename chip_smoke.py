@@ -37,7 +37,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    WRPN fake-quant at every ResNet-20 and LeNet weight shape, glm4-9b's
    wg (4096, 13696) and a ragged (7, 300), bits 1-8, 16 and 32, f32 and
    bf16: bitwise (max|kernel - plain| == 0), and the STE's forward and
-   gradient mask bitwise against the plain ones.  For each shape: kernel,
+   gradient mask bitwise against the plain ones.  The grouped fake-quant
+   of the QAT path (one launch per forward that takes every layer's
+   max|w| scale too, one for the STE backward) at the LeNet and ResNet-20
+   groups, f32 and bf16, bits vectors cycling through 1-8, 16 and 32,
+   with an all-zero, a NaN and a near-eps tensor, and at a ResNet-20
+   group holding glm4-9b's wg: outputs, scales and gradients bit pattern
+   for bit pattern against the plain versions; timed per QAT forward and
+   backward against the same work by the library, the flat path it
+   replaces and the bound.  For each shape: kernel,
    plain and library yardstick times (median of per-launch CUDA-event
    times, L2 flushed before each launch, the start event held behind a
    device spin that covers the wrapper's host work) and the bound from
@@ -52,8 +60,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
       int4 blocks;
    c. ``--bits 16 --kv-bits 8``: dense bf16 q/k/v, quantized paged
       attention over int8 blocks.
-   Two run the ReLeQ search, every QAT forward through the fake-quant
-   kernel:
+   Two run the ReLeQ search, every QAT forward through one grouped
+   fake-quant launch and every backward through one grouped STE launch
+   (no flat fake-quant launch):
    d. the quickstart twin (``repro_torch.launch.quickstart``) on LeNet at
       the reference quickstart's steps: pretrain 300, 30 episodes with 2
       retrain steps, long retrain 150;
@@ -87,7 +96,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    timed by the host clock, then a few more are traced with
    ``torch.profiler`` to split the device time by kernel and give the
    device's idle share (the fused decode's two launches as two
-   families).  The same for ResNet-20 QAT train steps.
+   families).  The same for ResNet-20 QAT train steps, with the runtime
+   calls per step that can block the host (stream and device syncs,
+   memcpys).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -122,6 +133,7 @@ F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12, "H200": 67e12
 FQ_BITS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32)
 FQ_EXTRA = [("glm4-9b wg", (4096, 13696)), ("ragged", (7, 300))]
 FQ_OPS = 7                 # f32 operations per element: div, 2 compares, mul, rint, div, mul
+QAT_BITS = (2, 3, 4, 5, 6, 8, 32)   # the mixed policy of phases 4e and 5e, layer i at i % 7
 LENET_FP_ACC_MIN = 0.80    # the port on the CPU reaches 0.873 at the same 300 steps
 RESNET20_PRETRAIN = 600      # the port on the CPU leaves chance level at 350-450 steps
 RESNET20_FP_ACC_MIN = 0.90   # ... and reaches 1.0000 at 500 and 600 steps (PERF.md)
@@ -623,6 +635,150 @@ def check_fake_quant(torch, timer, peaks, rows):
     return worst
 
 
+def same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bit patterns (the sign of zero and NaN held)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def fq_group_inputs(torch, net, dtype, gen, extra=()):
+    """The quantized weights of ``net`` in the QAT order, then ``extra``
+    shapes; a -0.0 and a 0.0 in each; gradients with +-inf, NaN and a
+    negative value in each."""
+    ws, gs = [], []
+    for shape in [shape for _, shape in weight_shapes(net)] + list(extra):
+        w = torch.randn(shape, generator=gen, device="cuda")
+        w.view(-1)[:2] = torch.tensor([-0.0, 0.0], device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda")
+        g.view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -3.0, float("-inf")],
+                                      device="cuda")
+        ws.append(w.to(dtype))
+        gs.append(g.to(dtype))
+    return ws, gs
+
+
+def fq_edge_tensors(torch, dtype):
+    """An all-zero tensor (the eps floor), one holding a NaN, and one whose
+    max sits where the floor's dtype decides the scale (f32 just above
+    1e-8, bf16 just below it)."""
+    near = 1.0005e-8 if dtype == torch.float32 else 9.95e-9
+    nan = torch.randn((33, 7), generator=torch.Generator().manual_seed(4))
+    nan[3, 2] = float("nan")
+    ws = [torch.zeros((5, 9)), nan, torch.linspace(-1, 1, 301) * near]
+    return ([w.to("cuda", dtype) for w in ws],
+            [torch.linspace(-2, 2, w.numel()).reshape(w.shape).to("cuda", dtype) for w in ws])
+
+
+def check_fake_quant_group(torch, timer, peaks, rows):
+    """The grouped forward and STE backward against their plain versions,
+    bit pattern for bit pattern: the LeNet and ResNet-20 groups (plus the
+    edge tensors) in f32 and bf16 at bits vectors cycling through 1-8, 16
+    and 32 from three offsets, and a ResNet-20 group holding glm4-9b's wg
+    (read twice).  Times per QAT forward and backward (the ResNet-20 and
+    LeNet groups at the mixed policy QAT_BITS) against the same work by
+    the library (20 x ``abs().amax()`` + ``fake_quantize_per_tensor_affine``),
+    the parent's flat path (20 x ``tensor_scale`` + the flat kernel), the
+    flat kernel alone at given scales, the plain versions and the bound."""
+    from repro_torch.kernels.fake_quant import (fake_quant_cuda, fake_quant_group_bwd_cuda,
+                                                fake_quant_group_cuda, fake_quant_group_plan)
+    from repro_torch.kernels.ref import fake_quant_group_bwd_ref, fake_quant_group_ref
+    from repro_torch.quant.wrpn import _levels, tensor_scale
+
+    f32_peak = next((v for k, v in F32_PEAKS.items() if k in torch.cuda.get_device_name(0)),
+                    F32_PEAKS["H100"])
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(net, dtype, ()) for net in ("lenet", "resnet20")
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [("resnet20+wg", dtype, [FQ_EXTRA[0][1]]) for dtype in (torch.float32, torch.bfloat16)]
+    for net, dtype, extra in cases:
+        ws, gs = fq_group_inputs(torch, net.split("+")[0], dtype, gen, extra)
+        if not extra:
+            ew, eg = fq_edge_tensors(torch, dtype)
+            ws, gs = ws + ew, gs + eg
+        plan = fake_quant_group_plan([w.numel() for w in ws], dtype)
+        what = f"fake_quant_group {net} {str(dtype)[6:]} ({len(ws)} tensors)"
+        for offset in range(3 if not extra else 1):
+            bits = torch.tensor([FQ_BITS[(i + offset) % len(FQ_BITS)]
+                                 for i in range(len(ws))], dtype=torch.int32, device="cuda")
+            outs, scales, _ = fake_quant_group_cuda(ws, bits)
+            grads, _ = fake_quant_group_bwd_cuda(ws, gs, scales)
+            torch.cuda.synchronize()
+            want, want_s = fake_quant_group_ref(ws, bits)
+            if not same_bits(torch, scales, want_s):
+                fail(f"{what}: the scales differ from tensor_scale's")
+            for i, (o, p) in enumerate(zip(outs, want)):
+                if not same_bits(torch, o, p):
+                    fail(f"{what}: tensor {i} {tuple(ws[i].shape)} at bits {int(bits[i])} "
+                         f"differs from the plain version")
+            for i, (g, p) in enumerate(zip(grads, fake_quant_group_bwd_ref(ws, gs, want_s))):
+                if not same_bits(torch, g, p):
+                    fail(f"{what}: the STE gradient of tensor {i} differs from the plain one")
+            del outs, grads, want
+        print(f"  {what:46s} forward and backward bitwise at 3 bits offsets"
+              if not extra else
+              f"  {what:46s} forward and backward bitwise; tensors read twice: "
+              f"{list(plan.second_read)}")
+        if extra:
+            del ws, gs
+            torch.cuda.empty_cache()
+            continue
+        ws, gs = ws[:-3], gs[:-3]          # the net's weights alone: one QAT forward
+        bits = torch.tensor([QAT_BITS[i % len(QAT_BITS)] for i in range(len(ws))],
+                            dtype=torch.int32, device="cuda")
+        plan = fake_quant_group_plan([w.numel() for w in ws], dtype)
+        outs, scales, _ = fake_quant_group_cuda(ws, bits)
+        numel = sum(w.numel() for w in ws)
+        esize = ws[0].element_size()
+        n4 = int(_levels(torch.tensor(4)))
+        zp = torch.zeros((), dtype=torch.int32, device="cuda")
+        given = [tensor_scale(w) for w in ws]
+
+        def library():
+            for w in ws:
+                torch.fake_quantize_per_tensor_affine(w, w.abs().amax().float() / n4, zp,
+                                                       -n4, n4)
+
+        def flat_path():
+            for i, w in enumerate(ws):
+                fake_quant_cuda(w, bits[i], tensor_scale(w))
+
+        def flat_given():
+            for i, w in enumerate(ws):
+                fake_quant_cuda(w, bits[i], given[i])
+
+        b_ms, b_by = bound_ms(2 * numel * esize + 8 * len(ws), (FQ_OPS + 2) * numel,
+                              (peaks[0], f32_peak))
+        fwd = {"kernel": "fake_quant_group", "shape": net, "dtype": str(dtype)[6:],
+               "tensors": len(ws), "numel": numel, "plan": plan._asdict(),
+               "calls_per_forward": 1 if net == "resnet20" and dtype == torch.float32 else 0,
+               "max_abs_err": 0.0,
+               "ms": timer(lambda: fake_quant_group_cuda(ws, bits)),
+               "plain_ms": timer(lambda: fake_quant_group_ref(ws, bits), iters=5),
+               "library_ms": timer(library),
+               "library": "sum over the layers: abs().amax() + fake_quantize_per_tensor_affine "
+                          "(tensor scale, bits 4)",
+               "flat_path_ms": timer(flat_path), "flat_given_scale_ms": timer(flat_given),
+               "bound_ms": b_ms, "bound_by": b_by}
+        bb_ms, bb_by = bound_ms(3 * numel * esize + 4 * len(ws), 3 * numel, (peaks[0], f32_peak))
+        bwd = {"kernel": "fake_quant_group_bwd", "shape": net, "dtype": str(dtype)[6:],
+               "tensors": len(ws), "numel": numel, "bwd_ctas": plan.bwd_ctas,
+               "calls_per_forward": fwd["calls_per_forward"], "max_abs_err": 0.0,
+               "ms": timer(lambda: fake_quant_group_bwd_cuda(ws, gs, scales)),
+               "plain_ms": timer(lambda: fake_quant_group_bwd_ref(ws, gs, scales)),
+               "library_ms": None, "bound_ms": bb_ms, "bound_by": bb_by}
+        rows += [fwd, bwd]
+        label = f"fake_quant_group {net} {str(dtype)[6:]} ({len(ws)} layers)"
+        print(f"  {label:46s} per QAT forward: group={fwd['ms']:.4f} "
+              f"[{plan.ctas[0]} CTAs in clusters of {plan.cluster}] flat path (scale + "
+              f"kernel)={fwd['flat_path_ms']:.4f} flat at given scales="
+              f"{fwd['flat_given_scale_ms']:.4f} library (amax + fake_quantize)="
+              f"{fwd['library_ms']:.4f} plain={fwd['plain_ms']:.4f} bound={b_ms:.6f} ms")
+        print(f"  {'':46s} per QAT backward: group={bwd['ms']:.4f} [{plan.bwd_ctas[0]} CTAs] "
+              f"plain (abs, <=, to, mul per layer)={bwd['plain_ms']:.4f} bound={bb_ms:.6f} ms")
+        del ws, gs, outs
+    return 0.0
+
+
 def releq_quickstart(torch):
     """Phase 3d: the quickstart twin on LeNet at the reference
     quickstart's steps, on the card, with its own zeroed counters."""
@@ -635,8 +791,7 @@ def releq_quickstart(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(ops.counts)
-    if counts["fake_quant"] <= 0 or counts["plain"] != 0:
-        fail(f"[lenet quickstart] fake_quant launches / plain calls: {counts}")
+    check_qat_counts("lenet quickstart", counts)
     if not out["fp_acc"] >= LENET_FP_ACC_MIN:
         fail(f"[lenet quickstart] fp accuracy {out['fp_acc']:.4f} < {LENET_FP_ACC_MIN}")
     check_search_record("lenet quickstart", out["task"], out["result"], 30, out["rel_acc"])
@@ -646,6 +801,14 @@ def releq_quickstart(torch):
             "tvm_cpu_speedup": out["tvm_cpu_speedup"],
             "energy_reduction": out["energy_reduction"], "wall_s": out["wall"],
             "total_s": wall, "counts": counts}
+
+
+def check_qat_counts(label, counts):
+    """Every QAT forward and backward went through the grouped kernels:
+    no flat fake-quant launch, no plain call."""
+    if (counts["fake_quant_group"] <= 0 or counts["fake_quant_group_bwd"] <= 0
+            or counts["fake_quant"] != 0 or counts["plain"] != 0):
+        fail(f"[{label}] grouped fake-quant launches / flat launches / plain calls: {counts}")
 
 
 def check_search_record(label, task, res, episodes, rel_acc):
@@ -717,8 +880,7 @@ def releq_resnet20(torch):
     torch.cuda.synchronize()
     wall["long_retrain_s"] = time.perf_counter() - t0
     counts = dict(ops.counts)
-    if counts["fake_quant"] <= 0 or counts["plain"] != 0:
-        fail(f"[resnet20] fake_quant launches / plain calls: {counts}")
+    check_qat_counts("resnet20", counts)
     check_search_record("resnet20", task, res, RESNET20_EPISODES, rel)
     vec = [bits[n] for n in task.names]
     out = {"fp_acc": fp_acc, "best_bits": bits, "best_reward": res.best_reward,
@@ -756,7 +918,7 @@ def resnet_step_card_vs_cpu(torch, task):
     (plain version): params within 1e-4 * max|param|, equal accuracies."""
     from repro_torch.cnn import CNNTask
 
-    bits = {n: (2, 3, 4, 5, 6, 8, 32)[i % 7] for i, n in enumerate(task.names)}
+    bits = {n: QAT_BITS[i % len(QAT_BITS)] for i, n in enumerate(task.names)}
     cpu = CNNTask("resnet20", seed=0, device="cpu")
     cpu.params = {n: {k: t.cpu() for k, t in p.items()} for n, p in task.params.items()}
     cpu.mom = cpu._zeros_like(cpu.params)
@@ -782,7 +944,7 @@ def profile_qat_step(torch, task, timed=5, traced=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    bits = {n: (2, 3, 4, 5, 6, 8, 32)[i % 7] for i, n in enumerate(task.names)}
+    bits = {n: QAT_BITS[i % len(QAT_BITS)] for i, n in enumerate(task.names)}
     t0 = time.perf_counter()
     for i in range(timed):                            # the numpy batch synthesis alone
         task.data.batch(task.batch, 1_000_000 + i, "train")
@@ -798,11 +960,14 @@ def profile_qat_step(torch, task, timed=5, traced=3):
         torch.cuda.synchronize()
     fams: dict[str, float] = {}
     launches: dict[str, float] = {}
+    host = {"cudaStreamSynchronize": 0.0, "cudaDeviceSynchronize": 0.0, "cudaMemcpyAsync": 0.0}
     for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA and ev.key in host:
+            host[ev.key] += ev.count / traced       # the runtime calls that can block the host
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
         name = ev.key
-        fam = ("fake_quant" if "fake_quant_kernel" in name
+        fam = ("fake_quant" if "fake_quant" in name
                else "memcpy/memset" if "emcpy" in name or "emset" in name
                else "convolution" if any(k in name.lower() for k in (
                    "conv", "xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop",
@@ -818,10 +983,12 @@ def profile_qat_step(torch, task, timed=5, traced=3):
           f"of which {batch_ms:.2f} ms synthesize the numpy batch; device busy "
           f"{busy:.3f} ms/step -> idle share {1 - busy / step_ms:.3f}")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print(f"    {fam:22s} {ms:8.3f} ms/step {launches[fam]:6.0f} launches/step")
+        print(f"    {fam:22s} {ms:8.3f} ms/step {launches[fam]:6.1f} launches/step")
+    print("    host runtime calls per step: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + " (the trace's last cudaDeviceSynchronize is the harness's)")
     return {"step_ms": step_ms, "batch_synthesis_ms": batch_ms, "device_ms": busy,
             "families_ms": fams, "launches_per_step": launches,
-            "idle_share": 1 - busy / step_ms}
+            "host_calls_per_step": host, "idle_share": 1 - busy / step_ms}
 
 
 def per_step(rows, kernel, pick, extra=()):
@@ -1137,6 +1304,7 @@ def main() -> None:
     paq_err = check_paged_attention_quant(torch, timer, peaks, rows)
     fused_err = check_fused_decode(torch, timer, peaks, rows)
     fq_err = check_fake_quant(torch, timer, peaks, rows)
+    fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
     print(f"timer: {timer.retaken} samples retaken behind a longer spin, "
           f"{timer.uncovered} timed with host work inside")
     del timer
@@ -1203,6 +1371,9 @@ def main() -> None:
                      [f"{launch}_{key}" for launch in ("project", "attend")
                       for key in ("ms", "library_ms", "bound_ms")])
     fq = per_step(rows, "fake_quant", lambda r: r["calls_per_forward"])
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    fqg, fqg_bwd = ({k: r[k] for k in keys} for r in rows
+                    if r["kernel"].startswith("fake_quant_group") and r["calls_per_forward"])
     counts = {"fp KV": fp_summary["counts"], "int4 KV": int4["counts"], "int8 KV": int8["counts"]}
     kernels = [
         {"name": "qmm_bitserial", "route": "cuda", "source": "src/repro_torch/csrc/qmm.cu",
@@ -1228,6 +1399,14 @@ def main() -> None:
         {"name": "fake_quant", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:33",
          "launches": resnet["counts"]["fake_quant"], "max_abs_err": fq_err, **fq},
+        {"name": "fake_quant_group", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/fake_quant.py:33",
+         "launches": resnet["counts"]["fake_quant_group"], "max_abs_err": fqg_err, **fqg},
+        {"name": "fake_quant_group_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/quant/wrpn.py:78",
+         "launches": resnet["counts"]["fake_quant_group_bwd"], "max_abs_err": fqg_err,
+         **fqg_bwd},
     ]
     serve = {label: {"metrics": {k: v for k, v in r["metrics"].items() if k != "requests"},
                      "requests": r["metrics"]["requests"], "counts": r["counts"],
@@ -1246,7 +1425,11 @@ def main() -> None:
                          "lengths; fused library_ms is a sum (matmul + SDPA), its "
                          "project_* and attend_* keys time launch (A) and launch (B) "
                          "alone against matmul and SDPA; "
-                         "fake_quant: one ResNet-20 QAT forward (20 calls, f32)",
+                         "fake_quant: one ResNet-20 QAT forward (20 calls, f32, the flat "
+                         "kernel at given scales; no longer on the QAT path); "
+                         "fake_quant_group / fake_quant_group_bwd: one ResNet-20 QAT forward / "
+                         "backward (one launch each, f32, bits QAT_BITS); the backward has no "
+                         "library call",
         "serve": serve, "decode_breakdown": breakdown, "served_streams": streams,
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
                   "qat_step_breakdown": qat_breakdown},

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the redesigned kernels goes, on the card.
 
-    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused]
+    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused] [fq]
 
-(the sections named, all five by default)
+(the sections named, all six by default)
 
 0. qmm bit-serial (``bitserial``; bf16 x, M = 4, glm4-9b's decode shapes:
    wq, wk, wg and wd at 4 bits, the lm_head at 8): the kernel as built, and
@@ -40,6 +40,25 @@
    at several K and page splits, and at the plan with (B) launched as a
    programmatic dependent of (A) and as an ordinary launch (``nopdl``),
    alternated three times.
+6. The grouped fake-quant of the QAT path (``fq``; the ResNet-20 group in
+   f32 and bf16 and the LeNet group in f32, bits cycling through the
+   mixed policy of chip_smoke's phase 5e): the forward as built at
+   clusters of 1, 2, 4 and 8 CTAs per tensor (below the plan's cluster
+   the larger layers are read twice), a copy without the cluster's max
+   exchange (``noexchange``: each CTA scales by its own max), one that
+   computes every code's value instead of reading the CTA's table
+   (``notable``), copies whose QDQ multiplies where it divides
+   (``nodiv``, no table) or is left out (``noqdq``:
+   loads, max and stores), one of 512 threads holding 4 vectors each
+   (``512 threads``), and one that returns at once (``empty``: the launch
+   and the clusters' scheduling);
+   beside it the flat path it replaced (per layer ``tensor_scale`` and
+   the flat kernel), the flat kernel alone at given scales and the
+   library's same work (per layer ``abs().amax()`` and
+   ``fake_quantize_per_tensor_affine``); then the STE backward as built
+   (1 vector a thread), at 2 and 4, empty, and its plain version (per
+   layer abs, compare, cast, mul).
+   Device times here sum every kernel of a call (10 calls, L2 warm).
 
 Times: CUDA events per call (L2 flushed, ``chip_smoke.Timer``) and the
 kernels' device time from ``torch.profiler``.  The copies are built with
@@ -132,6 +151,42 @@ ATTEND_CUTS = {
 }
 
 
+FQ_CUTS = {
+    "EMPTY": ("    cluster_arrive_relaxed();         // this CTA runs: the others may write its "
+              "slots\n", "    if (a.count > 0) return;\n"),
+    "BWD_EMPTY": ("    int lo = 0, hi = a.count - 1;",
+                  "    if (a.count > 0) return;\n    int lo = 0, hi = a.count - 1;"),
+    "NOARRIVE": ("    cluster_arrive_relaxed();         // this CTA runs: the others may write its "
+                 "slots\n", ""),
+    "NOEXCHANGE": ("    cluster_wait();                   // every CTA of the cluster has started\n"
+                   "    if (tid < C) {                    // thread q writes this CTA's max into "
+                   "rank q's slot\n        float c = warp_max[0];\n#pragma unroll\n        for (int i "
+                   "= 1; i < THREADS / 32; ++i) c = max_nan(c, warp_max[i]);\n        *cluster."
+                   "map_shared_rank(&cta_max[rank], tid) = c;\n    }\n    cluster_arrive();      "
+                   "           // release: this CTA's writes are visible\n    cluster_wait();      "
+                   "             // acquire: every rank's max is in cta_max\n    float s = "
+                   "cta_max[0];\n#pragma unroll\n    for (int q = 1; q < MAX_CLUSTER; ++q)\n        "
+                   "if (q < C) s = max_nan(s, cta_max[q]);\n",
+                   "    float s = warp_max[0];\n    for (int i = 1; i < THREADS / 32; ++i) "
+                   "s = max_nan(s, warp_max[i]);\n"),
+    "NODIV": ("    float wc = __fdiv_rn(w, p.scale);", "    float wc = w * p.scale;"),
+    "NODIV2": ("    return __fmul_rn(__fdiv_rn(q, p.n), p.scale);", "    return q * p.n * p.scale;"),
+    "NOQDQ": ("const float* levels, int n) {\n    if (p.fp) return;",
+              "const float* levels, int n) {\n    if (n >= 0) return;"),
+    "NOTABLE": ("    if (!p.fp && n <= TABLE_N) {", "    if (false) {"),
+    "T512": ("constexpr int THREADS = 256;", "constexpr int THREADS = 512;"),
+    "BV2": ("constexpr int BWD_VECS = 1;", "constexpr int BWD_VECS = 2;"),
+    "BV4": ("constexpr int BWD_VECS = 1;", "constexpr int BWD_VECS = 4;"),
+    "V4": ("constexpr int MAX_VECS = 8; ", "constexpr int MAX_VECS = 4; "),
+}
+FQ_VARIANTS = {"full": (), "noexchange": ("NOARRIVE", "NOEXCHANGE"),
+               "notable": ("NOTABLE",), "nodiv": ("NODIV", "NODIV2", "NOTABLE"),
+               "noqdq": ("NOQDQ",),
+               "512 threads": ("T512", "V4"), "empty": ("EMPTY", "BWD_EMPTY"),
+               "bwd 2 vectors": ("BV2",), "bwd 4 vectors": ("BV4",)}
+FQ_FWD_VARIANTS = ("full", "noexchange", "notable", "nodiv", "noqdq", "512 threads", "empty")
+
+
 def bs_tag(variant: str) -> str:
     """A file-name-safe tag of a bit-serial variant."""
     return "bs_" + re.sub(r"[^A-Za-z0-9]+", "_", variant)
@@ -181,7 +236,7 @@ def device_ms(timer, fn, key: str) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: needs a CUDA card")
-    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused"}
+    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused", "fq"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
@@ -206,6 +261,10 @@ def main() -> None:
                                         f"fd_{v.replace('+', '_')}")
                      for v, cuts in PA_VARIANTS.items()})
         jobs["fd_nopdl"] = patched("fused_decode.cu", ATTEND_CUTS, ("NOPDL",), "fd_nopdl")
+    if "fq" in sections:
+        jobs.update({f"fq_{v}": patched("fake_quant.cu", FQ_CUTS, cuts,
+                                        f"fq_{v.replace(' ', '_')}")
+                     for v, cuts in FQ_VARIANTS.items()})
     libs = build_all(jobs)
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -219,6 +278,8 @@ def main() -> None:
         paq_section(libs, timer, gen)
     if "fused" in sections:
         fused_section(libs, timer, gen)
+    if "fq" in sections:
+        fq_section(libs, timer, gen)
 
 
 def bitserial_section(libs, timer, gen) -> None:
@@ -471,6 +532,95 @@ def fused_section(libs, timer, gen) -> None:
         cells = [f"{tag} {timer(whole(libs[lib], pps, plan.splits)):.4f}"
                  for tag, lib in (("pdl", "fd_full"), ("nopdl", "fd_nopdl"))]
         print(f"  round {rep + 1}: " + "   ".join(cells), flush=True)
+
+
+
+def all_device_ms(fn, calls: int = 10) -> float:
+    """Device time of every kernel ``fn`` launches, per call (L2 warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / calls / 1e3
+
+
+def fq_section(libs, timer, gen) -> None:
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels.ref import fake_quant_group_bwd_ref
+    from repro_torch.quant.wrpn import tensor_scale
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for net, dtype in (("resnet20", torch.float32), ("resnet20", torch.bfloat16),
+                       ("lenet", torch.float32)):
+        ws = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+              for _, shape in cs.weight_shapes(net)]
+        gs = [torch.randn(w.shape, generator=gen, device="cuda").to(dtype) for w in ws]
+        G = len(ws)
+        bits = torch.tensor([cs.QAT_BITS[i % len(cs.QAT_BITS)] for i in range(G)],
+                            dtype=torch.int32, device="cuda")
+        plan = fq.fake_quant_group_plan([w.numel() for w in ws], dtype)
+        outs, scales = [torch.empty_like(w) for w in ws], torch.empty(G, device="cuda")
+        grads = [torch.empty_like(g) for g in gs]
+        args = (fq._pointers(ws), fq._pointers(outs), fq._numels(ws), G, bits.data_ptr(),
+                scales.data_ptr(), fq._eps(dtype), fq._DTYPES[dtype])
+        bwd_args = (fq._pointers(ws), fq._pointers(gs), fq._pointers(grads), fq._numels(ws),
+                    G, scales.data_ptr(), fq._DTYPES[dtype], stream)
+        label = f"{net} {str(dtype)[6:]}, {G} tensors, {sum(w.numel() for w in ws)} weights"
+        print(f"grouped fake-quant forward, {label} (plan: clusters of {plan.cluster}, "
+              f"{plan.vecs} vectors a thread): events ms / device ms per QAT forward")
+        for variant in FQ_FWD_VARIANTS:
+            lib = libs[f"fq_{variant}"]
+            build._declare("fake_quant", lib)
+            cells = []
+            for c in (1, 2, 4, 8):
+                fn = (lambda lib=lib, c=c: lib.fake_quant_group_launch(*args, c, stream))
+                mark = "*" if c == plan.cluster else ""
+                cells.append(f"C={c}{mark} {timer(fn):.4f} / "
+                             f"{device_ms(timer, fn, 'fake_quant_group_kernel'):.4f}")
+            print(f"  {variant:12s} " + "   ".join(cells), flush=True)
+        n4 = 7
+        zp = torch.zeros((), dtype=torch.int32, device="cuda")
+        given = [tensor_scale(w) for w in ws]
+
+        def library():
+            for w in ws:
+                torch.fake_quantize_per_tensor_affine(w, w.abs().amax().float() / n4, zp,
+                                                       -n4, n4)
+
+        def flat_path():
+            for i, w in enumerate(ws):
+                fq.fake_quant_cuda(w, bits[i], tensor_scale(w))
+
+        def flat_given():
+            for i, w in enumerate(ws):
+                fq.fake_quant_cuda(w, bits[i], given[i])
+
+        build._declare("fake_quant", libs["fq_full"])
+        group = (lambda: libs["fq_full"].fake_quant_group_launch(*args, plan.cluster, stream))
+        cells = [f"{name} {timer(fn):.4f} / {all_device_ms(fn):.4f}"
+                 for name, fn in (("group", group), ("flat path (scale + kernel)", flat_path),
+                                  ("flat at given scales", flat_given),
+                                  ("library (amax + fake_quantize)", library))]
+        print("  per QAT forward, events ms / device ms (all kernels): " + "   ".join(cells),
+              flush=True)
+        print(f"grouped STE backward, {label} ({plan.bwd_ctas[0]} CTAs): events ms / device ms "
+              f"per QAT backward")
+        cells = []
+        for variant in ("full", "bwd 2 vectors", "bwd 4 vectors", "empty"):
+            lib = libs[f"fq_{variant}"]
+            build._declare("fake_quant", lib)
+            fn = (lambda lib=lib: lib.fake_quant_group_bwd_launch(*bwd_args))
+            cells.append(f"{variant} {timer(fn):.4f} / "
+                         f"{device_ms(timer, fn, 'fake_quant_group_bwd'):.4f}")
+        plain = (lambda: fake_quant_group_bwd_ref(ws, gs, scales))
+        cells.append(f"plain (abs, <=, to, mul per layer) {timer(plain):.4f} / "
+                     f"{all_device_ms(plain):.4f}")
+        print("  " + "   ".join(cells), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,11 @@ port of ``repro.cnn.train``).
 - ``long_retrain``: the paper's final step after the agent converges.
 
 Quantization is per-tensor WRPN with the STE (paper §4.2).  The bits
-vector is an int32 tensor on the task's device, and every layer's entry
-reaches the fake-quant kernel as data, full precision included (32 passes
-the weights through), so every policy runs the same launches.  SGD with
+vector is an int32 tensor on the task's device, and every forward
+quantizes all the layers in one grouped fake-quant call (one launch for
+the forward, one for the STE backward) that reads each layer's entry as
+data, full precision included (32 passes the weights through), so every
+policy runs the same launches.  SGD with
 momentum (``m = 0.9 m + g``, ``p -= lr m``) through ``torch.autograd`` on
 leaf tensors; each step makes new tensors, so ``train`` never changes the
 params it is given, as the reference's functional step does not.
@@ -27,17 +29,14 @@ from repro_torch import resolve_device
 from repro_torch.cnn.data import DATASET_FOR, make_dataset
 from repro_torch.cnn.models import build_cnn
 from repro_torch.core.env import QuantEnv
-from repro_torch.quant.wrpn import fake_quant_ste
+from repro_torch.quant.wrpn import fake_quant_ste_group
 
 
-def _quantize_cnn_params(params, bits_by_name: dict):
-    new = {}
-    for name, p in params.items():
-        if name in bits_by_name:
-            new[name] = {"w": fake_quant_ste(p["w"], bits_by_name[name]), "b": p["b"]}
-        else:
-            new[name] = p
-    return new
+def _quantize_cnn_params(params, names, bits_vec: torch.Tensor):
+    """The weights of ``names`` through one grouped fake-quant call, layer
+    ``names[i]`` at ``bits_vec[i]``; biases and other layers as they are."""
+    qs = dict(zip(names, fake_quant_ste_group([params[n]["w"] for n in names], bits_vec)))
+    return {n: ({"w": qs[n], "b": p["b"]} if n in qs else p) for n, p in params.items()}
 
 
 class CNNTask:
@@ -76,8 +75,7 @@ class CNNTask:
         return torch.tensor(vec, dtype=torch.int32).to(self.device)
 
     def _logits(self, params, x, bits_vec):
-        bits = {n: bits_vec[i] for i, n in enumerate(self.names)}
-        return self.model.apply(_quantize_cnn_params(params, bits), x)
+        return self.model.apply(_quantize_cnn_params(params, self.names, bits_vec), x)
 
     def _train_step(self, params, mom, x, y, bits_vec):
         leaves = {n: {k: t.detach().requires_grad_(True) for k, t in p.items()}

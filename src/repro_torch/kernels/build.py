@@ -134,6 +134,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # w, out, bits, scale, numel, dtype, vectorized, stream
         lib.fake_quant_launch.argtypes = [P, P, P, P, ctypes.c_int64, I, I, P]
         lib.fake_quant_launch.restype = I
+        # ws, outs, numels (host arrays), count, bits, scale, eps, dtype,
+        # cluster, stream
+        lib.fake_quant_group_launch.argtypes = [P, P, P, I, P, P, F, I, I, P]
+        lib.fake_quant_group_launch.restype = I
+        # ws, gs, grads, numels (host arrays), count, scale, dtype, stream
+        lib.fake_quant_group_bwd_launch.argtypes = [P, P, P, P, I, P, I, P]
+        lib.fake_quant_group_bwd_launch.restype = I
+        lib.fake_quant_group_limits.argtypes = [P]
+        lib.fake_quant_group_limits.restype = None
 
 
 def check(err: int, what: str) -> None:

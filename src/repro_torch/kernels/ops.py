@@ -15,7 +15,10 @@ dims are flattened to rows and restored after.  Ragged edges (N or K not
 a multiple of the tile, as at d_ff = 13696) are masked inside the
 kernels, so nothing is padded here.
 
-``fake_quant`` is the QAT quantizer's forward (``quant.wrpn.fake_quant_ste``).
+``fake_quant_group`` is the QAT quantizer's forward and
+``fake_quant_group_bwd`` its STE (``quant.wrpn.fake_quant_ste_group``):
+one launch each per QAT forward and backward.  ``fake_quant`` is the flat
+kernel, for a scale the caller gives.
 
 Quantized KV: ``paged_attention`` takes the quantized-block kernel when
 scales are passed, and ``fused_qkv_paged_decode`` runs the fused QKV +
@@ -34,7 +37,7 @@ from repro_torch.kernels import ref as kref
 
 counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
           "paged_attention_quant": 0, "fused_qkv_paged_decode": 0, "fake_quant": 0,
-          "plain": 0}
+          "fake_quant_group": 0, "fake_quant_group_bwd": 0, "plain": 0}
 
 
 def reset_counts() -> None:
@@ -73,6 +76,36 @@ def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None) -> torc
         out = kref.fake_quant_ref(w2, bits, scale)
         counts["plain"] += 1
     return out.reshape(shape)
+
+
+def fake_quant_group(ws, bits):
+    """WRPN QDQ of every tensor of ``ws`` at its own per-tensor scale
+    ``max(max|w|, eps)`` (``tensor_scale``), tensor i at ``bits[i]`` (an
+    int32 vector on the tensors' device).  Returns (the QDQ tensors, the
+    f32 vector of scales).  On CUDA: one grouped launch (more only past
+    ``GROUP_MAX`` tensors), counted per launch."""
+    if _on_cuda(ws[0]):
+        from repro_torch.kernels.fake_quant import fake_quant_group_cuda
+
+        outs, scales, launches = fake_quant_group_cuda([w.contiguous() for w in ws], bits)
+        counts["fake_quant_group"] += launches
+        return outs, scales
+    counts["plain"] += 1
+    return kref.fake_quant_group_ref(ws, bits)
+
+
+def fake_quant_group_bwd(ws, gs, scales: torch.Tensor) -> list:
+    """The clipped STE of a group: ``gs[i] * (|ws[i]| <= scales[i])`` in
+    each gradient's dtype.  On CUDA: one launch for the group."""
+    if _on_cuda(gs[0]):
+        from repro_torch.kernels.fake_quant import fake_quant_group_bwd_cuda
+
+        grads, launches = fake_quant_group_bwd_cuda([w.contiguous() for w in ws],
+                                                    [g.contiguous() for g in gs], scales)
+        counts["fake_quant_group_bwd"] += launches
+        return grads
+    counts["plain"] += 1
+    return kref.fake_quant_group_bwd_ref(ws, gs, scales)
 
 
 def qmm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,

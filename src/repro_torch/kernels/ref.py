@@ -12,6 +12,7 @@ import torch
 from repro_torch.quant.pack import (kv_dequantize, kv_pack_int4, kv_quantize,
                                     kv_unpack_int4, unpack_bitplanes)
 from repro_torch.quant.wrpn import fake_quant as _fake_quant
+from repro_torch.quant.wrpn import tensor_scale
 
 
 def fake_quant_ref(w: torch.Tensor, bits, scale: torch.Tensor) -> torch.Tensor:
@@ -19,6 +20,22 @@ def fake_quant_ref(w: torch.Tensor, bits, scale: torch.Tensor) -> torch.Tensor:
     op for op ``repro.quant.wrpn.fake_quant``; ``bits`` an int or an
     int32 tensor on ``w``'s device."""
     return _fake_quant(w, bits, scale=scale)
+
+
+def fake_quant_group_ref(ws, bits):
+    """Each tensor's ``tensor_scale`` and its QDQ at ``bits[i]``, tensor by
+    tensor -> (the QDQ tensors, the f32 vector of scales)."""
+    scales = [tensor_scale(w) for w in ws]
+    outs = [fake_quant_ref(w, bits[i], s) for i, (w, s) in enumerate(zip(ws, scales))]
+    return outs, torch.stack(scales)
+
+
+def fake_quant_group_bwd_ref(ws, gs, scales: torch.Tensor) -> list:
+    """The clipped STE, tensor by tensor (``repro.quant.wrpn._fq_bwd``):
+    ``g * inside``, with |w| compared in f32 against the scale, as jnp
+    promotes a bf16 |w| against the f32 scale."""
+    return [g * (w.abs().float() <= scales[i]).to(g.dtype)
+            for i, (w, g) in enumerate(zip(ws, gs))]
 
 
 def dequant_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:

@@ -12,10 +12,13 @@ inputs.
 ``bits`` may be an int or an int32 tensor on ``w``'s device (a layer's
 entry of the QAT bits vector): the ``bits >= 32`` pass-through is a
 ``torch.where`` and the level count is computed from integers, so no
-value leaves the device.  :func:`fake_quant_ste` is the QAT quantizer:
-its forward is the hand-written fake-quant kernel on a CUDA tensor
-(``kernels.ops.fake_quant``), its backward the clipped straight-through
-estimator.
+value leaves the device.  :func:`fake_quant_ste_group` is the QAT
+quantizer: one call quantizes every weight of a forward at its own
+per-tensor max|w| scale, through the grouped fake-quant kernel on CUDA
+tensors (``kernels.ops.fake_quant_group``: one launch that takes the
+scales too), and its backward, the clipped straight-through estimator,
+is one more launch (``kernels.ops.fake_quant_group_bwd``).
+:func:`fake_quant_ste` is a group of one.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import torch
 
 # Bitwidth >= FP_BITS means "leave in full precision".
 FP_BITS = 32
+# The floor of a per-tensor scale, taken in the weights' dtype.
+EPS = 1e-8
 
 
 def _levels(bits: torch.Tensor) -> torch.Tensor:
@@ -34,16 +39,17 @@ def _levels(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2, (1 << shift) - 1, 1).float()
 
 
-def tensor_scale(w: torch.Tensor, axis=None, eps: float = 1e-8) -> torch.Tensor:
+def tensor_scale(w: torch.Tensor, axis=None, eps: float = EPS) -> torch.Tensor:
     """max|w| scale so w/scale ∈ [-1, 1].  axis=None → per-tensor.
 
     The floor is taken in ``w``'s own dtype before the f32 cast, as
-    ``jnp.maximum(s, eps)`` does with a weakly typed ``eps``."""
+    ``jnp.maximum(s, eps)`` does with a weakly typed ``eps``; it is made on
+    ``w``'s device by a fill (a host tensor would be a blocking copy)."""
     if axis is None:
         s = w.abs().amax()
     else:
         s = w.abs().amax(dim=axis, keepdim=True)
-    s = torch.maximum(s, torch.tensor(eps, dtype=s.dtype, device=s.device))
+    s = torch.maximum(s, s.new_full((), eps))
     return s.float()
 
 
@@ -63,39 +69,53 @@ def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None,
     return torch.where(bits >= FP_BITS, w, wq.to(w.dtype))
 
 
-class _FakeQuantSTE(torch.autograd.Function):
-    """Forward: the fake-quant kernel (plain version on a CPU tensor).
-    Backward: identity inside the clip region, zero outside; the scale is
-    a constant (``repro.quant.wrpn._fq_bwd``)."""
+class _FakeQuantSTEGroup(torch.autograd.Function):
+    """Forward: every tensor's per-tensor max|w| scale and QDQ in one
+    grouped launch (plain versions on CPU tensors).  Backward: the clipped
+    STE of every tensor in one launch, at the forward's scales (constants,
+    as ``repro.quant.wrpn._fq_bwd`` takes them)."""
 
     @staticmethod
-    def forward(ctx, w, bits, scale):
+    def forward(ctx, bits, *ws):
         from repro_torch.kernels import ops
 
-        ctx.save_for_backward(w, scale)
-        return ops.fake_quant(w, bits, scale)
+        outs, scales = ops.fake_quant_group(ws, bits)
+        ctx.save_for_backward(scales, *ws)
+        return tuple(outs)
 
     @staticmethod
-    def backward(ctx, g):
-        w, scale = ctx.saved_tensors
-        # compared in f32, as jnp promotes a bf16 |w| against the f32 scale
-        inside = (w.abs().float() <= scale).to(g.dtype)
-        return g * inside, None, None
+    def backward(ctx, *gs):
+        from repro_torch.kernels import ops
+
+        scales, *ws = ctx.saved_tensors
+        return (None, *ops.fake_quant_group_bwd(ws, gs, scales))
+
+
+def fake_quant_ste_group(ws, bits) -> list:
+    """fake_quant with a straight-through estimator for every tensor of
+    ``ws`` at its own per-tensor max|w| scale (the paper's choice):
+    ``bits`` holds one entry per tensor (a list, or an int32 vector on the
+    tensors' device: the QAT bits vector).  Returns the QDQ tensors."""
+    if not ws:
+        raise ValueError("fake_quant_ste_group needs one or more tensors")
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=ws[0].device).reshape(-1)
+    if bits.numel() != len(ws):
+        raise ValueError(f"{len(ws)} tensors and {bits.numel()} bits")
+    return list(_FakeQuantSTEGroup.apply(bits, *ws))
 
 
 def fake_quant_ste(w: torch.Tensor, bits, axis=None) -> torch.Tensor:
     """fake_quant with a straight-through estimator, at the per-tensor
-    max|w| scale (the paper's choice, ``axis=None``).  ``bits``: an int or
-    an int32 tensor on ``w``'s device.  The per-column scale (``axis=0``)
-    belongs to the LM QAT path, which is not ported."""
+    max|w| scale (the paper's choice, ``axis=None``): a group of one.
+    ``bits``: an int or an int32 tensor on ``w``'s device.  The
+    per-column scale (``axis=0``) belongs to the LM QAT path, which is not
+    ported."""
     if axis is not None:
         from repro_torch import not_ported
 
         raise not_ported("fake_quant_ste with a per-column scale (the LM QAT path)",
                          "slice B, item 8")
-    scale = tensor_scale(w.detach())
-    bits = torch.as_tensor(bits, dtype=torch.int32, device=w.device)
-    return _FakeQuantSTE.apply(w, bits, scale)
+    return fake_quant_ste_group([w], bits)[0]
 
 
 def quantize_to_int(w: torch.Tensor, bits: int,

@@ -11,8 +11,10 @@ decode's projections sum in another order than the plain version's
 dequant-form matmul, so its new-token codes may move by one step where a
 value sits on a rounding edge: scales within 2^-7 relative, codes within
 +-1, output within 2e-2 * max|plain|; its attention half alone, on the
-same projections, gives codes and scales bitwise.  The fake-quant kernel
-is elementwise IEEE f32 in the plain version's order: bitwise.  The
+same projections, gives codes and scales bitwise.  The fake-quant kernels
+(flat and grouped, forward and STE backward) are elementwise IEEE f32 in
+the plain version's order, and the scale a max: bitwise, compared as bit
+patterns where NaN or -0.0 may sit.  The
 split-K qmm bodies (bit-serial and dequant) and the split-KV attention add
 their partials in a fixed order, so two calls on the same inputs are
 bitwise equal.
@@ -91,7 +93,8 @@ def test_ops_counts_kernel_launches_on_the_card(sm90):
     ops.qmm(torch.cat([x] * 10), planes, scale, bits=4)
     assert ops.counts == {"qmm_bitserial": 1, "qmm_dequant": 1,
                           "paged_attention": 0, "paged_attention_quant": 0,
-                          "fused_qkv_paged_decode": 0, "fake_quant": 0, "plain": 0}
+                          "fused_qkv_paged_decode": 0, "fake_quant": 0,
+                          "fake_quant_group": 0, "fake_quant_group_bwd": 0, "plain": 0}
 
 
 def _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev):
@@ -228,6 +231,178 @@ def test_fake_quant_ste_on_the_card_matches_the_cpu(sm90, bits):
         vals.append(out.detach().cpu())
         grads.append(g.cpu())
     assert torch.equal(vals[0], vals[1]) and torch.equal(grads[0], grads[1])
+
+
+# ---- the grouped fake-quant of the QAT path: one launch per forward (the
+# scales taken in the launch), one for the STE backward; bit patterns
+# compared, so the sign of zero and NaN are held
+FQ_GROUP_BITS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32)
+
+
+def _bit_pattern(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bit_pattern(a),
+                                                                      _bit_pattern(b))
+
+
+def _fq_group(net, dtype, dev, seed, extra=()):
+    """The quantized weights of ``net`` (every layer, in the QAT order),
+    then ``extra`` shapes, random from ``seed``, with a -0.0 and a 0.0."""
+    from repro_torch.cnn.models import build_cnn
+
+    shapes = [tuple(p["w"].shape) for p in build_cnn(net).init(0, device="cpu").values()]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ws = []
+    for shape in [*shapes, *extra]:
+        w = torch.randn(shape, generator=gen, device=dev)
+        w.view(-1)[:2] = torch.tensor([-0.0, 0.0], device=dev)
+        ws.append(w.to(dtype))
+    return ws
+
+
+def _edge_tensors(dtype, dev):
+    """An all-zero tensor (the eps floor), one holding a NaN, and one whose
+    max sits where the floor's dtype decides the scale: f32 just above
+    1e-8 (below bf16(1e-8)), bf16 just below 1e-8 (bf16(1e-8) wins)."""
+    near = 1.0005e-8 if dtype == torch.float32 else 9.95e-9
+    nan = torch.randn((33, 7), generator=torch.Generator().manual_seed(4))
+    nan[3, 2] = float("nan")
+    return [torch.zeros((5, 9), device=dev, dtype=dtype),
+            nan.to(dev, dtype),
+            (torch.linspace(-1, 1, 301) * near).to(dev, dtype)]
+
+
+def _fq_check_group(ws, dev, seed=0):
+    """The grouped forward and backward against their plain versions, bit
+    for bit; returns the launches counted."""
+    n = len(ws)
+    bits = torch.tensor([FQ_GROUP_BITS[(i + seed) % len(FQ_GROUP_BITS)] for i in range(n)],
+                        dtype=torch.int32, device=dev)
+    ops.reset_counts()
+    outs, scales = ops.fake_quant_group(ws, bits)
+    torch.cuda.synchronize()
+    want, want_s = tref.fake_quant_group_ref(ws, bits)
+    assert _same_bits(scales, want_s)
+    for i, (o, p) in enumerate(zip(outs, want)):
+        assert _same_bits(o, p), (i, tuple(ws[i].shape), int(bits[i]))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gs = []
+    for w in ws:
+        g = torch.randn(w.shape, generator=gen, device=dev)
+        g.view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -3.0, float("-inf")],
+                                      device=dev)[:g.numel()]
+        gs.append(g.to(w.dtype))
+    grads = ops.fake_quant_group_bwd(ws, gs, scales)
+    torch.cuda.synchronize()
+    for i, (g, p) in enumerate(zip(grads, tref.fake_quant_group_bwd_ref(ws, gs, want_s))):
+        assert _same_bits(g, p), (i, tuple(ws[i].shape))
+    assert ops.counts["plain"] == 0 and ops.counts["fake_quant"] == 0
+    return ops.counts["fake_quant_group"], ops.counts["fake_quant_group_bwd"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("net", ["lenet", "resnet20"])
+def test_fake_quant_group_matches_plain_bitwise(sm90, net, dtype):
+    for seed in range(3):         # each layer meets several bits entries
+        ws = _fq_group(net, dtype, sm90, seed) + _edge_tensors(dtype, sm90)
+        assert _fq_check_group(ws, sm90, seed) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_group_with_a_tensor_read_twice(sm90, dtype):
+    from repro_torch.kernels.fake_quant import fake_quant_group_plan
+
+    ws = _fq_group("resnet20", dtype, sm90, 7, extra=[(4096, 13696)])   # glm4-9b's wg
+    plan = fake_quant_group_plan([w.numel() for w in ws], dtype)
+    assert plan.second_read == (len(ws) - 1,)
+    assert _fq_check_group(ws, sm90) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_group_any_cluster_size_is_bitwise(sm90, dtype, cluster):
+    """Launched at every cluster size (the ablation's sweep): at one or two
+    CTAs ResNet-20's larger layers no longer fit the registers and are
+    read twice; the outputs and scales do not change."""
+    from repro_torch.kernels.fake_quant import group_launch
+
+    ws = _fq_group("resnet20", dtype, sm90, 8) + _edge_tensors(dtype, sm90)
+    bits = torch.tensor([FQ_GROUP_BITS[i % 10] for i in range(len(ws))], dtype=torch.int32,
+                        device=sm90)
+    outs = [torch.empty_like(w) for w in ws]
+    scales = torch.empty(len(ws), device=sm90)
+    group_launch(ws, outs, bits, scales, cluster)
+    torch.cuda.synchronize()
+    want, want_s = tref.fake_quant_group_ref(ws, bits)
+    assert _same_bits(scales, want_s)
+    assert all(_same_bits(o, p) for o, p in zip(outs, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_group_unaligned_views_and_many_launches(sm90, dtype):
+    """Views 1 element past an aligned base take the scalar loads; 150
+    tensors take two launches of at most GROUP_MAX."""
+    from repro_torch.kernels.fake_quant import GROUP_MAX
+
+    gen = torch.Generator(device=sm90).manual_seed(11)
+    base = torch.randn(40_000, generator=gen, device=sm90).to(dtype)
+    ws = [base[1:1 + 37 * 19].view(37, 19), base[1:30_001], base[3:8]]
+    ws += [torch.randn((i % 13 + 1, 17), generator=gen, device=sm90).to(dtype)
+           for i in range(147)]
+    assert len(ws) > GROUP_MAX
+    assert _fq_check_group(ws, sm90, seed=3) == (2, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FQ_SHAPES[:4], ids=str)
+def test_fake_quant_group_of_one_equals_the_flat_kernel(sm90, shape, dtype):
+    from repro_torch.kernels.fake_quant import fake_quant_cuda, fake_quant_group_cuda
+    from repro_torch.quant.wrpn import tensor_scale
+
+    gen = torch.Generator(device=sm90).manual_seed(12)
+    w = torch.randn(shape, generator=gen, device=sm90).to(dtype)
+    for b in FQ_GROUP_BITS:
+        bits = torch.tensor([b], dtype=torch.int32, device=sm90)
+        (got,), scale, launches = fake_quant_group_cuda([w], bits)
+        assert launches == 1 and _same_bits(scale[0], tensor_scale(w))
+        assert _same_bits(got, fake_quant_cuda(w, bits[0], tensor_scale(w)))
+
+
+@pytest.mark.gpu
+def test_fake_quant_group_constants_match_the_library(sm90):
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fake_quant as fq
+
+    out = (ctypes.c_int * 7)()
+    build.library("fake_quant").fake_quant_group_limits(out)
+    assert list(out) == [fq.THREADS, fq.MAX_VECS, fq.BWD_VECS, fq.GROUP_MAX, fq.MAX_CLUSTER,
+                         fq.FWD_PARAM_BYTES[0] + fq.FWD_PARAM_BYTES[1] * fq.GROUP_MAX,
+                         fq.BWD_PARAM_BYTES[0] + fq.BWD_PARAM_BYTES[1] * fq.GROUP_MAX]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["lenet", "resnet20"])
+def test_qat_step_launches_one_group_per_forward_and_backward(sm90, net):
+    from repro_torch.cnn import CNNTask
+
+    task = CNNTask(net, seed=0, batch=8, device=sm90)
+    bits = {n: (2, 3, 4, 8, 32)[i % 5] for i, n in enumerate(task.names)}
+    ops.reset_counts()
+    params, _ = task.train(2, bits)
+    task.accuracy(params, bits)          # two validation batches: two forwards
+    torch.cuda.synchronize()
+    assert ops.counts["fake_quant_group"] == 4 and ops.counts["fake_quant_group_bwd"] == 2
+    assert ops.counts["fake_quant"] == 0 and ops.counts["plain"] == 0
 
 
 # ---- the bit-serial body: tensor cores (bf16 x), split-K with an in-launch

@@ -107,7 +107,8 @@ def test_ops_cpu_tensors_take_the_plain_version():
     assert out.shape == q.shape
     assert ops.counts == {"qmm_bitserial": 0, "qmm_dequant": 0,
                           "paged_attention": 0, "paged_attention_quant": 0,
-                          "fused_qkv_paged_decode": 0, "fake_quant": 0, "plain": 2}
+                          "fused_qkv_paged_decode": 0, "fake_quant": 0,
+                          "fake_quant_group": 0, "fake_quant_group_bwd": 0, "plain": 2}
     ops.reset_counts()
     assert not any(ops.counts.values())
 

@@ -186,7 +186,8 @@ def test_ops_quantized_dispatch_on_cpu_counts_plain():
     assert torch.equal(out, out2)
     assert ops.counts == {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
                           "paged_attention_quant": 0, "fused_qkv_paged_decode": 0,
-                          "fake_quant": 0, "plain": 2}
+                          "fake_quant": 0, "fake_quant_group": 0,
+                          "fake_quant_group_bwd": 0, "plain": 2}
 
 
 # ----------------------------------------------------------------- pool layout
