@@ -60,6 +60,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
       int4 blocks;
    c. ``--bits 16 --kv-bits 8``: dense bf16 q/k/v, quantized paged
       attention over int8 blocks.
+   Each serves through the launcher's defaults: the decode step captured
+   in a CUDA graph, tokens selected on the device by a second graph, the
+   one-step lookahead.  Each prints the sampler and pipeline counters and
+   the graph captures, and fails unless the lookahead ran
+   (``lookahead_steps > 0``), every decode step was a lookahead or a
+   bubble, and the decode step was captured once (``recompiles == 0``).
+   a'. path a again with ``--host-sampling`` on the same params: its
+      greedy streams must equal path a's bitwise; tokens/s, step p50 and
+      TTFT print beside path a's.
+   a''. path a's workload through a ``ServeEngine`` that runs
+      ``model.decode_step`` eagerly and samples on the host (no graph):
+      the captured decode step's witness at full width, its greedy
+      streams bitwise path a's.  Then a' and a once more, in that order,
+      so that each path is timed both first and second.
    Two run the ReLeQ search, every QAT forward through one grouped
    fake-quant launch and every backward through one grouped STE launch
    (no flat fake-quant launch):
@@ -81,22 +95,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    emitted; a small model with head dim 128 gives the same logits on the
    card (kernels) as on the CPU (plain versions) within 2e-2 * max|cpu|
    (bf16 activations round differently on each side), with fp, int4 and
-   int8 KV blocks; the same model served by ``ServeEngine`` on the card
-   and on the CPU (6 requests on 4 rows, prompts of 9-40 tokens, 36
-   greedy tokens each, block 16) gives the same greedy streams with fp,
-   int4 and int8 KV blocks, or diverges only where the CPU's top-2 logit
-   margin is within 2e-2 * max|logit| (the first divergence and its margin
-   are printed); and one ResNet-20 QAT step at a mixed policy from
+   int8 KV blocks; the same model served by ``ServeEngine`` on the CPU
+   with host sampling and on the card twice, with host sampling and with
+   the defaults (graphs, device sampling, lookahead) (6 requests on 4
+   rows, prompts of 9-40 tokens, 36 greedy tokens each, block 16), gives
+   the same greedy streams with fp, int4 and int8 KV blocks, or diverges
+   only where the CPU's top-2 logit margin is within 2e-2 * max|logit|
+   (the first divergence and its margin are printed); and one ResNet-20
+   QAT step at a mixed policy from
    path e's params gives the same params on the card as on the CPU within
    1e-4 * max|param| (f32 convolutions, TF32 off, summed in other orders)
    and the same validation accuracy.
 
 5. Where the time goes (read only, after the checks): for each serving
-   path, four requests decode on its served model; a few decode steps are
-   timed by the host clock, then a few more are traced with
-   ``torch.profiler`` to split the device time by kernel and give the
-   device's idle share (the fused decode's two launches as two
-   families).  The same for ResNet-20 QAT train steps, with the runtime
+   path, four requests decode on its served model, through the served
+   engine (graphs, device sampling, lookahead) and through a
+   host-sampling engine on the same params; a few decode steps are timed
+   by the host clock, then a few more are traced with ``torch.profiler``
+   to split the device time by kernel and give the device's idle share
+   (the fused decode's two launches as two families, the sampler graph's
+   argmax as its own).  The two sampler graphs (the argmax every served
+   cell takes, and the full temperature / top-k / top-p sampler) are
+   timed alone at (4, 151552).  The same for ResNet-20 QAT train steps, with the runtime
    calls per step that can block the host (stream and device syncs,
    memcpys).
 
@@ -1049,6 +1069,22 @@ def serve_path(torch, label, flags, need, built=None):
             fail(f"[{label}] the path launched no {key} kernel: {counts}")
     if counts["plain"] != 0:
         fail(f"[{label}] the path took the plain version {counts['plain']} times on CUDA")
+    pl, captures = m["pipeline"], engine.graph_captures
+    print(f"[{label}] sampler={'device' if m['sampler']['device'] else 'host'} "
+          f"fallbacks={m['sampler']['fallbacks']} pipeline={'on' if pl['enabled'] else 'off'} "
+          f"lookahead_steps={pl['lookahead_steps']} bubbles={pl['bubbles']} "
+          f"recompiles={m['recompiles']} graph captures={captures} (host s, shared "
+          f"samplers since the process began: "
+          f"{ {k: round(v, 4) for k, v in engine.graph_capture_seconds.items()} })")
+    if m["recompiles"] != 0 or captures["decode"] != 1:
+        fail(f"[{label}] the decode step was captured {captures['decode']} times "
+             f"({m['recompiles']} re-captures): want one capture")
+    if not args.host_sampling:
+        if pl["lookahead_steps"] <= 0:
+            fail(f"[{label}] the pipeline never looked ahead")
+        if pl["lookahead_steps"] + pl["bubbles"] != m["decode_steps"]:
+            fail(f"[{label}] lookahead {pl['lookahead_steps']} + bubbles {pl['bubbles']} "
+                 f"!= decode steps {m['decode_steps']}")
     print(f"[{label}] served {len(work)} requests: tokens/s={m['tokens_per_s']:.2f} "
           f"decode_step_p50={m['decode_step_p50_ms']:.3f} ms "
           f"p99={m['decode_step_p99_ms']:.3f} ms decode_steps={m['decode_steps']} "
@@ -1106,9 +1142,12 @@ STREAM_GEN = 36          # greedy tokens per request: past two 16-token block ed
 
 def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
     """The small model served by the port's ServeEngine on the card
-    (kernels) and on the CPU (plain versions): 6 requests on 4 rows,
-    greedy.  Equal streams, or a first divergence where the CPU's top-2
-    logit margin is within the bf16 logit bound (2e-2 * max|logit|)."""
+    (kernels) and on the CPU (plain versions, host sampling): 6 requests
+    on 4 rows, greedy.  On the card twice: with host sampling, and with
+    the defaults (captured decode step, device sampling, lookahead).  Each
+    card run gives the CPU's streams, or a first divergence where the
+    CPU's top-2 logit margin is within the bf16 logit bound (2e-2 *
+    max|logit|)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1119,11 +1158,14 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
     rng = np.random.default_rng(9)
     work = [(rng.integers(0, sm.cfg.vocab_size, int(n)), STREAM_GEN)
             for n in (9, 40, 17, 31, 24, 16)]
+    host = {"sample_device": False, "pipeline": False}
     runs = {}
-    for dev in ("cuda", "cpu"):
+    for name, dev, kw in (("card, host sampling", "cuda", host),
+                          ("card, device sampling + pipeline", "cuda", {}),
+                          ("cpu", "cpu", host)):
         sp = quantize_for_serving(sm, params, policy_for(sm, 4), device=dev)
         eng = ServeEngine(sm, sp, num_slots=4, max_len=40 + STREAM_GEN + 1, block_size=16,
-                          prefill_chunk=16, device=dev, kv_bits=kv_bits)
+                          prefill_chunk=16, device=dev, kv_bits=kv_bits, **kw)
         margins = {}
         for prompt, n in work:
             req = eng.requests[eng.submit(prompt, n)]
@@ -1140,29 +1182,37 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
         if dev == "cuda":
             torch.cuda.synchronize()
             if ops.counts["plain"] != 0 or ops.counts["qmm_bitserial"] <= 0:
-                fail(f"served streams (kv_bits={kv_bits}): card launch counts {ops.counts}")
-        runs[dev] = ([eng.output(r) for r in range(len(work))], margins)
+                fail(f"served streams (kv_bits={kv_bits}, {name}): launch counts {ops.counts}")
+            m = eng.metrics()
+            if m["recompiles"] != 0 or (not kw and m["pipeline"]["lookahead_steps"] <= 0):
+                fail(f"served streams (kv_bits={kv_bits}, {name}): recompiles "
+                     f"{m['recompiles']}, pipeline {m['pipeline']}")
+        runs[name] = ([eng.output(r) for r in range(len(work))], margins)
     kv = f"kv_bits={kv_bits}" if kv_bits else "fp KV"
-    out = {"requests": len(work), "tokens_per_request": STREAM_GEN, "diverged": []}
-    for rid in range(len(work)):
-        got, want = runs["cuda"][0][rid], runs["cpu"][0][rid]
-        if len(got) != STREAM_GEN or len(want) != STREAM_GEN:
-            fail(f"served streams ({kv}): request {rid} emitted {len(got)} / {len(want)} tokens")
-        if got == want:
-            continue
-        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
-        margin, top = runs["cpu"][1][rid][i]
-        print(f"  served streams ({kv}): request {rid} first diverges at token {i} "
-              f"(card {got[i]}, cpu {want[i]}); CPU top-2 margin {margin:.4g}, "
-              f"bound 2e-2 * {top:.4g} = {2e-2 * top:.4g}")
-        out["diverged"].append({"request": rid, "token": i, "margin": margin,
-                                "bound": 2e-2 * top})
-        if margin > 2e-2 * top:
-            fail(f"served streams ({kv}): request {rid} diverged at token {i} where the "
-                 f"CPU's top-2 margin {margin:.4g} exceeds 2e-2 * max|logit| = {2e-2 * top:.4g}")
-    print(f"served streams ({kv}): {len(work)} requests x {STREAM_GEN} greedy tokens, card vs "
-          f"CPU: {len(work) - len(out['diverged'])} equal, {len(out['diverged'])} diverged "
-          f"within the bound")
+    out = {"requests": len(work), "tokens_per_request": STREAM_GEN}
+    for name in ("card, host sampling", "card, device sampling + pipeline"):
+        diverged = out[name] = []
+        for rid in range(len(work)):
+            got, want = runs[name][0][rid], runs["cpu"][0][rid]
+            if len(got) != STREAM_GEN or len(want) != STREAM_GEN:
+                fail(f"served streams ({kv}, {name}): request {rid} emitted {len(got)} / "
+                     f"{len(want)} tokens")
+            if got == want:
+                continue
+            i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            margin, top = runs["cpu"][1][rid][i]
+            print(f"  served streams ({kv}, {name}): request {rid} first diverges at token "
+                  f"{i} (card {got[i]}, cpu {want[i]}); CPU top-2 margin {margin:.4g}, "
+                  f"bound 2e-2 * {top:.4g} = {2e-2 * top:.4g}")
+            diverged.append({"request": rid, "token": i, "margin": margin,
+                             "bound": 2e-2 * top})
+            if margin > 2e-2 * top:
+                fail(f"served streams ({kv}, {name}): request {rid} diverged at token {i} "
+                     f"where the CPU's top-2 margin {margin:.4g} exceeds 2e-2 * max|logit| "
+                     f"= {2e-2 * top:.4g}")
+        print(f"served streams ({kv}, {name}): {len(work)} requests x {STREAM_GEN} greedy "
+              f"tokens, card vs CPU: {len(work) - len(diverged)} equal, {len(diverged)} "
+              f"diverged within the bound")
     return out
 
 
@@ -1201,9 +1251,110 @@ def small_model_card_vs_cpu(torch, sm, params, kv_bits):
           f"({err / scale:.2e} of max)")
 
 
+def host_engine(r, **kw):
+    """A fresh engine on a serving path's model and params that samples on
+    the host without the pipeline (``--host-sampling``); ``kw`` goes to
+    ``ServeEngine``."""
+    from repro_torch.serve import ServeEngine
+
+    a = r["args"]
+    kv = {}
+    if a.kv_bits:
+        kv["kv_bits"] = a.kv_bits[0] if len(a.kv_bits) == 1 else a.kv_bits
+    return ServeEngine(r["model"], r["sparams"], num_slots=a.num_slots,
+                       max_len=a.prompt_len + a.gen + 1, block_size=a.block_size,
+                       prefill_chunk=a.prefill_chunk, sample_device=False, pipeline=False,
+                       device="cuda", **kv, **kw)
+
+
+def eager_witness(torch, r):
+    """Path a's workload on its params through an engine that runs
+    ``model.decode_step`` eagerly and samples on the host: the captured
+    decode step's witness at full width.  The launch counters are zeroed
+    just before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import SamplingParams
+
+    a = r["args"]
+    engine = host_engine(r, decode_fn=r["model"].decode_step)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    launcher.drive(engine, r["work"], a.arrival_every, SamplingParams(temperature=a.temperature))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts, m = dict(ops.counts), engine.metrics()
+    if engine.graph_captures["decode"] != 0:
+        fail("[fp KV, eager] the eager decode step was captured")
+    if counts["plain"] != 0 or counts["paged_attention"] <= 0:
+        fail(f"[fp KV, eager] launch counts {counts}")
+    print(f"[fp KV, eager] served {len(r['work'])} requests: tokens/s={m['tokens_per_s']:.2f} "
+          f"decode_step_p50={m['decode_step_p50_ms']:.3f} ms decode_steps={m['decode_steps']} "
+          f"tokens={m['tokens_total']} wall={wall_s:.2f} s")
+    print(f"[fp KV, eager] launch counts on the path: {counts}")
+    return {"engine": engine, "metrics": m, "counts": counts, "setup_s": 0.0,
+            "wall_s": wall_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def profile_paths(torch, label, r):
+    """Phase 5 for one cell: the served engine (captured decode step,
+    device sampling, lookahead) and a host-sampling engine on the same
+    params."""
+    out = {}
+    for path, engine in (("pipeline", r["engine"]), ("host sampling", host_engine(r))):
+        print(f"  [{label}, {path}]")
+        out[path] = profile_decode(torch, engine, r["work"])
+    return out
+
+
+def sampler_graph_times(torch, V, B=4, reps=20):
+    """The two sampler graphs alone at (B, V): per replay, by CUDA events
+    (median) and by the profiler's device time.  ``greedy`` is the bare
+    argmax the engine takes when every row is greedy (every served cell);
+    ``full`` the temperature / top-k / top-p sampler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.request import Request, SamplingParams
+    from repro_torch.serve.sampler import greedy_rows, row_arrays, sample_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3
+    arrs = row_arrays(B, [(i, Request(i, [1], 8, SamplingParams(0.9, 50, 0.9, i)))
+                          for i in range(B)])
+    params = [torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32 else a).cuda()
+              for a in arrs]
+    pos = torch.arange(B, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, fn in (("greedy", lambda: greedy_rows(logits)),
+                     ("full", lambda: sample_rows(logits, *params, pos))):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.self_device_time_total > 0) / reps / 1e3
+        out[name] = {"events_ms": statistics.median(times), "device_ms": dev or None}
+        print(f"  sampler graph ({name}, {B} x {V}): {statistics.median(times):.4f} ms "
+              f"per replay by events, device {dev:.4f} ms")
+    return out
+
+
 def profile_decode(torch, engine, work, timed=4, traced=4):
     """Decode-only steps on 4 running rows: host-clock step time, then a
-    torch.profiler trace for device time by kernel family."""
+    torch.profiler trace for device time by kernel family (the sampler
+    graph's argmax as its own)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1230,7 +1381,8 @@ def profile_decode(torch, engine, work, timed=4, traced=4):
         if us <= 0:
             continue
         name = ev.key
-        fam = ("qmm" if "qmm_" in name else "fused_project" if "fused_project" in name
+        fam = ("sampler graph" if "ArgMax" in name
+               else "qmm" if "qmm_" in name else "fused_project" if "fused_project" in name
                else "fused_attend" if "fused_attend" in name
                else "paged_attention_quant" if "paged_attention_quant" in name
                else "paged_attention" if "paged_attention" in name
@@ -1312,22 +1464,49 @@ def main() -> None:
 
     # ---- phases 3-5, path a (fp KV blocks): serve, check outputs, profile
     phase("phase 3a: glm4-9b serving end to end, --bits 4, fp KV blocks")
-    fp = serve_path(torch, "fp KV", ["--bits", "4"],
-                    ("qmm_bitserial", "qmm_dequant", "paged_attention"))
+    fp_flags, fp_host_flags = ["--bits", "4"], ["--bits", "4", "--host-sampling"]
+    fp_need = ("qmm_bitserial", "qmm_dequant", "paged_attention")
+    fp = serve_path(torch, "fp KV", fp_flags, fp_need)
+    built = tuple(fp[k] for k in ("cfg", "model", "sparams", "policy"))
+    phase("phase 3a': the same, --host-sampling (no device sampler, no pipeline)")
+    fp_host = serve_path(torch, "fp KV, host sampling", fp_host_flags, fp_need, built)
+    phase("phase 3a'': the same, eager decode step and host sampling (the graphs' witness)")
+    fp_eager = eager_witness(torch, fp)
+    phase("phase 3a, other order: --host-sampling first, then the default path again")
+    fp_host2 = serve_path(torch, "fp KV, host sampling, 2nd", fp_host_flags, fp_need, built)
+    fp2 = serve_path(torch, "fp KV, 2nd", fp_flags, fp_need, built)
+    fp_runs = {"3a": ("fp KV", fp), "3a'": ("fp KV, host sampling", fp_host),
+               "3a''": ("fp KV, eager", fp_eager),
+               "3a' 2nd": ("fp KV, host sampling, 2nd", fp_host2), "3a 2nd": ("fp KV, 2nd", fp2)}
+    for label, (_, r) in fp_runs.items():
+        for rid in range(len(fp["work"])):
+            if r["engine"].output(rid) != fp["engine"].output(rid):
+                fail(f"[{label}] request {rid} gave {r['engine'].output(rid)}, "
+                     f"3a gave {fp['engine'].output(rid)}")
+        m = r["metrics"]
+        ttft = statistics.median(q["ttft_s"] for q in m["requests"])
+        print(f"  {label:8s}: tokens/s {m['tokens_per_s']:.2f}, decode step p50 "
+              f"{m['decode_step_p50_ms']:.3f} ms, decode steps {m['decode_steps']}, "
+              f"TTFT p50 {ttft:.4f} s")
+    print("  greedy streams of 3a', 3a'' (eager decode step) and of both paths served "
+          "again in the other order equal 3a's bitwise")
+    fp_runs = {cell: {k: r[k] for k in ("metrics", "counts", "setup_s", "wall_s",
+                                        "peak_mem_gib")}
+               for cell, r in fp_runs.values()}
+    del fp_host, fp_eager, fp_host2, fp2
     streams = check_outputs(torch, fp["cfg"], fp["model"], fp["sparams"], fp["engine"],
                             fp["work"])
     phase("phase 5a: decode step breakdown, fp KV blocks")
-    breakdown = {"fp KV": profile_decode(torch, fp["engine"], fp["work"])}
+    breakdown = {"fp KV": profile_paths(torch, "fp KV", fp),
+                 "sampler graphs": sampler_graph_times(torch, fp["cfg"].vocab_size)}
 
     # ---- path b: the same 4-bit weights over packed int4 KV blocks
     phase("phase 3b: glm4-9b serving end to end, --bits 4 --kv-bits 4 (fused decode)")
-    built = tuple(fp[k] for k in ("cfg", "model", "sparams", "policy"))
-    fp_summary = {k: fp[k] for k in ("metrics", "counts", "setup_s", "wall_s", "peak_mem_gib")}
     del fp
     int4 = serve_path(torch, "int4 KV", ["--bits", "4", "--kv-bits", "4"],
                       ("qmm_bitserial", "qmm_dequant", "fused_qkv_paged_decode"), built)
     phase("phase 5b: decode step breakdown, int4 KV blocks")
-    breakdown["int4 KV"] = profile_decode(torch, int4["engine"], int4["work"])
+    breakdown["int4 KV"] = profile_paths(torch, "int4 KV", int4)
     del built, int4["engine"], int4["sparams"], int4["model"]
     torch.cuda.empty_cache()
 
@@ -1336,7 +1515,7 @@ def main() -> None:
     int8 = serve_path(torch, "int8 KV", ["--bits", "16", "--kv-bits", "8"],
                       ("qmm_bitserial", "paged_attention_quant"))
     phase("phase 5c: decode step breakdown, int8 KV blocks")
-    breakdown["int8 KV"] = profile_decode(torch, int8["engine"], int8["work"])
+    breakdown["int8 KV"] = profile_paths(torch, "int8 KV", int8)
     del int8["engine"], int8["sparams"], int8["model"]
     torch.cuda.empty_cache()
 
@@ -1374,7 +1553,8 @@ def main() -> None:
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     fqg, fqg_bwd = ({k: r[k] for k in keys} for r in rows
                     if r["kernel"].startswith("fake_quant_group") and r["calls_per_forward"])
-    counts = {"fp KV": fp_summary["counts"], "int4 KV": int4["counts"], "int8 KV": int8["counts"]}
+    counts = {"fp KV": fp_runs["fp KV"]["counts"], "int4 KV": int4["counts"],
+              "int8 KV": int8["counts"]}
     kernels = [
         {"name": "qmm_bitserial", "route": "cuda", "source": "src/repro_torch/csrc/qmm.cu",
          "replaces": "src/repro/kernels/qmm.py:78",
@@ -1412,7 +1592,7 @@ def main() -> None:
                      "requests": r["metrics"]["requests"], "counts": r["counts"],
                      "setup_s": r["setup_s"], "wall_s": r["wall_s"],
                      "peak_mem_gib": r["peak_mem_gib"]}
-             for label, r in (("fp KV", fp_summary), ("int4 KV", int4), ("int8 KV", int8))}
+             for label, r in (*fp_runs.items(), ("int4 KV", int4), ("int8 KV", int8))}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda,

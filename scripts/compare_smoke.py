@@ -20,7 +20,6 @@ def summary(run: dict) -> dict[str, dict[str, float]]:
     out = {}
     for cell, s in run["serve"].items():
         ttft = [r["ttft_s"] for r in s["requests"]]
-        br = run["decode_breakdown"].get(cell) or {}
         out[cell] = {
             "tokens/s": s["metrics"]["tokens_per_s"],
             "decode step p50 ms": s["metrics"]["decode_step_p50_ms"],
@@ -28,9 +27,16 @@ def summary(run: dict) -> dict[str, dict[str, float]]:
             "TTFT mean s": statistics.fmean(ttft),
             "TTFT max s": max(ttft),
             "wall s": s["wall_s"],
-            "traced step device ms": br.get("device_ms") or float("nan"),
-            "traced idle share": br.get("idle_share") or float("nan"),
         }
+        br = run["decode_breakdown"].get(cell) or {}
+        # runs since the one-token hotpath profile two paths per cell; the
+        # default (pipeline) path reads as the older runs' single path
+        paths = br if "pipeline" in br else {"pipeline": br}
+        for path, b in paths.items():
+            tag = "" if path == "pipeline" else f" ({path})"
+            out[cell][f"traced step host ms{tag}"] = b.get("step_ms") or float("nan")
+            out[cell][f"traced step device ms{tag}"] = b.get("device_ms") or float("nan")
+            out[cell][f"traced idle share{tag}"] = b.get("idle_share") or float("nan")
     out["kernels (ms on the main path)"] = {k["name"]: k["ms"] for k in run["per_step"]}
     out["run"] = {"total s": run["total_s"]}
     return out
@@ -46,12 +52,13 @@ def main(argv: list[str]) -> None:
         sys.exit(__doc__)
     print("card:", json.load(open(argv[0].split("=", 1)[1]))["card"])
     labels = [label for label, _ in runs]
-    for section in runs[0][1]:
+    for section in dict.fromkeys(sec for _, r in runs for sec in r):
         print(f"\n{section}")
-        print(f"  {'':26s}" + "".join(f"{label:>12s}" for label in labels))
-        for metric in runs[0][1][section]:
-            vals = [r[section].get(metric, float("nan")) for _, r in runs]
-            print(f"  {metric:26s}" + "".join(f"{v:12.4f}" for v in vals))
+        print(f"  {'':44s}" + "".join(f"{label:>12s}" for label in labels))
+        metrics = dict.fromkeys(m for _, r in runs for m in r.get(section, {}))
+        for metric in metrics:
+            vals = [r.get(section, {}).get(metric, float("nan")) for _, r in runs]
+            print(f"  {metric:44s}" + "".join(f"{v:12.4f}" for v in vals))
 
 
 if __name__ == "__main__":

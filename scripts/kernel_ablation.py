@@ -39,7 +39,7 @@
    on finished projections, whole and with the same cuts; both launches
    at several K and page splits, and at the plan with (B) launched as a
    programmatic dependent of (A) and as an ordinary launch (``nopdl``),
-   alternated three times.
+   alternated three times, eagerly and each captured in a CUDA graph.
 6. The grouped fake-quant of the QAT path (``fq``; the ResNet-20 group in
    f32 and bf16 and the LeNet group in f32, bits cycling through the
    mixed policy of chip_smoke's phase 5e): the forward as built at
@@ -512,7 +512,8 @@ def fused_section(libs, timer, gen) -> None:
             x.data_ptr(), 1, *w_args, proj.data_ptr(), s, kc.data_ptr(), vc.data_ptr(),
             ks.data_ptr(), vs.data_ptr(), bt.data_ptr(), ln.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), qm.data_ptr(), *(t.data_ptr() for t in outs), ws.data_ptr(),
-            arrived.data_ptr(), 1, B, D, KV, G, hd, bs, nb, p, hd ** -0.5, stream)
+            arrived.data_ptr(), 1, B, D, KV, G, hd, bs, nb, p, hd ** -0.5,
+            torch.cuda.current_stream().cuda_stream)   # the capture stream in a graph
 
     lib = libs["fd_full"]
     build._declare("fused_decode", lib)
@@ -531,6 +532,20 @@ def fused_section(libs, timer, gen) -> None:
     for rep in range(3):
         cells = [f"{tag} {timer(whole(libs[lib], pps, plan.splits)):.4f}"
                  for tag, lib in (("pdl", "fd_full"), ("nopdl", "fd_nopdl"))]
+        print(f"  round {rep + 1}: " + "   ".join(cells), flush=True)
+
+    print("the same, each captured in a CUDA graph (pdl: a programmatic graph edge from "
+          "(A) to (B)): events ms per replay, alternated")
+    graphs = {}
+    for tag, lib in (("pdl", "fd_full"), ("nopdl", "fd_nopdl")):
+        fn = whole(libs[lib], pps, plan.splits)
+        build.check(fn(), f"fused decode ({tag})")
+        torch.cuda.synchronize()
+        graphs[tag] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[tag]):
+            build.check(fn(), f"fused decode ({tag}) under capture")
+    for rep in range(3):
+        cells = [f"{tag} {timer(g.replay):.4f}" for tag, g in graphs.items()]
         print(f"  round {rep + 1}: " + "   ".join(cells), flush=True)
 
 

@@ -8,7 +8,11 @@
 ``counts`` holds one plain integer per kernel body, bumped where the
 wrapper launches it, plus ``"plain"`` for calls that took the plain
 version; ``reset_counts()`` zeroes them.  ``chip_smoke.py`` reads them to
-show that the main path went through the kernels.
+show that the main path went through the kernels.  A wrapper called while
+a CUDA graph is captured launches nothing then: the captured callables
+(``train.serve``) take those ticks back and add them again at every
+replay (:func:`add_counts`), so a count is kernel launches, graphed or
+not.
 
 These wrappers own the shape normalisation the kernels do not: batch
 dims are flattened to rows and restored after.  Ragged edges (N or K not
@@ -43,6 +47,12 @@ counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
 def reset_counts() -> None:
     for key in counts:
         counts[key] = 0
+
+
+def add_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (key -> launches) to ``counts``."""
+    for key, n in delta.items():
+        counts[key] += times * n
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

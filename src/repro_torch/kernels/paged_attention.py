@@ -36,15 +36,26 @@ def split_plan(nb: int) -> tuple[int, int]:
 
 
 _counters: dict[torch.device, torch.Tensor] = {}
+MAX_ROWS_HEADS = 1 << 16  # arrival counters per device: rows x KV heads of a launch
 
 
 def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
     """int32 arrival counters of the split-KV kernels, one per (row, KV
     head): zeroed once here, and left zero by every launch (the last split
-    CTA of a row and head resets its counter)."""
+    CTA of a row and head resets its counter).  One buffer per device,
+    allocated at its first use at its full size and never reallocated: a
+    captured CUDA graph keeps the pointer it was captured with.  It is not
+    allocated while a graph is captured (it would live in the graph's
+    private pool), and a launch of more than ``MAX_ROWS_HEADS`` rows x
+    heads raises."""
+    if n > MAX_ROWS_HEADS:
+        raise ValueError(f"{n} (row, KV head) pairs > MAX_ROWS_HEADS = {MAX_ROWS_HEADS}")
     buf = _counters.get(dev)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the split-KV arrival counters must be allocated "
+                               "before a CUDA graph is captured")
+        buf = torch.zeros(MAX_ROWS_HEADS, dtype=torch.int32, device=dev)
         _counters[dev] = buf
     return buf
 

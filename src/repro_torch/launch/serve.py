@@ -6,8 +6,10 @@ Torch port of ``repro.launch.serve``, continuous mode: initialize params
 ``--policy-json``), and serve the reference's synthetic workload —
 staggered arrivals every ``--arrival-every`` steps, heterogeneous output
 lengths — through :class:`repro_torch.serve.ServeEngine` on the paged
-pool with chunked prefill and host sampling.  Prints tokens/s, per-request
-TTFT, occupancy and the kernel launch counts.
+pool with chunked prefill, on-device sampling and the one-step-lookahead
+pipeline (on the card the decode step and the sampler are captured CUDA
+graphs).  Prints tokens/s, per-request TTFT, occupancy, the sampler and
+pipeline counts and the kernel launch counts.
 
 Runs on ``--device cuda`` (default) and fails without a card; ``--device
 cpu`` takes the plain versions of the kernels.  ``--min-prompt-len``
@@ -17,11 +19,13 @@ reference's draws, so without it the workload is the reference's).
 ``--kv-bits B [B ...]`` quantizes the paged KV blocks (one width, or one
 per layer; uniform 4 bits packs two codes per byte), and ``--kv-oracle``
 stores their exact quantize-dequantize values in f32 instead.
+``--host-sampling`` selects tokens on the host from fetched logits
+(implies ``--no-pipeline``); ``--no-pipeline`` keeps device sampling but
+syncs every step, as the reference's flags do.
 
 Flags of the reference that this port does not have yet are refused
 with the ROADMAP item that brings them: ``--mode static``, ``--cache
 slot``, ``--prefix-cache``, ``--tenants``, ``--spec-k``, ``--ckpt-dir``.
-Host sampling without the lookahead pipeline is the only decode path.
 """
 from __future__ import annotations
 
@@ -77,6 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arrival-every", type=int, default=2,
                     help="steps between request arrivals")
     ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--host-sampling", action="store_true",
+                    help="select tokens on the host from fetched logits "
+                         "instead of the on-device sampler; implies "
+                         "--no-pipeline")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="disable the one-step-lookahead decode pipeline "
+                         "(dispatch and fetch every step in turn)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--min-prompt-len", type=int, default=None,
@@ -168,6 +179,8 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
                          max_len=args.prompt_len + args.gen + 1,
                          block_size=args.block_size, num_blocks=args.num_blocks,
                          prefill_chunk=args.prefill_chunk, tracer=tracer,
+                         sample_device=not args.host_sampling,
+                         pipeline=not (args.host_sampling or args.no_pipeline),
                          device=args.device, **kv_kw)
     drive(engine, synthetic_workload(args, cfg.vocab_size), args.arrival_every,
           SamplingParams(temperature=args.temperature), args.metrics_interval)
@@ -180,6 +193,12 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
           f"decode_steps={m['decode_steps']} tokens={m['tokens_total']} "
           f"preemptions={m['preemptions']} "
           f"block_occ={m['mean_block_occupancy']:.2f}")
+    sm, pl = m["sampler"], m["pipeline"]
+    print(f"sampler={'device' if sm['device'] else 'host'} "
+          f"fallbacks={sm['fallbacks']} "
+          f"pipeline={'on' if pl['enabled'] else 'off'} "
+          f"lookahead={pl['lookahead_steps']} bubbles={pl['bubbles']} "
+          f"recompiles={m['recompiles']} graph_captures={engine.graph_captures}")
     print(f"decode step p50={m['decode_step_p50_ms']:.2f} ms "
           f"device/host p50={m['decode_device_p50_ms']:.2f}/"
           f"{m['decode_host_p50_ms']:.2f} ms "

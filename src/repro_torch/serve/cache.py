@@ -15,8 +15,16 @@ block tables at it, so the fixed-shape decode step can write K/V for
 inactive rows without touching any live sequence's blocks.
 
 The pool tensors live on the model's device and the model writes them in
-place; ``step_cache`` hands out the leaves plus a device copy of the
-block tables, re-uploaded only after a table changed.
+place; ``step_cache`` hands out the leaves plus the device copy of the
+block tables: one persistent buffer, updated in place (on the card from
+a pinned host copy, asynchronously) only after a table changed.  Every
+read and write of the pool is on one stream, so a decode step captured in
+a CUDA graph, an eager prefill and an in-place table update see each
+other in stream order.  The ``length`` a step returns may be a captured
+graph's output buffer, which its next replay overwrites: everything that
+reads it (the next step copies it into its static input, a prefill
+clones it) is enqueued before that replay, and nothing reads it on the
+host.
 
 Quantized-KV block layout (``kv_bits=...``), as the reference's:
 
@@ -158,8 +166,13 @@ class PagedCachePool:
         self.prefix_lookups = self.prefix_hits = self.prefix_hit_tokens = 0
         self.cow_copies = self.prefix_evictions = 0
         self.prefix_cached_blocks = self.blocks_shared = 0
-        # device mirror of block_tables, re-uploaded only when it changed
-        self._bt_dev = None
+        # device mirror of block_tables, updated in place when it changed;
+        # on the card through a pinned staging copy that is rewritten only
+        # after the event covering its last transfer
+        self._bt_dev = torch.zeros_like(self.block_tables, device=self.device)
+        self._bt_stage = (self.block_tables.pin_memory()
+                          if self.device.type == "cuda" else None)
+        self._bt_event = None
         self._bt_dirty = True
         # per-sequence token bound: blocks_per_seq · block_size tokens
         self.length_bound = self.blocks_per_seq * self.block_size
@@ -250,8 +263,18 @@ class PagedCachePool:
         return d
 
     def block_tables_dev(self) -> torch.Tensor:
-        if self._bt_dirty or self._bt_dev is None:
-            self._bt_dev = self.block_tables.to(self.device, copy=True)
+        """The persistent device copy of the block tables, brought up to
+        date in stream order."""
+        if self._bt_dirty:
+            if self._bt_stage is None:
+                self._bt_dev.copy_(self.block_tables)
+            else:
+                if self._bt_event is not None:
+                    self._bt_event.synchronize()
+                self._bt_stage.copy_(self.block_tables)
+                self._bt_dev.copy_(self._bt_stage, non_blocking=True)
+                self._bt_event = torch.cuda.Event()
+                self._bt_event.record()
             self._bt_dirty = False
         return self._bt_dev
 

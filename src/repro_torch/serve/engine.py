@@ -1,5 +1,5 @@
 """ServeEngine: the continuous-batching serve loop (torch port of
-``repro.serve.engine``, synchronous host-sampling path).
+``repro.serve.engine``).
 
 ``submit()`` enqueues a request; ``step()`` runs one engine iteration
 (admit -> chunked prefill of new sequences -> reserve one token of growth
@@ -11,25 +11,49 @@ ReLeQ ``QuantPolicy`` for the engine's lifetime.
 Admission runs *fixed-shape chunked prefill* straight into the
 sequence's KV blocks (``prefill_chunk`` chunks of one shape for any
 prompt length); a preempted request re-admits by replaying prompt +
-emitted tokens, and greedy decode makes the replay exact.  Each decode
-step fetches the ``(num_slots, V)`` logits and selects tokens on the
-host from the per-request numpy streams (``Request.select_token``), bit
-for bit as the reference's ``sample_device=False`` path.
+emitted tokens, and greedy decode makes the replay exact.
 
-On the card every packed matmul is the hand-written ``qmm`` kernel and
+One-token hotpath (``sample_device=True`` / ``pipeline=True``, both
+default, as the reference's): tokens are selected on the device
+(``serve.sampler``), so a decode step fetches a ``(num_slots,) int32``
+vector instead of the logits, and with the one-step lookahead step t+1
+is dispatched before step t's tokens are fetched, fed step t's token
+vector on the device.  The lookahead runs only when the next step is
+composition-stable (nothing queued, budget left in every row, the extra
+write position reserved without preempting,
+``scheduler.reserve_lookahead``); any other step runs synchronously and
+counts ``pipeline.bubbles``.  ``step()`` admits before it syncs the
+in-flight step.  ``sample_device=False`` selects on the host from the
+fetched logits (``Request.select_token``) and implies no pipeline.
+
+On the card the decode step is one captured CUDA graph
+(``train.serve.make_decode_step``) and the sampler another
+(``serve.sampler``): a step is two graph replays and a few small copies,
+on one stream.  A replay overwrites its output buffers, and in the
+pipeline step t's tokens are fetched after step t+1 is dispatched, so
+each dispatch copies its token vector into a pinned host buffer behind
+an event; the sync waits for that copy alone.  The sampler graphs are
+shared by every engine on the device, so each dispatch also keeps its
+own device copy of the token vector, the feed of a chained step.
+``decode_fn=`` replaces the decode step, as in the reference
+(``decode_fn=model.decode_step`` serves eagerly); a failed capture or
+replay raises.  ``serve.recompiles`` counts graphs captured again because
+the tensors they were bound to changed: 0 in steady state.
+
+Every matmul of packed weights is the hand-written ``qmm`` kernel and
 every decode attention a hand-written paged-attention kernel
 (``kernels.ops``); with ``kv_bits`` the pool holds quantized blocks and a
 decode step with packed q/k/v runs the fused QKV + paged-decode kernel.
-There is no jit, so the ``recompiles`` metric is always 0.  Metric keys
-are byte-compatible with the reference.
+Metric keys are byte-compatible with the reference.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``cache="slot"``, prefix caching, on-device sampling and the
-lookahead pipeline, speculative decoding, mesh placement.
+item): ``cache="slot"``, prefix caching, speculative decoding, mesh
+placement.
 """
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -41,12 +65,32 @@ from repro_torch.quant.policy import QuantPolicy
 from repro_torch.serve.cache import PagedCachePool
 from repro_torch.serve.queue import AdmissionQueue
 from repro_torch.serve.request import Request, SamplingParams
+from repro_torch.serve.sampler import greedy_rows, row_arrays, sample_rows
 from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.train.serve import make_decode_step
 
 
 def _param_device(sparams) -> torch.device:
     emb = sparams["embed"]
     return getattr(emb, "w", emb).device
+
+
+@dataclass
+class _Inflight:
+    """One dispatched-but-unsynced decode step: the sampled token vector
+    (``(num_slots,) int32`` on the device, possibly still computing; the
+    step's own copy of the output of a sampler graph that every engine
+    replays), its host copy and the event that covers that copy (None on
+    the CPU, where the copy is done), the emission positions it was
+    sampled at, and a snapshot of the rows it covered (identity-checked
+    at sync: a row that turned over since dispatch carried a phantom
+    token, which is discarded)."""
+
+    tokens: torch.Tensor       # (num_slots,) int32 on the engine's device
+    host: torch.Tensor         # its copy on the host
+    event: object              # torch.cuda.Event covering the copy, or None
+    positions: torch.Tensor    # (num_slots,) int32 on the engine's device
+    rows: dict                 # slot -> RunningSeq at dispatch time
 
 
 class ServeEngine:
@@ -56,15 +100,13 @@ class ServeEngine:
                  prefill_chunk: int = 16, max_pending: int = 0,
                  spec=None, kv_bits=None, kv_oracle: bool = False,
                  metrics_window: int = 512, prefix_cache: bool = False,
-                 registry=None, tracer=None, sample_device: bool = False,
-                 pipeline: bool = False, device=None):
+                 registry=None, tracer=None, sample_device: bool = True,
+                 pipeline: bool = True, decode_fn=None,
+                 device=None):
         if cache != "paged":
             raise not_ported(f"cache={cache!r}", "slice A, item 3 (rest)")
         if prefix_cache:
             raise not_ported("prefix caching", "slice A, item 5")
-        if sample_device or pipeline:
-            raise not_ported("on-device sampling and the lookahead pipeline",
-                             "slice A, item 6")
         if spec is not None:
             raise not_ported("speculative decoding", "slice A, item 7")
         if metrics_window < 1:
@@ -88,6 +130,14 @@ class ServeEngine:
         self.scheduler = ContinuousScheduler(self.pool, self.queue,
                                              registry=self.obs)
         self._length_bound = self.pool.length_bound
+        self._decode = decode_fn or make_decode_step(model, device=self.device)
+        # one-token hotpath: device sampling, and the lookahead on top
+        self._sample_device = bool(sample_device)
+        self._pipeline_on = bool(pipeline and sample_device)
+        self._inflight: _Inflight | None = None
+        self._row_sig = None      # batch-composition key for _row_params
+        self._row_dev = None      # cached device sampling-param arrays
+        self._all_greedy = True   # every running row at temperature <= 0
         self._next_id = 0
         self._step_idx = 0
         obs = self.obs
@@ -99,7 +149,8 @@ class ServeEngine:
         self._c_block_occ_sum = obs.counter("serve.block_occupancy_sum")
         self._c_prefill_launches = obs.counter("serve.prefill_launches")
         self._c_recompiles = obs.counter(
-            "serve.recompiles", desc="always 0: the port compiles nothing per call")
+            "serve.recompiles",
+            desc="CUDA graphs captured again after construction")
         self._h_decode = obs.histogram("serve.decode_step_seconds", unit="s",
                                        window=metrics_window)
         self._h_decode_tok = obs.histogram("serve.decode_tok_seconds",
@@ -118,7 +169,16 @@ class ServeEngine:
                                             window=metrics_window)
         self._g_queue = obs.gauge("serve.queue_depth", unit="requests")
         self._g_running = obs.gauge("serve.running_rows", unit="rows")
+        self._c_lookahead = obs.counter(
+            "pipeline.lookahead", unit="steps",
+            desc="decode steps dispatched before the previous sync")
+        self._c_bubbles = obs.counter(
+            "pipeline.bubbles", unit="steps",
+            desc="pipeline-on steps that ran synchronously")
         self._device_seconds = 0.0
+        self._graphed = {"decode": self._decode, "sample": sample_rows,
+                         "greedy": greedy_rows}
+        self._recaptures = 0      # the decode graph's, at the last check
         self.requests: dict[int, Request] = {}
 
     @classmethod
@@ -156,6 +216,29 @@ class ServeEngine:
     @property
     def num_running(self) -> int:
         return self.scheduler.num_running
+
+    @property
+    def graph_captures(self) -> dict:
+        """CUDA graphs captured so far by the decode step and the shared
+        samplers (0 each on the CPU or with an eager ``decode_fn``)."""
+        return {kind: getattr(fn, "captures", 0) for kind, fn in self._graphed.items()}
+
+    @property
+    def graph_capture_seconds(self) -> dict:
+        """Host seconds of the warm-ups and captures counted in
+        :attr:`graph_captures`."""
+        return {kind: getattr(fn, "capture_seconds", 0.0)
+                for kind, fn in self._graphed.items()}
+
+    def _note_recapture(self) -> None:
+        """Count the decode graph's re-captures since the last call in
+        ``serve.recompiles``, with an instant on the tracer.  (The
+        samplers copy every input, so they never capture again.)"""
+        n = getattr(self._decode, "recaptures", 0)
+        if n > self._recaptures:
+            self._c_recompiles.inc(n - self._recaptures)
+            self._recaptures = n
+            self.tracer.instant("cuda_graph.capture", kind="decode", step=self._step_idx)
 
     # ------------------------------------------------------------- prefill
     def _admit_paged(self, req: Request, seq: int, hit: int = 0):
@@ -195,8 +278,20 @@ class ServeEngine:
         events = {"admitted": [], "tokens": [], "finished": [],
                   "preempted": []}
 
+        # 0) a lookahead dispatched by the PREVIOUS step is this step's
+        #    decode, synced below AFTER admissions.  A fully-stale one
+        #    (every row it covered finished at the last sync) is dropped
+        #    unfetched: its writes went to blocks rewritten before any read
+        inf = self._inflight
+        self._inflight = None
+        if inf is not None and not any(
+                self.scheduler.running.get(s) is q for s, q in inf.rows.items()):
+            inf = None
+
         # 1) admit queued requests into free rows (mid-decode is fine:
-        #    running sequences are untouched, their blocks never move)
+        #    running sequences are untouched, their blocks never move; an
+        #    in-flight lookahead touches only its own rows' blocks, and
+        #    everything runs on one stream)
         for req, slot, hit in self.scheduler.admissions():
             wait = time.perf_counter() - req.queued_time
             self._h_queue_wait.observe(wait)
@@ -214,14 +309,20 @@ class ServeEngine:
             if req.done:  # 1-token budget (or instant EOS): row back now
                 self._finish(self.scheduler.finish(slot), events)
 
-        # 2) reserve next-token blocks; exhaustion preempts youngest
-        for req in self.scheduler.reserve_for_decode():
-            events["preempted"].append(req.request_id)
-            tr.instant("preempt", request=req.request_id, step=self._step_idx)
+        if inf is not None:
+            # 2/3 pipelined) the in-flight lookahead IS this step's decode:
+            #    its write positions were reserved at dispatch
+            self._timed_decode(events, tr, lambda ev: self._pipeline_tail(inf, ev),
+                               mode="pipelined")
+        else:
+            # 2) reserve next-token blocks; exhaustion preempts youngest
+            for req in self.scheduler.reserve_for_decode():
+                events["preempted"].append(req.request_id)
+                tr.instant("preempt", request=req.request_id, step=self._step_idx)
 
-        # 3) one packed decode step over every running row
-        if self.scheduler.running:
-            self._timed_decode(events, tr)
+            # 3) one packed decode step over every running row
+            if self.scheduler.running:
+                self._timed_decode(events, tr, self._sync_body, mode="decode")
 
         self._step_idx += 1
         self._g_queue.set(len(self.queue))
@@ -229,11 +330,13 @@ class ServeEngine:
         self._c_run_seconds.inc(time.perf_counter() - t0)
         return events
 
-    def _timed_decode(self, events: dict, tr) -> None:
-        """Run one decode under the ``decode.step`` span with the
+    def _timed_decode(self, events: dict, tr, body, mode: str) -> None:
+        """Run one decode body under the ``decode.step`` span with the
         occupancy counters and the device/host wall-time split:
-        ``decode.device`` is the model call plus the blocking logits
-        fetch, ``decode.host`` the rest (host sampling, bookkeeping)."""
+        ``_device_seconds`` is time driving or awaiting the device (the
+        dispatch, which on the CPU is the compute, plus the blocking fetch
+        of tokens or logits); ``decode.host`` the rest (host sampling,
+        bookkeeping)."""
         self._c_occ_sum.inc(self.pool.occupancy())
         self._c_block_occ_sum.inc(self.pool.block_occupancy())
         self._c_decode_steps.inc()
@@ -241,32 +344,149 @@ class ServeEngine:
         t_dec = time.perf_counter()
         n_tok = len(events["tokens"])
         with tr.span("decode.step", step=self._step_idx,
-                     rows=len(self.scheduler.running), mode="decode") as sp:
-            self._decode_once(events)
+                     rows=len(self.scheduler.running), mode=mode) as sp:
+            body(events)
             emitted = len(events["tokens"]) - n_tok
             sp.set(tokens=emitted)
         dt = time.perf_counter() - t_dec
         self._h_decode.observe(dt)
-        if emitted > 0:
+        if emitted > 0:  # an all-stale sync can emit 0
             self._h_decode_tok.observe(dt / emitted)
         self._h_device.observe(self._device_seconds)
         self._h_host.observe(max(dt - self._device_seconds, 0.0))
 
+    def _sync_body(self, events: dict) -> None:
+        """Decode body for a step with no pipelined predecessor."""
+        if self._sample_device:
+            self._pipeline_tail(self._dispatch_decode(), events)
+        else:
+            self._decode_once(events)
+
+    # ------------------------------------------------------ device hotpath
+    def _row_params(self):
+        """Device-resident per-row sampling parameters, re-uploaded only
+        when the batch composition changes (slot -> request mapping)."""
+        sched = self.scheduler
+        sig = tuple(sorted((s, q.request.request_id)
+                           for s, q in sched.running.items()))
+        if sig != self._row_sig:
+            temps, top_ks, top_ps, seeds, rids = row_arrays(
+                self.pool.num_slots, ((s, q.request) for s, q in sched.running.items()))
+            self._all_greedy = bool((temps <= 0.0).all())
+            # uint32 seeds ride in int64 (torch's uint32 lacks most ops on CUDA)
+            arrs = (temps, top_ks, top_ps, seeds.astype(np.int64), rids)
+            self._row_dev = tuple(torch.from_numpy(a).to(self.device) for a in arrs)
+            self._row_sig = sig
+        return self._row_dev
+
+    def _dispatch_decode(self, toks_dev=None, positions=None) -> _Inflight:
+        """Dispatch one packed decode + on-device sampling WITHOUT
+        blocking.  The synchronous head builds the feed from the host's
+        ``last_token``s; a chained (lookahead) dispatch feeds the previous
+        step's device token vector back in.  The sampler's output buffer
+        is shared by every engine and overwritten by its next replay, so
+        the step keeps its own copy (the chained feed); on the card that
+        copy goes on to pinned host memory behind an event."""
+        sched = self.scheduler
+        if toks_dev is None:
+            toks = np.zeros((self.pool.num_slots, 1), np.int32)
+            pos = np.zeros((self.pool.num_slots,), np.int32)
+            for slot, seq in sched.running.items():
+                toks[slot, 0] = seq.last_token
+                pos[slot] = len(seq.request.output_tokens)
+            toks_dev = torch.from_numpy(toks).to(self.device)
+            positions = torch.from_numpy(pos).to(self.device)
+        t_dev = time.perf_counter()
+        with self.tracer.span("decode.dispatch", rows=len(sched.running)):
+            logits, cache = self._decode(self.sparams, self.pool.step_cache(), toks_dev)
+            self.pool.accept(cache)
+            params = self._row_params()
+            if self._all_greedy:
+                tokens = greedy_rows(logits[:, -1])
+            else:
+                tokens = sample_rows(logits[:, -1], *params, positions)
+            tokens = tokens.clone()
+            host, event = tokens, None
+            if tokens.is_cuda:
+                host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+                host.copy_(tokens, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+        self._device_seconds += time.perf_counter() - t_dev
+        self._note_recapture()
+        return _Inflight(tokens, host, event, positions, dict(sched.running))
+
+    def _sync_inflight(self, inf: _Inflight, events: dict) -> None:
+        """Wait for the in-flight token vector's host copy, then emit and
+        advance.  Rows whose sequence turned over since dispatch carried a
+        phantom token, which is discarded here."""
+        t_dev = time.perf_counter()
+        with self.tracer.span("decode.device", rows=len(inf.rows)):
+            if inf.event is not None:
+                inf.event.synchronize()
+            toks = inf.host.numpy()
+        self._device_seconds += time.perf_counter() - t_dev
+        with self.tracer.span("decode.host"):
+            for slot, seq in inf.rows.items():
+                if self.scheduler.running.get(slot) is not seq:
+                    continue
+                tok = int(toks[slot])
+                self._emit(seq.request, tok, events)
+                if seq.request.done:
+                    self._finish(self.scheduler.finish(slot), events)
+                else:
+                    self.scheduler.advance(slot, tok)
+
+    def _pipeline_tail(self, inf: _Inflight, events: dict) -> None:
+        """Dispatch the NEXT step's decode (when safe) BEFORE syncing the
+        current one, so the wait and the bookkeeping below overlap the
+        device's next step.  Ineligible steps sync in plain order and
+        count ``pipeline.bubbles``.  Chaining feeds ``inf.tokens`` back for
+        EVERY slot, so it needs the running rows to be exactly those the
+        in-flight step covered: a row admitted since has no token there."""
+        nxt = None
+        same_rows = (len(self.scheduler.running) == len(inf.rows) and all(
+            inf.rows.get(s) is q for s, q in self.scheduler.running.items()))
+        if self._pipeline_on:
+            if same_rows and self._lookahead_ok():
+                nxt = self._dispatch_decode(inf.tokens[:, None], inf.positions + 1)
+                self._c_lookahead.inc()
+            else:
+                self._c_bubbles.inc()
+        self._sync_inflight(inf, events)
+        self._inflight = nxt
+
+    def _lookahead_ok(self) -> bool:
+        """Can step t+1 be dispatched before step t's tokens land?  Needs
+        nothing queued to admit, budget for one more token after this step
+        in every running request (an EOS can still land: that row's
+        phantom token is discarded at sync), and a non-preempting
+        reservation of the t+1 write position."""
+        if len(self.queue):
+            return False
+        for seq in self.scheduler.running.values():
+            req = seq.request
+            if len(req.output_tokens) + 2 > req.max_new_tokens:
+                return False
+        return self.scheduler.reserve_lookahead()
+
     def _decode_once(self, events: dict) -> None:
         """One packed single-token decode over every running row, host
-        sampling from the fetched ``(num_slots, V)`` logits."""
+        sampling from the fetched ``(num_slots, V)`` logits
+        (``sample_device=False``)."""
         toks = np.zeros((self.pool.num_slots, 1), np.int32)
         for slot, seq in self.scheduler.running.items():
             toks[slot, 0] = seq.last_token
         t_dev = time.perf_counter()
         with self.tracer.span("decode.device",
                               rows=len(self.scheduler.running)):
-            logits, cache = self.model.decode_step(
+            logits, cache = self._decode(
                 self.sparams, self.pool.step_cache(),
                 torch.from_numpy(toks).to(self.device))
             self.pool.accept(cache)
             rows = logits[:, -1].cpu().numpy()  # (num_slots, V) — blocks here
         self._device_seconds += time.perf_counter() - t_dev
+        self._note_recapture()
         with self.tracer.span("decode.host"):
             for slot, seq in list(self.scheduler.running.items()):
                 tok = seq.request.select_token(rows[slot])
@@ -333,8 +553,15 @@ class ServeEngine:
             "preemptions": self.scheduler.preemptions,
             "recompiles": int(self._c_recompiles.value),
             "requests": per_request,
-            "sampler": {"device": False, "fallbacks": 0},
-            "pipeline": {"enabled": False, "lookahead_steps": 0, "bubbles": 0},
+            "sampler": {
+                "device": self._sample_device,
+                "fallbacks": 0,   # no speculative path
+            },
+            "pipeline": {
+                "enabled": self._pipeline_on,
+                "lookahead_steps": int(self._c_lookahead.value),
+                "bubbles": int(self._c_bubbles.value),
+            },
         }
         if self._h_decode.count:
             out["decode_step_p50_ms"] = self._h_decode.percentile(50) * 1e3

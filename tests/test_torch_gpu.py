@@ -759,3 +759,214 @@ def test_fused_attend_split_kv_matches_plain(sm90, lengths, nb, kv_bits):
     # the plain version rounds its output to bf16: 1e-2 * max|plain|
     og, op = got[0].reshape(B, 1, H, hd), plain[0].float()
     assert (og - op).abs().max().item() <= 1e-2 * op.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the one-token hotpath: the captured decode step, the graphed sampler and
+# the pipelined engine (the small model of chip_smoke.py's phase 4)
+# ---------------------------------------------------------------------------
+
+
+def boundary_flagged(row, sp, u) -> bool:
+    """Does ``u * total`` lie within 4·V ulps of a boundary of the warped
+    row's CDF, where an f32 sum taken in another order may land elsewhere?
+    (The sampled-token rule of the CPU tests too.)"""
+    from repro_torch.serve.request import warp_probs
+
+    cdf = np.cumsum(warp_probs(row, sp))
+    x = float(u) * cdf[-1]
+    ulp = float(np.spacing(np.float32(cdf[-1])))
+    return bool(np.min(np.abs(cdf - x)) <= 4 * row.size * ulp)
+
+
+def _small_served(bits, dev):
+    """chip_smoke.py's small model (2 layers, d_model 256, head dim 128,
+    vocab 1000), its serving params at ``bits`` on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    cfg = dataclasses.replace(get_config("glm4-9b", smoke=True), num_layers=2, d_model=256,
+                              num_heads=4, num_kv_heads=2, head_dim=128, d_ff=688,
+                              vocab_size=1000)
+    sm = build_model(cfg)
+    params = sm.init(seed=5, device="cpu")
+    return sm, quantize_for_serving(sm, params, policy_for(sm, bits), device=dev)
+
+
+HOTPATH_CELLS = [(4, None), (4, 4), (16, 8)]
+HOTPATH_IDS = ["fp", "int4-fused", "int8-dense-qkv"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,kv_bits", HOTPATH_CELLS, ids=HOTPATH_IDS)
+def test_graphed_decode_step_equals_eager_bitwise(sm90, bits, kv_bits):
+    """Twin pools fed the same prefills and tokens: the captured step's
+    logits, every pool byte and ``length`` equal the eager step's over six
+    replays, one after a block-table change (a row crosses a block edge)
+    and two after an admission between replays.  Each replay counts the
+    launches of one eager step, and nothing is captured again."""
+    from repro_torch.serve.cache import PagedCachePool
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    sm, sp = _small_served(bits, sm90)
+    pools = [PagedCachePool(sm, 4, 64, block_size=16, device=sm90, kv_bits=kv_bits)
+             for _ in range(2)]
+    graphed = GraphedDecodeStep(sm)
+    rng = np.random.default_rng(3)
+    lengths = {}
+
+    def admit(n):
+        toks = torch.from_numpy(rng.integers(0, 1000, (1, 16)).astype(np.int32))
+        seq = None
+        for pool in pools:
+            seq = pool.alloc_seq()
+            pool.ensure(seq, n + 1)
+            for lo in range(0, n, 16):
+                _, cache = sm.prefill_chunk(sp, pool.step_cache(), toks.to(sm90),
+                                            seq, lo, min(16, n - lo))
+                pool.accept(cache)
+        lengths[seq] = n
+
+    def step(i):
+        for seq in lengths:
+            for pool in pools:
+                assert pool.ensure(seq, lengths[seq] + 1)
+        feed = torch.from_numpy(rng.integers(0, 1000, (4, 1)).astype(np.int32)).to(sm90)
+        counts = []
+        outs = []
+        for pool, fn in zip(pools, (sm.decode_step, graphed)):
+            ops.reset_counts()
+            logits, cache = fn(sp, pool.step_cache(), feed)
+            pool.accept(cache)
+            torch.cuda.synchronize()
+            counts.append(dict(ops.counts))
+            outs.append(logits.clone())
+        assert torch.equal(outs[0], outs[1]), f"replay {i}: logits differ"
+        for key, leaf in pools[0].cache.items():
+            assert torch.equal(leaf, pools[1].cache[key]), f"replay {i}: {key} differs"
+        if i > 0:      # the first call also ran the warm-up step eagerly
+            assert counts[0] == counts[1] and counts[0]["plain"] == 0, counts
+        for seq in lengths:
+            lengths[seq] += 1
+
+    admit(37)
+    admit(15)                 # crosses into its second block at the second step
+    for i in range(3):
+        step(i)
+    admit(20)                 # an admission between replays
+    for i in range(3, 6):
+        step(i)
+    assert (graphed.captures, graphed.recaptures) == (1, 0)
+
+
+def _sampler_case(dev, B, V, seed, greedy_every=4):
+    from repro_torch.serve.request import Request, SamplingParams
+    from repro_torch.serve.sampler import row_arrays
+
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(size=(B, V)) * 3).astype(np.float32)
+    logits[::5, :3] = logits[::5].max(-1, keepdims=True)   # ties at the max
+    grid = [(t, k, p) for t in (0.5, 0.9, 1.7) for k in (0, 5, 50) for p in (1.0, 0.9)]
+    reqs, sps = [], []
+    for i in range(B):
+        t, k, p = grid[i % len(grid)]
+        sp = SamplingParams(0.0 if i % greedy_every == 0 else t, k, p,
+                            int(rng.integers(0, 2 ** 32)))
+        reqs.append((i, Request(int(rng.integers(0, 2 ** 31)), [1], 8, sp)))
+        sps.append(sp)
+    temps, top_ks, top_ps, seeds, rids = row_arrays(B, reqs)
+    pos = rng.integers(0, 4096, B).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (logits, temps, top_ks, top_ps,
+                                          seeds.astype(np.int64), rids, pos)]
+    return args, sps
+
+
+@pytest.mark.gpu
+def test_graphed_sampler_equals_the_cpu(sm90):
+    """The sampler graph on the card against the plain sampler on the CPU:
+    greedy rows and the uniforms bitwise, sampled tokens equal except at a
+    flagged CDF boundary; the greedy graph equals the argmax; one capture
+    per shape."""
+    from repro_torch.serve import sampler as tsampler
+
+    flagged = draws = 0
+    for seed in range(4):
+        args, sps = _sampler_case(sm90, 64, 4099, seed)
+        want = tsampler.sample_rows(*args)
+        got = tsampler.sample_rows(*(a.to(sm90) for a in args)).cpu()
+        u_cpu = tsampler.uniform(*args[4:])
+        u_card = tsampler.uniform(*(a.to(sm90) for a in args[4:])).cpu()
+        assert torch.equal(u_cpu.view(torch.int32), u_card.view(torch.int32))
+        greedy = args[1] <= 0
+        assert torch.equal(got[greedy], want[greedy])
+        assert torch.equal(tsampler.greedy_rows(args[0].to(sm90)).cpu(),
+                           tsampler.greedy_rows(args[0]))
+        for i in torch.nonzero(got != want)[:, 0].tolist():
+            assert boundary_flagged(args[0][i].numpy(), sps[i], u_cpu[i].item()), (
+                f"row {i}: card drew {got[i]}, CPU {want[i]}, away from any CDF boundary")
+            flagged += 1
+        draws += int((~greedy).sum())
+    print(f"graphed sampler: {draws} sampled draws, {flagged} at a flagged CDF boundary")
+    assert flagged <= 0.01 * draws
+
+
+@pytest.mark.gpu
+def test_graphed_sampler_chi_square(sm90):
+    from repro_torch.serve import sampler as tsampler
+    from repro_torch.serve.request import Request, SamplingParams, warp_probs
+
+    sp = SamplingParams(temperature=1.0, top_k=0, top_p=0.8, seed=11)
+    rng = np.random.default_rng(7)
+    row = (rng.normal(size=(12,)) * 1.5).astype(np.float32)
+    p = warp_probs(row, sp)
+    N = 4000
+    arrs = tsampler.row_arrays(N, [(i, Request(3, [1], 8, sp)) for i in range(N)])
+    draws = tsampler.sample_rows(
+        torch.from_numpy(np.broadcast_to(row, (N, row.size)).copy()).to(sm90),
+        *(torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32 else a).to(sm90)
+          for a in arrs),
+        torch.arange(N, dtype=torch.int32, device=sm90)).cpu().numpy()
+    counts = np.bincount(draws, minlength=row.size)
+    live = p > 1e-12
+    assert counts[~live].sum() == 0, "drew a nucleus-masked token"
+    exp = p[live] * N
+    chi2 = float(((counts[live] - exp) ** 2 / exp).sum())
+    assert chi2 < 31.3, (chi2, counts, p)      # p = 0.001 critical value, df <= 11
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,kv_bits", HOTPATH_CELLS, ids=HOTPATH_IDS)
+def test_pipelined_graphed_engine_equals_eager_host_sampling(sm90, bits, kv_bits):
+    """The engine's defaults on the card (captured decode step, device
+    sampling, lookahead) against the eager step with host sampling: the
+    same greedy streams bitwise, every decode step a lookahead or a bubble,
+    one decode capture and no re-capture."""
+    from repro_torch.serve import ServeEngine
+
+    sm, sp = _small_served(bits, sm90)
+    rng = np.random.default_rng(9)
+    work = [(rng.integers(0, 1000, int(n)), 20) for n in (9, 40, 17, 31, 24, 16)]
+    runs = {}
+    for name, kw in (("eager host", {"decode_fn": sm.decode_step, "sample_device": False,
+                                     "pipeline": False}),
+                     ("graphed pipeline", {})):
+        eng = ServeEngine(sm, sp, num_slots=4, max_len=64, block_size=16, prefill_chunk=16,
+                          device=sm90, kv_bits=kv_bits, **kw)
+        for prompt, n in work:
+            eng.submit(prompt, n)
+        ops.reset_counts()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert ops.counts["plain"] == 0 and ops.counts["qmm_bitserial"] > 0
+        runs[name] = ([eng.output(r) for r in range(len(work))], eng.metrics(),
+                      eng.graph_captures)
+    assert runs["graphed pipeline"][0] == runs["eager host"][0]
+    m, captures = runs["graphed pipeline"][1], runs["graphed pipeline"][2]
+    pl = m["pipeline"]
+    assert pl["lookahead_steps"] > 0
+    assert pl["lookahead_steps"] + pl["bubbles"] == m["decode_steps"]
+    assert m["recompiles"] == 0 and captures["decode"] == 1
