@@ -62,10 +62,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
       attention over int8 blocks.
    Each serves through the launcher's defaults: the decode step captured
    in a CUDA graph, tokens selected on the device by a second graph, the
-   one-step lookahead.  Each prints the sampler and pipeline counters and
-   the graph captures, and fails unless the lookahead ran
-   (``lookahead_steps > 0``), every decode step was a lookahead or a
-   bubble, and the decode step was captured once (``recompiles == 0``).
+   one-step lookahead, the prefix cache (no hits on random prompts).  Each
+   prints the sampler, pipeline and prefix-cache counters and the graph
+   captures, and fails unless the lookahead ran (``lookahead_steps >
+   0``), every decode step was a lookahead or a bubble, and the decode
+   step was captured once (``recompiles == 0``).
    a'. path a again with ``--host-sampling`` on the same params: its
       greedy streams must equal path a's bitwise; tokens/s, step p50 and
       TTFT print beside path a's.
@@ -74,6 +75,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
       the captured decode step's witness at full width, its greedy
       streams bitwise path a's.  Then a' and a once more, in that order,
       so that each path is timed both first and second.
+   f. ``--tenants 2 --prompt-len 256 --requests 8 --num-slots 4 --gen 32``
+      on path a's params: two tenants share a 192-token system prompt (12
+      full blocks), up to 288 tokens a sequence; served with the prefix
+      cache and with ``--no-prefix-cache``.  Fails unless 6 of 8 lookups
+      hit with 1,152 hit tokens, the cache takes fewer prefill launches,
+      and the greedy streams agree (a divergence only at a flagged tie:
+      the top-2 margin of the card's eager prefill of prompt + emitted
+      within 2e-2 * max|logit|).
+   g. the reference benchmark's concurrency gate: 2 tenants, 8 requests
+      on 8 rows sharing the whole 192-token prefix of 256-token prompts,
+      gen 8, one arrival a step, 75 blocks; fails unless the pools' cache
+      bytes are equal and the sharing engine's peak of running rows is
+      above the baseline's.
+   h. path a's workload and params with ``--spec-k 4 --draft-bits 2``
+      (the 2-bit self-draft's decode step is a second captured graph, the
+      verify an eager chunk): greedy streams path a's up to flagged ties,
+      the draft's graph captured once, the target's at most once, neither
+      again.
+   i. (after c) glm4-9b params snapped to the 2-bit grid, served at 4 bits
+      with the 2-bit draft and without on the cell's workload: acceptance,
+      per-token decode time and tokens/s of both, and one spec step's
+      breakdown (the draft's decode steps and the eager verify: host
+      clock, CUDA-event span, device busy time under the profiler,
+      launches).
    Two run the ReLeQ search, every QAT forward through one grouped
    fake-quant launch and every backward through one grouped STE launch
    (no flat fake-quant launch):
@@ -101,7 +126,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rows, prompts of 9-40 tokens, 36 greedy tokens each, block 16), gives
    the same greedy streams with fp, int4 and int8 KV blocks, or diverges
    only where the CPU's top-2 logit margin is within 2e-2 * max|logit|
-   (the first divergence and its margin are printed); and one ResNet-20
+   (the first divergence and its margin are printed); the same model on a
+   two-tenant workload with the prefix cache, and with ``--spec-k 4
+   --draft-bits 2``, on the card (defaults) and on the CPU (host
+   sampling), under the same rule, with equal hit counts; and one ResNet-20
    QAT step at a mixed policy from
    path e's params gives the same params on the card as on the CPU within
    1e-4 * max|param| (f32 convolutions, TF32 off, summed in other orders)
@@ -779,13 +807,28 @@ def check_fake_quant_group(torch, timer, peaks, rows):
                           "(tensor scale, bits 4)",
                "flat_path_ms": timer(flat_path), "flat_given_scale_ms": timer(flat_given),
                "bound_ms": b_ms, "bound_by": b_by}
+        # the library's STE: the backward of fake_quantize_per_tensor_affine at
+        # scale max|w| / n, whose mask is |w| <= max|w| as the kernel's is
+        leaves = [w.detach().clone().requires_grad_(True) for w in ws]
+        lib_outs = [torch.fake_quantize_per_tensor_affine(
+            w, (w.abs().amax().float() / n4).detach(), zp, -n4, n4) for w in leaves]
+
+        def library_bwd():
+            return torch.autograd.grad(lib_outs, leaves, gs, retain_graph=True)
+
+        grads, _ = fake_quant_group_bwd_cuda(ws, gs, scales)
+        lib_same = all(same_bits(torch, a, b) for a, b in zip(grads, library_bwd()))
         bb_ms, bb_by = bound_ms(3 * numel * esize + 4 * len(ws), 3 * numel, (peaks[0], f32_peak))
         bwd = {"kernel": "fake_quant_group_bwd", "shape": net, "dtype": str(dtype)[6:],
                "tensors": len(ws), "numel": numel, "bwd_ctas": plan.bwd_ctas,
                "calls_per_forward": fwd["calls_per_forward"], "max_abs_err": 0.0,
                "ms": timer(lambda: fake_quant_group_bwd_cuda(ws, gs, scales)),
                "plain_ms": timer(lambda: fake_quant_group_bwd_ref(ws, gs, scales)),
-               "library_ms": None, "bound_ms": bb_ms, "bound_by": bb_by}
+               "library_ms": timer(library_bwd),
+               "library": "sum over the layers: the backward of "
+                          "fake_quantize_per_tensor_affine (scale max|w| / 7)",
+               "library_grads_bitwise": lib_same,
+               "bound_ms": bb_ms, "bound_by": bb_by}
         rows += [fwd, bwd]
         label = f"fake_quant_group {net} {str(dtype)[6:]} ({len(ws)} layers)"
         print(f"  {label:46s} per QAT forward: group={fwd['ms']:.4f} "
@@ -794,8 +837,10 @@ def check_fake_quant_group(torch, timer, peaks, rows):
               f"{fwd['flat_given_scale_ms']:.4f} library (amax + fake_quantize)="
               f"{fwd['library_ms']:.4f} plain={fwd['plain_ms']:.4f} bound={b_ms:.6f} ms")
         print(f"  {'':46s} per QAT backward: group={bwd['ms']:.4f} [{plan.bwd_ctas[0]} CTAs] "
-              f"plain (abs, <=, to, mul per layer)={bwd['plain_ms']:.4f} bound={bb_ms:.6f} ms")
-        del ws, gs, outs
+              f"plain (abs, <=, to, mul per layer)={bwd['plain_ms']:.4f} library "
+              f"(fake_quantize_per_tensor_affine backward)={bwd['library_ms']:.4f} "
+              f"[gradients bitwise the kernel's: {lib_same}] bound={bb_ms:.6f} ms")
+        del ws, gs, outs, grads, leaves, lib_outs
     return 0.0
 
 
@@ -1027,18 +1072,26 @@ def per_step(rows, kernel, pick, extra=()):
     return out
 
 
-def serve_path(torch, label, flags, need, built=None):
-    """Serve the cell's workload through the launcher with ``flags``; the
-    launch counters are zeroed just before and read just after.  ``built``
-    reuses (cfg, model, sparams, policy) of the same ``--bits``."""
+CELL = ["--requests", "8", "--num-slots", "4", "--block-size", "16", "--prompt-len", "64",
+        "--min-prompt-len", "40", "--prefill-chunk", "64", "--gen", "32", "--temperature", "0"]
+# phase 3f: two tenants whose requests share a 192-token system prompt (12
+# full blocks) in 256-token prompts: up to 288 tokens per sequence
+TENANTS = ["--tenants", "2", "--prompt-len", "256", "--requests", "8", "--arrival-every", "2",
+           "--num-slots", "4", "--gen", "32", "--prefill-chunk", "64", "--block-size", "16",
+           "--temperature", "0"]
+SPEC = ["--spec-k", "4", "--draft-bits", "2"]
+MARGIN = 2e-2            # a greedy divergence only where top-2 <= MARGIN * max|logit|
+
+
+def serve_path(torch, label, flags, need, built=None, base=CELL):
+    """Serve ``base`` + ``flags`` through the launcher; the launch counters
+    are zeroed just before and read just after.  ``built`` reuses (cfg,
+    model, sparams, policy) of the same ``--bits``."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
 
-    args = launcher.parse_args([
-        "--arch", "glm4-9b", "--no-smoke", "--device", "cuda",
-        "--requests", "8", "--num-slots", "4", "--block-size", "16",
-        "--prompt-len", "64", "--min-prompt-len", "40", "--prefill-chunk", "64",
-        "--gen", "32", "--temperature", "0", *flags])
+    args = launcher.parse_args(["--arch", "glm4-9b", "--no-smoke", "--device", "cuda",
+                                *base, *flags])
     t0 = time.perf_counter()
     cfg, model, sparams, policy = built or launcher.build(args)
     torch.cuda.synchronize()
@@ -1076,10 +1129,29 @@ def serve_path(torch, label, flags, need, built=None):
           f"recompiles={m['recompiles']} graph captures={captures} (host s, shared "
           f"samplers since the process began: "
           f"{ {k: round(v, 4) for k, v in engine.graph_capture_seconds.items()} })")
-    if m["recompiles"] != 0 or captures["decode"] != 1:
-        fail(f"[{label}] the decode step was captured {captures['decode']} times "
-             f"({m['recompiles']} re-captures): want one capture")
-    if not args.host_sampling:
+    # with spec the target's decode step runs only in a step where no row
+    # can speculate, so it is captured once or, if no such step came, never
+    want = (0, 1) if "spec" in m else (1,)
+    if m["recompiles"] != 0 or captures["decode"] not in want or captures.get("draft", 1) != 1:
+        fail(f"[{label}] the decode steps were captured {captures} times "
+             f"({m['recompiles']} re-captures): want one capture each")
+    pc = m["prefix_cache"]
+    print(f"[{label}] prefix_cache={'on' if pc['enabled'] else 'off'} "
+          f"hit_rate={m['prefix_hit_rate']:.4f} hits={m['prefix_hits']}/{m['prefix_lookups']} "
+          f"lookups hit_tokens={pc['hit_tokens']} cow={pc['cow_copies']} "
+          f"evictions={pc['evictions']} cached_blocks={pc['cached_blocks']} "
+          f"blocks_shared={m['blocks_shared']:.2f} prefill_launches={m['prefill_launches']} "
+          f"cache_bytes={engine.pool.cache_bytes()}")
+    if "spec" in m:
+        sp = m["spec"]
+        print(f"[{label}] spec k={sp['k']} draft_bits={args.draft_bits} "
+              f"windows={sp['windows']} proposed={sp['proposed']} accepted={sp['accepted']} "
+              f"acceptance={sp['acceptance_rate']:.4f} decode_tok_p50="
+              f"{m['decode_tok_p50_ms']:.3f} ms; captures target {captures['decode']} / "
+              f"draft {captures['draft']}, recaptures target "
+              f"{getattr(engine._decode, 'recaptures', 0)} / draft "
+              f"{getattr(engine._draft_decode, 'recaptures', 0)}")
+    if pl["enabled"]:
         if pl["lookahead_steps"] <= 0:
             fail(f"[{label}] the pipeline never looked ahead")
         if pl["lookahead_steps"] + pl["bubbles"] != m["decode_steps"]:
@@ -1095,7 +1167,7 @@ def serve_path(torch, label, flags, need, built=None):
           f"max {ttft[-1]:.4f} s over {len(ttft)} requests")
     print(f"[{label}] tokens per request: {[r['new_tokens'] for r in m['requests']]}")
     print(f"[{label}] launch counts on the path: {counts}")
-    return {"args": args, "cfg": cfg, "model": model, "sparams": sparams,
+    return {"args": args, "cfg": cfg, "model": model, "sparams": sparams, "label": label,
             "policy": policy, "engine": engine, "work": work, "counts": counts,
             "metrics": m, "setup_s": setup_s, "wall_s": wall_s,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1134,7 +1206,74 @@ def check_outputs(torch, cfg, model, sparams, engine, work):
     for kv_bits in (None, 4, 8):
         small_model_card_vs_cpu(torch, sm, params, kv_bits)
         streams[f"kv_bits={kv_bits}"] = served_streams_card_vs_cpu(torch, sm, params, kv_bits)
+    streams.update(served_prefix_spec_card_vs_cpu(torch, sm, params))
     return streams
+
+
+def served_prefix_spec_card_vs_cpu(torch, sm, params):
+    """The small model on a ``--tenants 2`` workload (6 requests on 4 rows,
+    40-token prompts whose first 32 tokens are the tenant's, arrivals
+    every 2 steps, 36 greedy tokens each, block 16) with prefix caching,
+    and once more with ``--spec-k 4 --draft-bits 2``: on the card with the
+    engine's defaults and on the CPU with host sampling.  Equal hit
+    counts; greedy streams equal, or a first divergence where the CPU's
+    top-2 margin (an eager prefill of prompt + emitted) is within MARGIN *
+    max|logit|."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.serve import ServeEngine
+    from repro_torch.spec import SpecConfig
+    from repro_torch.train.serve import quantize_for_serving
+
+    rng = np.random.default_rng(13)
+    heads = rng.integers(0, sm.cfg.vocab_size, (2, 32))
+    work = [(np.concatenate([heads[i % 2], rng.integers(0, sm.cfg.vocab_size, 8)]),
+             STREAM_GEN) for i in range(6)]
+    sps = {dev: quantize_for_serving(sm, params, policy_for(sm, 4), device=dev)
+           for dev in ("cuda", "cpu")}
+    out = {}
+    for cell, kw in (("tenants, prefix cache", {}),
+                     ("tenants, spec k=4", {"spec": SpecConfig(k=4, draft_bits=2)})):
+        engines = {}
+        for dev in ("cuda", "cpu"):
+            host = {"sample_device": False, "pipeline": False} if dev == "cpu" else {}
+            eng = ServeEngine(sm, sps[dev], num_slots=4, max_len=40 + STREAM_GEN + 1,
+                              block_size=16, prefill_chunk=16, device=dev, **host, **kw)
+            ops.reset_counts()
+            submitted = 0
+            while submitted < len(work) or eng.scheduler.has_work():
+                while submitted < len(work) and eng.steps >= 2 * submitted:
+                    eng.submit(*work[submitted])
+                    submitted += 1
+                eng.step()
+            m = eng.metrics()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                if ops.counts["plain"] != 0 or ops.counts["qmm_bitserial"] <= 0:
+                    fail(f"served streams ({cell}): launch counts {ops.counts}")
+                if m["recompiles"] != 0:
+                    fail(f"served streams ({cell}): {m['recompiles']} re-captures")
+            engines[dev] = (eng, m)
+        card, cpu = engines["cuda"][1], engines["cpu"][1]
+        if (card["prefix_hits"], card["prefix_lookups"]) != (cpu["prefix_hits"],
+                                                             cpu["prefix_lookups"]) \
+                or card["prefix_hits"] <= 0:
+            fail(f"served streams ({cell}): hits {card['prefix_hits']}/"
+                 f"{card['prefix_lookups']} on the card, {cpu['prefix_hits']}/"
+                 f"{cpu['prefix_lookups']} on the CPU")
+        diverged = compare_streams(
+            torch, f"{cell}, card vs CPU", engines["cuda"][0], engines["cpu"][0], work,
+            lambda toks: prefill_margin(torch, sm, sps["cpu"], toks, device="cpu", chunk=16))
+        out[cell] = {"requests": len(work), "tokens_per_request": STREAM_GEN,
+                     "prefix_hits": card["prefix_hits"], "spec": card.get("spec"),
+                     "spec_cpu": cpu.get("spec"), "diverged": diverged}
+        print(f"served streams ({cell}): hits {card['prefix_hits']}/{card['prefix_lookups']}"
+              + (f", spec windows {card['spec']['windows']} (CPU {cpu['spec']['windows']}), "
+                 f"acceptance {card['spec']['acceptance_rate']:.4f} (CPU "
+                 f"{cpu['spec']['acceptance_rate']:.4f})" if "spec" in card else ""))
+    return out
 
 
 STREAM_GEN = 36          # greedy tokens per request: past two 16-token block edges
@@ -1295,6 +1434,422 @@ def eager_witness(torch, r):
     print(f"[fp KV, eager] launch counts on the path: {counts}")
     return {"engine": engine, "metrics": m, "counts": counts, "setup_s": 0.0,
             "wall_s": wall_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def prefill_margin(torch, model, sparams, tokens, device="cuda", chunk=64):
+    """Top-2 logit margin and max|logit| after ``tokens``, from an eager
+    chunked prefill on a fresh one-row pool on ``device``."""
+    import numpy as np
+
+    from repro_torch.serve.cache import PagedCachePool
+
+    tokens = np.asarray(tokens, np.int32)
+    pool = PagedCachePool(model, 1, len(tokens) + 1, block_size=16, device=device,
+                          prefix_cache=False)
+    seq = pool.alloc_seq()
+    pool.ensure(seq, len(tokens))
+    for lo in range(0, len(tokens), chunk):
+        valid = min(chunk, len(tokens) - lo)
+        buf = np.zeros((1, chunk), np.int32)
+        buf[0, :valid] = tokens[lo:lo + valid]
+        logits, cache = model.prefill_chunk(sparams, pool.step_cache(),
+                                            torch.from_numpy(buf).to(device), seq, lo, valid)
+        pool.accept(cache)
+    row = logits[0, 0].float()
+    top = row.topk(2).values
+    return float(top[0] - top[1]), float(row.abs().max())
+
+
+def compare_streams(torch, label, got, want, work, margin_of):
+    """``got``'s greedy streams against ``want``'s: equal, or a first
+    divergence where ``margin_of(prompt + emitted)`` gives a top-2 margin
+    within MARGIN * max|logit|.  Returns the divergences."""
+    import numpy as np
+
+    out = []
+    for rid in range(len(work)):
+        a, b = got.output(rid), want.output(rid)
+        if len(a) != len(b):
+            fail(f"[{label}] request {rid} emitted {len(a)} tokens, the baseline {len(b)}")
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin, top = margin_of(np.concatenate([work[rid][0], np.asarray(b[:i], np.int64)]))
+        print(f"  [{label}] request {rid} first diverges at token {i} ({a[i]} against "
+              f"{b[i]}); top-2 margin {margin:.4g}, bound {MARGIN} * {top:.4g} = "
+              f"{MARGIN * top:.4g}")
+        out.append({"request": rid, "token": i, "margin": margin, "bound": MARGIN * top})
+        if margin > MARGIN * top:
+            fail(f"[{label}] request {rid} diverged at token {i} where the top-2 margin "
+                 f"{margin:.4g} exceeds {MARGIN} * max|logit| = {MARGIN * top:.4g}")
+    print(f"  [{label}] greedy streams: {len(work) - len(out)} of {len(work)} equal the "
+          f"baseline's, {len(out)} diverge at a flagged tie")
+    return out
+
+
+def card_margin(torch, r):
+    return lambda toks: prefill_margin(torch, r["model"], r["sparams"], toks)
+
+
+def cell_summary(r, keys=("tokens_per_s", "decode_step_p50_ms", "decode_tok_p50_ms",
+                          "prefill_launches", "prefix_hits", "prefix_lookups",
+                          "prefix_hit_rate", "recompiles", "preemptions")):
+    m = r["metrics"]
+    out = {k: m.get(k) for k in keys}
+    out["ttft_p50_s"] = statistics.median(q["ttft_s"] for q in m["requests"])
+    out["prefix_cache"] = m["prefix_cache"]
+    out["cache_bytes"] = r["engine"].pool.cache_bytes()
+    if "spec" in m:
+        out["spec"] = m["spec"]
+    out["counts"] = r["counts"]
+    return out
+
+
+def tenant_prefix(torch, built, need):
+    """Phase 3f: glm4-9b at its published widths, two tenants sharing a
+    192-token system prompt (12 full blocks) in 256-token prompts, 8
+    requests on 4 rows, gen 16-32 (up to 288 tokens a sequence): with the
+    prefix cache, and again with ``--no-prefix-cache`` on the same params."""
+    on = serve_path(torch, "tenants, prefix cache", ["--bits", "4"], need, built, TENANTS)
+    off = serve_path(torch, "tenants, no prefix cache", ["--bits", "4", "--no-prefix-cache"],
+                     need, built, TENANTS)
+    mo, mf = on["metrics"], off["metrics"]
+    pc = mo["prefix_cache"]
+    for label, r in (("on", on), ("off", off)):
+        m = r["metrics"]
+        print(f"  3f cache {label}: tokens/s {m['tokens_per_s']:.2f}, TTFT p50 "
+              f"{cell_summary(r)['ttft_p50_s']:.4f} s, prefill launches "
+              f"{m['prefill_launches']}, hit rate {m['prefix_hit_rate']:.4f}, hits "
+              f"{m['prefix_hits']}/{m['prefix_lookups']}, hit tokens "
+              f"{m['prefix_cache']['hit_tokens']}, COW {m['prefix_cache']['cow_copies']}, "
+              f"evictions {m['prefix_cache']['evictions']}, cached blocks "
+              f"{m['prefix_cache']['cached_blocks']}, cache bytes "
+              f"{r['engine'].pool.cache_bytes()}, recompiles {m['recompiles']}")
+    if (mo["prefix_hits"], mo["prefix_lookups"], pc["hit_tokens"]) != (6, 8, 1152):
+        fail(f"[3f] want 6 hits in 8 lookups and 1,152 hit tokens: {mo['prefix_hits']} / "
+             f"{mo['prefix_lookups']}, {pc['hit_tokens']}")
+    if not mo["prefill_launches"] < mf["prefill_launches"]:
+        fail(f"[3f] prefill launches {mo['prefill_launches']} with the cache, "
+             f"{mf['prefill_launches']} without")
+    if mf["prefix_lookups"] or mf["prefix_cache"]["enabled"]:
+        fail("[3f] --no-prefix-cache consulted the trie")
+    diverged = compare_streams(torch, "3f cache on vs off", on["engine"], off["engine"],
+                               on["work"], card_margin(torch, on))
+    return {"on": cell_summary(on), "off": cell_summary(off), "diverged": diverged}
+
+
+def concurrency_gate(torch, built):
+    """Phase 3g: the reference benchmark's gate at full width: 2 tenants, 8
+    requests on 8 rows, the whole 192-token prefix shared in 256-token
+    prompts, gen 8, one arrival per step, a pool of 2 * 12 + 8 * (17 - 12)
+    + 8 + 2 + 1 = 75 blocks; the sharing engine against the one without,
+    at equal cache bytes."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    cfg, model, sparams, _ = built
+    S, plen, gen, bs, n, T = 192, 256, 8, 16, 8, 2
+    max_len = plen + gen + 1
+    bps = -(-max_len // bs)
+    blocks = T * (S // bs) + n * (bps - S // bs) + n + 2 + 1
+    sys_prompts = np.random.default_rng(11).integers(0, cfg.vocab_size, (T, S))
+    prompts = np.random.default_rng(29).integers(0, cfg.vocab_size, (n, plen))
+    for i in range(n):
+        prompts[i, :S] = sys_prompts[i % T]
+    work = [(prompts[i], gen + 1) for i in range(n)]
+    out, engines = {}, {}
+    for sharing in (False, True):
+        label = "3g sharing" if sharing else "3g baseline"
+        eng = ServeEngine(model, sparams, num_slots=n, max_len=max_len, block_size=bs,
+                          num_blocks=blocks, prefill_chunk=64, prefix_cache=sharing,
+                          device="cuda")
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        submitted = peak = 0
+        while submitted < n or eng.scheduler.has_work():
+            while submitted < n and eng.steps >= submitted:
+                eng.submit(*work[submitted])
+                submitted += 1
+            eng.step()
+            peak = max(peak, eng.num_running)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m, counts = eng.metrics(), dict(ops.counts)
+        if any(r["state"] != "finished" or r["new_tokens"] != gen + 1 for r in m["requests"]):
+            fail(f"[{label}] a request did not finish with {gen + 1} tokens")
+        if m["recompiles"] != 0 or counts["plain"] != 0 or counts["paged_attention"] <= 0:
+            fail(f"[{label}] recompiles {m['recompiles']}, launch counts {counts}")
+        out[label] = {"peak_running": peak, "cache_bytes": eng.pool.cache_bytes(),
+                      "num_blocks": blocks, "tokens_per_s": m["tokens_per_s"],
+                      "prefill_launches": m["prefill_launches"],
+                      "preemptions": m["preemptions"], "prefix_cache": m["prefix_cache"],
+                      "wall_s": wall, "counts": counts}
+        print(f"  [{label}] {blocks} blocks, cache bytes {eng.pool.cache_bytes()}, peak running "
+              f"rows {peak}, tokens/s {m['tokens_per_s']:.2f}, prefill launches "
+              f"{m['prefill_launches']}, preemptions {m['preemptions']}, hits "
+              f"{m['prefix_hits']}/{m['prefix_lookups']}, recompiles {m['recompiles']}, "
+              f"wall {wall:.2f} s")
+        engines[sharing] = eng
+    base, shared = out["3g baseline"], out["3g sharing"]
+    if base["cache_bytes"] != shared["cache_bytes"]:
+        fail(f"[3g] cache bytes differ: {base['cache_bytes']} against {shared['cache_bytes']}")
+    if not shared["peak_running"] > base["peak_running"]:
+        fail(f"[3g] peak running rows {shared['peak_running']} with sharing, "
+             f"{base['peak_running']} without: want more with sharing")
+    out["diverged"] = compare_streams(
+        torch, "3g sharing vs baseline", engines[True], engines[False], work,
+        lambda toks: prefill_margin(torch, model, sparams, toks))
+    return out
+
+
+def spec_cell(torch, fp, need):
+    """Phase 3h: 3a's workload and params with ``--spec-k 4 --draft-bits
+    2``: greedy streams 3a's, up to flagged ties."""
+    r = serve_path(torch, "fp KV, spec", ["--bits", "4", *SPEC], need,
+                   tuple(fp[k] for k in ("cfg", "model", "sparams", "policy")))
+    diverged = compare_streams(torch, "3h spec vs 3a", r["engine"], fp["engine"], fp["work"],
+                               card_margin(torch, fp))
+    return {**cell_summary(r), "diverged": diverged}
+
+
+def snapped_build(torch):
+    """glm4-9b at its published widths, params from seed 0 snapped to the
+    2-bit grid (``snap_params_to_grid``), packed at 4 bits: the 2-bit
+    draft's levels are exact at 4 bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.spec import snap_params_to_grid
+    from repro_torch.train.serve import quantize_for_serving
+
+    t0 = time.perf_counter()
+    cfg = get_config("glm4-9b", smoke=False)
+    model = build_model(cfg)
+    params = snap_params_to_grid(model, model.init(seed=0, device="cuda"), 2)
+    policy = policy_for(model, 4)
+    sparams = quantize_for_serving(model, params, policy, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  snapped glm4-9b params packed at 4 bits in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, sparams, policy
+
+
+class CallClock:
+    """Stands in for a function of the engine: per call, the host clock,
+    a CUDA-event span and the hand-kernel launches (``kernels.ops``); with
+    ``profile`` set, the call runs under ``torch.profiler`` and records its
+    device busy time and its CUDA kernel count instead."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls, self.profile = torch, fn, [], False
+
+    def __call__(self, *args):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.kernels import ops
+
+        torch = self.torch
+        before = dict(ops.counts)
+        if self.profile:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = self.fn(*args)
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+            rec = {"device_ms": sum(e.self_device_time_total for e in evs) / 1e3,
+                   "kernels": sum(e.count for e in evs)}
+        else:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = self.fn(*args)
+            end.record()
+            rec = {"host_ms": (time.perf_counter() - t0) * 1e3, "events": (start, end)}
+        rec["hand_launches"] = sum(n - before[k] for k, n in ops.counts.items() if k != "plain")
+        self.calls.append(rec)
+        return out
+
+
+def spec_breakdown(torch, built, steps=3):
+    """One spec step's parts (k = 4, 4 rows decoding): the draft's decode
+    steps (graph replays) and the eager verify, each by the host clock and
+    a CUDA-event span (``steps`` steps), then by device busy time under
+    the profiler (one more step)."""
+    import numpy as np
+
+    from repro_torch.serve import ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    cfg, model, sparams, _ = built
+    eng = ServeEngine(model, sparams, num_slots=4, max_len=160, block_size=16,
+                      prefill_chunk=64, spec=SpecConfig(k=4, draft_bits=2), device="cuda")
+    draft, verify = CallClock(torch, eng._draft_decode), CallClock(torch, eng._verify)
+    eng._draft_decode, eng._verify = draft, verify
+    rng = np.random.default_rng(5)
+    for _ in range(4):
+        eng.submit(rng.integers(0, cfg.vocab_size, 64), 80)
+    eng.step()                          # admissions, captures and the first window
+    eng.step()
+    torch.cuda.synchronize()
+    out = {}
+    for mode in ("timed", "profiled"):
+        draft.calls, verify.calls = [], []
+        draft.profile = verify.profile = mode == "profiled"
+        n = steps if mode == "timed" else 1
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+        rec = {"step_ms": step_ms}
+        for name, clock in (("draft", draft), ("verify", verify)):
+            calls = clock.calls
+            if mode == "timed":
+                rec[name] = {"host_ms": sum(c["host_ms"] for c in calls) / n,
+                             "event_ms": sum(c["events"][0].elapsed_time(c["events"][1])
+                                             for c in calls) / n}
+            else:
+                rec[name] = {"device_ms": sum(c["device_ms"] for c in calls) / n,
+                             "kernels": sum(c["kernels"] for c in calls) // n}
+            rec[name]["calls"] = len(calls) // n
+            rec[name]["hand_launches"] = sum(c["hand_launches"] for c in calls) // n
+        out[mode] = rec
+    t, p = out["timed"], out["profiled"]
+    print(f"  [3i breakdown] a spec step (4 rows, k 4): {t['step_ms']:.2f} ms host clock; "
+          f"draft {t['draft']['calls']} decode steps: host {t['draft']['host_ms']:.3f} ms, "
+          f"event span {t['draft']['event_ms']:.3f} ms, device busy "
+          f"{p['draft']['device_ms']:.3f} ms, {p['draft']['kernels']} kernels "
+          f"({t['draft']['hand_launches']} hand-kernel launches); verify: host "
+          f"{t['verify']['host_ms']:.3f} ms, event span {t['verify']['event_ms']:.3f} ms, "
+          f"device busy {p['verify']['device_ms']:.3f} ms, {p['verify']['kernels']} kernels "
+          f"({t['verify']['hand_launches']} hand-kernel launches)")
+    m = eng.metrics()
+    if m["recompiles"] != 0 or eng.graph_captures["draft"] != 1:
+        fail(f"[3i breakdown] recompiles {m['recompiles']}, captures {eng.graph_captures}")
+    eng.run_until_drained()
+    return out
+
+
+class RejectionMargins:
+    """Stands in for the engine's verify and reads its logits after each
+    call: in every row's window, the proposals, those the target's argmax
+    accepts (counted as ``greedy_window`` counts them) and, at the first proposal
+    it rejects, the target's top-2 margin, its logit gap from its argmax
+    down to the rejected proposal, and max|logit| there."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls, self.rejections = torch, fn, 0, []
+        self.proposed = self.accepted = 0
+
+    def __call__(self, params, cache, tokens, starts, valids):
+        logits, cache = self.fn(params, cache, tokens, starts, valids)
+        lg = logits[:, :-1].float()                     # position j scores proposal j + 1
+        top = lg.topk(2, dim=-1).values                 # argmax as the engine breaks ties
+        prop = tokens[:, 1:].long()
+        gap = top[..., 0] - lg.gather(-1, prop[..., None])[..., 0]
+        tops, prop, vals, gap, peak, valids = (
+            t.cpu().numpy() for t in (lg.argmax(-1), prop, top, gap, lg.abs().amax(-1),
+                                      valids))
+        for row, valid in enumerate(valids):
+            self.proposed += max(int(valid) - 1, 0)
+            for j in range(max(int(valid) - 1, 0)):
+                if prop[row, j] == tops[row, j]:
+                    self.accepted += 1
+                    continue
+                self.rejections.append({
+                    "verify": self.calls, "row": row, "position": j,
+                    "draft": int(prop[row, j]), "target": int(tops[row, j]),
+                    "margin": float(vals[row, j, 0] - vals[row, j, 1]),
+                    "gap": float(gap[row, j]), "bound": MARGIN * float(peak[row, j])})
+                break
+        self.calls += 1
+        return logits, cache
+
+
+def spec_witness(torch, r):
+    """3i's spec workload on the same params through an engine whose draft
+    and target decode steps run ``model.decode_step`` eagerly: the two
+    captured graphs' witness at full width.  Its greedy streams and its
+    window, proposed and accepted counts must equal the graphed run's
+    bitwise.  Its verify reads each rejection's margins
+    (:class:`RejectionMargins`); a rejection is allowed only where the
+    target's gap down to the rejected proposal is within MARGIN *
+    max|logit| (the draft's weights equal the target's on the snapped
+    grid: only the summation order differs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import SamplingParams, ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    a, graphed = r["args"], r["engine"]
+    engine = ServeEngine(r["model"], r["sparams"], num_slots=a.num_slots,
+                         max_len=a.prompt_len + a.gen + 1, block_size=a.block_size,
+                         prefill_chunk=a.prefill_chunk,
+                         spec=SpecConfig(k=a.spec_k, draft_bits=a.draft_bits),
+                         decode_fn=r["model"].decode_step, device="cuda")
+    witness = RejectionMargins(torch, engine._verify)
+    engine._verify = witness
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    launcher.drive(engine, r["work"], a.arrival_every, SamplingParams(temperature=a.temperature))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts, m, mg = dict(ops.counts), engine.metrics(), graphed.metrics()
+    caps = engine.graph_captures
+    if caps["decode"] or caps.get("draft", 0) or counts["plain"] != 0 or counts["qmm_bitserial"] <= 0:
+        fail(f"[3i eager] the eager decode steps were captured {caps}; launch counts {counts}")
+    for rid in range(len(r["work"])):
+        if engine.output(rid) != graphed.output(rid):
+            fail(f"[3i eager] request {rid} gave {engine.output(rid)}, the graphed spec run "
+                 f"{graphed.output(rid)}")
+    if m["spec"] != mg["spec"]:
+        fail(f"[3i eager] spec counts {m['spec']}, the graphed run's {mg['spec']}")
+    sp = m["spec"]
+    if (witness.proposed, witness.accepted) != (sp["proposed"], sp["accepted"]):
+        fail(f"[3i eager] the verify's logits hold {witness.proposed} proposals and accept "
+             f"{witness.accepted}: the engine counted {sp}")
+    for rej in witness.rejections:
+        print(f"  [3i eager] verify {rej['verify']} row {rej['row']} position {rej['position']}: "
+              f"draft {rej['draft']} against the target's {rej['target']}; top-2 margin "
+              f"{rej['margin']:.4g}, gap to the draft's token {rej['gap']:.4g}, bound "
+              f"{rej['bound']:.4g}")
+        if rej["gap"] > rej["bound"]:
+            fail(f"[3i eager] a rejection at a gap {rej['gap']:.4g} over the tie bound "
+                 f"{rej['bound']:.4g}: {rej}")
+    gaps = sorted(rej["gap"] for rej in witness.rejections)
+    print(f"  [3i eager] greedy streams and spec counts ({sp['windows']} windows, "
+          f"{sp['proposed']} proposed, {sp['accepted']} accepted) equal the graphed run's "
+          f"bitwise; {len(gaps)} rejections, every one within the tie bound (gaps "
+          f"{gaps[0] if gaps else 0:.4g}-{gaps[-1] if gaps else 0:.4g}); tokens/s "
+          f"{m['tokens_per_s']:.2f}, wall {wall_s:.2f} s")
+    return {"metrics": {k: m[k] for k in ("tokens_per_s", "decode_tok_p50_ms", "spec")},
+            "counts": counts, "wall_s": wall_s, "rejections": witness.rejections}
+
+
+def spec_ceiling(torch, need):
+    """Phase 3i: spec decoding's mechanical ceiling at full width: params
+    snapped to the 2-bit grid, served at 4 bits with and without a 2-bit
+    draft (k = 4) on the cell's workload (8 requests on 4 rows)."""
+    built = snapped_build(torch)
+    spec = serve_path(torch, "snapped, spec", ["--bits", "4", *SPEC], need, built)
+    plain = serve_path(torch, "snapped, no spec", ["--bits", "4"], need, built)
+    for label, r in (("spec", spec), ("no spec", plain)):
+        m = r["metrics"]
+        acc = m["spec"]["acceptance_rate"] if "spec" in m else None
+        print(f"  3i {label}: acceptance {acc}, decode_tok_p50 {m['decode_tok_p50_ms']:.3f} ms, "
+              f"decode_step_p50 {m['decode_step_p50_ms']:.3f} ms, tokens/s "
+              f"{m['tokens_per_s']:.2f}")
+    diverged = compare_streams(torch, "3i spec vs no spec", spec["engine"], plain["engine"],
+                               plain["work"], card_margin(torch, plain))
+    out = {"spec": cell_summary(spec), "no spec": cell_summary(plain), "diverged": diverged,
+           "eager": spec_witness(torch, spec)}
+    del spec, plain
+    out["breakdown"] = spec_breakdown(torch, built)
+    return out
 
 
 def profile_paths(torch, label, r):
@@ -1475,9 +2030,18 @@ def main() -> None:
     phase("phase 3a, other order: --host-sampling first, then the default path again")
     fp_host2 = serve_path(torch, "fp KV, host sampling, 2nd", fp_host_flags, fp_need, built)
     fp2 = serve_path(torch, "fp KV, 2nd", fp_flags, fp_need, built)
+    # the prefix cache's own cost on prompts that never hit: off, off, then
+    # on a third time, so 3a 2nd / off / off / 3a 3rd run in turns
+    phase("phase 3a, prefix cache: --no-prefix-cache twice, then the default path a third time")
+    fp_nc_flags = [*fp_flags, "--no-prefix-cache"]
+    fp_nc = serve_path(torch, "fp KV, no prefix cache", fp_nc_flags, fp_need, built)
+    fp_nc2 = serve_path(torch, "fp KV, no prefix cache, 2nd", fp_nc_flags, fp_need, built)
+    fp3 = serve_path(torch, "fp KV, 3rd", fp_flags, fp_need, built)
     fp_runs = {"3a": ("fp KV", fp), "3a'": ("fp KV, host sampling", fp_host),
                "3a''": ("fp KV, eager", fp_eager),
-               "3a' 2nd": ("fp KV, host sampling, 2nd", fp_host2), "3a 2nd": ("fp KV, 2nd", fp2)}
+               "3a' 2nd": ("fp KV, host sampling, 2nd", fp_host2), "3a 2nd": ("fp KV, 2nd", fp2),
+               "3a nc": ("fp KV, no prefix cache", fp_nc),
+               "3a nc 2nd": ("fp KV, no prefix cache, 2nd", fp_nc2), "3a 3rd": ("fp KV, 3rd", fp3)}
     for label, (_, r) in fp_runs.items():
         for rid in range(len(fp["work"])):
             if r["engine"].output(rid) != fp["engine"].output(rid):
@@ -1488,12 +2052,26 @@ def main() -> None:
         print(f"  {label:8s}: tokens/s {m['tokens_per_s']:.2f}, decode step p50 "
               f"{m['decode_step_p50_ms']:.3f} ms, decode steps {m['decode_steps']}, "
               f"TTFT p50 {ttft:.4f} s")
-    print("  greedy streams of 3a', 3a'' (eager decode step) and of both paths served "
-          "again in the other order equal 3a's bitwise")
+    print("  greedy streams of 3a', 3a'' (eager decode step), of both paths served "
+          "again in the other order and of 3a without the prefix cache equal 3a's bitwise")
+    if fp_nc["metrics"]["prefix_lookups"] or fp_nc2["metrics"]["prefix_lookups"]:
+        fail("[3a nc] --no-prefix-cache consulted the trie")
+    tps = {k: [fp_runs[c][1]["metrics"]["tokens_per_s"] for c in cells]
+           for k, cells in (("on", ("3a 2nd", "3a 3rd")), ("off", ("3a nc", "3a nc 2nd")))}
+    print(f"  prefix cache on / off in turns (3a 2nd, nc, nc 2nd, 3a 3rd): tokens/s "
+          f"{tps['on'][0]:.2f}, {tps['off'][0]:.2f}, {tps['off'][1]:.2f}, {tps['on'][1]:.2f}; "
+          f"means {statistics.mean(tps['on']):.2f} on, {statistics.mean(tps['off']):.2f} off")
     fp_runs = {cell: {k: r[k] for k in ("metrics", "counts", "setup_s", "wall_s",
                                         "peak_mem_gib")}
                for cell, r in fp_runs.values()}
-    del fp_host, fp_eager, fp_host2, fp2
+    del fp_host, fp_eager, fp_host2, fp2, fp_nc, fp_nc2, fp3
+    phase("phase 3f: two tenants' shared system prompts, with the prefix cache and without")
+    prefix = {"3f": tenant_prefix(torch, built, fp_need)}
+    phase("phase 3g: peak concurrency at equal cache bytes, sharing against no sharing")
+    prefix["3g"] = concurrency_gate(torch, built)
+    phase("phase 3h: speculative decoding on 3a's params, --spec-k 4 --draft-bits 2")
+    spec = {"3h": spec_cell(torch, fp, fp_need)}
+    torch.cuda.empty_cache()
     streams = check_outputs(torch, fp["cfg"], fp["model"], fp["sparams"], fp["engine"],
                             fp["work"])
     phase("phase 5a: decode step breakdown, fp KV blocks")
@@ -1517,6 +2095,11 @@ def main() -> None:
     phase("phase 5c: decode step breakdown, int8 KV blocks")
     breakdown["int8 KV"] = profile_paths(torch, "int8 KV", int8)
     del int8["engine"], int8["sparams"], int8["model"]
+    torch.cuda.empty_cache()
+
+    # ---- spec decoding's ceiling: params snapped to the draft's 2-bit grid
+    phase("phase 3i: speculative decoding on params snapped to the 2-bit grid, spec and not")
+    spec["3i"] = spec_ceiling(torch, fp_need)
     torch.cuda.empty_cache()
 
     # ---- the ReLeQ search loop: LeNet quickstart twin, ResNet-20 at full width.
@@ -1608,9 +2191,10 @@ def main() -> None:
                          "fake_quant: one ResNet-20 QAT forward (20 calls, f32, the flat "
                          "kernel at given scales; no longer on the QAT path); "
                          "fake_quant_group / fake_quant_group_bwd: one ResNet-20 QAT forward / "
-                         "backward (one launch each, f32, bits QAT_BITS); the backward has no "
-                         "library call",
-        "serve": serve, "decode_breakdown": breakdown, "served_streams": streams,
+                         "backward (one launch each, f32, bits QAT_BITS); the backward's library "
+                         "call is the autograd backward of fake_quantize_per_tensor_affine",
+        "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
+        "served_streams": streams,
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
                   "qat_step_breakdown": qat_breakdown},
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))

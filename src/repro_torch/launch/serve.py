@@ -19,13 +19,21 @@ reference's draws, so without it the workload is the reference's).
 ``--kv-bits B [B ...]`` quantizes the paged KV blocks (one width, or one
 per layer; uniform 4 bits packs two codes per byte), and ``--kv-oracle``
 stores their exact quantize-dequantize values in f32 instead.
+
+``--prefix-cache`` (on by default, as the reference's) shares full
+prompt-prefix KV blocks across sequences through the pool's refcounted
+trie; ``--tenants N`` gives the requests of each of N tenants a shared
+system prompt (3/4 of the prompt, drawn right after the prompts, as the
+reference draws it).  ``--spec-k K --draft-bits B`` turns on speculative
+decoding with the quantized self-draft (the same packed weights at B
+planes roll K tokens per window, one batched verify scores them).
 ``--host-sampling`` selects tokens on the host from fetched logits
 (implies ``--no-pipeline``); ``--no-pipeline`` keeps device sampling but
 syncs every step, as the reference's flags do.
 
 Flags of the reference that this port does not have yet are refused
 with the ROADMAP item that brings them: ``--mode static``, ``--cache
-slot``, ``--prefix-cache``, ``--tenants``, ``--spec-k``, ``--ckpt-dir``.
+slot``, ``--ckpt-dir``.
 """
 from __future__ import annotations
 
@@ -39,14 +47,12 @@ from repro_torch.models import build_model
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qat import policy_for
 from repro_torch.serve import SamplingParams, ServeEngine
+from repro_torch.spec import SpecConfig
 from repro_torch.train.serve import quantize_for_serving
 
 _UNPORTED = (  # (flag test, flag, ROADMAP item)
     (lambda a: a.mode != "continuous", "--mode static", "slice A, item 3 (rest)"),
     (lambda a: a.cache != "paged", "--cache slot", "slice A, item 3 (rest)"),
-    (lambda a: a.prefix_cache, "--prefix-cache", "slice A, item 5"),
-    (lambda a: a.tenants, "--tenants", "slice A, item 5"),
-    (lambda a: a.spec_k, "--spec-k", "slice A, item 7"),
     (lambda a: a.ckpt_dir, "--ckpt-dir", "slice D, item 10"),
 )
 
@@ -74,13 +80,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="quantize KV blocks: one width, or one per layer")
     ap.add_argument("--kv-oracle", action="store_true",
                     help="with --kv-bits: store exact QDQ values in f32")
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--tenants", type=int, default=0)
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share full prompt-prefix KV blocks across sequences "
+                         "(refcounted, copy on write)")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="group requests into this many tenants sharing a "
+                         "system-prompt prefix (0 = fully unique prompts)")
     ap.add_argument("--requests", type=int, default=8,
                     help="synthetic workload size")
     ap.add_argument("--arrival-every", type=int, default=2,
                     help="steps between request arrivals")
-    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculate this many tokens per window with the "
+                         "quantized self-draft (0 = off)")
+    ap.add_argument("--draft-bits", type=int, default=2,
+                    help="bitwidth of the self-draft's packed-weight view")
     ap.add_argument("--host-sampling", action="store_true",
                     help="select tokens on the host from fetched logits "
                          "instead of the on-device sampler; implies "
@@ -129,11 +144,18 @@ def build(args):
 
 def synthetic_workload(args, vocab_size: int) -> list[tuple[np.ndarray, int]]:
     """The reference launcher's workload: ``(prompt, max_new_tokens)`` per
-    request, drawn from ``default_rng(1)`` in the reference's order."""
+    request, drawn from ``default_rng(1)`` in the reference's order (with
+    ``--tenants``, each tenant's system prompt replaces the first 3/4 of
+    its requests' prompts, drawn right after them)."""
     rng = np.random.default_rng(1)
     gens = [int(g) for g in
             rng.integers(max(1, args.gen // 2), args.gen + 1, args.requests)]
     prompts = rng.integers(0, vocab_size, (args.requests, args.prompt_len))
+    if args.tenants:
+        shared = args.prompt_len * 3 // 4
+        sys_prompts = rng.integers(0, vocab_size, (args.tenants, shared))
+        for i in range(args.requests):
+            prompts[i, :shared] = sys_prompts[i % args.tenants]
     lens = [args.prompt_len] * args.requests
     if args.min_prompt_len is not None:
         lens = [int(n) for n in rng.integers(args.min_prompt_len,
@@ -175,13 +197,16 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
     tracer = Tracer(enabled=True) if args.trace else None
     if tracer is not None:
         tracer.name_thread("serve-loop")
+    spec = (SpecConfig(k=args.spec_k, draft_bits=args.draft_bits)
+            if args.spec_k else None)
     engine = ServeEngine(model, sparams, num_slots=args.num_slots,
                          max_len=args.prompt_len + args.gen + 1,
                          block_size=args.block_size, num_blocks=args.num_blocks,
                          prefill_chunk=args.prefill_chunk, tracer=tracer,
+                         prefix_cache=args.prefix_cache,
                          sample_device=not args.host_sampling,
                          pipeline=not (args.host_sampling or args.no_pipeline),
-                         device=args.device, **kv_kw)
+                         spec=spec, device=args.device, **kv_kw)
     drive(engine, synthetic_workload(args, cfg.vocab_size), args.arrival_every,
           SamplingParams(temperature=args.temperature), args.metrics_interval)
     m = engine.metrics()
@@ -203,6 +228,20 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
           f"device/host p50={m['decode_device_p50_ms']:.2f}/"
           f"{m['decode_host_p50_ms']:.2f} ms "
           f"prefill_launches={m['prefill_launches']}")
+    pc = m["prefix_cache"]
+    print(f"prefix_cache={'on' if pc['enabled'] else 'off'} "
+          f"hit_rate={m['prefix_hit_rate']:.3f} "
+          f"hits={m['prefix_hits']}/{m['prefix_lookups']} lookups "
+          f"blocks_shared={m['blocks_shared']:.1f} "
+          f"prefill_launches={m['prefill_launches']} "
+          f"hit_tokens={pc['hit_tokens']} cow={pc['cow_copies']} "
+          f"evictions={pc['evictions']}")
+    if "spec" in m:
+        s = m["spec"]
+        print(f"spec k={s['k']} draft_bits={args.draft_bits} "
+              f"windows={s['windows']} "
+              f"acceptance={s['acceptance_rate']:.3f} "
+              f"({s['accepted']}/{s['proposed']})")
     print("kernel launches:", dict(kops.counts))
     for r in m["requests"]:
         print(f"  req {r['id']}: {r['new_tokens']} tokens, "

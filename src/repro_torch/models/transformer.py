@@ -1,10 +1,11 @@
 """TransformerLM, dense family (torch port of ``repro.models.transformer``).
 
 Ported: ``init`` (stacked training layout), the paged serving path —
-fixed-shape chunked prefill (``prefill_chunk`` over ``_chunk_body``) and
-the one-token ``decode_step`` over a ``PagedCachePool`` with fp blocks,
-quantized KV blocks (int8, or nibble-packed int4) or the fp32 kv-oracle
-— and the quantization API (``quant_groups``, ``kv_quant_groups``,
+fixed-shape chunked prefill (``prefill_chunk`` over ``_chunk_body``),
+the speculative verifier (``verify_chunk``, the same body over every pool
+row) and the one-token ``decode_step`` over a ``PagedCachePool`` with fp
+blocks, quantized KV blocks (int8, or nibble-packed int4) or the fp32
+kv-oracle — and the quantization API (``quant_groups``, ``kv_quant_groups``,
 ``frozen_bits``).  Every packed matmul goes through ``apply_linear`` ->
 ``kernels.ops.qmm``, every decode attention through
 ``kernels.ops.paged_attention``, and a quantized-KV decode step with
@@ -19,8 +20,8 @@ matrices and a ``QDQ`` embedding.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): MoE, hybrid and other families, M-RoPE and absolute-sinusoid
-positions, sliding-window (ring) caches, the speculative
-``verify_chunk``, and the full-sequence ``forward`` / ``prefill``.
+positions, sliding-window (ring) caches, and the full-sequence
+``forward`` / ``prefill``.
 """
 from __future__ import annotations
 
@@ -231,9 +232,6 @@ class TransformerLM:
     def prefill(self, *args, **kwargs):
         raise not_ported("full-prompt prefill (slot pool)", "slice A, item 3 (rest)")
 
-    def verify_chunk(self, *args, **kwargs):
-        raise not_ported("the speculative verifier", "slice A, item 7")
-
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None) -> dict:
         """Contiguous per-row cache; the paged pool reads its leaf shapes
         and dtypes as the template for its blocks."""
@@ -376,6 +374,22 @@ class TransformerLM:
                                     one(start), one(valid))
         logits = self._readout(params, h[:, valid - 1:valid])
         return logits, cache
+
+    def verify_chunk(self, params, cache, tokens, starts, valids):
+        """Score a speculative window for EVERY pool row in one batched
+        fixed-shape call.  ``tokens`` (B, C): lane r is pool row r, [last
+        fed token, draft_1..draft_k, padding]; ``starts``/``valids`` (B,)
+        (valid 0 marks a dead lane: nothing of it is written).  Returns
+        (logits (B, C, V) f32 at every position — index j scores the
+        continuation after ``tokens[:, :j+1]`` — and the cache, with the
+        target's K/V written for every valid position of the window).
+
+        It runs eagerly: the chunk write selects its valid lanes with a
+        boolean mask, which waits on the device."""
+        B = tokens.shape[0]
+        rows = torch.arange(B, dtype=torch.int32, device=tokens.device)
+        h, cache = self._chunk_body(params, cache, tokens, rows, starts, valids)
+        return self._readout(params, h), cache
 
     # ------------------------------------------------------------ quant API
     def quant_groups(self, seq_len: int = 4096) -> list[QuantGroup]:

@@ -107,6 +107,28 @@ def dequant_packed(packed: torch.Tensor, scale: torch.Tensor, bits: int):
     return unpack_bitplanes(packed, bits).float() / n * scale
 
 
+def repack_weight(packed: Packed, bits: int) -> Packed:
+    """Low-bit view of a packed weight: dequantize the planes and pack
+    them again at ``bits``.  The speculative decoder's self-draft is the
+    same weights at fewer planes, so no second master copy exists.  At
+    ``bits >= packed.bits`` the input comes back unchanged (packing again
+    could only lose precision).  An expert bank (planes with a leading E
+    axis) is packed again expert by expert."""
+    if bits >= packed.bits:
+        return packed
+
+    def one(planes, scale):
+        return pack_weight(dequant_packed(planes, scale, packed.bits), bits)
+
+    if packed.planes.ndim == 4:  # (E, bits, K//8, N) expert bank
+        pairs = [one(p, s) for p, s in zip(packed.planes, packed.scale)]
+        planes = torch.stack([p for p, _ in pairs])
+        scale = torch.stack([s for _, s in pairs])
+    else:
+        planes, scale = one(packed.planes, packed.scale)
+    return Packed(planes, scale, bits)
+
+
 # --------------------------------------------------------------------------
 # Quantized-KV helpers: the one source of KV numerics for the pool, the
 # model and the plain kernel versions, so the fp-KV oracle parity is exact.

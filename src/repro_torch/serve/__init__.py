@@ -5,9 +5,12 @@ ReLeQ-quantized models (torch port of ``repro.serve``).
   reference's numpy-only modules (requests, host token selection from
   per-request ``SeedSequence`` streams, FIFO admission, block-aware
   continuous scheduling with preempt-and-requeue).
-- ``cache.py``: ``PagedCachePool`` with fp blocks.
-- ``engine.py``: ``ServeEngine`` — chunked prefill and the one-token
-  decode step, host sampling.
+- ``cache.py``: ``PagedCachePool`` with fp or quantized blocks and the
+  refcounted prefix cache (trie, copy on write, LRU parking).
+- ``engine.py``: ``ServeEngine`` — chunked prefill (over the tail of a
+  prefix hit), the one-token decode step with device sampling and the
+  lookahead, and speculative decoding with the quantized self-draft.
+- ``sampler.py``: the device sampler (the reference's threefry stream).
 
 Use::
 

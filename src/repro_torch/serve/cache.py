@@ -45,15 +45,36 @@ float32 leaves holding the exact quantize-dequantize values
 ``codes · scale`` is bitwise these floats, so the two pools give the same
 tokens exactly.
 
-Ported so far: ``prefix_cache=False``.  The prefix-cache hooks the
-scheduler and engine call (``record_tokens``, ``record_token``,
-``cow_for_write``) keep the reference's disabled early returns, and
-``map_shared`` is absent, so the scheduler maps nothing.  Prefix caching,
-mesh placement and the slot pool are later ROADMAP items.
+Prefix caching (``prefix_cache=True``, the default, as the
+reference's): full blocks are shared across sequences.  Every block is
+refcounted, and a trie maps *full-block token content* to the physical
+block holding its KV, so admission splices a shared system prompt into a
+new sequence's block table with an incref instead of prefilling it
+again.  The trie is per pool: one pool serves one packed policy at one KV
+layout, and ``flush_prefix_cache()`` drops the index when the weights
+change.  Block lifecycle (the reference's):
+
+- free -> owned (refcount 1) by ``alloc_seq``/``ensure``;
+- owned -> published into the trie by ``record_tokens``/``record_token``
+  once the block is full of fed tokens;
+- published -> shared (refcount > 1) by ``map_shared`` (incref);
+- refcount 0: a published block parks in the trie as *cached*
+  (evictable, least recently used first, leaves first), an unpublished
+  one returns to the free heap;
+- a write into a shared block copies it first (``cow_for_write``): a
+  fresh block gets a bitwise copy of every paged leaf (codes and scales)
+  and the shared one is decref'd.
+
+The copy is made in place on the pool's own tensors (``leaf[:, dst] =
+leaf[:, src]`` for every paged leaf), so the leaves keep their addresses:
+a decode step captured in a CUDA graph binds them by address and is not
+captured again.  Nibble-packed int4 codes are copied as bytes.
 
 Allocator invariants (as the reference's): an id is returned at most once
 until freed and a double free raises; ``ensure`` never over-allocates and
-reports exhaustion as ``False``; freeing returns every block.
+reports exhaustion as ``False``; freeing returns every block; one
+refcount per owning sequence, never negative; a shared block never
+reaches the free heap; ``owned + heap + cached == num_blocks - 1``.
 """
 from __future__ import annotations
 
@@ -62,10 +83,52 @@ import heapq
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.obs.trace import NULL_TRACER
 
 PAGED_KEYS = ("k", "v")  # transformer KV pages; everything else is O(1)/seq
+
+
+class DeviceTable:
+    """A persistent device copy of a host ``int32`` table, updated in
+    place in stream order: directly on the CPU, and on the card through a
+    pinned staging copy that is rewritten only after the event covering
+    its last transfer.  The device buffer keeps its address, so a graph
+    that copies it in at each replay reads the update in stream order."""
+
+    def __init__(self, host: torch.Tensor, device):
+        self.dev = torch.zeros_like(host, device=device)
+        self._stage = host.pin_memory() if self.dev.is_cuda else None
+        self._event = None
+
+    def upload(self, host: torch.Tensor) -> torch.Tensor:
+        if self._stage is None:
+            self.dev.copy_(host)
+        else:
+            if self._event is not None:
+                self._event.synchronize()
+            self._stage.copy_(host)
+            self.dev.copy_(self._stage, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        return self.dev
+
+
+class _PrefixNode:
+    """One full block's worth of token content in the prefix trie:
+    ``key`` the ``block_size`` token ids it holds, ``block`` the physical
+    block storing their KV, ``parent``/``children`` the chain (a child's
+    key is the next full block of tokens), ``last_use`` a monotone tick
+    for LRU eviction among refcount-0 nodes."""
+
+    __slots__ = ("key", "parent", "children", "block", "depth", "last_use")
+
+    def __init__(self, key, parent, block, depth):
+        self.key = key
+        self.parent = parent
+        self.children: dict[tuple, _PrefixNode] = {}
+        self.block = block
+        self.depth = depth
+        self.last_use = 0
 
 
 class PagedCachePool:
@@ -82,6 +145,10 @@ class PagedCachePool:
                   nibble-packed uint8 container.
     ``kv_oracle`` with ``kv_bits``: store the exact QDQ values in float32
                   instead of codes (the token-parity oracle).
+    ``prefix_cache`` share full KV blocks across sequences through the
+                  refcounted trie (module docstring).  Off for a model
+                  whose cache holds state beyond the paged KV, where a
+                  mapped prefix would not reproduce the cold tokens.
     """
 
     tracer = NULL_TRACER  # the engine points this at its tracer
@@ -89,18 +156,15 @@ class PagedCachePool:
     def __init__(self, model, num_seqs: int, max_len: int, *,
                  block_size: int = 16, num_blocks: int | None = None,
                  dtype=None, device=None, kv_bits=None,
-                 kv_oracle: bool = False, prefix_cache: bool = False):
+                 kv_oracle: bool = False, prefix_cache: bool = True):
         if num_seqs < 1:
             raise ValueError("num_seqs must be >= 1")
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
         if kv_oracle and kv_bits is None:
             raise ValueError("kv_oracle requires kv_bits")
-        if prefix_cache:
-            raise not_ported("prefix caching", "slice A, item 5")
         self.num_seqs = self.num_slots = num_seqs  # num_slots: engine compat
         self.max_len = max_len
-        self.prefix_cache = False
         template = model.init_cache(num_seqs, max_len, dtype, device=device)
         self.paged_keys = tuple(k for k in PAGED_KEYS if k in template)
         L = template["k"].shape[0]
@@ -143,6 +207,9 @@ class PagedCachePool:
                     dtype=dt, device=self.device)
             else:
                 self.cache[key] = leaf
+        # sound only where the paged KV is the whole per-token state
+        recurrent = set(template) - set(self.paged_keys) - {"length"}
+        self.prefix_cache = bool(prefix_cache and not recurrent)
         del template
         if self.kv_bits is not None:
             self.cache["kv_qmax"] = torch.tensor(
@@ -162,25 +229,46 @@ class PagedCachePool:
         self._active: set[int] = set()
         self._free_blocks = list(range(1, self.num_blocks))
         self._seq_blocks: dict[int, list[int]] = {}
-        # prefix-cache counters, read by the engine's metrics (always 0)
-        self.prefix_lookups = self.prefix_hits = self.prefix_hit_tokens = 0
-        self.cow_copies = self.prefix_evictions = 0
-        self.prefix_cached_blocks = self.blocks_shared = 0
-        # device mirror of block_tables, updated in place when it changed;
-        # on the card through a pinned staging copy that is rewritten only
-        # after the event covering its last transfer
-        self._bt_dev = torch.zeros_like(self.block_tables, device=self.device)
-        self._bt_stage = (self.block_tables.pin_memory()
-                          if self.device.type == "cuda" else None)
-        self._bt_event = None
+        # prefix cache: refcounts and the trie over full-block content
+        self._refcount: dict[int, int] = {}         # block -> #owning seqs
+        self._root = _PrefixNode(None, None, 0, 0)
+        self._node_of: dict[int, _PrefixNode] = {}  # any published block
+        self._cached: dict[int, _PrefixNode] = {}   # refcount 0, evictable
+        self._seq_tokens: dict[int, list[int]] = {}  # fed tokens per seq
+        self._seq_node: dict[int, _PrefixNode] = {}  # deepest published node
+        self._seq_pub: dict[int, int] = {}           # #published full blocks
+        self._tick = 0
+        self.prefix_lookups = 0       # admissions that consulted the trie
+        self.prefix_hits = 0          # ... that mapped >= 1 shared block
+        self.prefix_hit_tokens = 0    # prompt tokens served from the trie
+        self.cow_copies = 0
+        self.prefix_evictions = 0
+        # device mirror of block_tables, updated in place when it changed
+        self._bt_dev = DeviceTable(self.block_tables, self.device)
         self._bt_dirty = True
         # per-sequence token bound: blocks_per_seq · block_size tokens
         self.length_bound = self.blocks_per_seq * self.block_size
 
     # ----------------------------------------------------------- bookkeeping
     @property
+    def num_free(self) -> int:
+        return len(self._free_seqs)
+
+    @property
     def num_free_blocks(self) -> int:
-        return len(self._free_blocks)
+        """Blocks an allocation can claim: the free heap plus the cached
+        (refcount-0, trie-indexed) blocks, which evict on demand."""
+        return len(self._free_blocks) + len(self._cached)
+
+    @property
+    def blocks_shared(self) -> int:
+        """Physical blocks currently mapped by more than one sequence."""
+        return sum(1 for c in self._refcount.values() if c > 1)
+
+    @property
+    def prefix_cached_blocks(self) -> int:
+        """Refcount-0 blocks held in the trie awaiting reuse or eviction."""
+        return len(self._cached)
 
     def occupancy(self) -> float:
         return len(self._active) / self.num_seqs
@@ -196,13 +284,26 @@ class PagedCachePool:
     def can_admit(self, n_tokens: int, reserve_blocks: int = 0,
                   tokens=None) -> bool:
         """Admissible iff a row is free, the sequence fits a row's
-        capacity, and the free blocks cover the whole prompt PLUS
+        capacity, and the reclaimable blocks cover the whole prompt PLUS
         ``reserve_blocks`` of headroom (one per running sequence, so a
         fresh admission is not preempted at once by its neighbours'
-        growth).  ``tokens`` is the prefix-cache hint, unused here."""
+        growth).  ``tokens`` (the replay token ids) lets the gate count
+        only *new* blocks: trie-matched prefix blocks arrive by incref.
+        A block-aligned full-prompt hit costs one block more, the copy of
+        the last shared block that the one-token tail prefill writes."""
         if not self._free_seqs or n_tokens > self.length_bound:
             return False
-        return self.num_free_blocks >= self.blocks_needed(n_tokens) + reserve_blocks
+        need = self.blocks_needed(n_tokens)
+        free = self.num_free_blocks
+        if tokens is not None and self.prefix_cache:
+            hits = self._match_nodes(tokens)
+            if hits:
+                need -= len(hits)
+                if len(hits) * self.block_size >= len(tokens):
+                    need += 1  # admission COW of the last shared block
+                # mapped cached blocks leave the reclaimable set
+                free -= sum(1 for n in hits if n.block in self._cached)
+        return free >= need + reserve_blocks
 
     def alloc_seq(self) -> int:
         if not self._free_seqs:
@@ -225,7 +326,7 @@ class PagedCachePool:
         if need > self.num_free_blocks:
             return False
         for _ in range(need):
-            blk = heapq.heappop(self._free_blocks)
+            blk = self._alloc_block()
             self.block_tables[seq, len(have)] = blk
             have.append(blk)
         self._bt_dirty = True
@@ -236,23 +337,226 @@ class PagedCachePool:
             raise ValueError(f"seq {seq} is not allocated")
         self._active.remove(seq)
         for blk in self._seq_blocks.pop(seq):
-            heapq.heappush(self._free_blocks, blk)
+            self._decref(blk)
         self.block_tables[seq] = 0            # back to the garbage sink
         self._bt_dirty = True
         heapq.heappush(self._free_seqs, seq)
+        self._seq_tokens.pop(seq, None)
+        self._seq_node.pop(seq, None)
+        self._seq_pub.pop(seq, None)
 
-    # ------------------------------------------- prefix-cache hooks (off)
-    def record_tokens(self, seq: int, tokens) -> None:
-        """No-op: the prefix cache is off (``prefix_cache=False``)."""
+    def _alloc_block(self) -> int:
+        """Claim one block at refcount 1: the free heap first, then evict
+        the least recently used refcount-0 trie leaf.  The caller has
+        checked ``num_free_blocks``."""
+        blk = heapq.heappop(self._free_blocks) if self._free_blocks else self._evict_lru()
+        self._refcount[blk] = 1
+        return blk
 
-    def record_token(self, seq: int, token) -> None:
-        """No-op: the prefix cache is off (``prefix_cache=False``)."""
+    def _evict_lru(self) -> int:
+        """Evict the least recently used cached node with no cached
+        children (the deepest cached node of any chain qualifies, so one
+        exists while ``_cached`` is not empty).  It may still have owned
+        children; evicting it detaches them from the root, so later
+        lookups match a shorter prefix, never stale content."""
+        best = None
+        for blk, node in self._cached.items():
+            if any(c.block in self._cached for c in node.children.values()):
+                continue
+            key = (node.last_use, -node.depth, blk)
+            if best is None or key < best[0]:
+                best = (key, blk, node)
+        assert best is not None, "cached blocks exist but none evictable"
+        _, blk, node = best
+        del self._cached[blk]
+        self._detach(node)
+        self.prefix_evictions += 1
+        self.tracer.instant("prefix.evict", block=blk, depth=node.depth)
+        return blk
 
-    def cow_for_write(self, seq: int, start: int, end: int | None = None) -> bool:
-        """Nothing is shared, so every write position is already private."""
+    def _detach(self, node: _PrefixNode) -> None:
+        if node.parent is not None:
+            node.parent.children.pop(node.key, None)
+        node.parent = None
+        self._node_of.pop(node.block, None)
+
+    def _decref(self, blk: int) -> None:
+        """Drop one ownership reference.  A still-shared block only
+        decrements: it never reaches the free heap while another sequence
+        reads it.  At refcount 0 a published block parks in the trie as
+        evictable; an unpublished one returns to the heap."""
+        count = self._refcount.get(blk, 0)
+        if count <= 0:
+            raise ValueError(f"block {blk} is not allocated")
+        if count > 1:
+            self._refcount[blk] = count - 1
+            return
+        del self._refcount[blk]
+        node = self._node_of.get(blk)
+        if node is not None:
+            self._tick += 1
+            node.last_use = self._tick
+            self._cached[blk] = node
+        else:
+            heapq.heappush(self._free_blocks, blk)
+
+    # ---------------------------------------------------------- prefix cache
+    def _block_chunks(self, tokens):
+        bs = self.block_size
+        for i in range(len(tokens) // bs):
+            yield tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+
+    def _match_nodes(self, tokens) -> list[_PrefixNode]:
+        """Longest chain of trie nodes matching ``tokens``' full blocks."""
+        node, out = self._root, []
+        for key in self._block_chunks(tokens):
+            child = node.children.get(key)
+            if child is None:
+                break
+            out.append(child)
+            node = child
+        return out
+
+    def map_shared(self, seq: int, tokens) -> int:
+        """Map the longest trie-matched prefix of ``tokens`` into a fresh
+        sequence's block table, one incref per block; returns how many
+        prompt tokens are thereby cached (0 = no hit).  The count is
+        capped at ``len(tokens) - 1``: the last prompt token is always
+        prefilled for its logits, and when the whole prompt is
+        block-aligned in the trie it re-enters the last shared block, which
+        is copied here, while ``can_admit``'s block count still holds."""
+        if not self.prefix_cache or not len(tokens):
+            return 0
         if seq not in self._active:
             raise ValueError(f"seq {seq} is not allocated")
+        if self._seq_blocks[seq]:
+            raise ValueError("map_shared requires a fresh (empty) sequence")
+        self.prefix_lookups += 1
+        nodes = self._match_nodes(tokens)
+        if not nodes:
+            return 0
+        have = self._seq_blocks[seq]
+        self._tick += 1
+        for i, node in enumerate(nodes):
+            blk = node.block
+            self._refcount[blk] = self._refcount.get(blk, 0) + 1
+            self._cached.pop(blk, None)  # reserved again: not evictable
+            node.last_use = self._tick
+            self.block_tables[seq, i] = blk
+            have.append(blk)
+        self._seq_node[seq] = nodes[-1]
+        self._seq_pub[seq] = len(nodes)
+        self._bt_dirty = True
+        cached = min(len(nodes) * self.block_size, len(tokens) - 1)
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += cached
+        if cached < len(nodes) * self.block_size:
+            ok = self.cow_for_write(seq, cached)
+            assert ok, "can_admit reserved the admission-COW block"
+        return cached
+
+    def record_tokens(self, seq: int, tokens) -> None:
+        """Record ``seq``'s fed tokens (a prompt replay) and publish every
+        newly completed full block into the trie.  Idempotent for
+        prefixes already recorded."""
+        if not self.prefix_cache or seq not in self._active:
+            return
+        toks = self._seq_tokens.setdefault(seq, [])
+        if len(tokens) > len(toks):
+            toks[:] = [int(t) for t in tokens]
+        self._publish(seq)
+
+    def record_token(self, seq: int, token) -> None:
+        """Append one fed token (a decode or spec advance) and publish if
+        it completed a block.  Callers record only realized tokens whose
+        KV writes have landed: a rejected draft or a discarded lookahead
+        token never publishes."""
+        if not self.prefix_cache or seq not in self._active:
+            return
+        self._seq_tokens.setdefault(seq, []).append(int(token))
+        self._publish(seq)
+
+    def _publish(self, seq: int) -> None:
+        toks = self._seq_tokens.get(seq, [])
+        have = self._seq_blocks[seq]
+        bs = self.block_size
+        done = self._seq_pub.get(seq, 0)
+        if done < 0:  # poisoned by flush_prefix_cache mid-flight
+            return
+        node = self._seq_node.get(seq) or self._root
+        while (done + 1) * bs <= len(toks) and done < len(have):
+            key = tuple(toks[done * bs:(done + 1) * bs])
+            child = node.children.get(key)
+            if child is None and have[done] not in self._node_of:
+                child = _PrefixNode(key, node, have[done], node.depth + 1)
+                node.children[key] = child
+                self._node_of[have[done]] = child
+            if child is None:
+                # this physical block already indexes other content (it
+                # was copied from a published block): leave the trie as is
+                break
+            self._tick += 1
+            child.last_use = self._tick
+            node = child
+            done += 1
+        self._seq_node[seq] = node
+        self._seq_pub[seq] = done
+
+    def cow_for_write(self, seq: int, start: int, end: int | None = None) -> bool:
+        """Make every block covering write positions ``[start, end)``
+        privately owned before a KV write lands there: a shared block
+        (refcount > 1) is replaced by a fresh block holding a bitwise copy
+        of every paged leaf, and decref'd.  Returns False, changing
+        nothing further, if allocation is exhausted (the scheduler then
+        preempts, as for ``ensure``).  A sole owner's published block is
+        not copied: the only writes into it store the same values again."""
+        if seq not in self._active:
+            raise ValueError(f"seq {seq} is not allocated")
+        have = self._seq_blocks[seq]
+        if not self.prefix_cache or not have:
+            return True
+        end = start + 1 if end is None else max(end, start + 1)
+        first = start // self.block_size
+        last = min((end - 1) // self.block_size, len(have) - 1)
+        for i in range(first, last + 1):
+            blk = have[i]
+            if self._refcount.get(blk, 0) <= 1:
+                continue
+            if not self.num_free_blocks:
+                return False
+            new = self._alloc_block()
+            self._cow_copy(blk, new)
+            self._refcount[blk] -= 1
+            have[i] = new
+            self.block_tables[seq, i] = new
+            self._bt_dirty = True
+            self.cow_copies += 1
+            self.tracer.instant("cow", seq=seq, src=blk, dst=new)
         return True
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy physical block ``src`` into ``dst`` in every paged leaf
+        (codes and scales), in place and in stream order."""
+        for key in self.paged_keys:
+            leaf = self.cache[key]
+            leaf[:, dst].copy_(leaf[:, src])
+
+    def flush_prefix_cache(self) -> None:
+        """Drop the prefix index: cached blocks return to the free heap,
+        the trie empties, and sequences in flight stop publishing (their
+        KV predates whatever invalidated the cache, a weight swap).
+        Shared mappings stay valid: live sequences keep their refcounts
+        and block tables."""
+        self.tracer.instant("prefix.flush", cached_blocks=len(self._cached))
+        for blk in self._cached:
+            heapq.heappush(self._free_blocks, blk)
+        self._cached.clear()
+        self._node_of.clear()
+        self._root = _PrefixNode(None, None, 0, 0)
+        for seq in self._seq_node:
+            self._seq_node[seq] = self._root
+        for seq in self._seq_pub:
+            self._seq_pub[seq] = -1  # poison: no re-publish of stale KV
 
     # ------------------------------------------------------------- cache ops
     def step_cache(self) -> dict:
@@ -266,17 +570,9 @@ class PagedCachePool:
         """The persistent device copy of the block tables, brought up to
         date in stream order."""
         if self._bt_dirty:
-            if self._bt_stage is None:
-                self._bt_dev.copy_(self.block_tables)
-            else:
-                if self._bt_event is not None:
-                    self._bt_event.synchronize()
-                self._bt_stage.copy_(self.block_tables)
-                self._bt_dev.copy_(self._bt_stage, non_blocking=True)
-                self._bt_event = torch.cuda.Event()
-                self._bt_event.record()
+            self._bt_dev.upload(self.block_tables)
             self._bt_dirty = False
-        return self._bt_dev
+        return self._bt_dev.dev
 
     def accept(self, cache: dict) -> None:
         """Take back the cache a model call returned."""

@@ -13,6 +13,30 @@ sequence's KV blocks (``prefill_chunk`` chunks of one shape for any
 prompt length); a preempted request re-admits by replaying prompt +
 emitted tokens, and greedy decode makes the replay exact.
 
+Prefix caching (``prefix_cache=True``, the default, as the reference's):
+admission consults the pool's refcounted trie (``serve.cache``) and maps a
+shared prompt prefix into the new sequence's block table, so the chunked
+prefill runs over the tail only and N tenants sharing a system prompt
+prefill it once.  Divergent writes copy on write, the admission gate
+counts new blocks only, and a hit gives the cold run's tokens.
+
+Speculative decoding (``spec=SpecConfig(...)``): each step rolls up to
+``spec.k`` tokens per row with the quantized self-draft (the same packed
+weights at fewer planes, ``repro_torch.spec``) through the same pool
+blocks, so speculation allocates no extra KV, then scores all ``k + 1``
+positions of every row in ONE eager ``verify_chunk`` call and resolves
+each window with the rejection sampler (``spec.sampler``).  Greedy spec
+output is the non-spec output token for token; EOS or the budget may land
+inside a window.  The draft has a decode step of its own (on the card a
+second captured graph: a graph is bound to its params' addresses), and a
+row that sits a depth out reads and writes the garbage block through a
+masked copy of the block tables, never through the pool's own mirror.
+With all rows greedy and device sampling, the draft's argmaxes stay on
+the device and the verify fetches only ``(B, k + 1)`` + ``(B, k)`` int32;
+otherwise the logits come to the host (``sampler.fallbacks`` counts those
+steps under device sampling).  With ``spec`` the pipeline is off, as in
+the reference.
+
 One-token hotpath (``sample_device=True`` / ``pipeline=True``, both
 default, as the reference's): tokens are selected on the device
 (``serve.sampler``), so a decode step fetches a ``(num_slots,) int32``
@@ -47,8 +71,9 @@ decode step with packed q/k/v runs the fused QKV + paged-decode kernel.
 Metric keys are byte-compatible with the reference.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``cache="slot"``, prefix caching, speculative decoding, mesh
-placement.
+item): ``cache="slot"`` and mesh placement.  The reference's recurrent
+snapshot and fix-up verify of a spec window, and its ring cap, come with
+the families that need them (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -62,7 +87,7 @@ from repro_torch import not_ported, resolve_device
 from repro_torch.obs import Registry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.quant.policy import QuantPolicy
-from repro_torch.serve.cache import PagedCachePool
+from repro_torch.serve.cache import DeviceTable, PagedCachePool
 from repro_torch.serve.queue import AdmissionQueue
 from repro_torch.serve.request import Request, SamplingParams
 from repro_torch.serve.sampler import greedy_rows, row_arrays, sample_rows
@@ -99,16 +124,12 @@ class ServeEngine:
                  block_size: int = 16, num_blocks: int | None = None,
                  prefill_chunk: int = 16, max_pending: int = 0,
                  spec=None, kv_bits=None, kv_oracle: bool = False,
-                 metrics_window: int = 512, prefix_cache: bool = False,
+                 metrics_window: int = 512, prefix_cache: bool = True,
                  registry=None, tracer=None, sample_device: bool = True,
                  pipeline: bool = True, decode_fn=None,
                  device=None):
         if cache != "paged":
             raise not_ported(f"cache={cache!r}", "slice A, item 3 (rest)")
-        if prefix_cache:
-            raise not_ported("prefix caching", "slice A, item 5")
-        if spec is not None:
-            raise not_ported("speculative decoding", "slice A, item 7")
         if metrics_window < 1:
             raise ValueError("metrics_window must be >= 1")
         self.device = resolve_device(device)
@@ -123,7 +144,8 @@ class ServeEngine:
         self.pool = PagedCachePool(model, num_slots, max_len,
                                    block_size=block_size,
                                    num_blocks=num_blocks, device=self.device,
-                                   kv_bits=kv_bits, kv_oracle=kv_oracle)
+                                   kv_bits=kv_bits, kv_oracle=kv_oracle,
+                                   prefix_cache=prefix_cache)
         self.prefill_chunk = prefill_chunk
         self.pool.tracer = self.tracer
         self.queue = AdmissionQueue(max_pending)
@@ -131,9 +153,28 @@ class ServeEngine:
                                              registry=self.obs)
         self._length_bound = self.pool.length_bound
         self._decode = decode_fn or make_decode_step(model, device=self.device)
-        # one-token hotpath: device sampling, and the lookahead on top
+        self._decode_steps = [self._decode]
+        # speculative decoding: the draft is the target's packed weights at
+        # a lower-bit policy, over this pool's blocks.  It keeps a decode
+        # step of its own: a captured step is bound to its params'
+        # addresses, so one step fed both param sets in turn would capture
+        # again at every call.  A given ``decode_fn`` serves both.
+        self.spec = spec
+        if spec is not None:
+            self._draft_decode = decode_fn or make_decode_step(model, device=self.device)
+            if self._draft_decode is not self._decode:
+                self._decode_steps.append(self._draft_decode)
+            self._verify = model.verify_chunk
+            from repro_torch.spec.draft import low_bit_view
+
+            self._draft_sparams = low_bit_view(model, self.sparams, spec.draft_bits)
+            # the draft's masked block tables: a device buffer of their own,
+            # so the pool's mirror (which the verify reads) never holds them
+            self._draft_bt = DeviceTable(self.pool.block_tables, self.device)
+        # one-token hotpath: device sampling, and the lookahead on top (off
+        # with spec, which already spreads the host's work over k + 1 tokens)
         self._sample_device = bool(sample_device)
-        self._pipeline_on = bool(pipeline and sample_device)
+        self._pipeline_on = bool(pipeline and sample_device and spec is None)
         self._inflight: _Inflight | None = None
         self._row_sig = None      # batch-composition key for _row_params
         self._row_dev = None      # cached device sampling-param arrays
@@ -167,6 +208,8 @@ class ServeEngine:
         self._h_admit_total = obs.histogram("prefix.admit_replay_tokens",
                                             unit="tokens", buckets=TOK,
                                             window=metrics_window)
+        self._h_shared = obs.histogram("prefix.blocks_shared", unit="blocks",
+                                       buckets=TOK, window=metrics_window)
         self._g_queue = obs.gauge("serve.queue_depth", unit="requests")
         self._g_running = obs.gauge("serve.running_rows", unit="rows")
         self._c_lookahead = obs.counter(
@@ -175,10 +218,18 @@ class ServeEngine:
         self._c_bubbles = obs.counter(
             "pipeline.bubbles", unit="steps",
             desc="pipeline-on steps that ran synchronously")
+        self._c_spec_windows = obs.counter("spec.windows")
+        self._c_spec_proposed = obs.counter("spec.proposed", unit="tokens")
+        self._c_spec_accepted = obs.counter("spec.accepted", unit="tokens")
+        self._c_fallbacks = obs.counter(
+            "sampler.fallbacks", unit="steps",
+            desc="device-sampling steps resolved via host logits fetch")
         self._device_seconds = 0.0
         self._graphed = {"decode": self._decode, "sample": sample_rows,
                          "greedy": greedy_rows}
-        self._recaptures = 0      # the decode graph's, at the last check
+        if len(self._decode_steps) > 1:
+            self._graphed["draft"] = self._draft_decode
+        self._recaptures = 0      # the decode graphs', at the last check
         self.requests: dict[int, Request] = {}
 
     @classmethod
@@ -219,7 +270,8 @@ class ServeEngine:
 
     @property
     def graph_captures(self) -> dict:
-        """CUDA graphs captured so far by the decode step and the shared
+        """CUDA graphs captured so far by the decode step, the spec
+        draft's decode step (``"draft"``, with ``spec``) and the shared
         samplers (0 each on the CPU or with an eager ``decode_fn``)."""
         return {kind: getattr(fn, "captures", 0) for kind, fn in self._graphed.items()}
 
@@ -231,10 +283,11 @@ class ServeEngine:
                 for kind, fn in self._graphed.items()}
 
     def _note_recapture(self) -> None:
-        """Count the decode graph's re-captures since the last call in
-        ``serve.recompiles``, with an instant on the tracer.  (The
-        samplers copy every input, so they never capture again.)"""
-        n = getattr(self._decode, "recaptures", 0)
+        """Count the decode graphs' re-captures (the target's and the spec
+        draft's) since the last call in ``serve.recompiles``, with an
+        instant on the tracer.  (The samplers copy every input, so they
+        never capture again.)"""
+        n = sum(getattr(fn, "recaptures", 0) for fn in self._decode_steps)
         if n > self._recaptures:
             self._c_recompiles.inc(n - self._recaptures)
             self._recaptures = n
@@ -243,8 +296,13 @@ class ServeEngine:
     # ------------------------------------------------------------- prefill
     def _admit_paged(self, req: Request, seq: int, hit: int = 0):
         """Chunked prefill straight into the sequence's blocks.  Every
-        chunk has the same shape.  On resume after preemption the prompt
-        + emitted tokens are replayed and no new token is emitted."""
+        chunk has the same shape.  ``hit`` tokens were already mapped from
+        the prefix trie by the scheduler (``pool.map_shared``): only the
+        tail is prefilled, from the shared boundary (block-aligned, or one
+        token short of it when the whole prompt hit and its last block was
+        copied at admission).  On resume after preemption the prompt +
+        emitted tokens are replayed (minus what the trie still holds) and
+        no new token is emitted."""
         replay = req.replay_tokens()
         C = self.prefill_chunk
         logits = None
@@ -260,6 +318,7 @@ class ServeEngine:
                     torch.from_numpy(buf).to(self.device), seq, lo, valid)
                 self.pool.accept(cache)
             self._c_prefill_launches.inc()
+        # the whole replay is fed: its full blocks publish into the trie
         self.pool.record_tokens(seq, replay)
         req.prefix_cached_tokens += hit
         self._h_admit_hit.observe(hit)
@@ -316,13 +375,17 @@ class ServeEngine:
                                mode="pipelined")
         else:
             # 2) reserve next-token blocks; exhaustion preempts youngest
-            for req in self.scheduler.reserve_for_decode():
-                events["preempted"].append(req.request_id)
-                tr.instant("preempt", request=req.request_id, step=self._step_idx)
+            #    (spec reserves per window inside _spec_step instead)
+            if self.spec is None:
+                for req in self.scheduler.reserve_for_decode():
+                    events["preempted"].append(req.request_id)
+                    tr.instant("preempt", request=req.request_id, step=self._step_idx)
 
-            # 3) one packed decode step over every running row
+            # 3) one packed decode step (or speculative window) over every
+            #    running row
             if self.scheduler.running:
-                self._timed_decode(events, tr, self._sync_body, mode="decode")
+                self._timed_decode(events, tr, self._sync_body,
+                                   mode="spec" if self.spec is not None else "decode")
 
         self._step_idx += 1
         self._g_queue.set(len(self.queue))
@@ -339,6 +402,8 @@ class ServeEngine:
         bookkeeping)."""
         self._c_occ_sum.inc(self.pool.occupancy())
         self._c_block_occ_sum.inc(self.pool.block_occupancy())
+        if self.pool.prefix_cache:
+            self._h_shared.observe(self.pool.blocks_shared)
         self._c_decode_steps.inc()
         self._device_seconds = 0.0
         t_dec = time.perf_counter()
@@ -357,7 +422,9 @@ class ServeEngine:
 
     def _sync_body(self, events: dict) -> None:
         """Decode body for a step with no pipelined predecessor."""
-        if self._sample_device:
+        if self.spec is not None:
+            self._spec_step(events)
+        elif self._sample_device:
             self._pipeline_tail(self._dispatch_decode(), events)
         else:
             self._decode_once(events)
@@ -496,6 +563,199 @@ class ServeEngine:
                 else:
                     self.scheduler.advance(slot, tok)
 
+    def _decode_sync(self, events: dict) -> None:
+        """One synchronous decode step, no lookahead (the spec path's
+        ``max_k == 0`` step).  Device sampling only when every row is
+        greedy, where device and host selections are equal; a sampled row
+        draws from the host streams, so that a position's draw does not
+        depend on whether its window was empty."""
+        if self._sample_device and all(
+                seq.request.sampling.temperature <= 0.0
+                for seq in self.scheduler.running.values()):
+            self._sync_inflight(self._dispatch_decode(), events)
+        else:
+            self._decode_once(events)
+
+    # ------------------------------------------------------------ spec path
+    def _spec_step(self, events: dict) -> None:
+        """One speculative window: the low-bit draft rolls k tokens per
+        row, ONE batched ``verify_chunk`` scores all k + 1 positions of
+        every row, each window resolves on the host, the tokens are
+        emitted.
+
+        The draft reads and writes the SAME pool blocks through each row's
+        block table; a row with a shorter window sits the deeper draft
+        steps out with its table row pointed at the garbage block, in a
+        masked device table of the engine's own.  ``length`` is rewritten
+        on the host's count after emission, so a rejected position's KV
+        sits beyond every mask until it is written again.  With device
+        sampling and every row greedy, the draft's argmaxes stay on the
+        device and the verify fetches the target's ``(B, k + 1)`` argmaxes
+        and the ``(B, max_k)`` drafts (:func:`greedy_window`, equal to
+        :func:`spec_window` for greedy rows); otherwise the logits come
+        to the host and ``spec_window`` resolves each window with the
+        request's per-position numpy streams."""
+        from repro_torch.spec.sampler import (KIND_DRAFT, draft_token, greedy_window,
+                                              spec_window)
+
+        pool, sched, spec, dev = self.pool, self.scheduler, self.spec, self.device
+        B = pool.num_slots
+        want = {}
+        for slot, seq in sched.running.items():
+            req = seq.request
+            want[slot] = max(min(spec.k, req.max_new_tokens - len(req.output_tokens) - 1), 0)
+        granted, preempted = sched.reserve_for_spec(want)
+        for req in preempted:
+            events["preempted"].append(req.request_id)
+            self.tracer.instant("preempt", request=req.request_id, step=self._step_idx)
+        if not sched.running:
+            return
+        max_k = max(granted.values())
+        if max_k == 0:
+            self._decode_sync(events)  # nothing to speculate this step
+            return
+        greedy_fast = self._sample_device and all(
+            seq.request.sampling.temperature <= 0.0 for seq in sched.running.values())
+        if self._sample_device and not greedy_fast:
+            self._c_fallbacks.inc()
+
+        lengths0 = {s: seq.cached_len for s, seq in sched.running.items()}
+        draft_toks: dict[int, list[int]] = {s: [] for s in granted}
+        q_probs: dict[int, list] = {s: [] for s in granted}
+        cur = np.zeros((B, 1), np.int32)
+        for slot, seq in sched.running.items():
+            cur[slot, 0] = seq.last_token
+        if greedy_fast:
+            # the fed token never leaves the device; the draft columns are
+            # fetched once, with the verify's argmaxes
+            granted_arr = np.zeros((B,), np.int32)
+            for slot, k in granted.items():
+                granted_arr[slot] = k
+            granted_dev = torch.from_numpy(granted_arr).to(dev)
+            cur_dev = first_dev = torch.from_numpy(cur).to(dev)
+        draft_cols: list[torch.Tensor] = []
+        # masked tables are nested (grants only expire as depth grows):
+        # upload once per distinct mask; the full-window mask IS the
+        # pool's mirror, already on the device
+        bt_key, bt_dev = None, None
+        with self.tracer.span("spec.draft", max_k=max_k, rows=len(sched.running)):
+            for depth in range(1, max_k + 1):
+                bt = pool.block_tables.clone()
+                masked = False
+                for slot in range(B):
+                    if granted.get(slot, 0) < depth:
+                        masked = masked or bool(bt[slot].any())
+                        bt[slot] = 0  # garbage sink: the row sits this one out
+                key = bt.numpy().tobytes()
+                if key != bt_key:
+                    bt_key = key
+                    bt_dev = self._draft_bt.upload(bt) if masked else pool.block_tables_dev()
+                cache_d = dict(pool.cache)
+                cache_d["block_tables"] = bt_dev
+                t_dev = time.perf_counter()
+                if greedy_fast:
+                    # greedy draft == argmax, on the device; rows past their
+                    # window carry their last token
+                    logits, cache = self._draft_decode(self._draft_sparams, cache_d, cur_dev)
+                    pool.accept(cache)
+                    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                    col = torch.where(granted_dev >= depth, nxt, cur_dev[:, 0])
+                    cur_dev = col[:, None]
+                    draft_cols.append(col)
+                    self._device_seconds += time.perf_counter() - t_dev
+                    continue
+                logits, cache = self._draft_decode(self._draft_sparams, cache_d,
+                                                   torch.from_numpy(cur).to(dev))
+                pool.accept(cache)
+                rows = logits[:, -1].cpu().numpy()
+                self._device_seconds += time.perf_counter() - t_dev
+                for slot, seq in sched.running.items():
+                    if granted[slot] < depth:
+                        continue
+                    req = seq.request
+                    pos = len(req.output_tokens) + depth - 1
+                    tok, q = draft_token(rows[slot], req.sampling, req.rng_for(pos, KIND_DRAFT))
+                    draft_toks[slot].append(tok)
+                    q_probs[slot].append(q)
+                    cur[slot, 0] = tok
+        self._note_recapture()
+
+        # --- verify: ONE batched fixed-shape chunk over every pool row,
+        # always spec.k + 1 wide (a short window pads with valid < C)
+        C = spec.k + 1
+        ver_toks = np.zeros((B, C), np.int32)
+        starts = np.zeros((B,), np.int32)
+        valids = np.zeros((B,), np.int32)
+        for slot, seq in sched.running.items():
+            k = granted[slot]
+            ver_toks[slot, 0] = seq.last_token
+            if not greedy_fast:
+                ver_toks[slot, 1:1 + k] = draft_toks[slot]
+            starts[slot] = lengths0[slot]
+            valids[slot] = k + 1
+        if greedy_fast:
+            # [last, draft_1..draft_max_k], padded to the verify width (the
+            # tail past a row's window is masked by ``valids``)
+            body = torch.cat([first_dev] + [c[:, None] for c in draft_cols], dim=1)
+            ver_toks_dev = torch.nn.functional.pad(body, (0, C - body.shape[1]))
+        else:
+            ver_toks_dev = torch.from_numpy(ver_toks).to(dev)
+        cache_v = dict(pool.cache)
+        cache_v["block_tables"] = pool.block_tables_dev()
+        t_dev = time.perf_counter()
+        with self.tracer.span("spec.verify", rows=len(sched.running), width=C):
+            logits, cache = self._verify(self.sparams, cache_v, ver_toks_dev,
+                                         torch.from_numpy(starts).to(dev),
+                                         torch.from_numpy(valids).to(dev))
+            pool.accept(cache)
+            if greedy_fast:
+                # the target's argmaxes and the draft columns: (B, C) +
+                # (B, max_k) int32 in one fetch, not (B, C, V) f32
+                tops = torch.argmax(logits, dim=-1).to(torch.int32)
+                both = torch.cat([tops, torch.stack(draft_cols, dim=1)], dim=1).cpu().numpy()
+                tops, drafts = both[:, :C], both[:, C:]
+            else:
+                target = logits.cpu().numpy()  # (B, C, V) f32
+        self._device_seconds += time.perf_counter() - t_dev
+
+        # --- resolve each window on the host
+        emitted_by_slot: dict[int, list[int]] = {}
+        with self.tracer.span("spec.resolve") as sp_res:
+            proposed = accepted_total = 0
+            for slot, seq in sched.running.items():
+                req = seq.request
+                k = granted[slot]
+                if greedy_fast:
+                    emitted, accepted = greedy_window(drafts[slot, :k], tops[slot])
+                else:
+                    emitted, accepted = spec_window(
+                        draft_toks[slot], target[slot, :k + 1], req.sampling, req.rng_for,
+                        base_pos=len(req.output_tokens), q_probs=q_probs[slot])
+                emitted_by_slot[slot] = emitted
+                self._c_spec_windows.inc()
+                proposed += k
+                accepted_total += accepted
+            self._c_spec_proposed.inc(proposed)
+            self._c_spec_accepted.inc(accepted_total)
+            sp_res.set(proposed=proposed, accepted=accepted_total)
+
+        # --- emit (EOS or the budget may land mid-window), then set the
+        # host's lengths: the verify wrote start + valid
+        lengths1 = np.zeros((B,), np.int32)
+        for slot, seq in list(sched.running.items()):
+            req = seq.request
+            finished = False
+            for tok in emitted_by_slot[slot]:
+                self._emit(req, tok, events)
+                if req.done:
+                    self._finish(sched.finish(slot), events)
+                    finished = True
+                    break
+                sched.advance(slot, tok)
+            if not finished:
+                lengths1[slot] = seq.cached_len
+        pool.cache["length"] = torch.from_numpy(lengths1).to(dev)
+
     def run_until_drained(self, max_steps: int = 100_000) -> dict:
         steps = 0
         while self.scheduler.has_work():
@@ -555,7 +815,7 @@ class ServeEngine:
             "requests": per_request,
             "sampler": {
                 "device": self._sample_device,
-                "fallbacks": 0,   # no speculative path
+                "fallbacks": int(self._c_fallbacks.value),
             },
             "pipeline": {
                 "enabled": self._pipeline_on,
@@ -582,9 +842,9 @@ class ServeEngine:
                                   if total else 0.0)
         out["prefix_hits"] = pool.prefix_hits
         out["prefix_lookups"] = pool.prefix_lookups
-        out["blocks_shared"] = 0.0
+        out["blocks_shared"] = self._h_shared.window_mean()
         out["prefix_cache"] = {
-            "enabled": False,
+            "enabled": pool.prefix_cache,
             "lookups": pool.prefix_lookups,
             "hits": pool.prefix_hits,
             "hit_tokens": pool.prefix_hit_tokens,
@@ -595,6 +855,17 @@ class ServeEngine:
         if pool.kv_bits is not None:
             out["kv_bits"] = list(pool.kv_bits)
             out["kv_oracle"] = pool.kv_oracle
+        if self.spec is not None:
+            windows = int(self._c_spec_windows.value)
+            proposed = int(self._c_spec_proposed.value)
+            accepted = int(self._c_spec_accepted.value)
+            out["spec"] = {
+                "k": self.spec.k,
+                "windows": windows,
+                "proposed": proposed,
+                "accepted": accepted,
+                "acceptance_rate": accepted / proposed if proposed else 0.0,
+            }
         return out
 
     def output(self, request_id: int) -> list[int]:

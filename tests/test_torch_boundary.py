@@ -79,7 +79,6 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 def test_launcher_refuses_unported_flags():
     from repro_torch.launch import serve as launcher
 
-    for flags in (["--spec-k", "2"], ["--cache", "slot"],
-                  ["--mode", "static"], ["--prefix-cache"], ["--tenants", "2"]):
+    for flags in (["--cache", "slot"], ["--mode", "static"], ["--ckpt-dir", "ck"]):
         with pytest.raises(SystemExit):
             launcher.parse_args(["--device", "cpu", *flags])

@@ -970,3 +970,208 @@ def test_pipelined_graphed_engine_equals_eager_host_sampling(sm90, bits, kv_bits
     assert pl["lookahead_steps"] > 0
     assert pl["lookahead_steps"] + pl["bubbles"] == m["decode_steps"]
     assert m["recompiles"] == 0 and captures["decode"] == 1
+
+
+# ---------------------------------------------------------------------------
+# prefix caching and speculative decoding on the card (the small model)
+# ---------------------------------------------------------------------------
+
+
+def _aliased_tables(dev, B, nb, lengths, seed):
+    """Block tables in which rows 0 and 1 map the same physical blocks for
+    their first 9 pages (144 tokens), and rows 2 and 3 their first 7, as
+    two tenants' shared prompt prefixes map them."""
+    NB = B * nb + 1
+    perm = np.random.default_rng(seed).permutation(NB - 1) + 1
+    bt = perm[:B * nb].reshape(B, nb).copy()
+    bt[1, :9] = bt[0, :9]
+    bt[3, :7] = bt[2, :7]
+    return (NB, torch.from_numpy(bt).to(dev, torch.int32),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+ALIASED = [150, 231, 300, 190]         # past the served cells' 97, every row shares
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_paged_attention_aliased_prefix_blocks_match_plain(sm90, dtype):
+    B, KV, G, hd, bs, nb = 4, 2, 16, 128, 16, 19
+    NB, bt, ln = _aliased_tables(sm90, B, nb, ALIASED, 1)
+    gen = torch.Generator(device=sm90).manual_seed(11)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=sm90).to(dtype)
+    kp = torch.randn((NB, bs, KV, hd), generator=gen, device=sm90).to(dtype)
+    vp = torch.randn((NB, bs, KV, hd), generator=gen, device=sm90).to(dtype)
+    _check_paged(q, kp, vp, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_paged_attention_quant_aliased_prefix_blocks_match_plain(sm90, kv_bits):
+    B, KV, G, hd, bs, nb = 4, 2, 16, 128, 16, 19
+    NB, bt, ln = _aliased_tables(sm90, B, nb, ALIASED, 2)
+    gen = torch.Generator(device=sm90).manual_seed(12)
+    kc, vc, ks, vs, _ = _quant_pool(NB, bs, KV, hd, kv_bits, gen, sm90)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=sm90).to(torch.bfloat16)
+    _check_paged_quant(q, kc, vc, ks, vs, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_fused_attend_aliased_prefix_blocks_match_plain(sm90, kv_bits):
+    """The fused decode's attend launch over rows that share prefix
+    blocks: codes and scales bitwise, output within its bound."""
+    from repro_torch.kernels.fused_decode import fused_attend_cuda
+
+    x, ws, args, H, KV = _fused_case(sm90, kv_bits, ALIASED, 19, seed=13)
+    _, bt, ln = _aliased_tables(sm90, 4, 19, ALIASED, 3)
+    args = (*args[:4], bt, ln, *args[6:])
+    proj = torch.cat([tref.qmm_ref(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    got = fused_attend_cuda(proj, torch.bfloat16, *args, H)
+    torch.cuda.synchronize()
+    plain = tref.fused_decode_attend_ref(proj, *args, H, KV, torch.bfloat16)
+    for g, p in zip(got[1:], plain[1:]):
+        assert torch.equal(g, p)
+    og, op = got[0].reshape(4, 1, H, -1), plain[0].float()
+    assert (og - op).abs().max().item() <= 1e-2 * op.abs().max().item()
+
+
+def _shared_pools(sm, sp, dev, kv_bits, n=2):
+    """``n`` pools fed alike: row 0 prefills a 40-token prompt and
+    publishes its two full blocks; row 1 maps them (a hit of 32 tokens)
+    and prefills its own 8-token tail; row 2 repeats the first 32 tokens
+    exactly (an aligned full hit: its last shared block is copied at
+    admission).  Returns the pools and the rows' lengths."""
+    from repro_torch.serve.cache import PagedCachePool
+
+    rng = np.random.default_rng(21)
+    head = rng.integers(0, 1000, 32)
+    prompts = [np.concatenate([head, rng.integers(0, 1000, 8)]),
+               np.concatenate([head, rng.integers(0, 1000, 8)]), head]
+    pools = [PagedCachePool(sm, 4, 80, block_size=16, device=dev, kv_bits=kv_bits)
+             for _ in range(n)]
+    for pool in pools:
+        for prompt in prompts:
+            seq = pool.alloc_seq()
+            hit = pool.map_shared(seq, prompt)
+            assert pool.ensure(seq, len(prompt) + 1)
+            for lo in range(hit, len(prompt), 16):
+                valid = min(16, len(prompt) - lo)
+                buf = np.zeros((1, 16), np.int32)
+                buf[0, :valid] = prompt[lo:lo + valid]
+                _, cache = sm.prefill_chunk(sp, pool.step_cache(),
+                                            torch.from_numpy(buf).to(dev), seq, lo, valid)
+                pool.accept(cache)
+            pool.record_tokens(seq, prompt)
+    assert pools[0].prefix_hits == 2 and pools[0].cow_copies == 1
+    return pools, {s: len(p) for s, p in enumerate(prompts)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,kv_bits", HOTPATH_CELLS, ids=HOTPATH_IDS)
+def test_cow_block_bitwise_and_no_recapture(sm90, bits, kv_bits):
+    """On the card: the admission copy of a shared block equals its
+    source in every paged leaf (fp, packed int4 with its scales, int8),
+    the leaves keep their addresses, and a decode step captured before a
+    later copy is not captured again; its logits and every pool byte equal
+    the eager step's on a twin pool at each step."""
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    sm, sp = _small_served(bits, sm90)
+    (eager_pool, pool), lengths = _shared_pools(sm, sp, sm90, kv_bits)
+    src, dst = pool._seq_blocks[0][1], pool._seq_blocks[2][1]
+    assert src != dst and pool._seq_blocks[1][:2] == pool._seq_blocks[0][:2]
+    for key in pool.paged_keys:
+        leaf = pool.cache[key]
+        assert torch.equal(leaf[:, dst].view(torch.uint8), leaf[:, src].view(torch.uint8)), key
+    graphed = GraphedDecodeStep(sm)
+    ptrs = {k: v.data_ptr() for k, v in pool.cache.items() if k != "length"}
+    rng = np.random.default_rng(5)
+    for i in range(4):
+        if i == 2:        # a later admission that copies again between replays
+            for p in (eager_pool, pool):
+                seq = p.alloc_seq()
+                p.map_shared(seq, p._seq_tokens[2])
+                assert p.ensure(seq, 33) and p.cow_copies == 2
+            lengths[3] = 32
+        for p in (eager_pool, pool):
+            for seq, n in lengths.items():
+                assert p.ensure(seq, n + 1) and p.cow_for_write(seq, n)
+        feed = torch.from_numpy(rng.integers(0, 1000, (4, 1)).astype(np.int32)).to(sm90)
+        outs = []
+        for p, fn in ((eager_pool, sm.decode_step), (pool, graphed)):
+            cache = p.step_cache()
+            cache["length"] = torch.tensor([lengths.get(s, 0) for s in range(4)],
+                                           dtype=torch.int32, device=sm90)
+            logits, cache = fn(sp, cache, feed)
+            p.accept(cache)
+            outs.append(logits.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]), f"step {i}"
+        for key, leaf in eager_pool.cache.items():
+            assert torch.equal(leaf, pool.cache[key]), f"step {i}: {key}"
+        lengths = {s: n + 1 for s, n in lengths.items()}
+    assert (graphed.captures, graphed.recaptures) == (1, 0)
+    assert {k: v.data_ptr() for k, v in pool.cache.items() if k != "length"} == ptrs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_fused_decode_writes_only_the_private_last_block(sm90, kv_bits):
+    """A fused decode step over rows that share prefix blocks changes, in
+    every paged leaf, only each live row's private write block and the
+    garbage block 0 (the dead row's sink): the shared blocks stay as they
+    were."""
+    sm, sp = _small_served(4, sm90)
+    (pool,), lengths = _shared_pools(sm, sp, sm90, kv_bits, n=1)
+    for seq, n in lengths.items():
+        assert pool.ensure(seq, n + 1) and pool.cow_for_write(seq, n)
+    before = {k: pool.cache[k].clone() for k in pool.paged_keys}
+    cache = pool.step_cache()
+    cache["length"] = torch.tensor([lengths.get(s, 0) for s in range(4)], dtype=torch.int32,
+                                   device=sm90)
+    ops.reset_counts()
+    _, cache = sm.decode_step(sp, cache, torch.ones((4, 1), dtype=torch.int32, device=sm90))
+    pool.accept(cache)
+    torch.cuda.synchronize()
+    assert ops.counts["fused_qkv_paged_decode"] == sm.cfg.num_layers
+    own = {pool._seq_blocks[s][n // 16] for s, n in lengths.items()}
+    shared = {b for b, c in pool._refcount.items() if c > 1}
+    assert shared and not (own & shared)
+    for key in pool.paged_keys:
+        leaf = pool.cache[key]
+        changed = {b for b in range(pool.num_blocks)
+                   if not torch.equal(leaf[:, b], before[key][:, b])}
+        assert changed <= own | {0} and own <= changed, (key, changed, own)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,kv_bits", HOTPATH_CELLS[:2], ids=HOTPATH_IDS[:2])
+def test_spec_engine_graphs_equal_eager(sm90, bits, kv_bits):
+    """Speculative decoding on the card (k = 4, 2-bit self-draft): the
+    target's and the draft's captured decode steps each capture once and
+    never again, and the greedy streams equal the same run through the
+    eager ``model.decode_step``, with the same window counts."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    sm, sp = _small_served(bits, sm90)
+    rng = np.random.default_rng(9)
+    work = [(rng.integers(0, 1000, int(n)), 20) for n in (9, 40, 17, 31, 24, 16)]
+    runs = {}
+    for name, kw in (("eager", {"decode_fn": sm.decode_step}), ("graphed", {})):
+        eng = ServeEngine(sm, sp, num_slots=4, max_len=64, block_size=16, prefill_chunk=16,
+                          device=sm90, kv_bits=kv_bits,
+                          spec=SpecConfig(k=4, draft_bits=2), **kw)
+        for prompt, n in work:
+            eng.submit(prompt, n)
+        ops.reset_counts()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert ops.counts["plain"] == 0 and ops.counts["qmm_bitserial"] > 0
+        runs[name] = ([eng.output(r) for r in range(len(work))], eng.metrics(),
+                      eng.graph_captures)
+    assert runs["graphed"][0] == runs["eager"][0]
+    m, captures = runs["graphed"][1], runs["graphed"][2]
+    assert m["spec"] == runs["eager"][1]["spec"] and m["spec"]["windows"] > 0
+    assert m["recompiles"] == 0 and captures["decode"] == 1 and captures["draft"] == 1

@@ -135,7 +135,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config("h2o-danube-3-4b", smoke=True))  # sliding window
     _, tm = models()
-    for fn in (tm.forward, tm.prefill, tm.verify_chunk):
+    for fn in (tm.forward, tm.prefill):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
 
