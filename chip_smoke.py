@@ -45,12 +45,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    group holding glm4-9b's wg: outputs, scales and gradients bit pattern
    for bit pattern against the plain versions; timed per QAT forward and
    backward against the same work by the library, the flat path it
-   replaces and the bound.  For each shape: kernel,
+   replaces and the bound.  The per-column grouped fake-quant of the LM
+   QAT path (every stacked (L, K, N) leaf at max|w| over K per column,
+   per-layer bits; one launch forward, one STE backward) at the 4-layer
+   glm4-9b cell's nine leaves (bf16 and f32) and at LeNet's weight shapes
+   with a ragged (3, 7, 300), a leaf with an all-zero column, one with a
+   NaN and one near eps (bits cycling through 1-8, 16 and 32): outputs,
+   scales and gradients bit pattern for bit pattern; timed per QAT forward
+   and backward of the cell against the library (per layer
+   ``abs().amax(dim=-2)`` + ``fake_quantize_per_channel_affine``, and its
+   autograd backward), the plain versions and the bound.  For each shape: kernel,
    plain and library yardstick times (median of per-launch CUDA-event
    times, L2 flushed before each launch, the start event held behind a
    device spin that covers the wrapper's host work) and the bound from
    bytes and operations.
-3. Five paths end to end.  Three serve through the launcher's continuous
+3. Seven paths end to end.  Three serve through the launcher's continuous
    path at glm4-9b's published widths (40 layers, d_model 4096, vocab
    151552), random weights from seed 0, 8 requests, 4 rows, block 16,
    prompts of 40-64 tokens, prefill chunk 64, gen 16-32, greedy:
@@ -110,6 +119,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
       ``RESNET20_PRETRAIN`` steps,
       ``RESNET20_EPISODES`` episodes in ``episode_end`` mode with 2
       retrain steps, long retrain 200 at the best policy.
+   Two run the LM QAT path at glm4-9b's published widths (d_model 4096,
+   32 heads over 2 KV heads, head dim 128, d_ff 13696, vocab 151552),
+   depth cut to 4 layers (2,057,306,112 quantized weights), random
+   weights from seed 0, sequences of 4096, global batch 2:
+   j. ``repro_torch.launch.train``'s path (``Trainer`` +
+      ``make_train_step``, ``--remat full --lr 3e-4``): 20 steps at
+      uniform 8 bits, then 5 at a mixed policy (group i at
+      QAT_BITS[i % 7], embed and lm_head frozen at 8); fails unless every
+      loss is finite, the mean of the last 5 uniform steps is below the
+      mean of the first 5, and every step made exactly one per-column
+      forward and one backward launch and no plain call; prints step p50,
+      tokens/s and peak memory;
+   k. ``launch/lm_search.py --lockstep``'s path on j's params:
+      ``make_lm_env_factory(finetune_steps=2)`` at ``episode_end``, 4
+      episodes; fails unless the record is whole, every accuracy proxy is
+      finite and positive, and the memo's stats are there.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
    the plain-version counter must be 0; the serving paths print the p50
@@ -133,7 +158,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    QAT step at a mixed policy from
    path e's params gives the same params on the card as on the CPU within
    1e-4 * max|param| (f32 convolutions, TF32 off, summed in other orders)
-   and the same validation accuracy.
+   and the same validation accuracy; one LM QAT train step (phase 4j,
+   ``lm_step_card_vs_cpu`` states its tolerances) on a small model with
+   head dim 128 on the card and on the CPU, in f32 and in bf16.
 
 5. Where the time goes (read only, after the checks): for each serving
    path, four requests decode on its served model, through the served
@@ -146,7 +173,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cell takes, and the full temperature / top-k / top-p sampler) are
    timed alone at (4, 151552).  The same for ResNet-20 QAT train steps, with the runtime
    calls per step that can block the host (stream and device syncs,
-   memcpys).
+   memcpys), and for the 4-layer glm4-9b QAT step (phase 5j: weight
+   matmuls, attention tiles, CE chunks, AdamW, fake-quant forward and
+   backward).
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -1960,6 +1989,527 @@ def profile_decode(torch, engine, work, timed=4, traced=4):
             "idle_share": 1 - busy / step_ms}
 
 
+# ---- the LM QAT path at glm4-9b's widths (phases 2, 3j, 3k, 4j, 5j) ---------
+LM_LAYERS = 4              # depth cut from 40: 40 layers' weights + f32 moments need ~113 GB
+LM_WEIGHTS = 2_057_306_112  # quantized: 4 x 203,948,032 + embed and lm_head at 620,756,992
+LM_PARAMS = LM_WEIGHTS + 9 * 4096   # + the norm gains: 2 a layer and the final norm
+# lr 3e-4: at the launcher's default 3e-3 (the reference's, for its smoke
+# models) the loss rose from 12.45 to 16.7 in 20 steps at this width
+LM_TRAIN = ["--arch", "glm4-9b", "--no-smoke", "--global-batch", "2", "--seq-len", "4096",
+            "--remat", "full", "--bits", "8", "--lr", "3e-4", "--device", "cuda"]
+LM_UNIFORM_STEPS, LM_MIXED_STEPS = 20, 5
+LM_EPISODES = 4
+
+
+def lm_cell():
+    """glm4-9b at its published widths, depth cut to ``LM_LAYERS``."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("glm4-9b"), num_layers=LM_LAYERS)
+
+
+def lm_mixed_policy(model):
+    """Group i at QAT_BITS[i % 7]; the frozen groups (embed, lm_head) at 8."""
+    from repro_torch.quant.policy import QuantPolicy
+
+    groups, frozen = model.quant_groups(), model.frozen_bits()
+    return QuantPolicy.from_array(tuple(g.name for g in groups),
+                                  [frozen.get(g.name, QAT_BITS[i % len(QAT_BITS)])
+                                   for i, g in enumerate(groups)])
+
+
+def lm_leaves():
+    """(path, shape) of the bits map's leaves at the 4-layer cell, in
+    quantize_params' order: embed, wq, wk, wv, wo, wg, wu, wd, lm_head."""
+    from repro_torch.models import build_model
+
+    out = {}
+    for g in build_model(lm_cell()).quant_groups():
+        out.setdefault("/".join(map(str, g.path)),
+                       g.shape if g.layer is None else (LM_LAYERS, *g.shape))
+    return list(out.items())
+
+
+def col_bits(torch, shapes, offset):
+    """Per leaf an int32 bits tensor on the card: FQ_BITS cycling over the
+    layers of the leading dims from ``offset``."""
+    out = []
+    for i, shape in enumerate(shapes):
+        L = math.prod(shape[:-2])
+        vals = [FQ_BITS[(i + l + offset) % len(FQ_BITS)] for l in range(L)]
+        out.append(torch.tensor(vals if len(shape) > 2 else vals[0], dtype=torch.int32,
+                                device="cuda"))
+    return out
+
+
+def col_inputs(torch, shapes, dtype, gen, edges=False):
+    """Leaves of ``shapes`` with a -0.0 and a 0.0 each, gradients with +-inf,
+    NaN and a negative value each; ``edges`` adds a leaf with an all-zero
+    column, one with a NaN and one near the eps floor."""
+    ws, gs = [], []
+    for shape in shapes:
+        w = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w.view(-1)[:2] = torch.tensor([-0.0, 0.0], device="cuda", dtype=dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g.view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -3.0, float("-inf")],
+                                      device="cuda", dtype=dtype)
+        ws.append(w)
+        gs.append(g)
+    if edges:
+        zero_col = torch.randn((2, 40, 24), generator=gen, device="cuda")
+        zero_col[1, :, 5] = 0.0
+        nan = torch.randn((3, 17, 40), generator=gen, device="cuda")
+        nan[2, 3, 11] = float("nan")
+        near = 1.0005e-8 if dtype == torch.float32 else 9.95e-9
+        tiny = torch.linspace(-1, 1, 2 * 31 * 16, device="cuda").reshape(2, 31, 16) * near
+        for w in (zero_col, nan, tiny):
+            ws.append(w.to(dtype))
+            gs.append(torch.linspace(-2, 2, w.numel(), device="cuda").reshape(w.shape).to(dtype))
+    return ws, gs
+
+
+def check_col_bitwise(torch, what, ws, gs, bits):
+    """The per-column pair against its plain versions, bit pattern for bit
+    pattern (outputs, scales, gradients); the plain outputs are freed
+    before the backward's are made."""
+    from repro_torch.kernels.fake_quant import (fake_quant_group_col_bwd_cuda,
+                                                fake_quant_group_col_cuda)
+    from repro_torch.kernels.ref import fake_quant_group_col_bwd_ref, fake_quant_group_col_ref
+
+    outs, scales, launches = fake_quant_group_col_cuda(ws, bits)
+    torch.cuda.synchronize()
+    for i, (w, b) in enumerate(zip(ws, bits)):
+        (want,), (want_s,) = fake_quant_group_col_ref([w], [b])
+        if not same_bits(torch, scales[i], want_s):
+            fail(f"{what}: leaf {i} {tuple(w.shape)}: the scales differ from tensor_scale's")
+        if not same_bits(torch, outs[i], want):
+            fail(f"{what}: leaf {i} {tuple(w.shape)} at bits {b.tolist()} differs from "
+                 f"the plain version")
+        del want
+    del outs
+    grads, bwd_launches = fake_quant_group_col_bwd_cuda(ws, gs, scales)
+    torch.cuda.synchronize()
+    for i in range(len(ws)):
+        (want,) = fake_quant_group_col_bwd_ref([ws[i]], [gs[i]], [scales[i]])
+        if not same_bits(torch, grads[i], want):
+            fail(f"{what}: the STE gradient of leaf {i} {tuple(ws[i].shape)} differs")
+        del want
+    if (launches, bwd_launches) != (1, 1):
+        fail(f"{what}: {launches} forward and {bwd_launches} backward launches, not 1 and 1")
+
+
+def library_col(torch, ws, bits_host):
+    """The library's per-column QDQ of every layer of every leaf:
+    ``abs().amax(dim=-2)`` and ``fake_quantize_per_channel_affine`` (axis
+    1, scale max|w| / n), on the leaves themselves where it takes their
+    dtype, else on f32 copies made here (-> fn, the leaves it takes, the
+    dtype it ran in)."""
+    def run(leaves):
+        outs = []
+        for w, bl in zip(leaves, bits_host):
+            w3 = w.reshape(-1, *w.shape[-2:])
+            for l in range(w3.shape[0]):
+                b = bl[l] if len(bl) > 1 else bl[0]
+                n = 1 if b < 2 else min((1 << (b - 1)) - 1, 1 << 15)
+                s = (w3[l].abs().amax(dim=-2).float() / n).detach()
+                zp = torch.zeros(s.shape, dtype=torch.int32, device="cuda")
+                outs.append(torch.fake_quantize_per_channel_affine(w3[l], s, zp, 1, -n, n))
+        return outs
+
+    try:
+        run([w[..., :2, :2].contiguous() for w in ws])
+        return run, list(ws), str(ws[0].dtype)[6:]
+    except RuntimeError:
+        f32 = [w.float() for w in ws]
+        return run, f32, "float32 copies (the library refuses bf16)"
+
+
+def check_fake_quant_col(torch, timer, peaks, rows):
+    """Phase 2, the per-column grouped fake-quant of the LM QAT path:
+    forward and STE backward bit pattern for bit pattern against the plain
+    versions at the 4-layer glm4-9b cell's nine leaves (bf16 and f32; embed
+    reduces over 151,552 rows), at LeNet's weight shapes with a ragged
+    (3, 7, 300) and the edge leaves (bits cycling through 1-8, 16 and 32
+    from three offsets), then timed per QAT forward and backward at the
+    cell in bf16 at the mixed policy of phase 3j, against the library
+    (per layer: amax + fake_quantize_per_channel_affine, and its autograd
+    backward), the plain versions and the bound."""
+    from repro_torch.kernels.fake_quant import (fake_quant_col_plan,
+                                                fake_quant_group_col_bwd_cuda,
+                                                fake_quant_group_col_cuda)
+    from repro_torch.kernels.ref import fake_quant_group_col_bwd_ref, fake_quant_group_col_ref
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import bits_assignment, bits_to_device
+
+    f32_peak = next((v for k, v in F32_PEAKS.items() if k in torch.cuda.get_device_name(0)),
+                    F32_PEAKS["H100"])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    glm = [shape for _, shape in lm_leaves()]
+    small = [shape for _, shape in weight_shapes("lenet")] + [(3, 7, 300)]
+    for dtype in (torch.bfloat16, torch.float32):
+        ws, gs = col_inputs(torch, small, dtype, gen, edges=True)
+        for offset in range(3):
+            check_col_bitwise(torch, f"fake_quant_col lenet {str(dtype)[6:]}", ws, gs,
+                              col_bits(torch, [w.shape for w in ws], offset))
+        print(f"  {'fake_quant_col lenet+ragged ' + str(dtype)[6:]:46s} forward and backward "
+              f"bitwise at 3 bits offsets ({len(ws)} leaves incl. zero column, NaN, near eps)")
+        del ws, gs
+        ws, gs = col_inputs(torch, glm, dtype, gen)
+        plan = fake_quant_col_plan([w.shape for w in ws], dtype)
+        check_col_bitwise(torch, f"fake_quant_col glm4-9b 4L {str(dtype)[6:]}", ws, gs,
+                          col_bits(torch, glm, 0))
+        print(f"  {'fake_quant_col glm4-9b 4L ' + str(dtype)[6:]:46s} forward and backward "
+              f"bitwise (9 leaves, {plan.ctas[0]} CTAs, K split over {plan.split})")
+        del ws, gs
+        torch.cuda.empty_cache()
+    # timing: one QAT forward and backward of the cell, bf16, phase 3j's mixed policy
+    ws, gs = col_inputs(torch, glm, torch.bfloat16, gen)
+    model = build_model(lm_cell())
+    bmap = bits_assignment(model.quant_groups(), lm_mixed_policy(model))
+    bits = list(bits_to_device(bmap, "cuda").values())
+    bits_host = [[int(b) for b in v.reshape(-1)] for v in bmap.values()]
+    plan = fake_quant_col_plan([w.shape for w in ws], torch.bfloat16)
+    numel = sum(w.numel() for w in ws)
+    n_scales = sum(math.prod(w.shape[:-2]) * w.shape[-1] for w in ws)
+    outs, scales, _ = fake_quant_group_col_cuda(ws, bits)
+    lib, lib_leaves, lib_dtype = library_col(torch, ws, bits_host)
+    b_ms, b_by = bound_ms(2 * numel * 2 + 4 * n_scales, (FQ_OPS + 2) * numel,
+                          (peaks[0], f32_peak))
+    fwd = {"kernel": "fake_quant_group_col", "shape": "glm4-9b 4L", "dtype": "bfloat16",
+           "leaves": len(ws), "numel": numel, "plan": plan._asdict(), "calls_per_forward": 1,
+           "max_abs_err": 0.0,
+           "ms": timer(lambda: fake_quant_group_col_cuda(ws, bits), iters=7),
+           "plain_ms": timer(lambda: fake_quant_group_col_ref(ws, bits), iters=3, warmup=1),
+           "library_ms": timer(lambda: lib(lib_leaves), iters=5, warmup=1),
+           "library": f"per layer of each leaf: abs().amax(dim=-2) + "
+                      f"fake_quantize_per_channel_affine (axis 1), in {lib_dtype}",
+           "bound_ms": b_ms, "bound_by": b_by}
+    leaves = [w.detach().requires_grad_(True) for w in lib_leaves]
+    lib_outs = lib(leaves)
+    lib_gs = []                      # one per layer of each leaf, as the library's outputs
+    for w, g in zip(lib_leaves, gs):
+        lib_gs += g.to(w.dtype).reshape(-1, *w.shape[-2:]).unbind(0)
+
+    def library_bwd():
+        return torch.autograd.grad(lib_outs, leaves, lib_gs, retain_graph=True)
+
+    bb_ms, bb_by = bound_ms(3 * numel * 2 + 4 * n_scales, 3 * numel, (peaks[0], f32_peak))
+    bwd = {"kernel": "fake_quant_group_col_bwd", "shape": "glm4-9b 4L", "dtype": "bfloat16",
+           "leaves": len(ws), "numel": numel, "calls_per_forward": 1, "max_abs_err": 0.0,
+           "ms": timer(lambda: fake_quant_group_col_bwd_cuda(ws, gs, scales), iters=7),
+           "plain_ms": timer(lambda: fake_quant_group_col_bwd_ref(ws, gs, scales), iters=3,
+                             warmup=1),
+           "library_ms": timer(library_bwd, iters=5, warmup=1),
+           "library": f"the autograd backward of the library forward, in {lib_dtype}",
+           "bound_ms": bb_ms, "bound_by": bb_by}
+    rows += [fwd, bwd]
+    print(f"  {'fake_quant_col glm4-9b 4L bf16 (9 leaves)':46s} per QAT forward: "
+          f"kernel={fwd['ms']:.4f} plain={fwd['plain_ms']:.4f} library={fwd['library_ms']:.4f} "
+          f"({lib_dtype}) bound={b_ms:.4f} ms ({b_by})")
+    print(f"  {'':46s} per QAT backward: kernel={bwd['ms']:.4f} plain={bwd['plain_ms']:.4f} "
+          f"library={bwd['library_ms']:.4f} bound={bb_ms:.4f} ms ({bb_by})")
+    del ws, gs, outs, scales, leaves, lib_outs, lib_gs, lib_leaves
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def lm_train(torch):
+    """Phase 3j: QAT training at the 4-layer glm4-9b cell through
+    ``repro_torch.launch.train``'s path (``setup``: ``Trainer`` +
+    ``make_train_step``, ``--remat full``): LM_UNIFORM_STEPS steps at
+    uniform 8 bits, then LM_MIXED_STEPS at the mixed policy, each step's
+    launches counted apart."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quant.qat import bits_assignment, bits_to_device
+
+    args = train.parse_args(LM_TRAIN + ["--steps", str(LM_UNIFORM_STEPS)])
+    t0 = time.perf_counter()
+    run = train.setup(args, lm_cell())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model, trainer = run["model"], run["trainer"]
+    n = sum(p.numel() for p in tree_leaves(run["state"]["params"]))
+    n_w = sum(g.n_weights for g in model.quant_groups())
+    if (n, n_w) != (LM_PARAMS, LM_WEIGHTS):
+        fail(f"[lm train] {n:,} params of which {n_w:,} quantized, not {LM_PARAMS:,} "
+             f"and {LM_WEIGHTS:,}")
+    per_step = []
+    inner = trainer.step_fn
+
+    def counted(state, batch, bits_map):
+        before = dict(ops.counts)
+        out = inner(state, batch, bits_map)
+        per_step.append({k: v - before[k] for k, v in ops.counts.items() if v != before[k]})
+        return out
+
+    trainer.step_fn = counted
+    trainer.log_every = 5
+    ops.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.run(run["state"], LM_UNIFORM_STEPS)
+    trainer.bits_map = bits_to_device(bits_assignment(model.quant_groups(),
+                                                      lm_mixed_policy(model)), "cuda")
+    state = trainer.run(state, LM_UNIFORM_STEPS + LM_MIXED_STEPS, start_step=LM_UNIFORM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    losses = [h["loss"] for h in trainer.history]
+    dts = [h["dt"] for h in trainer.history]
+    if len(losses) != LM_UNIFORM_STEPS + LM_MIXED_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"[lm train] losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[LM_UNIFORM_STEPS - 5:LM_UNIFORM_STEPS])
+    if not last < first:
+        fail(f"[lm train] the loss did not fall: mean of the first 5 {first:.4f}, of the last 5 "
+             f"uniform steps {last:.4f}")
+    want = {"fake_quant_group_col": 1, "fake_quant_group_col_bwd": 1}
+    bad = [i for i, c in enumerate(per_step) if c != want]
+    if bad or counts["plain"]:
+        fail(f"[lm train] steps {bad} launched {[per_step[i] for i in bad]}, not {want}; "
+             f"plain calls {counts['plain']}")
+    p50 = statistics.median(dts[2:])
+    tokens = 2 * 4096
+    out = {"setup_s": setup_s, "wall_s": wall, "losses": losses, "step_s": dts,
+           "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+           "uniform_p50_ms": statistics.median(dts[2:LM_UNIFORM_STEPS]) * 1e3,
+           "mixed_p50_ms": statistics.median(dts[LM_UNIFORM_STEPS:]) * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": per_step[-1], "counts": counts, "params": n}
+    print(f"[lm train] glm4-9b widths, {LM_LAYERS} layers ({n:,} params), batch 2 x 4096, "
+          f"remat full: losses {losses[0]:.4f} -> {losses[LM_UNIFORM_STEPS - 1]:.4f} (uniform 8) "
+          f"-> {losses[-1]:.4f} (mixed); first-5 mean {first:.4f}, last-5 uniform mean "
+          f"{last:.4f}")
+    print(f"[lm train] step p50 {out['step_p50_ms']:.1f} ms (uniform {out['uniform_p50_ms']:.1f}, "
+          f"mixed {out['mixed_p50_ms']:.1f}), {out['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{out['peak_mem_gib']:.2f} GiB, setup {setup_s:.1f} s; launches per step "
+          f"{per_step[-1]}; counts {counts}")
+    return run, state, out
+
+
+def lm_search_phase(torch, model, params):
+    """Phase 3k: ``launch/lm_search.py --lockstep``'s path on 3j's params:
+    the LM env factory (2 retrain steps from a fresh ``opt.init``, no
+    remat, as the reference's factory), ``episode_end``, LM_EPISODES
+    episodes."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lm_search
+
+    data = SyntheticLMData(seed=1, global_batch=2, seq_len=4096, vocab=model.cfg.vocab_size)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    factory, res = lm_search.search(model, params, data, LM_EPISODES, "cuda", finetune_steps=2,
+                                    eval_mode="episode_end", log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    names = {g.name for g in model.quant_groups()}
+    if len(res.episodes) != LM_EPISODES or set(res.best_bits) != names:
+        fail(f"[lm search] {len(res.episodes)} episodes, best bits over "
+             f"{len(res.best_bits)} of {len(names)} groups")
+    if res.best_reward != max(e["reward"] for e in res.episodes):
+        fail("[lm search] best reward is not the best episode's")
+    for name, b in model.frozen_bits().items():
+        if res.best_bits[name] != b:
+            fail(f"[lm search] frozen group {name} left {b} bits")
+    accs = [e["acc"] for e in res.episodes]
+    if not all(math.isfinite(a) and a > 0 for a in accs):
+        fail(f"[lm search] accuracy proxies {accs}")
+    if (counts["fake_quant_group_col"] <= 0 or counts["fake_quant_group_col_bwd"] <= 0
+            or counts["plain"]):
+        fail(f"[lm search] launch counts {counts}")
+    stats = res.cache_stats
+    if not stats or stats["misses"] < 1:
+        fail(f"[lm search] the memo's stats are missing: {stats}")
+    out = {"episodes": LM_EPISODES, "wall_s": wall, "episodes_per_s": LM_EPISODES / wall,
+           "acc": accs, "rewards": [e["reward"] for e in res.episodes],
+           "best_reward": res.best_reward, "avg_bits": res.average_bits(),
+           "best_bits": res.best_bits, "cache": stats, "counts": counts}
+    print(f"[lm search] {LM_EPISODES} episodes in {wall:.1f} s; acc proxies "
+          f"{[round(a, 4) for a in accs]}; best reward {res.best_reward:.4f}, avg bits "
+          f"{out['avg_bits']:.2f}; memo {stats}; launch counts {counts}")
+    return out
+
+
+def lm_step_card_vs_cpu(torch):
+    """Phase 4j: one LM QAT train step (mixed bits, AdamW lr 1e-3 without
+    decay) on the card and on the CPU from the same params, on a small
+    model with head dim 128 (2 layers, d_model 256, 4 heads over 2 KV
+    heads, vocab 4096, batch 2 x 256, q chunk 64 and kv chunk 128: 4 x 2
+    flash tiles).  Tolerances: in f32 (TF32 off) both sides sum the same
+    products in other orders: loss and grad norm within 1e-4 relative,
+    the grads of the QDQ'd params within 1e-4 of each leaf's max; in bf16
+    every activation rounds differently on each side: loss within 2e-2,
+    grad norm and grads within 5e-2.  New params: each moves by at most lr
+    (Adam's first step), so the two sides differ by at most 2 lr, plus in
+    bf16 half a rounding step on each side (at most 2^-7 of the larger
+    |p|); the elements that differ by more than 1e-6 are counted and
+    printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, quantize_params
+    from repro_torch.train.train_step import batch_to, make_train_step
+
+    out = {}
+    for dtype, tol_loss, tol_grad in (("float32", 1e-4, 1e-4), ("bfloat16", 2e-2, 5e-2)):
+        cfg = dataclasses.replace(get_config("glm4-9b", smoke=True), num_layers=2, d_model=256,
+                                  num_heads=4, num_kv_heads=2, head_dim=128, d_ff=688,
+                                  vocab_size=4096, q_chunk=64, kv_chunk=128, dtype=dtype)
+        model = build_model(cfg)
+        params = model.init(seed=7, device="cpu")
+        batch = SyntheticLMData(seed=2, global_batch=2, seq_len=256, vocab=4096).next()
+        opt = AdamW(lr=1e-3)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_unflatten(params, [t.to(dev) for t in tree_leaves(params)])
+            bm = bits_to_device(bits_assignment(model.quant_groups(), lm_mixed_policy(model)), dev)
+            leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+            loss, _ = model.loss(quantize_params(tree_unflatten(p, leaves), bm,
+                                                 model.quant_groups()), batch_to(batch, dev))
+            grads = torch.autograd.grad(loss, leaves)
+            state, m = make_train_step(model, opt, remat="full")({"params": p,
+                                                                  "opt": opt.init(p)}, batch, bm)
+            res[dev] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                        "grads": [g.float().cpu() for g in grads],
+                        "params": [t.float().cpu() for t in tree_leaves(state["params"])]}
+        a, b = res["cuda"], res["cpu"]
+        loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        gn_err = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+        g_err = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                    for x, y in zip(a["grads"], b["grads"]))
+        p0 = [t.float() for t in tree_leaves(params)]
+        slack = 2 ** -7 if dtype == "bfloat16" else 0.0
+        over = [float(((x - y).abs() - (2 * opt.lr + 1e-6
+                                        + slack * torch.maximum(x.abs(), y.abs()))).max())
+                for x, y in zip(a["params"], b["params"])]
+        moved = sum(int(((x - y).abs() > 1e-6).sum()) for x, y in zip(a["params"], b["params"]))
+        total = sum(t.numel() for t in p0)
+        if not (math.isfinite(a["loss"]) and loss_err <= tol_loss and gn_err <= tol_grad
+                and g_err <= tol_grad and max(over) <= 0):
+            fail(f"[lm step {dtype}] card vs CPU: loss {a['loss']} / {b['loss']} "
+                 f"({loss_err:.2e}), grad norm {gn_err:.2e}, grads {g_err:.2e} (tolerances "
+                 f"{tol_loss}, {tol_grad}); params past 2 lr by {max(over):.3g}")
+        out[dtype] = {"loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
+                      "grads_rel_err": g_err, "params_differing": moved, "params": total}
+        print(f"[lm step {dtype}] card vs CPU: loss {a['loss']:.6f} / {b['loss']:.6f} "
+              f"({loss_err:.2e}), grad norm {gn_err:.2e}, grads {g_err:.2e} of each leaf's max; "
+              f"new params within 2 lr, {moved} of {total} differ by more than 1e-6")
+    return out
+
+
+def _wrap_range(torch, fn, label):
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def profile_lm_step(torch, run, state, traced=2):
+    """Phase 5j: 4-layer QAT train steps at the mixed policy under
+    ``torch.profiler``: device time by family (the per-column fake-quant
+    forward and backward by kernel name; the attention tiles, the CE
+    chunks and AdamW by the ranges wrapped around ``_Flash``'s forward and
+    backward, ``_ce_chunk`` and ``AdamW.update`` here; the weight matmuls
+    as the gemm kernels outside them), the idle share against the host
+    clock, and the runtime calls per step that can block the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+
+    trainer = run["trainer"]
+    step_fn, data, bm = trainer.step_fn, run["data"], trainer.bits_map
+    saved = (common._Flash.forward, common._Flash.backward, common._ce_chunk,
+             adamw.AdamW.update)
+    common._Flash.forward = staticmethod(_wrap_range(torch, saved[0], "lm:attention tiles"))
+    common._Flash.backward = staticmethod(_wrap_range(torch, saved[1], "lm:attention tiles"))
+    common._ce_chunk = _wrap_range(torch, saved[2], "lm:CE chunks")
+    adamw.AdamW.update = _wrap_range(torch, saved[3], "lm:AdamW")
+    try:
+        state, _ = step_fn(state, data.next(), bm)          # warm, with the ranges on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(traced):
+            state, m = step_fn(state, data.next(), bm)
+            float(m["loss"])
+        step_ms = (time.perf_counter() - t0) / traced * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(traced):
+                state, m = step_fn(state, data.next(), bm)
+                float(m["loss"])
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) / traced * 1e3
+    finally:
+        (common._Flash.forward, common._Flash.backward, common._ce_chunk,
+         adamw.AdamW.update) = (staticmethod(saved[0]), staticmethod(saved[1]), saved[2],
+                                saved[3])
+    busy = 0.0
+    by_name: dict[str, float] = {}
+    host = {"cudaStreamSynchronize": 0.0, "cudaDeviceSynchronize": 0.0, "cudaMemcpyAsync": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA and ev.key in host:
+            host[ev.key] += ev.count / traced
+        # the ranges also show on the device timeline (spanning their
+        # kernels): only kernels, copies and sets count as busy
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not ev.key.startswith("lm:")):
+            busy += ev.self_device_time_total / traced / 1e3
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / traced / 1e3
+    if busy <= 0:
+        print("  LM QAT step: the profiler saw no device time (not measured)")
+        return state, {"step_ms": step_ms, "device_ms": None}
+
+    def is_gemm(name):
+        low = name.lower()
+        return any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas"))
+
+    fams = {"fake-quant forward": sum(v for k, v in by_name.items()
+                                      if "fake_quant_col_kernel" in k),
+            "fake-quant backward": sum(v for k, v in by_name.items()
+                                       if "fake_quant_col_bwd_kernel" in k)}
+    linked = 0.0
+    try:
+        for ev in prof.events():
+            kernels = getattr(ev, "kernels", None) or []
+            if ev.device_type != DeviceType.CPU or not kernels:
+                continue
+            label, node = None, ev
+            while node is not None and label is None:
+                if node.name.startswith("lm:"):
+                    label = node.name[3:]
+                node = node.cpu_parent
+            for k in kernels:
+                if "fake_quant_col" in k.name:
+                    continue
+                ms = k.duration / traced / 1e3
+                fam = label or ("weight matmuls" if is_gemm(k.name) else "other torch kernels")
+                fams[fam] = fams.get(fam, 0.0) + ms
+                linked += ms
+    except AttributeError as e:
+        print(f"  the profiler's events carry no kernel links ({e}): ranges not measured")
+    fams["not linked to an op"] = max(busy - sum(fams.values()), 0.0)
+    out = {"step_ms": step_ms, "traced_step_ms": traced_ms, "device_ms": busy,
+           "idle_share": 1 - busy / traced_ms, "families_ms": fams,
+           "host_calls_per_step": host,
+           "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])}
+    print(f"  glm4-9b 4L QAT step (batch 2 x 4096, remat full, mixed bits; host clock) = "
+          f"{step_ms:.1f} ms untraced, {traced_ms:.1f} ms traced; device busy {busy:.1f} "
+          f"ms/step -> idle share {out['idle_share']:.3f} of the traced step")
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"    {fam:24s} {ms:9.2f} ms/step ({ms / busy:.3f} of device time)")
+    print("    host runtime calls per step: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    return state, out
+
+
 def main() -> None:
     import torch
 
@@ -2012,6 +2562,7 @@ def main() -> None:
     fused_err = check_fused_decode(torch, timer, peaks, rows)
     fq_err = check_fake_quant(torch, timer, peaks, rows)
     fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
+    fqc_err = check_fake_quant_col(torch, timer, peaks, rows)
     print(f"timer: {timer.retaken} samples retaken behind a longer spin, "
           f"{timer.uncovered} timed with host work inside")
     del timer
@@ -2116,6 +2667,25 @@ def main() -> None:
     resnet["card_vs_cpu"] = resnet_step_card_vs_cpu(torch, task)
     phase("phase 5e: ResNet-20 QAT step breakdown")
     qat_breakdown = profile_qat_step(torch, task)
+    del task
+    torch.cuda.empty_cache()
+
+    # ---- the LM QAT path: glm4-9b's widths at 4 layers
+    phase(f"phase 3j: LM QAT training, glm4-9b widths at {LM_LAYERS} layers, batch 2 x 4096 "
+          f"({LM_UNIFORM_STEPS} steps at 8 bits, {LM_MIXED_STEPS} mixed)")
+    lm_run, lm_state, lm = lm_train(torch)
+    phase("phase 5j: LM QAT step breakdown")
+    lm_state, lm["breakdown"] = profile_lm_step(torch, lm_run, lm_state)
+    lm_model, lm_params = lm_run["model"], lm_state["params"]
+    del lm_run, lm_state
+    torch.cuda.empty_cache()
+    phase(f"phase 3k: LM ReLeQ search on 3j's params ({LM_EPISODES} episodes at episode_end, "
+          f"2 retrain steps)")
+    lm["search"] = lm_search_phase(torch, lm_model, lm_params)
+    del lm_model, lm_params
+    torch.cuda.empty_cache()
+    phase("phase 4j: one LM QAT step, card against CPU")
+    lm["card_vs_cpu"] = lm_step_card_vs_cpu(torch)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -2135,7 +2705,10 @@ def main() -> None:
     fq = per_step(rows, "fake_quant", lambda r: r["calls_per_forward"])
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     fqg, fqg_bwd = ({k: r[k] for k in keys} for r in rows
-                    if r["kernel"].startswith("fake_quant_group") and r["calls_per_forward"])
+                    if r["kernel"] in ("fake_quant_group", "fake_quant_group_bwd")
+                    and r["calls_per_forward"])
+    fqc, fqc_bwd = ({k: r[k] for k in keys} for r in rows
+                    if r["kernel"] in ("fake_quant_group_col", "fake_quant_group_col_bwd"))
     counts = {"fp KV": fp_runs["fp KV"]["counts"], "int4 KV": int4["counts"],
               "int8 KV": int8["counts"]}
     kernels = [
@@ -2170,6 +2743,15 @@ def main() -> None:
          "replaces": "src/repro/quant/wrpn.py:78",
          "launches": resnet["counts"]["fake_quant_group_bwd"], "max_abs_err": fqg_err,
          **fqg_bwd},
+        {"name": "fake_quant_group_col", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/fake_quant.py:33",
+         "launches": lm["counts"]["fake_quant_group_col"], "max_abs_err": fqc_err, **fqc},
+        {"name": "fake_quant_group_col_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/quant/wrpn.py:78",
+         "launches": lm["counts"]["fake_quant_group_col_bwd"], "max_abs_err": fqc_err,
+         **fqc_bwd},
     ]
     serve = {label: {"metrics": {k: v for k, v in r["metrics"].items() if k != "requests"},
                      "requests": r["metrics"]["requests"], "counts": r["counts"],
@@ -2192,11 +2774,15 @@ def main() -> None:
                          "kernel at given scales; no longer on the QAT path); "
                          "fake_quant_group / fake_quant_group_bwd: one ResNet-20 QAT forward / "
                          "backward (one launch each, f32, bits QAT_BITS); the backward's library "
-                         "call is the autograd backward of fake_quantize_per_tensor_affine",
+                         "call is the autograd backward of fake_quantize_per_tensor_affine; "
+                         "fake_quant_group_col / _bwd: one QAT forward / backward of the 4-layer "
+                         "glm4-9b cell (9 leaves, bf16, phase 3j's mixed policy), launches from "
+                         "phase 3j",
         "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
         "served_streams": streams,
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
                   "qat_step_breakdown": qat_breakdown},
+        "lm": lm,
         "total_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line)

@@ -126,9 +126,77 @@ class ReLeQSearch:
         return result
 
 
-def make_lm_env_factory(*args, **kwargs):
-    """The LM architectures' environment factory needs the LM QAT
-    training path, which is not ported."""
-    from repro_torch import not_ported
+def make_lm_env_factory(model, params, data, *, finetune_steps: int = 4,
+                        eval_batches: int = 1, reward_mode: str = "proposed",
+                        bitset=(2, 3, 4, 5, 6, 7, 8), eval_mode: str = "episode_end",
+                        lr: float = 1e-4):
+    """Environment factory for LM architectures.
 
-    raise not_ported("make_lm_env_factory (the LM QAT training path)", "slice B, item 8")
+    Accuracy proxy: the per-token likelihood ratio exp(nll_fp - nll_q)
+    after ``finetune_steps`` of QAT at the candidate policy (the paper's
+    "short retrain"): ``make_train_step`` from a fresh ``opt.init``, the
+    candidate's bits moved to the card as data.  ``weight_std`` is taken
+    per group (population std of the layer's slice, as ``jnp.std``); the
+    memo is the shared :class:`EvalCache`.  The factory carries
+    ``.eval_cache``, ``.evaluate`` (cached) and ``.compute`` (the raw
+    retrain)."""
+    from repro_torch.core.env import QuantEnv
+    from repro_torch.core.evalcache import EvalCache
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, get_by_path
+    from repro_torch.train.train_step import (make_eval_step, make_fp_eval_step,
+                                              make_train_step)
+
+    groups = model.quant_groups()
+    frozen = model.frozen_bits()
+    dev = tree_leaves(params)[0].device
+    eval_step = make_eval_step(model)
+    fp_eval = make_fp_eval_step(model)
+    opt = AdamW(lr=lr, weight_decay=0.0)
+    train_step = make_train_step(model, opt)
+    eval_batch = [data.eval_batch(data.local_batch, index=10_000_000 + i)
+                  for i in range(eval_batches)]
+    nll_fp = float(np.mean([float(fp_eval(params, b)) for b in eval_batch]))
+
+    stds = []
+    for g in groups:
+        leaf = get_by_path(params, g.path)
+        if g.layer is not None:
+            leaf = leaf[g.layer]
+        stds.append(torch.std(leaf.float(), correction=0))
+    wstd = dict(zip((g.name for g in groups), torch.stack(stds).tolist()))
+
+    # bit-vectors recur across episodes; the short retrain is the search's
+    # wall-clock bottleneck, so memoize on the canonical frozen bits tuple
+    memo = EvalCache()
+
+    def compute(bits_by_name: dict) -> float:
+        pol = QuantPolicy.from_array(tuple(g.name for g in groups),
+                                     [bits_by_name[g.name] for g in groups])
+        bm = bits_to_device(bits_assignment(groups, pol), dev)
+        if finetune_steps:
+            state = {"params": params, "opt": opt.init(params)}
+            for _ in range(finetune_steps):
+                state, _ = train_step(state, data.next(), bm)
+            p_eval = state["params"]
+            del state
+        else:
+            p_eval = params
+        nll_q = float(np.mean([float(eval_step(p_eval, b, bm)) for b in eval_batch]))
+        return float(np.exp(nll_fp - nll_q))
+
+    def evaluate(bits_by_name: dict) -> float:
+        value, _ = memo.get_or_compute(bits_by_name, lambda: compute(bits_by_name))
+        return value
+
+    def factory(env_id: int) -> QuantEnv:
+        return QuantEnv(groups=groups, evaluate=evaluate, weight_std=wstd,
+                        bitset=bitset, frozen=frozen, reward_mode=reward_mode,
+                        eval_mode=eval_mode)
+
+    factory.eval_cache = memo          # shared across searches/worker pools
+    factory.evaluate = evaluate        # cached step-level API
+    factory.compute = compute          # raw retrain
+    return factory

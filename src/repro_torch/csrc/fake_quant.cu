@@ -67,6 +67,29 @@
 //   grad = g * (|w| <= s_i ? 1 : 0) as an f32 product rounded to g's
 //   dtype, so -0.0 and NaN come out as torch's g * inside gives them.
 //
+// The per-column grouped kernels of the LM QAT path
+// (fake_quant_col_launch, fake_quant_col_bwd_launch) take the same QDQ at
+// the scale repro/quant/qat.py::_qdq gives every stacked (L, K, N) leaf:
+// s[l, n] = max(max_k |w[l, k, n]|, eps), with per-layer bits b[l].  The
+// max runs down the strided K dimension, so a thread owns one 16-byte
+// vector of adjacent columns (8 bf16 or 4 f32) and walks K; 8 threads
+// cover a tile of 64 bf16 (32 f32) columns, 32 rows at a time, each warp
+// loading four 128-byte row segments.  A tile's K range is split over the
+// C CTAs of a thread-block cluster (C <= 8, one per launch, planned by
+// kernels/fake_quant.py::fake_quant_col_plan); each CTA reduces its
+// columns' maxima over its rows and warps in shared memory, and every CTA
+// combines the C partial maxima from the cluster's shared memories in
+// rank order (map_shared_rank).  Then each CTA reads its rows a second
+// time and writes the QDQ: glm4-9b's embed reduces over 151,552 rows,
+// which fit no register file or shared memory, so every leaf is read
+// twice and written once (1.5x the bound's bytes).  The per-layer bits
+// make one code table per CTA: q / n for q in [-n, n] (the scale differs
+// per column, so the table holds the division, and a value is
+// __fmul_rn(table[q + n], s), bitwise value()'s).  The STE backward
+// walks the same tiles without a cluster: grad = g * (|w| <= s[l, n]).
+// Every leaf of a QAT forward goes in one launch (descriptors by value,
+// COL_MAX leaves a launch), and its backward in one more.
+//
 // Plain C interface (built with nvcc, loaded with ctypes).  The kernels
 // allocate nothing; the entry points return cudaGetLastError().
 
@@ -451,6 +474,264 @@ int launch_group_bwd(const BwdArgs& a, int64_t blocks, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
+
+
+// ---- the per-column grouped kernels of the LM QAT path ----------------------
+
+constexpr int COL_MAX = 56;        // leaves per launch: ColArgs fills 4 KB
+constexpr int COL_TX = 8;          // threads across a tile, one 16-byte vector each
+constexpr int COL_TY = THREADS / COL_TX;   // rows a CTA takes at a time
+
+struct ColLeaf {
+    const void* w;
+    void* out;         // forward: the QDQ; backward: the gradient
+    const void* g;     // backward: the incoming gradient
+    float* scale;      // (L, N) f32: written by the forward, read by the backward
+    const int* bits;   // bits[l * bits_stride]
+    int64_t K;
+    int64_t tile0;     // first tile of this leaf
+    int N;
+    int tiles_n;       // column tiles per layer
+    int bits_stride;   // 1: one bitwidth per layer; 0: one for the leaf
+    int pad;
+};
+
+struct ColArgs {
+    float eps;         // the floor, rounded to the group's dtype
+    int count;
+    int split;         // CTAs a tile's K range is split over (the cluster)
+    int pad;
+    ColLeaf t[COL_MAX];
+};
+
+static_assert(sizeof(ColArgs) <= 4096, "the per-column descriptors must fit 4 KB");
+
+// This CTA's leaf, layer, first column and K range; the tile is
+// blockIdx.x / split, the K part its rank.
+struct ColTile {
+    int leaf;
+    int64_t layer;
+    int64_t col0;
+    int64_t k0, k1;
+};
+
+__device__ __forceinline__ ColTile col_tile(const ColArgs& a, int tpc) {
+    const int64_t tile = (int64_t)blockIdx.x / a.split;
+    const int part = (int)((int64_t)blockIdx.x % a.split);
+    int lo = 0, hi = a.count - 1;     // the last leaf whose tile0 <= tile
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (a.t[mid].tile0 <= tile) lo = mid;
+        else hi = mid - 1;
+    }
+    const ColLeaf& L = a.t[lo];
+    const int64_t local = tile - L.tile0;
+    ColTile c;
+    c.leaf = lo;
+    c.layer = local / L.tiles_n;
+    c.col0 = (local % L.tiles_n) * (int64_t)tpc;
+    const int64_t run = (L.K + a.split - 1) / a.split;
+    c.k0 = min64((int64_t)part * run, L.K);
+    c.k1 = min64(c.k0 + run, L.K);
+    return c;
+}
+
+// Row k's NV columns from c (masked at N): one 16-byte load when aligned.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ row, int64_t c, int64_t N,
+                                          bool aligned, Vec<T>& r) {
+    constexpr int NV = Vec<T>::N;
+    if (aligned && c + NV <= N) {
+        r = *reinterpret_cast<const Vec<T>*>(row + c);
+        return;
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+        if (c + j < N) r.v[j] = row[c + j];
+        else from_f32(0.f, &r.v[j]);
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_cols(T* __restrict__ row, int64_t c, int64_t N,
+                                           bool aligned, const Vec<T>& r) {
+    constexpr int NV = Vec<T>::N;
+    if (aligned && c + NV <= N) {
+        *reinterpret_cast<Vec<T>*>(row + c) = r;
+        return;
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+        if (c + j < N) row[c + j] = r.v[j];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fake_quant_col_kernel(const __grid_constant__ ColArgs a) {
+    namespace cg = cooperative_groups;
+    constexpr int NV = Vec<T>::N;
+    constexpr int TPC = COL_TX * NV;              // columns a tile covers
+    __shared__ float red[COL_TY][TPC];
+    __shared__ float cmax[TPC];                   // this CTA's column maxima
+    __shared__ float cscale[TPC];
+    __shared__ float qn[2 * TABLE_N + 1];         // qn[q + n] = q / n
+    const cg::cluster_group cluster = cg::this_cluster();
+    const ColTile c = col_tile(a, TPC);
+    const ColLeaf& L = a.t[c.leaf];
+    const int64_t N = L.N;
+    const size_t off = (size_t)c.layer * (size_t)L.K * (size_t)N;
+    const T* w = static_cast<const T*>(L.w) + off;
+    T* out = static_cast<T*>(L.out) + off;
+    const bool aligned = N % NV == 0 &&
+        ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    const int tid = threadIdx.x;
+    const int tx = tid % COL_TX, ty = tid / COL_TX;
+    const int64_t col = c.col0 + (int64_t)tx * NV;
+
+    float m[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) m[j] = 0.f;
+    for (int64_t k = c.k0 + ty; k < c.k1; k += COL_TY) {
+        Vec<T> r;
+        load_cols(w + k * N, col, N, aligned, r);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) m[j] = max_nan(m[j], fabsf(to_f32(r.v[j])));
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) red[ty][tx * NV + j] = m[j];
+    __syncthreads();
+    if (tid < TPC) {
+        float s = red[0][tid];
+        for (int y = 1; y < COL_TY; ++y) s = max_nan(s, red[y][tid]);
+        cmax[tid] = s;
+    }
+    cluster.sync();                               // every rank's maxima are in its cmax
+    if (tid < TPC) {
+        float s = *cluster.map_shared_rank(&cmax[tid], 0);
+        for (int q = 1; q < a.split; ++q) s = max_nan(s, *cluster.map_shared_rank(&cmax[tid], q));
+        // torch's f32 abs on the card writes every NaN as 0x7fffffff (see
+        // fake_quant_group_kernel); its bf16 abs keeps the payload
+        if (sizeof(T) == 4 && s != s) s = __int_as_float(0x7fffffff);
+        s = max_nan(s, a.eps);
+        cscale[tid] = s;
+        if (cluster.block_rank() == 0 && c.col0 + tid < N)
+            L.scale[c.layer * N + c.col0 + tid] = s;
+    }
+    const int bits = __ldg(L.bits + c.layer * L.bits_stride);
+    const bool fp = bits >= FP_BITS;
+    const int n = fp ? 1 : (bits >= 2 ? (1 << (bits - 1)) - 1 : 1);
+    const bool tabled = !fp && n <= TABLE_N;
+    if (tabled)
+        for (int q = tid - n; q <= n; q += THREADS) qn[q + n] = __fdiv_rn((float)q, (float)n);
+    cluster.sync();                               // the other ranks are done reading cmax;
+                                                  // cscale and qn are written
+    if (fp) {                                     // bits >= 32: the loaded bits, unchanged
+        for (int64_t k = c.k0 + ty; k < c.k1; k += COL_TY) {
+            Vec<T> r;
+            load_cols(w + k * N, col, N, aligned, r);
+            store_cols(out + k * N, col, N, aligned, r);
+        }
+        return;
+    }
+    Params p[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+        p[j].fp = 0;
+        p[j].n = (float)n;
+        p[j].scale = cscale[min(tx * NV + j, TPC - 1)];
+    }
+    for (int64_t k = c.k0 + ty; k < c.k1; k += COL_TY) {
+        Vec<T> r;
+        load_cols(w + k * N, col, N, aligned, r);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+            const float q = code(to_f32(r.v[j]), p[j]);
+            const float v = (!tabled || q == 0.f || q != q)
+                                ? value(q, p[j]) : __fmul_rn(qn[(int)q + n], p[j].scale);
+            from_f32(v, &r.v[j]);
+        }
+        store_cols(out + k * N, col, N, aligned, r);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fake_quant_col_bwd_kernel(const __grid_constant__ ColArgs a) {
+    constexpr int NV = Vec<T>::N;
+    constexpr int TPC = COL_TX * NV;
+    const ColTile c = col_tile(a, TPC);
+    const ColLeaf& L = a.t[c.leaf];
+    const int64_t N = L.N;
+    const size_t off = (size_t)c.layer * (size_t)L.K * (size_t)N;
+    const T* w = static_cast<const T*>(L.w) + off;
+    const T* g = static_cast<const T*>(L.g) + off;
+    T* grad = static_cast<T*>(L.out) + off;
+    const bool aligned = N % NV == 0 &&
+        ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(g) |
+          reinterpret_cast<uintptr_t>(grad)) & 15) == 0;
+    const int tx = threadIdx.x % COL_TX, ty = threadIdx.x / COL_TX;
+    const int64_t col = c.col0 + (int64_t)tx * NV;
+    float s[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+        s[j] = col + j < N ? __ldg(L.scale + c.layer * N + col + j) : 0.f;
+    for (int64_t k = c.k0 + ty; k < c.k1; k += COL_TY) {
+        Vec<T> wr, gr;
+        load_cols(w + k * N, col, N, aligned, wr);
+        load_cols(g + k * N, col, N, aligned, gr);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+            const float inside = fabsf(to_f32(wr.v[j])) <= s[j] ? 1.f : 0.f;
+            from_f32(__fmul_rn(to_f32(gr.v[j]), inside), &gr.v[j]);
+        }
+        store_cols(grad + k * N, col, N, aligned, gr);
+    }
+}
+
+template <typename T>
+int launch_col(const ColArgs& a, int64_t tiles, int cluster, cudaStream_t st) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(tiles * a.split));
+    cfg.blockDim = dim3(THREADS);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = a.split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cluster ? 1 : 0;
+    const cudaError_t e = cluster ? cudaLaunchKernelEx(&cfg, fake_quant_col_kernel<T>, a)
+                                  : cudaLaunchKernelEx(&cfg, fake_quant_col_bwd_kernel<T>, a);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// Fills a launch's descriptors; -> tiles, or -1 on a bad argument.
+int64_t col_args(ColArgs& a, const void* const* ws, void* const* outs, const void* const* gs,
+                 void* const* scales, const void* const* bits, const int64_t* dims,
+                 const int* bits_strides, int count, float eps, int dtype, int split) {
+    if (count < 1 || count > COL_MAX || split < 1 || split > MAX_CLUSTER ||
+        (dtype != 0 && dtype != 1))
+        return -1;
+    const int tpc = COL_TX * (dtype == 1 ? 8 : 4);
+    a.eps = eps;
+    a.count = count;
+    a.split = split;
+    int64_t tiles = 0;
+    for (int i = 0; i < count; ++i) {
+        const int64_t Lc = dims[3 * i], K = dims[3 * i + 1], N = dims[3 * i + 2];
+        if (Lc < 1 || K < 1 || N < 1 || N > 0x7fffffff) return -1;
+        const int64_t tn = (N + tpc - 1) / tpc;
+        a.t[i] = {ws[i], outs[i], gs ? gs[i] : nullptr, static_cast<float*>(scales[i]),
+                  static_cast<const int*>(bits ? bits[i] : nullptr), K, tiles, (int)N,
+                  (int)tn, bits_strides ? bits_strides[i] : 0, 0};
+        tiles += Lc * tn;
+    }
+    if (tiles * split > 0x7fffffff) return -1;
+    return tiles;
+}
+
 }  // namespace
 
 // dtype (of w and out): 0 = float32, 1 = bfloat16.  w, out: numel
@@ -528,4 +809,49 @@ extern "C" int fake_quant_group_bwd_launch(const void* const* ws, const void* co
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 1) return launch_group_bwd<__nv_bfloat16>(a, blocks, st);
     return launch_group_bwd<float>(a, blocks, st);
+}
+
+// The per-column constants a plan must agree with (kernels/fake_quant.py):
+// out = {THREADS, COL_TX, COL_MAX, MAX_CLUSTER, sizeof(ColArgs)}.
+extern "C" void fake_quant_col_limits(int* out) {
+    out[0] = THREADS;
+    out[1] = COL_TX;
+    out[2] = COL_MAX;
+    out[3] = MAX_CLUSTER;
+    out[4] = (int)sizeof(ColArgs);
+}
+
+// Per-column grouped forward.  Leaf i: ws[i] and outs[i] hold dims[3i] x
+// dims[3i+1] x dims[3i+2] = (L, K, N) contiguous elements of one dtype
+// (0 = float32, 1 = bfloat16); bits[i]: int32, L of them (bits_strides[i]
+// = 1) or one (0); scales[i]: L x N float32, written.  count <= COL_MAX;
+// split: the cluster's CTAs along K, 1 to MAX_CLUSTER.  Writes
+// outs[i][l, k, n] = qdq(ws[i][l, k, n], bits[i][l], s) with s =
+// scales[i][l, n] = max(max_k |ws[i][l, k, n]|, eps).
+extern "C" int fake_quant_col_launch(const void* const* ws, void* const* outs,
+                                     void* const* scales, const void* const* bits,
+                                     const int64_t* dims, const int* bits_strides, int count,
+                                     float eps, int dtype, int split, void* stream) {
+    ColArgs a = {};
+    const int64_t tiles = col_args(a, ws, outs, nullptr, scales, bits, dims, bits_strides,
+                                   count, eps, dtype, split);
+    if (tiles < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 1) return launch_col<__nv_bfloat16>(a, tiles, 1, st);
+    return launch_col<float>(a, tiles, 1, st);
+}
+
+// Per-column grouped STE backward over the same leaves: grads[i] =
+// gs[i] * (|ws[i]| <= scales[i][l, n]), in the dtype.
+extern "C" int fake_quant_col_bwd_launch(const void* const* ws, const void* const* gs,
+                                         void* const* grads, void* const* scales,
+                                         const int64_t* dims, int count, int dtype, int split,
+                                         void* stream) {
+    ColArgs a = {};
+    const int64_t tiles = col_args(a, ws, grads, gs, scales, nullptr, dims, nullptr, count,
+                                   0.f, dtype, split);
+    if (tiles < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 1) return launch_col<__nv_bfloat16>(a, tiles, 0, st);
+    return launch_col<float>(a, tiles, 0, st);
 }

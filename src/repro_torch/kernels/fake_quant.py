@@ -14,6 +14,13 @@ bodies:
   :func:`fake_quant_group_plan`), and :func:`fake_quant_group_bwd_cuda`,
   the clipped STE of all of them in one more launch.
 
+The LM QAT path's per-column grouped pair takes every stacked ``(L, K,
+N)`` leaf of a forward at the scale ``max(max_k |w[l, :, n]|, eps)`` of
+each column, with per-layer bits: :func:`fake_quant_group_col_cuda` (one
+launch, K split over a thread-block cluster planned by
+:func:`fake_quant_col_plan`) and :func:`fake_quant_group_col_bwd_cuda`
+(its STE, one more launch).
+
 The source note in ``csrc/fake_quant.cu`` says what bounds them and how
 the design answers that.  The wrappers check device, types, shapes and
 contiguity, allocate the outputs and launch on the current stream; they
@@ -217,3 +224,131 @@ def fake_quant_cuda(w: torch.Tensor, bits: torch.Tensor,
         _DTYPES[w.dtype], vectorized, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"fake_quant (shape {tuple(w.shape)}, {w.dtype})")
     return out
+
+
+# csrc/fake_quant.cu's per-column constants (fake_quant_col_limits reports them)
+COL_TX = 8             # threads across a column tile, one 16-byte vector each
+COL_MAX = 56           # leaves per launch: the descriptors fill 4 KB
+COL_ROWS = 1024        # rows of a tile one CTA takes before the plan splits K
+COL_PARAM_BYTES = (16, 72)    # (header, per leaf) of both per-column kernels' parameters
+
+
+class ColPlan(NamedTuple):
+    """How a group of leaves is launched by the per-column pair.
+
+    Leaf i is ``dims[i] = (L, K, N)``; a tile is ``tile_cols`` adjacent
+    columns of one layer (``COL_TX`` 16-byte vectors), ``tiles[i]`` of
+    them; each tile's K range is split over ``split`` CTAs (a cluster in
+    the forward, plain CTAs in the backward).  ``launches`` are the [start,
+    stop) leaf ranges (at most ``COL_MAX`` each), with ``ctas`` and
+    ``param_bytes`` per launch.  The forward reads every element twice
+    (once for the max, once for the QDQ)."""
+    dims: tuple
+    tile_cols: int
+    split: int
+    tiles: tuple
+    launches: tuple
+    ctas: tuple
+    param_bytes: tuple
+
+
+def col_dims(shape) -> tuple:
+    """A leaf's (L, K, N): the leading dims flattened into L; a 2-D leaf is
+    L = 1."""
+    shape = tuple(int(d) for d in shape)
+    if len(shape) < 2:
+        raise ValueError(f"a per-column scale needs a leaf of 2 or more dims, got {shape}")
+    return (math.prod(shape[:-2]), shape[-2], shape[-1])
+
+
+def fake_quant_col_plan(shapes, dtype: torch.dtype) -> ColPlan:
+    """The launch plan of the per-column pair over leaves of ``shapes``,
+    all of ``dtype``.  The split is the smallest of 1, 2, 4 and 8 CTAs that
+    leaves each CTA at most ``COL_ROWS`` rows of the longest K, and 8
+    beyond that (glm4-9b: embed's 151,552 rows, 18,944 a CTA)."""
+    dims = tuple(col_dims(s) for s in shapes)
+    if not dims or min(math.prod(d) for d in dims) <= 0:
+        raise ValueError(f"a group needs one or more non-empty leaves, got {shapes}")
+    tile_cols = COL_TX * _per_vector(dtype)
+    split = next((c for c in (1, 2, 4, 8) if max(d[1] for d in dims) <= c * COL_ROWS),
+                 MAX_CLUSTER)
+    tiles = tuple(L * -(-N // tile_cols) for L, _, N in dims)
+    launches = tuple((s, min(s + COL_MAX, len(dims))) for s in range(0, len(dims), COL_MAX))
+    return ColPlan(dims=dims, tile_cols=tile_cols, split=split, tiles=tiles,
+                   launches=launches,
+                   ctas=tuple(split * sum(tiles[a:b]) for a, b in launches),
+                   param_bytes=tuple(COL_PARAM_BYTES[0] + COL_PARAM_BYTES[1] * (b - a)
+                                     for a, b in launches))
+
+
+def _col_bits(bits, dims, dev):
+    """Each leaf's bits as int32 on ``dev`` -> (the tensors, their strides):
+    L values (stride 1) or one (stride 0)."""
+    out, strides = [], []
+    for b, (L, _, _) in zip(bits, dims):
+        if not isinstance(b, torch.Tensor) or b.device != dev or b.dtype != torch.int32:
+            raise ValueError(f"per-column bits must be int32 tensors on {dev}")
+        if b.numel() not in (1, L):
+            raise ValueError(f"a leaf of {L} layers takes 1 or {L} bits, got {b.numel()}")
+        out.append(b.contiguous())
+        strides.append(1 if b.numel() == L and L > 1 else 0)
+    return out, strides
+
+
+def _dims(dims):
+    return (ctypes.c_int64 * (3 * len(dims)))(*(x for d in dims for x in d))
+
+
+def fake_quant_group_col_cuda(ws, bits):
+    """``ws``: contiguous leaves of one dtype (f32 or bf16) on one card, of
+    2 or more dims; ``bits``: per leaf an int32 tensor on that card, one
+    value per layer of the leading dims or one for the leaf -> (the QDQ of
+    each leaf at its per-column scales, the f32 scales of each leaf as
+    ``(..., 1, N)``, launches made)."""
+    dtype = _check("fake_quant_group_col_cuda", ws)
+    dev = ws[0].device
+    if len(bits) != len(ws):
+        raise ValueError(f"{len(ws)} leaves and {len(bits)} bits tensors")
+    build.require_sm90(dev)
+    plan = fake_quant_col_plan([w.shape for w in ws], dtype)
+    bits, strides = _col_bits(bits, plan.dims, dev)
+    outs = [torch.empty_like(w) for w in ws]
+    scales = [torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32, device=dev)
+              for w in ws]
+    lib = build.library("fake_quant")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in plan.launches:
+        err = lib.fake_quant_col_launch(
+            _pointers(ws[a:b]), _pointers(outs[a:b]), _pointers(scales[a:b]),
+            _pointers(bits[a:b]), _dims(plan.dims[a:b]),
+            (ctypes.c_int * (b - a))(*strides[a:b]), b - a, _eps(dtype), _DTYPES[dtype],
+            plan.split, stream)
+        build.check(err, f"fake_quant_col ({b - a} leaves, {dtype}, split {plan.split})")
+    return outs, scales, len(plan.launches)
+
+
+def fake_quant_group_col_bwd_cuda(ws, gs, scales):
+    """The per-column STE of a group: ``gs[i] * (|ws[i]| <= scales[i])`` as
+    an f32 product rounded to the dtype, for the forward's leaves, their
+    gradients (same shapes, dtype and card) and its scales -> (grads,
+    launches made)."""
+    dtype = _check("fake_quant_group_col_bwd_cuda", [*ws, *gs])
+    dev = ws[0].device
+    if len(gs) != len(ws) or any(g.shape != w.shape for g, w in zip(gs, ws)):
+        raise ValueError("fake_quant_group_col_bwd_cuda needs one gradient of each leaf's shape")
+    if len(scales) != len(ws) or any(
+            s.device != dev or s.dtype != torch.float32 or not s.is_contiguous()
+            or s.shape != (*w.shape[:-2], 1, w.shape[-1]) for s, w in zip(scales, ws)):
+        raise ValueError("scales must be the forward's contiguous f32 (..., 1, N) tensors")
+    build.require_sm90(dev)
+    plan = fake_quant_col_plan([w.shape for w in ws], dtype)
+    grads = [torch.empty_like(g) for g in gs]
+    lib = build.library("fake_quant")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in plan.launches:
+        err = lib.fake_quant_col_bwd_launch(
+            _pointers(ws[a:b]), _pointers(gs[a:b]), _pointers(grads[a:b]),
+            _pointers(scales[a:b]), _dims(plan.dims[a:b]), b - a, _DTYPES[dtype], plan.split,
+            stream)
+        build.check(err, f"fake_quant_col_bwd ({b - a} leaves, {dtype})")
+    return grads, len(plan.launches)

@@ -21,8 +21,11 @@ kernels, so nothing is padded here.
 
 ``fake_quant_group`` is the QAT quantizer's forward and
 ``fake_quant_group_bwd`` its STE (``quant.wrpn.fake_quant_ste_group``):
-one launch each per QAT forward and backward.  ``fake_quant`` is the flat
-kernel, for a scale the caller gives.
+one launch each per QAT forward and backward.  ``fake_quant_group_col``
+and ``fake_quant_group_col_bwd`` are the same pair at per-column scales
+over stacked ``(L, K, N)`` leaves with per-layer bits: the LM QAT path's
+(``quant.qat.quantize_params``).  ``fake_quant`` is the flat kernel, for a
+scale the caller gives.
 
 Quantized KV: ``paged_attention`` takes the quantized-block kernel when
 scales are passed, and ``fused_qkv_paged_decode`` runs the fused QKV +
@@ -41,7 +44,8 @@ from repro_torch.kernels import ref as kref
 
 counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
           "paged_attention_quant": 0, "fused_qkv_paged_decode": 0, "fake_quant": 0,
-          "fake_quant_group": 0, "fake_quant_group_bwd": 0, "plain": 0}
+          "fake_quant_group": 0, "fake_quant_group_bwd": 0, "fake_quant_group_col": 0,
+          "fake_quant_group_col_bwd": 0, "plain": 0}
 
 
 def reset_counts() -> None:
@@ -116,6 +120,37 @@ def fake_quant_group_bwd(ws, gs, scales: torch.Tensor) -> list:
         return grads
     counts["plain"] += 1
     return kref.fake_quant_group_bwd_ref(ws, gs, scales)
+
+
+def fake_quant_group_col(ws, bits):
+    """WRPN QDQ of every leaf of ``ws`` at its per-column scales
+    ``max(max_k |w[..., k, n]|, eps)``, leaf i at ``bits[i]`` (an int32
+    tensor on the leaves' device: one value per layer of the leading dims,
+    or one).  Returns (the QDQ leaves, the f32 scales as ``(..., 1, N)``).
+    On CUDA: one grouped launch (more only past ``COL_MAX`` leaves),
+    counted per launch."""
+    if _on_cuda(ws[0]):
+        from repro_torch.kernels.fake_quant import fake_quant_group_col_cuda
+
+        outs, scales, launches = fake_quant_group_col_cuda([w.contiguous() for w in ws], bits)
+        counts["fake_quant_group_col"] += launches
+        return outs, scales
+    counts["plain"] += 1
+    return kref.fake_quant_group_col_ref(ws, bits)
+
+
+def fake_quant_group_col_bwd(ws, gs, scales) -> list:
+    """The per-column clipped STE of a group: ``gs[i] * (|ws[i]| <=
+    scales[i])`` in each gradient's dtype.  On CUDA: one launch."""
+    if _on_cuda(gs[0]):
+        from repro_torch.kernels.fake_quant import fake_quant_group_col_bwd_cuda
+
+        grads, launches = fake_quant_group_col_bwd_cuda(
+            [w.contiguous() for w in ws], [g.contiguous() for g in gs], scales)
+        counts["fake_quant_group_col_bwd"] += launches
+        return grads
+    counts["plain"] += 1
+    return kref.fake_quant_group_col_bwd_ref(ws, gs, scales)
 
 
 def qmm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,

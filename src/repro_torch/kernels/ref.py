@@ -38,6 +38,26 @@ def fake_quant_group_bwd_ref(ws, gs, scales: torch.Tensor) -> list:
             for i, (w, g) in enumerate(zip(ws, gs))]
 
 
+def fake_quant_group_col_ref(ws, bits):
+    """Each leaf's per-column scale (``tensor_scale`` over dim ``ndim - 2``,
+    kept as ``(..., 1, N)``) and its QDQ at its bits (one per layer of the
+    leading dims, or one), leaf by leaf: ``repro.quant.qat._qdq``'s
+    forward -> (the QDQ leaves, the f32 scales)."""
+    outs, scales = [], []
+    for w, b in zip(ws, bits):
+        s = tensor_scale(w, axis=w.ndim - 2)
+        b = torch.as_tensor(b, dtype=torch.int32, device=w.device)
+        b = b.reshape(w.shape[:-2] + (1, 1)) if b.numel() > 1 else b.reshape(())
+        outs.append(_fake_quant(w, b, scale=s))
+        scales.append(s)
+    return outs, scales
+
+
+def fake_quant_group_col_bwd_ref(ws, gs, scales) -> list:
+    """The per-column clipped STE, leaf by leaf: ``g * (f32(|w|) <= s)``."""
+    return [g * (w.abs().float() <= s).to(g.dtype) for w, g, s in zip(ws, gs, scales)]
+
+
 def dequant_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     """Packed bitplanes (bits, K//8, N) + scale (1, N) -> float32 (K, N)."""
     n = float(2 ** (bits - 1) - 1) if bits > 1 else 1.0

@@ -1,0 +1,95 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``;
+the torch twin of ``repro.launch.train``.
+
+Runs the fault-tolerant QAT training loop (``train/trainer.py``) on one
+card: every step QDQs every quantizable weight group at its policy bits
+(one grouped per-column fake-quant launch forward, one backward), then
+forward + backward + AdamW.  ``--smoke`` (the default) drives the reduced
+config; ``--no-smoke`` the published widths.  Runs on ``--device cuda``
+(default) and fails without a card; ``--device cpu`` takes the kernels'
+plain versions.  ``--mesh`` (sharded training, elastic restore) is not
+ported (ROADMAP.md queue 1, item 11).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch import not_ported, resolve_device
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticLMData
+from repro_torch.models import build_model
+from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.quant.policy import QuantPolicy
+from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.train.trainer import Trainer
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--no-smoke", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--bits", type=int, default=8, help="uniform QAT bits")
+    ap.add_argument("--policy-json", default=None,
+                    help="QuantPolicy JSON from a ReLeQ search")
+    ap.add_argument("--opt8", action="store_true", help="8-bit Adam moments")
+    ap.add_argument("--remat", default="full", choices=["none", "dots", "full"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="not ported (ROADMAP.md queue 1, item 11)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise not_ported("--mesh (sharded training, elastic restore)", "slice D, item 11")
+    return args
+
+
+def setup(args: argparse.Namespace, cfg=None) -> dict:
+    """The run's parts: config (``cfg``, else ``--arch``/``--smoke``),
+    model, optimizer, policy and its bits map on the device, data, state,
+    step function and trainer."""
+    device = resolve_device(args.device)
+    cfg = cfg or get_config(args.arch, smoke=args.smoke)
+    model = build_model(cfg)
+    opt = AdamW(lr=cosine_schedule(args.lr, warmup=20, total=args.steps),
+                weight_decay=0.1, moments="int8" if args.opt8 else "fp32")
+    groups = model.quant_groups(seq_len=args.seq_len)
+    if args.policy_json:
+        policy = QuantPolicy.from_file(args.policy_json)
+    else:
+        policy = policy_for(model, default_bits=args.bits)
+    bits_map = bits_to_device(bits_assignment(groups, policy), device)
+    data = SyntheticLMData(seed=args.seed, global_batch=args.global_batch,
+                           seq_len=args.seq_len, vocab=cfg.vocab_size)
+    state = init_state(model, opt, seed=args.seed, device=device)
+    step_fn = make_train_step(model, opt, remat=args.remat)
+    trainer = Trainer(model=model, optimizer=opt, data=data, step_fn=step_fn,
+                      bits_map=bits_map, ckpt_dir=args.ckpt_dir)
+    return {"cfg": cfg, "model": model, "opt": opt, "policy": policy, "data": data,
+            "state": state, "step_fn": step_fn, "trainer": trainer}
+
+
+def main(argv=None) -> dict:
+    """Train and print the log; returns the run's parts (``setup``) with
+    the final state and the trainer's history."""
+    args = parse_args(argv)
+    run = setup(args)
+    n = sum(x.numel() for x in tree_leaves(run["state"]["params"]))
+    print(f"training {args.arch} ({n/1e6:.1f}M params, QAT "
+          f"avg {run['policy'].average_bits():.1f} bits) for {args.steps} steps")
+    run["state"] = run["trainer"].run(run["state"], args.steps)
+    run["history"] = run["trainer"].history
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,9 @@
 """TransformerLM, dense family (torch port of ``repro.models.transformer``).
 
-Ported: ``init`` (stacked training layout), the paged serving path —
+Ported: ``init`` (stacked training layout), the teacher-forced training
+``forward`` and ``loss`` (blocked flash attention with its manual
+backward, sequence-chunked cross-entropy, ``remat`` none / full / dots
+through ``torch.utils.checkpoint``), the paged serving path —
 fixed-shape chunked prefill (``prefill_chunk`` over ``_chunk_body``),
 the speculative verifier (``verify_chunk``, the same body over every pool
 row) and the one-token ``decode_step`` over a ``PagedCachePool`` with fp
@@ -20,15 +23,18 @@ matrices and a ``QDQ`` embedding.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): MoE, hybrid and other families, M-RoPE and absolute-sinusoid
-positions, sliding-window (ring) caches, and the full-sequence
-``forward`` / ``prefill``.
+positions, sliding-window (ring) caches, and the full-prompt
+``prefill``.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -37,7 +43,9 @@ from repro_torch.kernels.ref import gather_dequant
 from repro_torch.models.common import (
     apply_linear,
     apply_rope,
+    blocked_attention,
     chunk_attention,
+    chunked_ce,
     dense_init,
     embed_init,
     rms_norm,
@@ -53,6 +61,24 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, L: int) -> list:
+    """A stacked params subtree -> L per-layer subtrees, each leaf unbound
+    once (its backward stacks the layers' gradients in one copy)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, L) for k, v in tree.items()}
+        return [{k: parts[k][l] for k in tree} for l in range(L)]
+    return list(torch.unbind(tree, 0))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the outputs of the weight matmuls (the 2-D
+    ``mm`` products, as ``dots_with_no_batch_dims_saveable`` saves dots
+    without batch dims) and recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class TransformerLM:
@@ -144,13 +170,24 @@ class TransformerLM:
         return phys, slot % bs
 
     def _attn(self, x, p, positions, cache, layer):
-        """Residual attention sublayer, one-token decode over the paged
-        pool: write the new K/V into its owning block, then attend by block
-        table (``kernels.ops.paged_attention``).  A quantized pool with
-        packed q/k/v takes the fused op instead."""
+        """Residual attention sublayer.  ``cache=None``: the full sequence
+        through :func:`blocked_attention` (training).  Else one-token
+        decode over the paged pool: write the new K/V into its owning
+        block, then attend by block table (``kernels.ops.paged_attention``).
+        A quantized pool with packed q/k/v takes the fused op instead."""
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        if cache is None:           # the training forward: the full sequence
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            q = apply_rope(apply_linear(h, p["attn"]["wq"]).reshape(B, S, H, hd),
+                           positions, cfg.rope_theta)
+            k = apply_rope(apply_linear(h, p["attn"]["wk"]).reshape(B, S, KV, hd),
+                           positions, cfg.rope_theta)
+            v = apply_linear(h, p["attn"]["wv"]).reshape(B, S, KV, hd)
+            out = blocked_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+            return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         if "block_tables" not in cache:
             raise not_ported("slot-pool decode", "slice A, item 3 (rest)")
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -225,9 +262,60 @@ class TransformerLM:
             w = (emb.value if isinstance(emb, QDQ) else emb).T
         return apply_linear(h, w).float()
 
+    # ------------------------------------------------------------- forwards
+    def _sub_forward(self, h, p, positions):
+        """One attention + FFN residual block -> (h, aux); aux is 0 for the
+        dense family."""
+        h = self._attn(h, p, positions, None, None)
+        return self._ffn(h, p), torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def forward(self, params, tokens=None, embeds=None, positions=None,
+                remat: str = "none", return_hidden: bool = False):
+        """Teacher-forced forward -> (logits f32 | final hidden, aux loss).
+
+        The stacked layers run in order, each leaf unbound once.
+        ``remat``: ``"none"`` keeps every activation for autograd,
+        ``"full"`` recomputes each layer in the backward
+        (``torch.utils.checkpoint``), ``"dots"`` recomputes all but the
+        weight matmuls' outputs."""
+        cfg = self.cfg
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+        if embeds is not None:
+            h = embeds.to(self.dtype)
+        else:
+            h = self._embed_in(params, tokens)
+        B, S, _ = h.shape
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :].expand(B, S)
+        kwargs = {}
+        if remat == "dots":
+            kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for p in _unstack(params["blocks"][0], cfg.num_layers):
+            if remat == "none":
+                h, a = self._sub_forward(h, p, positions)
+            else:
+                h, a = checkpoint(self._sub_forward, h, p, positions, use_reentrant=False,
+                                  **kwargs)
+            aux = aux + a
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if return_hidden:
+            return h, aux
+        return self._readout(params, h), aux
+
+    def loss(self, params, batch, remat: str = "none"):
+        """Mean next-token CE (+ 1e-4 * mean logz² + 1e-2 * aux), the
+        readout in rematerialized sequence chunks (:func:`chunked_ce`), so
+        the (tokens x vocab) f32 logits never materialize whole.  Returns
+        (loss, {"nll", "aux"}), all 0-d f32 tensors on the device."""
+        h, aux = self.forward(params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                              positions=batch.get("positions"), remat=remat,
+                              return_hidden=True)
+        nll, z2 = chunked_ce(lambda hc: self._readout(params, hc), h, batch["labels"])
+        return nll + 1e-4 * z2 + 1e-2 * aux, {"nll": nll, "aux": aux}
+
     # --------------------------------------------------------------- decode
-    def forward(self, *args, **kwargs):
-        raise not_ported("the full-sequence training forward", "slice B, item 8")
 
     def prefill(self, *args, **kwargs):
         raise not_ported("full-prompt prefill (slot pool)", "slice A, item 3 (rest)")

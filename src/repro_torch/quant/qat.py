@@ -1,10 +1,22 @@
-"""Parameter-path helpers and the default serving policy, torch port of
-the host-side part of ``repro.quant.qat``.  The STE parameter transform
-(``quantize_params``, ``bits_assignment``) belongs to the QAT loop and
-waits for ROADMAP slice B."""
+"""QAT parameter transform, torch port of ``repro.quant.qat``: the WRPN
+STE fake-quant of every quantizable group at its policy bitwidth, with the
+bitwidths as DATA (int32 tensors on the card), so a policy candidate
+changes no code path and no value leaves the device.
+
+Paths are string keys ``"blocks/0/attn/wq"``; leaves with a stacked layer
+axis get a per-layer bits vector.  :func:`quantize_params` quantizes every
+leaf of the bits map at its per-output-column scale in ONE grouped launch
+(``quant.wrpn.fake_quant_ste_group_col``), and its backward is one more.
+The reference's mesh branch (sharding annotations) has no counterpart on
+one card (ROADMAP queue 1, item 11).
+"""
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.quant.policy import QuantPolicy
+from repro_torch.quant.wrpn import FP_BITS, fake_quant_ste_group_col
 
 
 def path_key(path: tuple) -> str:
@@ -25,6 +37,60 @@ def set_by_path(tree, path: tuple, value):
     head, rest = path[0], path[1:]
     new = list(tree) if isinstance(tree, list) else dict(tree)
     new[head] = set_by_path(tree[head], rest, value)
+    return new
+
+
+def bits_assignment(groups, policy: QuantPolicy) -> dict[str, np.ndarray]:
+    """QuantPolicy -> {path_key: int32 () or (L_stack,) array} (host numpy,
+    as the reference returns it; :func:`bits_to_device` moves it)."""
+    per_path: dict[tuple, dict | int] = {}
+    for g in groups:
+        b = policy.get(g.name)
+        if g.layer is None:
+            per_path[g.path] = b
+        else:
+            per_path.setdefault(g.path, {})[g.layer] = b
+    out = {}
+    for path, v in per_path.items():
+        if isinstance(v, dict):
+            L = max(v) + 1
+            arr = np.full((L,), FP_BITS, np.int32)
+            for i, b in v.items():
+                arr[i] = b
+            out[path_key(path)] = arr
+        else:
+            out[path_key(path)] = np.int32(v)
+    return out
+
+
+def bits_to_device(bits_map: dict, device) -> dict[str, torch.Tensor]:
+    """A bits map as int32 tensors on ``device`` (one copy per leaf, made
+    once per policy)."""
+    return {k: torch.as_tensor(np.asarray(v, np.int32), device=device)
+            for k, v in bits_map.items()}
+
+
+def _paths_index(groups):
+    """path_key -> path tuple (stable order)."""
+    return {path_key(g.path): g.path for g in groups}
+
+
+def quantize_params(params, bits_map: dict, groups):
+    """Return params with every group's leaf QDQ'd at its bitwidth and
+    per-output-column scale (max|w| over dim ``ndim - 2``, the matrix
+    contraction dim, under any stacking of layer axes: the codes the
+    bitplane serving path packs), all the leaves of ``bits_map`` in one
+    grouped forward launch.  ``bits_map`` values: int32 tensors on the
+    params' device (:func:`bits_to_device`), or host ints/arrays."""
+    idx = _paths_index(groups)
+    keys = list(bits_map)
+    leaves = [get_by_path(params, idx[k]) for k in keys]
+    if not leaves:
+        return params
+    qdq = fake_quant_ste_group_col(leaves, [bits_map[k] for k in keys])
+    new = params
+    for k, q in zip(keys, qdq):
+        new = set_by_path(new, idx[k], q)
     return new
 
 

@@ -18,7 +18,11 @@ per-tensor max|w| scale, through the grouped fake-quant kernel on CUDA
 tensors (``kernels.ops.fake_quant_group``: one launch that takes the
 scales too), and its backward, the clipped straight-through estimator,
 is one more launch (``kernels.ops.fake_quant_group_bwd``).
-:func:`fake_quant_ste` is a group of one.
+:func:`fake_quant_ste_group_col` is the LM QAT quantizer: every stacked
+``(L, K, N)`` leaf at its per-column scales (max|w| over dim ``ndim - 2``)
+and per-layer bits, forward and STE each one launch
+(``kernels.ops.fake_quant_group_col`` and ``..._bwd``).
+:func:`fake_quant_ste` is a group of one of either.
 """
 from __future__ import annotations
 
@@ -104,18 +108,60 @@ def fake_quant_ste_group(ws, bits) -> list:
     return list(_FakeQuantSTEGroup.apply(bits, *ws))
 
 
-def fake_quant_ste(w: torch.Tensor, bits, axis=None) -> torch.Tensor:
-    """fake_quant with a straight-through estimator, at the per-tensor
-    max|w| scale (the paper's choice, ``axis=None``): a group of one.
-    ``bits``: an int or an int32 tensor on ``w``'s device.  The
-    per-column scale (``axis=0``) belongs to the LM QAT path, which is not
-    ported."""
-    if axis is not None:
-        from repro_torch import not_ported
+class _FakeQuantSTEColGroup(torch.autograd.Function):
+    """Forward: every leaf's per-column scales and QDQ in one grouped
+    launch (plain versions on CPU tensors).  Backward: the clipped STE of
+    every leaf in one launch, at the forward's f32 scales held constant
+    (``repro.quant.wrpn._fq_bwd`` under ``repro.quant.qat._qdq``'s
+    stop_gradient)."""
 
-        raise not_ported("fake_quant_ste with a per-column scale (the LM QAT path)",
-                         "slice B, item 8")
-    return fake_quant_ste_group([w], bits)[0]
+    @staticmethod
+    def forward(ctx, n, *args):
+        from repro_torch.kernels import ops
+
+        bits, ws = args[:n], args[n:]
+        outs, scales = ops.fake_quant_group_col(ws, bits)
+        ctx.n = n
+        ctx.save_for_backward(*scales, *ws)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.kernels import ops
+
+        n = ctx.n
+        saved = ctx.saved_tensors
+        scales, ws = saved[:n], saved[n:]
+        return (None, *([None] * n), *ops.fake_quant_group_col_bwd(ws, gs, scales))
+
+
+def fake_quant_ste_group_col(ws, bits) -> list:
+    """fake_quant with a straight-through estimator for every leaf of
+    ``ws`` (2 or more dims) at its per-column max|w| scales (reduced over
+    dim ``ndim - 2``), leaf i at ``bits[i]``: an int or an int32 tensor on
+    the leaves' device, one value per layer of the leading dims or one.
+    Returns the QDQ leaves."""
+    if not ws:
+        raise ValueError("fake_quant_ste_group_col needs one or more leaves")
+    if len(bits) != len(ws):
+        raise ValueError(f"{len(ws)} leaves and {len(bits)} bits")
+    bits = [torch.as_tensor(b, dtype=torch.int32, device=w.device).reshape(-1)
+            for w, b in zip(ws, bits)]
+    return list(_FakeQuantSTEColGroup.apply(len(ws), *bits, *ws))
+
+
+def fake_quant_ste(w: torch.Tensor, bits, axis=None) -> torch.Tensor:
+    """fake_quant with a straight-through estimator: at the per-tensor
+    max|w| scale (the paper's choice, ``axis=None``), or per output column
+    (``axis`` the contraction dim ``ndim - 2``: ``axis=0`` of a matrix, the
+    LM path's scale).  A group of one.  ``bits``: an int or an int32
+    tensor on ``w``'s device."""
+    if axis is None:
+        return fake_quant_ste_group([w], bits)[0]
+    if w.ndim < 2 or axis % w.ndim != w.ndim - 2:
+        raise ValueError(f"the per-column STE reduces dim ndim - 2 = {w.ndim - 2} of a "
+                         f"{w.ndim}-d weight, not axis {axis}")
+    return fake_quant_ste_group_col([w], [bits])[0]
 
 
 def quantize_to_int(w: torch.Tensor, bits: int,

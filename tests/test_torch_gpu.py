@@ -94,7 +94,8 @@ def test_ops_counts_kernel_launches_on_the_card(sm90):
     assert ops.counts == {"qmm_bitserial": 1, "qmm_dequant": 1,
                           "paged_attention": 0, "paged_attention_quant": 0,
                           "fused_qkv_paged_decode": 0, "fake_quant": 0,
-                          "fake_quant_group": 0, "fake_quant_group_bwd": 0, "plain": 0}
+                          "fake_quant_group": 0, "fake_quant_group_bwd": 0,
+                          "fake_quant_group_col": 0, "fake_quant_group_col_bwd": 0, "plain": 0}
 
 
 def _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev):
@@ -403,6 +404,142 @@ def test_qat_step_launches_one_group_per_forward_and_backward(sm90, net):
     torch.cuda.synchronize()
     assert ops.counts["fake_quant_group"] == 4 and ops.counts["fake_quant_group_bwd"] == 2
     assert ops.counts["fake_quant"] == 0 and ops.counts["plain"] == 0
+
+
+# ---- the per-column grouped fake-quant of the LM QAT path
+def _col_leaves(dtype, dev, seed=0, extra=()):
+    """Stacked and 2-D leaves (ragged N, K past one CTA's rows), a leaf with
+    an all-zero column, one with a NaN, one near the eps floor, and a
+    -0.0 and a 0.0 in each."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(4, 300, 256), (3, 7, 300), (2000, 72), (2, 33, 9), *extra]
+    ws = []
+    for shape in shapes:
+        w = torch.randn(shape, generator=gen, device=dev)
+        w.view(-1)[:2] = torch.tensor([-0.0, 0.0], device=dev)
+        ws.append(w.to(dtype))
+    zero_col = torch.randn((2, 40, 24), generator=gen, device=dev)
+    zero_col[1, :, 5] = 0.0
+    nan = torch.randn((3, 17, 40), generator=gen, device=dev)
+    nan[2, 3, 11] = float("nan")
+    near = 1.0005e-8 if dtype == torch.float32 else 9.95e-9
+    tiny = torch.linspace(-1, 1, 2 * 31 * 16, device=dev).reshape(2, 31, 16) * near
+    return ws + [t.to(dtype) for t in (zero_col, nan, tiny)]
+
+
+def _col_bits(ws, dev, seed):
+    out = []
+    for i, w in enumerate(ws):
+        L = w.shape[0] if w.ndim == 3 else 1
+        vals = [FQ_GROUP_BITS[(i + l + seed) % len(FQ_GROUP_BITS)] for l in range(L)]
+        out.append(torch.tensor(vals if w.ndim == 3 else vals[0], dtype=torch.int32,
+                                device=dev))
+    return out
+
+
+def _col_check(ws, dev, seed=0):
+    """The per-column forward and backward against their plain versions,
+    bit for bit; returns the launches counted."""
+    bits = _col_bits(ws, dev, seed)
+    ops.reset_counts()
+    outs, scales = ops.fake_quant_group_col(ws, bits)
+    torch.cuda.synchronize()
+    want, want_s = tref.fake_quant_group_col_ref(ws, bits)
+    for i, (o, p, s, q) in enumerate(zip(outs, want, scales, want_s)):
+        assert _same_bits(s, q), (i, tuple(ws[i].shape))
+        assert _same_bits(o, p), (i, tuple(ws[i].shape), bits[i].tolist())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gs = []
+    for w in ws:
+        g = torch.randn(w.shape, generator=gen, device=dev)
+        g.view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -3.0, float("-inf")],
+                                      device=dev)
+        gs.append(g.to(w.dtype))
+    grads = ops.fake_quant_group_col_bwd(ws, gs, scales)
+    torch.cuda.synchronize()
+    for i, (g, p) in enumerate(zip(grads, tref.fake_quant_group_col_bwd_ref(ws, gs, want_s))):
+        assert _same_bits(g, p), (i, tuple(ws[i].shape))
+    assert ops.counts["plain"] == 0
+    return ops.counts["fake_quant_group_col"], ops.counts["fake_quant_group_col_bwd"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_col_matches_plain_bitwise(sm90, dtype):
+    for seed in range(3):         # each layer meets several bits entries
+        assert _col_check(_col_leaves(dtype, sm90, seed), sm90, seed) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_col_split_over_a_cluster(sm90, dtype):
+    """K past 4 CTAs' rows: the plan splits every tile over 8 CTAs, whose
+    maxima combine through the cluster's shared memory."""
+    from repro_torch.kernels.fake_quant import fake_quant_col_plan
+
+    ws = _col_leaves(dtype, sm90, 5, extra=[(2, 9000, 136)])
+    assert fake_quant_col_plan([w.shape for w in ws], dtype).split == 8
+    assert _col_check(ws, sm90, 5) == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_col_unaligned_views_and_many_launches(sm90, dtype):
+    """A view 1 element past an aligned base takes the scalar loads; 70
+    leaves take two launches of at most COL_MAX."""
+    from repro_torch.kernels.fake_quant import COL_MAX
+
+    gen = torch.Generator(device=sm90).manual_seed(11)
+    base = torch.randn(40_000, generator=gen, device=sm90).to(dtype)
+    ws = [base[1:1 + 37 * 64].view(37, 64), base[1:1 + 3 * 19 * 8].view(3, 19, 8)]
+    ws += [torch.randn((i % 3 + 1, i % 13 + 1, 17), generator=gen, device=sm90).to(dtype)
+           for i in range(68)]
+    assert len(ws) > COL_MAX
+    assert _col_check(ws, sm90, seed=3) == (2, 2)
+
+
+@pytest.mark.gpu
+def test_fake_quant_col_constants_match_the_library(sm90):
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fake_quant as fq
+
+    out = (ctypes.c_int * 5)()
+    build.library("fake_quant").fake_quant_col_limits(out)
+    assert list(out) == [fq.THREADS, fq.COL_TX, fq.COL_MAX, fq.MAX_CLUSTER,
+                         fq.COL_PARAM_BYTES[0] + fq.COL_PARAM_BYTES[1] * fq.COL_MAX]
+
+
+@pytest.mark.gpu
+def test_lm_qat_step_launches_one_col_group_per_forward_and_backward(sm90):
+    """A glm4 smoke QAT train step at a mixed policy on the card: one
+    per-column forward launch, one backward, no plain call; an eval step
+    one forward launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.quant.qat import bits_assignment, bits_to_device
+    from repro_torch.train.train_step import init_state, make_eval_step, make_train_step
+
+    model = build_model(get_config("glm4-9b", smoke=True))
+    groups = model.quant_groups()
+    pol = QuantPolicy.from_array(tuple(g.name for g in groups),
+                                 [(2, 3, 4, 8, 32)[i % 5] for i in range(len(groups))])
+    bm = bits_to_device(bits_assignment(groups, pol), sm90)
+    opt = AdamW(lr=1e-3)
+    state = init_state(model, opt, seed=0, device=sm90)
+    data = SyntheticLMData(seed=0, global_batch=2, seq_len=32, vocab=model.cfg.vocab_size)
+    ops.reset_counts()
+    state, m = make_train_step(model, opt, remat="full")(state, data.next(), bm)
+    torch.cuda.synchronize()
+    assert ops.counts["fake_quant_group_col"] == 1 and ops.counts["fake_quant_group_col_bwd"] == 1
+    make_eval_step(model)(state["params"], data.eval_batch(2), bm)
+    torch.cuda.synchronize()
+    assert ops.counts["fake_quant_group_col"] == 2 and ops.counts["plain"] == 0
+    assert np.isfinite(float(m["loss"]))
 
 
 # ---- the bit-serial body: tensor cores (bf16 x), split-K with an in-launch

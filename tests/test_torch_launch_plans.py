@@ -434,3 +434,55 @@ def test_fused_decode_model_matches_pallas(kv_bits, lengths, nb):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     out, ro = got[0].numpy(), np.asarray(ref[0])
     np.testing.assert_allclose(out, ro, rtol=0, atol=1e-5 * np.abs(ro).max())
+
+
+# ---- the per-column grouped fake-quant of the LM QAT path (csrc/fake_quant.cu)
+GLM4_4L = [(151552, 4096), (4, 4096, 4096), (4, 4096, 256), (4, 4096, 256),
+           (4, 4096, 4096), (4, 4096, 13696), (4, 4096, 13696), (4, 13696, 4096),
+           (4096, 151552)]   # embed, wq, wk, wv, wo, wg, wu, wd, lm_head at 4 layers
+
+
+@pytest.mark.parametrize("dtype,cols", [(torch.bfloat16, 64), (torch.float32, 32)],
+                         ids=["bf16", "f32"])
+def test_col_plan_at_the_glm4_cell(dtype, cols):
+    """One launch for the nine leaves of the 4-layer glm4-9b cell: every
+    tile 8 16-byte vectors wide, embed's 151,552 rows split over 8 CTAs,
+    the descriptors inside 4 KB of kernel parameters."""
+    from repro_torch.kernels import fake_quant as fq
+
+    plan = fq.fake_quant_col_plan(GLM4_4L, dtype)
+    assert plan.tile_cols == cols == fq.COL_TX * 16 // torch.empty((), dtype=dtype).element_size()
+    assert plan.split == 8 and plan.launches == ((0, 9),)
+    assert plan.dims[0] == (1, 151552, 4096) and plan.dims[1] == (4, 4096, 4096)
+    assert plan.tiles == tuple(L * -(-N // cols) for L, _, N in plan.dims)
+    assert plan.ctas == (8 * sum(plan.tiles),)
+    assert plan.param_bytes == (fq.COL_PARAM_BYTES[0] + 9 * fq.COL_PARAM_BYTES[1],)
+    assert fq.COL_PARAM_BYTES[0] + fq.COL_MAX * fq.COL_PARAM_BYTES[1] <= 4096
+
+
+@pytest.mark.parametrize("K,split", [(7, 1), (1024, 1), (1025, 2), (4096, 4), (8192, 8),
+                                     (151552, 8)])
+def test_col_plan_split_follows_the_longest_k(K, split):
+    from repro_torch.kernels import fake_quant as fq
+
+    plan = fq.fake_quant_col_plan([(3, 7, 300), (K, 16)], torch.float32)
+    assert plan.split == split
+    assert -(-K // plan.split) <= fq.COL_ROWS or split == fq.MAX_CLUSTER
+
+
+def test_col_plan_splits_at_the_parameter_cap_and_refuses_bad_leaves():
+    from repro_torch.kernels import fake_quant as fq
+
+    plan = fq.fake_quant_col_plan([(2, 5, 9)] * 120, torch.float32)
+    assert plan.launches == ((0, 56), (56, 112), (112, 120))
+    assert plan.ctas == (56 * 2, 56 * 2, 8 * 2)
+    for bad in ([], [(4,)], [(0, 4)]):
+        with pytest.raises(ValueError):
+            fq.fake_quant_col_plan(bad, torch.float32)
+    with pytest.raises(TypeError):
+        fq.fake_quant_col_plan([(4, 4)], torch.float16)
+    w = torch.ones(2, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fq.fake_quant_group_col_cuda([w], [torch.tensor([4, 4], dtype=torch.int32)])
+    with pytest.raises(ValueError, match="CUDA"):
+        fq.fake_quant_group_col_bwd_cuda([w], [w], [torch.ones(2, 1, 4)])

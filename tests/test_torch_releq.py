@@ -48,7 +48,7 @@ from repro_torch.core import costmodel as tcm
 from repro_torch.core import env as tenv
 from repro_torch.core import ppo as tppo
 from repro_torch.core import reward as treward
-from repro_torch.core.search import ReLeQSearch, make_lm_env_factory
+from repro_torch.core.search import ReLeQSearch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.optim import AdamW
@@ -148,12 +148,17 @@ def test_fake_quant_ste_values_and_grads_bitwise(bits, dtype):
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="slice B, item 8"):
-        twrpn.fake_quant_ste(torch.ones(4, 4), 4, axis=0)
-    with pytest.raises(NotImplementedError, match="slice B, item 8"):
-        AdamW(moments="int8")
-    with pytest.raises(NotImplementedError, match="slice B, item 8"):
-        make_lm_env_factory(None, None, None)
+    from repro_torch.launch import lm_search
+    from repro_torch.train.train_step import make_dp_train_step
+    from repro_torch.train.trainer import Trainer
+
+    with pytest.raises(NotImplementedError, match="slice D, item 11"):
+        make_dp_train_step(None, None, None)
+    with pytest.raises(NotImplementedError, match="slice D, item 11"):
+        Trainer(model=None, optimizer=None, data=None, step_fn=None, bits_map={},
+                mesh=object())
+    with pytest.raises(NotImplementedError, match="slice D, item 10"):
+        lm_search.parse_args(["--device", "cpu"])          # the async search
 
 
 @pytest.mark.parametrize("name", sorted(jdata._SPECS))
