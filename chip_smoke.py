@@ -33,7 +33,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain twin between them, give the whole op's outputs, codes and scales
    bitwise; two calls give bitwise-equal outputs, codes and scales, and its
    attention launch runs more than B * KV CTAs.  Its projection launch (A) and its
-   attention launch (B) are timed alone as well as together.  The
+   attention launch (B) are timed alone as well as together.
+   h2o-danube-3-4b's decode attention (KV 8, G 4, head dim 120, bs 16)
+   over ring tables (each row a full, shuffled set of 256 blocks: a
+   4096-token ring) at lengths {1, 17, 4095, 4096} and at the served
+   steady state (4 full rings): fp with bf16 pools, quantized with int8
+   codes (120-byte rows) and packed int4 (60-byte rows), within 1e-4 *
+   max|plain| and bitwise across two calls, timed beside the plain
+   version, SDPA over the gathered pages and the bound; qmm bit-serial at
+   M in {1, 4} and dequant at M = 256 at every danube (K, N) at 4 bits,
+   and the lm_head at the 8 bits it is served at.  The
    WRPN fake-quant at every ResNet-20 and LeNet weight shape, glm4-9b's
    wg (4096, 13696) and a ragged (7, 300), bits 1-8, 16 and 32, f32 and
    bf16: bitwise (max|kernel - plain| == 0), and the STE's forward and
@@ -59,7 +68,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    times, L2 flushed before each launch, the start event held behind a
    device spin that covers the wrapper's host work) and the bound from
    bytes and operations.
-3. Seven paths end to end.  Three serve through the launcher's continuous
+3. Eleven paths end to end.  Three serve through the launcher's continuous
    path at glm4-9b's published widths (40 layers, d_model 4096, vocab
    151552), random weights from seed 0, 8 requests, 4 rows, block 16,
    prompts of 40-64 tokens, prefill chunk 64, gen 16-32, greedy:
@@ -135,6 +144,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
       ``make_lm_env_factory(finetune_steps=2)`` at ``episode_end``, 4
       episodes; fails unless the record is whole, every accuracy proxy is
       finite and positive, and the memo's stats are there.
+   Four serve h2o-danube-3-4b at its published widths (24 layers,
+   d_model 3840, 32 heads over 8 KV heads of 120 dims, d_ff 10240, vocab
+   32000, a 4096-token sliding window), random weights from seed 0,
+   ``--bits 4``, 4 requests of 4032-4160 prompt tokens (``--prefill-chunk
+   256``) and 48-96 new ones on 4 rows, block 16: max_len 4257, so each
+   row's cache is a ring of the window's 4096 tokens, and some rows wrap
+   inside prefill, the others in decode:
+   l. fp ring blocks: ``paged_attention`` at head dim 120 launched, the
+      fused decode and the plain versions never, 0 recaptures, the prefix
+      cache off;
+   m. ``--kv-bits 8``: the unfused ``paged_attention_quant`` (a windowed
+      layer never takes the fused decode, whose write is not a ring's);
+   n. ``--cache slot``: the slot pool, each prompt prefilled whole and
+      spliced into its row; greedy streams l's up to flagged ties (the
+      rule of f); then ``--mode static`` (batch 4, 4160-token prompts
+      from ``--seed``, 96 greedy steps): prefill seconds and ms per
+      token-step, its streams a paged engine's on the same prompts up to
+      flagged ties.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
    the plain-version counter must be 0; the serving paths print the p50
@@ -160,7 +187,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1e-4 * max|param| (f32 convolutions, TF32 off, summed in other orders)
    and the same validation accuracy; one LM QAT train step (phase 4j,
    ``lm_step_card_vs_cpu`` states its tolerances) on a small model with
-   head dim 128 on the card and on the CPU, in f32 and in bf16.
+   head dim 128 on the card and on the CPU, in f32 and in bf16.  Phase 4l:
+   a narrow windowed model of danube's head dim (2 layers, d_model 480,
+   4 heads over 2 KV heads of 120, window 64, d_ff 1280, vocab 32000),
+   6 requests of 72-100 prompt tokens (past the ring in prefill) and 48
+   greedy tokens, served on the card (kernels) and on the CPU (plain
+   versions) with fp and int8 ring blocks: streams equal up to flagged
+   ties, the ring's kernel launched and the fused decode never.
 
 5. Where the time goes (read only, after the checks): for each serving
    path, four requests decode on its served model, through the served
@@ -205,6 +238,13 @@ GLM4_QMM = [  # (name, K, N, bits, calls per decode step / prefill chunk)
 ]
 EXTRA_BITS = [("wq@2b", 4096, 4096, 2, 0), ("wq@3b", 4096, 4096, 3, 0),
               ("wq@8b", 4096, 4096, 8, 0)]
+QMM_MS = (("bitserial", (1, 4, 16, 32)), ("dequant", (64, 256)))
+# h2o-danube-3-4b (24 layers, d_model 3840, KV 8 x 120, d_ff 10240, vocab
+# 32000): every (K, N) at 4 bits, and the lm_head at the 8 bits it is served at
+DANUBE_QMM = [("danube wq/wo", 3840, 3840, 4, 48), ("danube wk/wv", 3840, 960, 4, 48),
+              ("danube wg/wu", 3840, 10240, 4, 48), ("danube wd", 10240, 3840, 4, 24),
+              ("danube lm_head@4b", 3840, 32000, 4, 0), ("danube lm_head", 3840, 32000, 8, 1)]
+DANUBE_MS = (("bitserial", (1, 4)), ("dequant", (256,)))
 # dense f32 operations per second outside the tensor cores (data sheets)
 F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12, "H200": 67e12}
 FQ_BITS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32)
@@ -298,19 +338,19 @@ def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_qmm(torch, timer, peaks, rows):
+def check_qmm(torch, timer, peaks, rows, shapes=GLM4_QMM + EXTRA_BITS, ms=QMM_MS, seed=0):
     from repro_torch.kernels.qmm import bitserial_plan, dequant_plan, qmm_cuda
     from repro_torch.kernels.ref import dequant_ref, qmm_ref
     from repro_torch.quant.pack import pack_weight
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    for name, K, N, bits, _ in GLM4_QMM + EXTRA_BITS:
+    for name, K, N, bits, _ in shapes:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         planes, scale = pack_weight(w, bits)
         dense = dequant_ref(planes, scale, bits).to(torch.bfloat16)  # yardstick
         del w
-        for path, Ms in (("bitserial", (1, 4, 16, 32)), ("dequant", (64, 256))):
+        for path, Ms in ms:
             for M in Ms:
                 x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
                 got = qmm_cuda(x, planes, scale, bits, path)
@@ -495,6 +535,102 @@ def check_paged_attention_quant(torch, timer, peaks, rows):
                   f"bound={b_ms:.4f} ms [{B * KV * splits} CTAs: {splits} splits of {pps} "
                   f"page(s), bitwise on 2 calls]")
     return worst
+
+
+# h2o-danube-3-4b's decode attention: KV 8, G 4, head dim 120, blocks of 16,
+# a 4096-token ring (256 blocks).  "ring": lengths across the ring's life
+# (min(length + 1, Tc) as the decode step passes them); "decode": the
+# served cell's steady state, every row's ring full (the per-step row)
+RING = {"B": 4, "KV": 8, "G": 4, "hd": 120, "bs": 16, "nb": 256}
+RING_LENGTHS = (("hd120 ring", [1, 17, 4095, 4096]), ("hd120 decode", [4096] * 4))
+
+
+def ring_tables(torch, B, nb, seed):
+    """Ring block tables: each row a full, shuffled set of nb blocks of its
+    own, so a wrapped row's newest token sits mid-table."""
+    import numpy as np
+
+    perm = np.random.default_rng(seed).permutation(B * nb) + 1
+    return B * nb + 1, torch.from_numpy(perm.reshape(B, nb)).to("cuda", torch.int32)
+
+
+def check_ring_attention(torch, timer, peaks, rows):
+    """Rows 2 and 3 at head dim 120 over ring tables: bf16 pools, int8 codes
+    (120-byte rows) and packed int4 (60-byte rows), against the plain
+    versions within TOL * max|plain|, bitwise across two calls; timed with
+    the plain version, SDPA over the gathered (dequantized) pages and the
+    bound.  Returns the worst errors (fp, quantized)."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, split_plan
+    from repro_torch.kernels.paged_attention_quant import paged_attention_quant_cuda
+    from repro_torch.kernels.ref import (gather_dequant, paged_attention_ref,
+                                         quant_paged_attention_ref)
+
+    B, KV, G, hd, bs, nb = (RING[k] for k in ("B", "KV", "G", "hd", "bs", "nb"))
+    H = KV * G
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = {"fp": 0.0, "quant": 0.0}
+    pps, splits = split_plan(nb)
+    for container in ("bf16", "int8", "int4"):
+        NB, bt = ring_tables(torch, B, nb, seed=len(container))
+        bl = bt.long()
+        if container == "bf16":
+            kp, vp = (torch.randn((NB, bs, KV, hd), generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(2))
+            kg, vg = (p[bl].reshape(B, nb * bs, KV, hd) for p in (kp, vp))
+            token_bytes = hd * 2
+        else:
+            kc, vc, ks, vs, _ = quant_pools(torch, NB, bs, KV, hd, 8 if container == "int8"
+                                            else 4, gen)
+            kg, vg = (gather_dequant(c, sc, bl).to(torch.bfloat16)
+                      for c, sc in ((kc, ks), (vc, vs)))
+            token_bytes = kc.shape[-1] + 4
+        for label, lengths in RING_LENGTHS:
+            q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            q4 = q.reshape(B, KV, G, hd)
+            ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            if container == "bf16":
+                kernel, key = "paged_attention", "fp"
+                run = (lambda q4=q4, ln=ln: paged_attention_cuda(q4, kp, vp, bt, ln))
+                plain_fn = (lambda q=q, ln=ln: paged_attention_ref(q, kp, vp, bt, ln))
+            else:
+                kernel, key = "paged_attention_quant", "quant"
+                run = (lambda q4=q4, ln=ln:
+                       paged_attention_quant_cuda(q4, kc, vc, ks, vs, bt, ln))
+                plain_fn = (lambda q=q, ln=ln: quant_paged_attention_ref(q, kc, vc, ks, vs,
+                                                                           bt, ln))
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{kernel} {container} {label}: two calls differ")
+            got = got.reshape(B, 1, H, hd)
+            plain = (paged_attention_ref(q.float(), kp.float(), vp.float(), bt, ln)
+                     if container == "bf16" else
+                     quant_paged_attention_ref(q.float(), kc, vc, ks, vs, bt, ln))
+            err = (got - plain).abs().max().item()
+            ref_max = plain.abs().max().item()
+            if not math.isfinite(err) or err > TOL * ref_max:
+                fail(f"{kernel} {container} {label}: max|kernel-plain| {err:.3g} > "
+                     f"{TOL} * {ref_max:.3g}")
+            worst[key] = max(worst[key], err)
+            live = sum(lengths)
+            nbytes = (q.numel() * 2 + live * KV * token_bytes * 2 + bt.numel() * 4 + B * 4
+                      + B * H * hd * 4)
+            b_ms, b_by = bound_ms(nbytes, 4.0 * live * H * hd, peaks)
+            row = {"kernel": kernel, "shape": label, "container": container,
+                   "lengths": lengths, "B": B, "KV": KV, "G": G, "hd": hd, "bs": bs,
+                   "max_abs_err": err, "rel_err": err / ref_max, "pages_per_split": pps,
+                   "splits": splits, "ctas": B * KV * splits, "ms": timer(run),
+                   "plain_ms": timer(plain_fn, iters=5),
+                   "library_ms": timer(sdpa_over_pages(torch, q, kg, vg, ln)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            print(f"  {kernel} {container} {label} lengths={lengths} err={err:.2e} "
+                  f"(rel {row['rel_err']:.1e}) kernel={row['ms']:.4f} "
+                  f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f} "
+                  f"bound={b_ms:.4f} ms [{B * KV * splits} CTAs: {splits} splits of {pps} "
+                  f"pages, ring table, bitwise on 2 calls]")
+        del kg, vg
+    return worst["fp"], worst["quant"]
 
 
 def check_fused_decode(torch, timer, peaks, rows):
@@ -1110,16 +1246,27 @@ TENANTS = ["--tenants", "2", "--prompt-len", "256", "--requests", "8", "--arriva
            "--temperature", "0"]
 SPEC = ["--spec-k", "4", "--draft-bits", "2"]
 MARGIN = 2e-2            # a greedy divergence only where top-2 <= MARGIN * max|logit|
+# phases 3l-3n: h2o-danube-3-4b, 4 requests of 4032-4160 prompt tokens and
+# 48-96 new ones on 4 rows: max_len = 4257 >= the 4096-token window, so the
+# ring is the window; some rows wrap inside prefill, the others in decode
+DANUBE = ["--requests", "4", "--num-slots", "4", "--block-size", "16", "--prompt-len", "4160",
+          "--min-prompt-len", "4032", "--prefill-chunk", "256", "--gen", "96",
+          "--temperature", "0"]
+# (layers, d_model, heads, KV heads, head dim, d_ff, vocab), sliding window
+PUBLISHED = {"glm4-9b": ((40, 4096, 32, 2, 128, 13696, 151552), None),
+             "h2o-danube-3-4b": ((24, 3840, 32, 8, 120, 10240, 32000), 4096)}
 
 
-def serve_path(torch, label, flags, need, built=None, base=CELL):
-    """Serve ``base`` + ``flags`` through the launcher; the launch counters
-    are zeroed just before and read just after.  ``built`` reuses (cfg,
-    model, sparams, policy) of the same ``--bits``."""
+def serve_path(torch, label, flags, need, built=None, base=CELL, arch="glm4-9b", forbid=()):
+    """Serve ``base`` + ``flags`` of ``arch`` at its published widths
+    through the launcher; the launch counters are zeroed just before and
+    read just after: every ``need`` kernel must have launched, no
+    ``forbid`` one.  ``built`` reuses (cfg, model, sparams, policy) of the
+    same ``--bits``."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
 
-    args = launcher.parse_args(["--arch", "glm4-9b", "--no-smoke", "--device", "cuda",
+    args = launcher.parse_args(["--arch", arch, "--no-smoke", "--device", "cuda",
                                 *base, *flags])
     t0 = time.perf_counter()
     cfg, model, sparams, policy = built or launcher.build(args)
@@ -1127,9 +1274,10 @@ def serve_path(torch, label, flags, need, built=None, base=CELL):
     setup_s = time.perf_counter() - t0
     widths = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
               cfg.hd, cfg.d_ff, cfg.vocab_size)
-    if widths != (40, 4096, 32, 2, 128, 13696, 151552):
-        fail(f"glm4-9b widths {widths} are not the published ones")
-    print(f"[{label}] glm4-9b serving params ready in {setup_s:.1f} s "
+    if (widths, cfg.sliding_window) != PUBLISHED[arch]:
+        fail(f"{arch} widths {widths}, window {cfg.sliding_window} are not the published "
+             f"ones {PUBLISHED[arch]}")
+    print(f"[{label}] {arch} serving params ready in {setup_s:.1f} s "
           f"(avg policy {policy.average_bits():.2f} bits, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
     torch.cuda.reset_peak_memory_stats()
@@ -1149,6 +1297,9 @@ def serve_path(torch, label, flags, need, built=None, base=CELL):
     for key in need:
         if counts[key] <= 0:
             fail(f"[{label}] the path launched no {key} kernel: {counts}")
+    for key in forbid:
+        if counts[key] != 0:
+            fail(f"[{label}] the path launched the {key} kernel {counts[key]} times")
     if counts["plain"] != 0:
         fail(f"[{label}] the path took the plain version {counts['plain']} times on CUDA")
     pl, captures = m["pipeline"], engine.graph_captures
@@ -1164,13 +1315,19 @@ def serve_path(torch, label, flags, need, built=None, base=CELL):
     if m["recompiles"] != 0 or captures["decode"] not in want or captures.get("draft", 1) != 1:
         fail(f"[{label}] the decode steps were captured {captures} times "
              f"({m['recompiles']} re-captures): want one capture each")
-    pc = m["prefix_cache"]
-    print(f"[{label}] prefix_cache={'on' if pc['enabled'] else 'off'} "
-          f"hit_rate={m['prefix_hit_rate']:.4f} hits={m['prefix_hits']}/{m['prefix_lookups']} "
-          f"lookups hit_tokens={pc['hit_tokens']} cow={pc['cow_copies']} "
-          f"evictions={pc['evictions']} cached_blocks={pc['cached_blocks']} "
-          f"blocks_shared={m['blocks_shared']:.2f} prefill_launches={m['prefill_launches']} "
-          f"cache_bytes={engine.pool.cache_bytes()}")
+    if args.cache == "paged":
+        pc = m["prefix_cache"]
+        print(f"[{label}] prefix_cache={'on' if pc['enabled'] else 'off'} "
+              f"hit_rate={m['prefix_hit_rate']:.4f} "
+              f"hits={m['prefix_hits']}/{m['prefix_lookups']} "
+              f"lookups hit_tokens={pc['hit_tokens']} cow={pc['cow_copies']} "
+              f"evictions={pc['evictions']} cached_blocks={pc['cached_blocks']} "
+              f"blocks_shared={m['blocks_shared']:.2f} prefill_launches={m['prefill_launches']} "
+              f"block_size={engine.pool.block_size} cache_bytes={engine.pool.cache_bytes()}")
+    else:
+        print(f"[{label}] slot pool: {engine.pool.num_slots} rows of "
+              f"{engine.pool.cache['k'].shape[2]} tokens, "
+              f"cache_bytes={engine.pool.cache_bytes()}")
     if "spec" in m:
         sp = m["spec"]
         print(f"[{label}] spec k={sp['k']} draft_bits={args.draft_bits} "
@@ -1308,14 +1465,16 @@ def served_prefix_spec_card_vs_cpu(torch, sm, params):
 STREAM_GEN = 36          # greedy tokens per request: past two 16-token block edges
 
 
-def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
+def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 24, 16),
+                               gen=STREAM_GEN, need=("qmm_bitserial",), forbid=()):
     """The small model served by the port's ServeEngine on the card
     (kernels) and on the CPU (plain versions, host sampling): 6 requests
-    on 4 rows, greedy.  On the card twice: with host sampling, and with
-    the defaults (captured decode step, device sampling, lookahead).  Each
-    card run gives the CPU's streams, or a first divergence where the
-    CPU's top-2 logit margin is within the bf16 logit bound (2e-2 *
-    max|logit|)."""
+    of ``lens`` prompt tokens on 4 rows, ``gen`` greedy tokens each.  On
+    the card twice: with host sampling, and with the defaults (captured
+    decode step, device sampling, lookahead), each launching every
+    ``need`` kernel and no ``forbid`` one.  Each card run gives the CPU's
+    streams, or a first divergence where the CPU's top-2 logit margin is
+    within the bf16 logit bound (2e-2 * max|logit|)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1324,15 +1483,14 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
     from repro_torch.train.serve import quantize_for_serving
 
     rng = np.random.default_rng(9)
-    work = [(rng.integers(0, sm.cfg.vocab_size, int(n)), STREAM_GEN)
-            for n in (9, 40, 17, 31, 24, 16)]
+    work = [(rng.integers(0, sm.cfg.vocab_size, int(n)), gen) for n in lens]
     host = {"sample_device": False, "pipeline": False}
     runs = {}
     for name, dev, kw in (("card, host sampling", "cuda", host),
                           ("card, device sampling + pipeline", "cuda", {}),
                           ("cpu", "cpu", host)):
         sp = quantize_for_serving(sm, params, policy_for(sm, 4), device=dev)
-        eng = ServeEngine(sm, sp, num_slots=4, max_len=40 + STREAM_GEN + 1, block_size=16,
+        eng = ServeEngine(sm, sp, num_slots=4, max_len=max(lens) + gen + 1, block_size=16,
                           prefill_chunk=16, device=dev, kv_bits=kv_bits, **kw)
         margins = {}
         for prompt, n in work:
@@ -1349,7 +1507,8 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
         eng.run_until_drained()
         if dev == "cuda":
             torch.cuda.synchronize()
-            if ops.counts["plain"] != 0 or ops.counts["qmm_bitserial"] <= 0:
+            if (ops.counts["plain"] != 0 or any(ops.counts[k] <= 0 for k in need)
+                    or any(ops.counts[k] != 0 for k in forbid)):
                 fail(f"served streams (kv_bits={kv_bits}, {name}): launch counts {ops.counts}")
             m = eng.metrics()
             if m["recompiles"] != 0 or (not kw and m["pipeline"]["lookahead_steps"] <= 0):
@@ -1357,12 +1516,14 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
                      f"{m['recompiles']}, pipeline {m['pipeline']}")
         runs[name] = ([eng.output(r) for r in range(len(work))], margins)
     kv = f"kv_bits={kv_bits}" if kv_bits else "fp KV"
-    out = {"requests": len(work), "tokens_per_request": STREAM_GEN}
+    if sm.cfg.sliding_window:
+        kv += f", ring of {sm.cfg.sliding_window}, hd {sm.cfg.hd}"
+    out = {"requests": len(work), "tokens_per_request": gen}
     for name in ("card, host sampling", "card, device sampling + pipeline"):
         diverged = out[name] = []
         for rid in range(len(work)):
             got, want = runs[name][0][rid], runs["cpu"][0][rid]
-            if len(got) != STREAM_GEN or len(want) != STREAM_GEN:
+            if len(got) != gen or len(want) != gen:
                 fail(f"served streams ({kv}, {name}): request {rid} emitted {len(got)} / "
                      f"{len(want)} tokens")
             if got == want:
@@ -1378,7 +1539,7 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits):
                 fail(f"served streams ({kv}, {name}): request {rid} diverged at token {i} "
                      f"where the CPU's top-2 margin {margin:.4g} exceeds 2e-2 * max|logit| "
                      f"= {2e-2 * top:.4g}")
-        print(f"served streams ({kv}, {name}): {len(work)} requests x {STREAM_GEN} greedy "
+        print(f"served streams ({kv}, {name}): {len(work)} requests x {gen} greedy "
               f"tokens, card vs CPU: {len(work) - len(diverged)} equal, {len(diverged)} "
               f"diverged within the bound")
     return out
@@ -1517,7 +1678,9 @@ def compare_streams(torch, label, got, want, work, margin_of):
 
 
 def card_margin(torch, r):
-    return lambda toks: prefill_margin(torch, r["model"], r["sparams"], toks)
+    """``prefill_margin`` on a serving path's params, in its prefill chunks."""
+    return lambda toks: prefill_margin(torch, r["model"], r["sparams"], toks,
+                                       chunk=r["args"].prefill_chunk)
 
 
 def cell_summary(r, keys=("tokens_per_s", "decode_step_p50_ms", "decode_tok_p50_ms",
@@ -1526,7 +1689,7 @@ def cell_summary(r, keys=("tokens_per_s", "decode_step_p50_ms", "decode_tok_p50_
     m = r["metrics"]
     out = {k: m.get(k) for k in keys}
     out["ttft_p50_s"] = statistics.median(q["ttft_s"] for q in m["requests"])
-    out["prefix_cache"] = m["prefix_cache"]
+    out["prefix_cache"] = m.get("prefix_cache")
     out["cache_bytes"] = r["engine"].pool.cache_bytes()
     if "spec" in m:
         out["spec"] = m["spec"]
@@ -2510,6 +2673,130 @@ def profile_lm_step(torch, run, state, traced=2):
     return state, out
 
 
+# ---- h2o-danube-3-4b: ring pools at head dim 120 (phases 3l, 3m, 3n, 4l) -----
+DANUBE_ARCH = "h2o-danube-3-4b"
+
+
+class _Streams:
+    """Fixed greedy token rows as ``compare_streams`` reads an engine."""
+
+    def __init__(self, tokens):
+        self.tokens = tokens
+
+    def output(self, rid):
+        return [int(t) for t in self.tokens[rid]]
+
+
+def danube_static(torch, built, ring):
+    """``--mode static`` at full width (batch 4, 4160-token prompts from
+    ``--seed``, 96 greedy steps over a contiguous ring cache), its launch
+    counts zeroed just before and read just after; its streams against a
+    paged engine's on the same prompts and params (a divergence only at a
+    flagged tie)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ServeEngine
+
+    args = launcher.parse_args(["--arch", DANUBE_ARCH, "--no-smoke", "--device", "cuda",
+                                "--mode", "static", "--batch", "4", "--prompt-len", "4160",
+                                "--gen", "96", "--bits", "4"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res = launcher.static(args, *built)
+    torch.cuda.synchronize()
+    counts = dict(ops.counts)
+    n = args.gen + 1
+    if tuple(res["tokens"].shape) != (args.batch, n):
+        fail(f"[danube static] tokens of shape {res['tokens'].shape}, want {(args.batch, n)}")
+    if counts["plain"] or counts["qmm_dequant"] <= 0 or counts["qmm_bitserial"] <= 0:
+        fail(f"[danube static] launch counts {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[danube static] prefill {res['prefill_s']:.3f} s for {args.batch} x "
+          f"{args.prompt_len} tokens, {res['ms_per_step']:.3f} ms per token-step over "
+          f"{args.gen} steps (the first one captures the step), peak_mem={peak:.2f} GiB; "
+          f"launch counts {counts}")
+    prompts = launcher.static_prompts(args, built[0].vocab_size)
+    work = [(p, n) for p in prompts]
+    engine = ServeEngine(built[1], built[2], num_slots=args.batch,
+                         max_len=args.prompt_len + n, block_size=16, prefill_chunk=256,
+                         device="cuda")
+    for p, n in work:
+        engine.submit(p, n)
+    engine.run_until_drained()
+    div = compare_streams(torch, "danube static vs paged", _Streams(res["tokens"]), engine,
+                          work, card_margin(torch, ring))
+    return {"prefill_s": res["prefill_s"], "ms_per_step": res["ms_per_step"],
+            "peak_mem_gib": peak, "counts": counts, "diverged": div}
+
+
+def danube_serving(torch):
+    """Phases 3l, 3m, 3n: h2o-danube-3-4b at its published widths, 4-bit
+    weights, through the launcher: fp ring blocks (paged_attention at head
+    dim 120), int8 ring blocks (the unfused paged_attention_quant: a
+    windowed layer never takes the fused decode), then the slot pool with
+    full-prompt prefill (streams 3l's up to flagged ties) and the static
+    loop."""
+    need = ("qmm_bitserial", "qmm_dequant")
+    fused = ("fused_qkv_paged_decode",)
+    out = {}
+    fp = serve_path(torch, "danube fp KV", ["--bits", "4"], need + ("paged_attention",),
+                    base=DANUBE, arch=DANUBE_ARCH, forbid=fused + ("paged_attention_quant",))
+    built = tuple(fp[k] for k in ("cfg", "model", "sparams", "policy"))
+    pool = fp["engine"].pool
+    if fp["metrics"]["prefix_cache"]["enabled"] or pool.length_bound is not None:
+        fail("[danube fp KV] the ring pool kept its prefix cache or a length bound")
+    if pool.blocks_per_seq * pool.block_size != 4096:
+        fail(f"[danube fp KV] ring of {pool.blocks_per_seq} x {pool.block_size} tokens")
+    out["3l"] = fp
+    phase("phase 3m: h2o-danube-3-4b, --kv-bits 8 ring blocks (unfused quantized attention)")
+    out["3m"] = serve_path(torch, "danube int8 KV", ["--bits", "4", "--kv-bits", "8"],
+                           need + ("paged_attention_quant",), built, base=DANUBE,
+                           arch=DANUBE_ARCH, forbid=fused + ("paged_attention",))
+    if out["3m"]["metrics"]["prefix_cache"]["enabled"]:
+        fail("[danube int8 KV] the ring pool kept its prefix cache")
+    phase("phase 3n: h2o-danube-3-4b, --cache slot (full-prompt prefill) and --mode static")
+    slot = serve_path(torch, "danube slot", ["--bits", "4", "--cache", "slot"], need, built,
+                      base=DANUBE, arch=DANUBE_ARCH,
+                      forbid=fused + ("paged_attention", "paged_attention_quant"))
+    slot["diverged"] = compare_streams(torch, "danube slot vs 3l", slot["engine"],
+                                       fp["engine"], fp["work"], card_margin(torch, fp))
+    out["3n"] = slot
+    out["3n static"] = danube_static(torch, built, fp)
+    return out
+
+
+def ring_card_vs_cpu(torch):
+    """Phase 4l: a narrow windowed model of h2o-danube's head dim (2
+    layers, d_model 480, 4 heads over 2 KV heads of 120, window 64, d_ff
+    1280, vocab 32000), prompts of 72-100 tokens (past the ring in
+    prefill), 48 greedy tokens: served on the card (kernels) and on the
+    CPU (plain versions) with fp and int8 ring blocks, streams equal up to
+    flagged ties."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(DANUBE_ARCH), num_layers=2, d_model=480, num_heads=4,
+                              num_kv_heads=2, head_dim=120, d_ff=1280, vocab_size=32000,
+                              sliding_window=64)
+    sm = build_model(cfg)
+    params = sm.init(seed=7, device="cpu")
+    lens = (72, 100, 85, 91, 77, 96)
+    out = {}
+    for kv_bits, kernel, other in ((None, "paged_attention", "paged_attention_quant"),
+                                   (8, "paged_attention_quant", "paged_attention")):
+        out[f"kv_bits={kv_bits}"] = served_streams_card_vs_cpu(
+            torch, sm, params, kv_bits, lens=lens, gen=48, need=("qmm_bitserial", kernel),
+            forbid=("fused_qkv_paged_decode", other))
+    return out
+
+
+T_START = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    print(f"{title} [{time.perf_counter() - T_START:.1f} s]")
+
+
 def main() -> None:
     import torch
 
@@ -2522,10 +2809,6 @@ def main() -> None:
         fail(f"cannot import repro_torch from {ROOT / 'src'}: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-
-    def phase(title: str) -> None:
-        print(f"{title} [{time.perf_counter() - t_start:.1f} s]")
 
     # ---- phase 1: device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2559,6 +2842,10 @@ def main() -> None:
     qmm_err = check_qmm(torch, timer, peaks, rows)
     pa_err = check_paged_attention(torch, timer, peaks, rows)
     paq_err = check_paged_attention_quant(torch, timer, peaks, rows)
+    print("  h2o-danube-3-4b's decode attention: KV 8, G 4, hd 120, bs 16, 4096-token rings")
+    pa120_err, paq120_err = check_ring_attention(torch, timer, peaks, rows)
+    print("  h2o-danube-3-4b's qmm shapes")
+    qmm_err = max(qmm_err, check_qmm(torch, timer, peaks, rows, DANUBE_QMM, DANUBE_MS, seed=3))
     fused_err = check_fused_decode(torch, timer, peaks, rows)
     fq_err = check_fake_quant(torch, timer, peaks, rows)
     fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
@@ -2686,6 +2973,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("phase 4j: one LM QAT step, card against CPU")
     lm["card_vs_cpu"] = lm_step_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+
+    # ---- h2o-danube-3-4b: sliding-window ring pools at head dim 120
+    phase("phase 3l: h2o-danube-3-4b serving end to end, --bits 4, fp KV ring blocks")
+    danube = danube_serving(torch)
+    phase("phase 4l: a windowed hd-120 model served on the card and on the CPU, past the wrap")
+    ring_streams = ring_card_vs_cpu(torch)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -2699,6 +2993,11 @@ def main() -> None:
         return lambda r: 40 if r["shape"] == "main" and r["container"] == container else 0
 
     attn_q = per_step(rows, "paged_attention_quant", main_int("int8"))
+    # h2o-danube-3-4b's decode step: 24 layers over full 4096-token rings
+    attn120 = per_step(rows, "paged_attention", lambda r: 24 if r["shape"] == "hd120 decode" else 0)
+    attn120_q = per_step(rows, "paged_attention_quant",
+                         lambda r: 24 if r["shape"] == "hd120 decode"
+                         and r["container"] == "int8" else 0)
     fused = per_step(rows, "fused_qkv_paged_decode", main_int("int4"),
                      [f"{launch}_{key}" for launch in ("project", "attend")
                       for key in ("ms", "library_ms", "bound_ms")])
@@ -2727,6 +3026,16 @@ def main() -> None:
          "replaces": "src/repro/kernels/paged_attention.py:117",
          "launches": counts["int8 KV"]["paged_attention_quant"], "max_abs_err": paq_err,
          **attn_q},
+        {"name": "paged_attention_hd120", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:37",
+         "launches": danube["3l"]["counts"]["paged_attention"], "max_abs_err": pa120_err,
+         **attn120},
+        {"name": "paged_attention_quant_hd120", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention_quant.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:117",
+         "launches": danube["3m"]["counts"]["paged_attention_quant"], "max_abs_err": paq120_err,
+         **attn120_q},
         {"name": "fused_qkv_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_decode.cu",
          "replaces": "src/repro/kernels/fused_decode.py:63",
@@ -2757,7 +3066,8 @@ def main() -> None:
                      "requests": r["metrics"]["requests"], "counts": r["counts"],
                      "setup_s": r["setup_s"], "wall_s": r["wall_s"],
                      "peak_mem_gib": r["peak_mem_gib"]}
-             for label, r in (*fp_runs.items(), ("int4 KV", int4), ("int8 KV", int8))}
+             for label, r in (*fp_runs.items(), ("int4 KV", int4), ("int8 KV", int8),
+                              *((f"danube {c}", danube[c]) for c in ("3l", "3m", "3n")))}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2777,14 +3087,18 @@ def main() -> None:
                          "call is the autograd backward of fake_quantize_per_tensor_affine; "
                          "fake_quant_group_col / _bwd: one QAT forward / backward of the 4-layer "
                          "glm4-9b cell (9 leaves, bf16, phase 3j's mixed policy), launches from "
-                         "phase 3j",
+                         "phase 3j; paged_attention_hd120 / paged_attention_quant_hd120 (int8): "
+                         "h2o-danube-3-4b's decode step, 24 calls over full 4096-token rings "
+                         "(KV 8, G 4, hd 120), launches from phases 3l / 3m",
         "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
         "served_streams": streams,
+        "danube": {"3n_diverged": danube["3n"]["diverged"], "static": danube["3n static"],
+                   "ring_streams_4l": ring_streams},
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
                   "qat_step_breakdown": qat_breakdown},
         "lm": lm,
-        "total_s": time.perf_counter() - t_start}, indent=1, default=str))
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+        "total_s": time.perf_counter() - T_START}, indent=1, default=str))
+    print(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,8 +29,18 @@
 //     slots while the current one is used; the first tile is started
 //     (sweep_prefetch) before the CTA stages its q.  A staged row is an odd number
 //     of 16-byte pieces, so the 8 lanes of a 16-byte shared load hit
-//     distinct banks.  A pool whose base is not 16-byte aligned is staged
-//     with byte loads (inside the kernel: not a fallback).
+//     distinct banks.  A pool whose base is not aligned to the staging
+//     piece is staged with byte loads (inside the kernel: not a fallback).
+//   * Head dims that are not a multiple of 32 (120, h2o-danube-3-4b's):
+//     the sweep computes over HDP = 32 * ceil(hd / 32) dims, so DPL = 4
+//     dims per lane at hd 120 and lanes 30-31 hold none.  A code row of
+//     120 bytes (int8) or 60 (packed int4) is not a 16-byte multiple, so
+//     rows at that stride are only 8- or 4-byte aligned: they are staged
+//     in 8- or 4-byte cp.async pieces (Layout::PB), into a staged row of
+//     HDP codes whose tail (8 or 4 bytes) is zeroed once, and q is staged
+//     as HDP dims with a zero tail.  The tail then adds fmaf(0, 0, s) = s
+//     to every score, lanes 30-31 dequantize zero codes in P.V, and
+//     nothing past hd is stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,15 +102,35 @@ __device__ __forceinline__ void stage_f32(float* dst, const T* src, int n) {
     }
 }
 
+// rows x HD elements of T at src into f32 rows of HDP (>= HD) at dst,
+// dims HD .. HDP-1 zero; every thread of the CTA takes part
+template <int HD, int HDP, typename T>
+__device__ __forceinline__ void stage_f32_rows(float* dst, const T* src, int rows) {
+    if constexpr (HD == HDP) {
+        stage_f32(dst, src, rows * HD);
+    } else {
+        for (int i = threadIdx.x; i < rows * HDP; i += blockDim.x) {
+            const int r = i / HDP, d = i % HDP;
+            dst[i] = d < HD ? to_f32(src[r * HD + d]) : 0.f;
+        }
+    }
+}
+
 template <int HD, bool PACKED4>
 struct Layout {
-    static constexpr int HDS = PACKED4 ? HD / 2 : HD;   // code bytes of a token row
-    static constexpr int PIECES = HDS / 16;             // its 16-byte pieces
-    static constexpr int CPP = PACKED4 ? 32 : 16;       // codes per piece
+    static constexpr int HDP = (HD + 31) / 32 * 32;     // dims computed: whole lanes
+    static constexpr int HDS = PACKED4 ? HD / 2 : HD;   // code bytes of a token row in the pool
+    static constexpr int HDSP = PACKED4 ? HDP / 2 : HDP;  // ... of a staged row's HDP codes
+    // staging piece: the largest of 16, 8, 4 bytes that divides a pool row
+    static constexpr int PB = HDS % 16 == 0 ? 16 : HDS % 8 == 0 ? 8 : 4;
+    static constexpr int NPB = HDS / PB;                // staging pieces of a row
+    static constexpr int PIECES = HDSP / 16;            // 16-byte pieces a fold reads
+    static constexpr int CPP = PACKED4 ? 32 : 16;       // codes per 16-byte piece
     static constexpr int ROW = (PIECES | 1) * 16;       // a staged row (bytes)
     static constexpr int CODES = TILE * ROW;            // a tile's K (or V) rows
     // K rows, V rows, then K and V scales
     static constexpr int SLOT = 2 * CODES + 2 * TILE * (int)sizeof(float);
+    static_assert(HDS % 4 == 0 && HDSP % 16 == 0, "code rows of 4-byte pieces");
 };
 
 // shared-memory bytes of the sweep: two slots, then the warps' tile
@@ -160,8 +190,10 @@ __device__ __forceinline__ void lane_dequant(const uint8_t* row, int lane, float
 }
 
 // The partial of one warp's heads over a split: running max m, denominator
-// l and unnormalized accumulator acc (this lane's DPL dims), all f32.
-template <int DPL>
+// l and unnormalized accumulator acc (this lane's DPL dims), all f32.  HD:
+// the head dim of the output rows; lanes past it (lane * DPL >= HD) store
+// nothing.
+template <int DPL, int HD = DPL * 32>
 struct Partial {
     float m[HPW], l[HPW], acc[HPW][DPL];
 
@@ -180,7 +212,7 @@ struct Partial {
     // partial into its workspace slabs acc (S, G, hd) and ml (S, G, 2).
     __device__ __forceinline__ void store(float* out, float* ws_acc, float* ws_ml, int s, int S,
                                           int G, int g0, int nh, int lane) const {
-        constexpr int HD = DPL * 32;
+        if (HD != DPL * 32 && lane * DPL >= HD) return;   // a lane with no dims
 #pragma unroll
         for (int h = 0; h < HPW; ++h) {
             if (h >= nh) break;                   // warp-uniform
@@ -211,29 +243,48 @@ struct Pages {
     const float* v_scale;
     const int* pages;
     int page0, KV, kvh, bs;
-    bool vec;                   // both pools 16-byte aligned: cp.async
+    bool vec;                   // both pools aligned to the staging piece: cp.async
 };
 
+// Zero the bytes HDS .. HDSP-1 of every staged row of both slots (none
+// where hd is a multiple of 32): staging never writes them, so once is
+// enough.  Every thread of the CTA takes part.
+template <int HD, bool PACKED4>
+__device__ __forceinline__ void zero_row_tails(uint8_t* smem) {
+    using L = Layout<HD, PACKED4>;
+    if constexpr (L::HDSP > L::HDS) {
+        constexpr int WORDS = (L::HDSP - L::HDS) / 4;
+        for (int i = threadIdx.x; i < 2 * 2 * TILE * WORDS; i += blockDim.x) {
+            const int row = i / WORDS;            // slot-major: 2 * TILE rows a slot
+            uint8_t* dst = smem + (row / (2 * TILE)) * L::SLOT + (row % (2 * TILE)) * L::ROW +
+                           L::HDS + (i % WORDS) * 4;
+            *reinterpret_cast<uint32_t*>(dst) = 0u;
+        }
+    }
+}
+
 // Stage tokens p0 .. p0+31 (< t_end) of a split into a slot: code rows in
-// 16-byte pieces and scales in 4-byte pieces, zero past t_end.
+// PB-byte pieces and scales in 4-byte pieces, zero past t_end.
 template <int HD, bool PACKED4>
 __device__ __forceinline__ void load_tile(uint8_t* slot, const Pages& pg, int p0, int t_end) {
     using L = Layout<HD, PACKED4>;
-    for (int i = threadIdx.x; i < 2 * TILE * L::PIECES; i += blockDim.x) {
-        const int c = i % L::PIECES, r = (i / L::PIECES) % TILE, which = i / (TILE * L::PIECES);
+    for (int i = threadIdx.x; i < 2 * TILE * L::NPB; i += blockDim.x) {
+        const int c = i % L::NPB, r = (i / L::NPB) % TILE, which = i / (TILE * L::NPB);
         const int p = p0 + r;
         const bool ok = p < t_end;
         const uint8_t* src = which ? pg.v_pool : pg.k_pool;
         if (ok) {
             const int phys = pg.pages[p / pg.bs - pg.page0];
-            src += (((size_t)phys * pg.bs + p % pg.bs) * pg.KV + pg.kvh) * L::HDS + c * 16;
+            src += (((size_t)phys * pg.bs + p % pg.bs) * pg.KV + pg.kvh) * L::HDS + c * L::PB;
         }
-        uint8_t* dst = slot + (which * TILE + r) * L::ROW + c * 16;
+        uint8_t* dst = slot + (which * TILE + r) * L::ROW + c * L::PB;
         if (pg.vec) {
-            wg::cp_async16(dst, src, ok);
+            if constexpr (L::PB == 16) wg::cp_async16(dst, src, ok);
+            else if constexpr (L::PB == 8) wg::cp_async8(dst, src, ok);
+            else wg::cp_async4(dst, src, ok);
         } else {
 #pragma unroll
-            for (int e = 0; e < 16; ++e) dst[e] = ok ? src[e] : 0;
+            for (int e = 0; e < L::PB; ++e) dst[e] = ok ? src[e] : 0;
         }
     }
     float* sc = reinterpret_cast<float*>(slot + 2 * L::CODES);
@@ -248,12 +299,14 @@ __device__ __forceinline__ void load_tile(uint8_t* slot, const Pages& pg, int p0
 }
 
 // Fold one staged tile of ntok tokens into this warp's nh (> 0) heads: qw
-// the warp's q rows (f32, shared), pw its (HPW, TILE) probabilities.
-template <int DPL, bool PACKED4>
-__device__ __forceinline__ void fold_tile(Partial<DPL>& st, const float* qw, const uint8_t* slot,
-                                          int ntok, float scale, int nh, float* pw, int lane) {
-    constexpr int HD = DPL * 32;
+// the warp's q rows (HDP f32 each, shared), pw its (HPW, TILE)
+// probabilities.
+template <int DPL, bool PACKED4, int HD>
+__device__ __forceinline__ void fold_tile(Partial<DPL, HD>& st, const float* qw,
+                                          const uint8_t* slot, int ntok, float scale, int nh,
+                                          float* pw, int lane) {
     using L = Layout<HD, PACKED4>;
+    static_assert(L::HDP == DPL * 32, "DPL dims per lane over the padded head dim");
     const float* ksc = reinterpret_cast<const float*>(slot + 2 * L::CODES);
     const float* vsc = ksc + TILE;
     const bool live = lane < ntok;
@@ -271,7 +324,7 @@ __device__ __forceinline__ void fold_tile(Partial<DPL>& st, const float* qw, con
 #pragma unroll
         for (int h = 0; h < HPW; ++h) {
             if (h >= nh) break;                       // warp-uniform
-            const float* qh = qw + h * HD + c * L::CPP;
+            const float* qh = qw + h * L::HDP + c * L::CPP;
 #pragma unroll
             for (int e = 0; e < L::CPP; e += 4) {
                 const float4 q4 = *reinterpret_cast<const float4*>(qh + e);
@@ -324,25 +377,26 @@ __device__ __forceinline__ void fold_tile(Partial<DPL>& st, const float* qw, con
 }
 
 // Start staging a split's first tile (tokens [t_begin, t_end) of the row)
-// into the first slot of smem; sweep() waits for it.  Every thread calls
-// this, after the split's page ids are in shared memory and visible.
-template <int DPL, bool PACKED4>
+// into the first slot of smem, after zeroing the staged rows' tails;
+// sweep() waits for it.  Every thread calls this, after the split's page
+// ids are in shared memory and visible.
+template <int DPL, bool PACKED4, int HD = DPL * 32>
 __device__ __forceinline__ void sweep_prefetch(const Pages& pg, int t_begin, int t_end,
                                                uint8_t* smem) {
-    if (t_end > t_begin) load_tile<DPL * 32, PACKED4>(smem, pg, t_begin, t_end);
+    zero_row_tails<HD, PACKED4>(smem);
+    if (t_end > t_begin) load_tile<HD, PACKED4>(smem, pg, t_begin, t_end);
     wg::cp_async_commit();
 }
 
 // Fold tokens [t_begin, t_end) of a row into this warp's partial, after
-// sweep_prefetch of the same range.  qs: the CTA's (G, hd) q rows as f32
-// in shared memory; smem: sweep_smem_bytes (16-byte aligned).  nh: live
-// heads of this warp (warp-uniform; a warp past the G heads only stages
-// tiles).  Every thread of the CTA calls this (it synchronises); the tile
-// count is uniform per CTA.
-template <int DPL, bool PACKED4>
-__device__ void sweep(Partial<DPL>& st, const float* qs, const Pages& pg, int t_begin, int t_end,
-                      float scale, int nh, uint8_t* smem) {
-    constexpr int HD = DPL * 32;
+// sweep_prefetch of the same range.  qs: the CTA's (G, HDP) q rows as f32
+// in shared memory, dims past hd zero; smem: sweep_smem_bytes (16-byte
+// aligned).  nh: live heads of this warp (warp-uniform; a warp past the G
+// heads only stages tiles).  Every thread of the CTA calls this (it
+// synchronises); the tile count is uniform per CTA.
+template <int DPL, bool PACKED4, int HD = DPL * 32>
+__device__ void sweep(Partial<DPL, HD>& st, const float* qs, const Pages& pg, int t_begin,
+                      int t_end, float scale, int nh, uint8_t* smem) {
     using L = Layout<HD, PACKED4>;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     float* pw = reinterpret_cast<float*>(smem + 2 * L::SLOT) + warp * HPW * TILE;
@@ -355,8 +409,8 @@ __device__ void sweep(Partial<DPL>& st, const float* qs, const Pages& pg, int t_
         wg::cp_async_wait<1>();
         __syncthreads();
         if (nh > 0)
-            fold_tile<DPL, PACKED4>(st, qs + warp * HPW * HD, smem + (it & 1) * L::SLOT,
-                                    min(TILE, t_end - p0), scale, nh, pw, lane);
+            fold_tile<DPL, PACKED4, HD>(st, qs + warp * HPW * L::HDP, smem + (it & 1) * L::SLOT,
+                                        min(TILE, t_end - p0), scale, nh, pw, lane);
         __syncthreads();       // the slot is refilled two tiles on
     }
 }

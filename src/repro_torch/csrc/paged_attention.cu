@@ -29,9 +29,16 @@
 //     with lanes over the head dims, in f32.
 //   * The next tile's K and V rows are prefetched with cp.async (16-byte
 //     pieces, zero-filled past the live tokens) into the second of two
-//     shared-memory slots while the current one is used; rows are padded
-//     by 16 bytes so a warp reading 32 token rows hits distinct banks.
+//     shared-memory slots while the current one is used; a staged row is
+//     an odd number of 16-byte pieces (16 to 32 bytes of padding), so the
+//     8 lanes of a 16-byte shared load of 8 token rows hit distinct banks.
 //     A pool whose base is not 16-byte aligned is staged with plain loads.
+//   * Head dims 64, 96, 120 and 128 take DPL = ceil(hd / 32) dims per lane
+//     in P.V.  At hd 120 (h2o-danube-3-4b) DPL is 4 and lanes 30-31 hold
+//     no dims: their V loads are predicated off and they store nothing.
+//     A 120-dim row is still whole 16-byte pieces (240 bytes in bf16, 480
+//     in f32), so staging is unchanged; its padding is 32 bytes (272- and
+//     496-byte staged rows), so 8 rows stay on distinct banks.
 //
 // Plain C interface (built with nvcc, loaded with ctypes).  The kernels
 // allocate nothing (the wrapper passes the split workspace); the entry
@@ -73,8 +80,8 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
 
 template <typename T, int HD>
 struct Layout {
-    static constexpr int ROW = HD * (int)sizeof(T) + 16;   // padded staged row (bytes)
     static constexpr int PIECES = HD * (int)sizeof(T) / 16;
+    static constexpr int ROW = ((PIECES + 1) | 1) * 16;    // padded staged row: odd pieces
     static constexpr int SLOT = 2 * TILE * ROW;            // K rows, then V rows
 };
 
@@ -109,7 +116,7 @@ __device__ __forceinline__ void load_tile(uint8_t* slot, const T* __restrict__ k
 // One CTA per (row b, KV head, split s).  ws_acc / ws_ml take the
 // partial when S > 1; with S == 1 the CTA writes out itself.  MAXT: the
 // most threads a launch uses (1024 above 64 query heads caps registers).
-template <typename T, int DPL, int MAXT>
+template <typename T, int HD, int MAXT>
 __global__ void __launch_bounds__(MAXT) paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                                        const T* __restrict__ v_pool,
                                        const int* __restrict__ block_tables,
@@ -117,7 +124,7 @@ __global__ void __launch_bounds__(MAXT) paged_attention_kernel(const T* __restri
                                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                                        int* __restrict__ arrived, int KV, int G, int bs, int nb,
                                        int pps, float scale, int vec) {
-    constexpr int HD = DPL * 32;
+    constexpr int DPL = (HD + 31) / 32;         // dims per lane in P.V
     using L = Layout<T, HD>;
     extern __shared__ __align__(16) uint8_t smem[];
     float* qs = reinterpret_cast<float*>(smem);                    // (G, HD) f32
@@ -127,6 +134,7 @@ __global__ void __launch_bounds__(MAXT) paged_attention_kernel(const T* __restri
 
     const int b = blockIdx.x, kvh = blockIdx.y, s = blockIdx.z, S = gridDim.z;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const bool dims = HD == DPL * 32 || lane * DPL < HD;   // this lane holds P.V dims
     const size_t bk = (size_t)b * KV + kvh;
     // q, widened to f32 once (it does not wait on the row's length)
     const T* qrow = q + bk * G * HD;
@@ -225,7 +233,8 @@ __global__ void __launch_bounds__(MAXT) paged_attention_kernel(const T* __restri
         for (int t = 0; t < ntok; ++t) {
             float vr[DPL];
 #pragma unroll
-            for (int d = 0; d < DPL; ++d) vr[d] = to_f32(vt[t * (L::ROW / sizeof(T)) + lane * DPL + d]);
+            for (int d = 0; d < DPL; ++d)
+                vr[d] = dims ? to_f32(vt[t * (L::ROW / sizeof(T)) + lane * DPL + d]) : 0.f;
 #pragma unroll
             for (int h = 0; h < HPW; ++h) {
                 if (h >= nh) break;
@@ -239,7 +248,7 @@ __global__ void __launch_bounds__(MAXT) paged_attention_kernel(const T* __restri
 
 #pragma unroll
     for (int h = 0; h < HPW; ++h) {
-        if (h >= nh) break;
+        if (h >= nh || !dims) break;
         const int g = warp * HPW + h;
         if (S == 1) {
             const float den = fmaxf(l[h], 1e-20f);
@@ -261,18 +270,17 @@ __global__ void __launch_bounds__(MAXT) paged_attention_kernel(const T* __restri
                          G, HD, reinterpret_cast<float*>(slots));
 }
 
-template <typename T, int DPL>
+template <typename T, int HD>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* bt,
            const int* lengths, float* out, float* ws, int* arrived, int B, int KV, int G, int bs,
            int nb, int pps, float scale, cudaStream_t st) {
-    constexpr int HD = DPL * 32;
     const int warps = (G + HPW - 1) / HPW;
     const int S = (nb + pps - 1) / pps;
     if (S > splitkv::MAX_SPLITS || (S > 1 && (ws == nullptr || arrived == nullptr)))
         return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)G * HD * sizeof(float) + 2 * Layout<T, HD>::SLOT +
                         (size_t)warps * HPW * TILE * sizeof(float) + (size_t)pps * sizeof(int);
-    auto kern = warps > 16 ? paged_attention_kernel<T, DPL, 1024> : paged_attention_kernel<T, DPL, 512>;
+    auto kern = warps > 16 ? paged_attention_kernel<T, HD, 1024> : paged_attention_kernel<T, HD, 512>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -291,9 +299,10 @@ int launch_hd(int hd, const void* q, const void* k_pool, const void* v_pool, con
               const int* lengths, float* out, float* ws, int* arrived, int B, int KV, int G,
               int bs, int nb, int pps, float scale, cudaStream_t st) {
     switch (hd) {
-        case 64: return launch<T, 2>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
-        case 96: return launch<T, 3>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
-        case 128: return launch<T, 4>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
+        case 64: return launch<T, 64>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
+        case 96: return launch<T, 96>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
+        case 120: return launch<T, 120>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
+        case 128: return launch<T, 128>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

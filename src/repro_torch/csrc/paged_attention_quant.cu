@@ -30,8 +30,10 @@
 // the first tile in flight while q is widened to f32.
 // With S > 1 the last split CTA of a (row, KV head) to finish merges the
 // partials in split order (csrc/split_kv.cuh): one launch, and outputs
-// that are bitwise repeatable.  The container (int8 or packed int4) is a
-// template parameter.
+// that are bitwise repeatable.  The container (int8 or packed int4) and
+// the head dim (64, 96, 120, 128) are template parameters; at hd 120 the
+// sweep computes over 128 padded dims (kv_attention.cuh) and stages the
+// 120- or 60-byte code rows in 8- or 4-byte pieces.
 //
 // Plain C interface (built with nvcc, loaded with ctypes).  The kernel
 // allocates nothing (the wrapper passes the split workspace); the entry
@@ -46,7 +48,7 @@ using namespace kvattn;
 // One CTA per (row b, KV head, split s).  ws_acc / ws_ml take the
 // partial when S > 1; with S == 1 the CTA writes out itself.  MAXT: the
 // most threads a launch uses (1024 above 64 query heads caps registers).
-template <typename T, int DPL, bool PACKED4, int MAXT>
+template <typename T, int HD, bool PACKED4, int MAXT>
 __global__ void __launch_bounds__(MAXT)
 paged_attention_quant_kernel(const T* __restrict__ q, const uint8_t* __restrict__ k_pool,
                              const uint8_t* __restrict__ v_pool,
@@ -57,10 +59,10 @@ paged_attention_quant_kernel(const T* __restrict__ q, const uint8_t* __restrict_
                              float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                              int* __restrict__ arrived, int KV, int G, int bs, int nb, int pps,
                              float scale, int vec) {
-    constexpr int HD = DPL * 32;
+    constexpr int DPL = (HD + 31) / 32, HDP = DPL * 32;   // dims per lane, padded dims
     extern __shared__ __align__(16) uint8_t smem[];
-    float* qs = reinterpret_cast<float*>(smem);                    // (G, HD) f32
-    uint8_t* sweep_mem = smem + (size_t)G * HD * sizeof(float);
+    float* qs = reinterpret_cast<float*>(smem);                    // (G, HDP) f32
+    uint8_t* sweep_mem = smem + (size_t)G * HDP * sizeof(float);
     int* pages = reinterpret_cast<int*>(
         sweep_mem + sweep_smem_bytes<HD, PACKED4>(blockDim.x / 32));   // this split's
 
@@ -76,13 +78,13 @@ paged_attention_quant_kernel(const T* __restrict__ q, const uint8_t* __restrict_
     const int nh = max(0, min(HPW, G - warp * HPW));   // live heads of this warp
     __syncthreads();
     const Pages pg{k_pool, v_pool, k_scale, v_scale, pages, s * pps, KV, kvh, bs, vec != 0};
-    sweep_prefetch<DPL, PACKED4>(pg, t_begin, t_end, sweep_mem);
-    stage_f32(qs, q + bk * G * HD, G * HD);
+    sweep_prefetch<DPL, PACKED4, HD>(pg, t_begin, t_end, sweep_mem);
+    stage_f32_rows<HD, HDP>(qs, q + bk * G * HD, G);
     __syncthreads();
 
-    Partial<DPL> st;
+    Partial<DPL, HD> st;
     st.init();
-    sweep<DPL, PACKED4>(st, qs, pg, t_begin, t_end, scale, nh, sweep_mem);
+    sweep<DPL, PACKED4, HD>(st, qs, pg, t_begin, t_end, scale, nh, sweep_mem);
     st.store(out + bk * G * HD, ws_acc + bk * S * G * HD, ws_ml + bk * S * G * 2, s, S, G,
              warp * HPW, nh, lane);
     if (S > 1 && splitkv::arrive_last(arrived + bk, S))
@@ -90,25 +92,27 @@ paged_attention_quant_kernel(const T* __restrict__ q, const uint8_t* __restrict_
                          G, HD, qs);
 }
 
-template <typename T, int DPL, bool PACKED4>
+template <typename T, int HD, bool PACKED4>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
            const void* v_scale, const int* bt, const int* lengths, float* out, float* ws,
            int* arrived, int B, int KV, int G, int bs, int nb, int pps, float scale,
            cudaStream_t st) {
-    constexpr int HD = DPL * 32;
+    using L = Layout<HD, PACKED4>;
     const int warps = sweep_warps(G);
     const int S = (nb + pps - 1) / pps;
     if (S > splitkv::MAX_SPLITS || (S > 1 && (ws == nullptr || arrived == nullptr)))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)G * HD * sizeof(float) + sweep_smem_bytes<HD, PACKED4>(warps) +
-                        (size_t)pps * sizeof(int);
-    auto kern = warps > 16 ? paged_attention_quant_kernel<T, DPL, PACKED4, 1024>
-                           : paged_attention_quant_kernel<T, DPL, PACKED4, 512>;
+    const size_t smem = (size_t)G * L::HDP * sizeof(float) +
+                        sweep_smem_bytes<HD, PACKED4>(warps) + (size_t)pps * sizeof(int);
+    auto kern = warps > 16 ? paged_attention_quant_kernel<T, HD, PACKED4, 1024>
+                           : paged_attention_quant_kernel<T, HD, PACKED4, 512>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const int vec = reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
+    // a row stride of HDS bytes keeps every row as aligned as the base,
+    // up to the staging piece PB (16 bytes, or 8 / 4 at hd 120)
+    const int vec = reinterpret_cast<uintptr_t>(k_pool) % L::PB == 0 &&
+                    reinterpret_cast<uintptr_t>(v_pool) % L::PB == 0;
     float* ws_ml = ws ? ws + (size_t)B * KV * S * G * HD : nullptr;
     kern<<<dim3(B, KV, S), warps * 32, smem, st>>>(
         static_cast<const T*>(q), static_cast<const uint8_t*>(k_pool),
@@ -123,9 +127,10 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void*
               const void* vs, const int* bt, const int* ln, float* out, float* ws, int* arr,
               int B, int KV, int G, int bs, int nb, int pps, float scale, cudaStream_t st) {
     switch (hd) {
-        case 64: return launch<T, 2, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
-        case 96: return launch<T, 3, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
-        case 128: return launch<T, 4, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
+        case 64: return launch<T, 64, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
+        case 96: return launch<T, 96, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
+        case 120: return launch<T, 120, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
+        case 128: return launch<T, 128, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -22,6 +22,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 8-byte cp.async (through L1), zero-filling the destination when !ok
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
 // 4-byte cp.async (through L1), zero-filling the destination when !ok
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
     const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));

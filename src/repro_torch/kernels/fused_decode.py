@@ -30,6 +30,10 @@ from repro_torch.kernels.paged_attention import (MAX_GROUP, MAX_SPLITS, arrival_
 from repro_torch.kernels.paged_attention_quant import check_quant_pool
 from repro_torch.kernels.qmm import BS_COLS, BS_CTAS, BS_ROWS, BS_STEP, bitserial_splits
 
+# head dims of the attend launch (csrc/fused_decode.cu): whole lanes only.
+# A windowed model (h2o-danube-3-4b's hd 120) never takes the fused op.
+FUSED_HEAD_DIMS = (64, 96, 128)
+
 _ACT = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = BS_STEP        # K rows of one bit-serial step: the unit of (A)'s splits
 COLS = BS_COLS         # columns per bit-serial CTA (fused_decode.cu PROJECT_WARPS)
@@ -96,7 +100,7 @@ def _attend_checks(B, num_heads, k_pool, v_pool, k_scale, v_scale, block_tables,
     KV = k_pool.shape[2]
     if num_heads % KV or num_heads // KV > MAX_GROUP:
         raise ValueError(f"{num_heads} heads over {KV} KV heads not supported")
-    packed4 = check_quant_pool(k_pool, v_pool, k_scale, v_scale, KV, hd)
+    packed4 = check_quant_pool(k_pool, v_pool, k_scale, v_scale, KV, hd, FUSED_HEAD_DIMS)
     nb = block_tables.shape[1]
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")

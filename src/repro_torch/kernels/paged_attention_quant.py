@@ -25,9 +25,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CONTAINERS = {torch.int8: 0, torch.uint8: 1}   # int8 codes / packed int4
 
 
-def check_quant_pool(k_pool, v_pool, k_scale, v_scale, KV: int, hd: int) -> int:
-    """Validate a quantized pool pair and its scales against (KV, hd);
-    return the container flag (1 = nibble-packed uint8)."""
+def check_quant_pool(k_pool, v_pool, k_scale, v_scale, KV: int, hd: int,
+                     head_dims=HEAD_DIMS) -> int:
+    """Validate a quantized pool pair and its scales against (KV, hd), hd
+    one of ``head_dims``; return the container flag (1 = nibble-packed
+    uint8)."""
     if k_pool.dtype not in CONTAINERS or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"quantized pools must both be int8 or uint8, got "
                         f"{k_pool.dtype} / {v_pool.dtype}")
@@ -41,8 +43,8 @@ def check_quant_pool(k_pool, v_pool, k_scale, v_scale, KV: int, hd: int) -> int:
     if tuple(k_scale.shape) != (NB, bs, KV) or v_scale.shape != k_scale.shape:
         raise ValueError(f"scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)} "
                          f"!= {(NB, bs, KV)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported (want one of {HEAD_DIMS})")
+    if hd not in head_dims:
+        raise ValueError(f"head dim {hd} not supported (want one of {head_dims})")
     return packed4
 
 

@@ -1,15 +1,27 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch glm4-9b --bits 4``.
 
-Torch port of ``repro.launch.serve``, continuous mode: initialize params
-(random, seed 0), pack them at a ReLeQ policy
-(``--bits`` everywhere except the 8-bit frozen embed/lm_head, or
-``--policy-json``), and serve the reference's synthetic workload —
-staggered arrivals every ``--arrival-every`` steps, heterogeneous output
-lengths — through :class:`repro_torch.serve.ServeEngine` on the paged
-pool with chunked prefill, on-device sampling and the one-step-lookahead
-pipeline (on the card the decode step and the sampler are captured CUDA
-graphs).  Prints tokens/s, per-request TTFT, occupancy, the sampler and
-pipeline counts and the kernel launch counts.
+Torch port of ``repro.launch.serve``: initialize params (random, seed
+0), pack them at a ReLeQ policy (``--bits`` everywhere except the 8-bit
+frozen embed/lm_head, or ``--policy-json``), then
+
+- ``--mode continuous`` (default): serve the reference's synthetic
+  workload — staggered arrivals every ``--arrival-every`` steps,
+  heterogeneous output lengths — through
+  :class:`repro_torch.serve.ServeEngine` with on-device sampling and the
+  one-step-lookahead pipeline (on the card the decode step and the
+  sampler are captured CUDA graphs).  ``--cache paged`` (default) uses
+  the block pool with chunked prefill, ``--cache slot`` the slot pool
+  with full-prompt prefill.  Prints tokens/s, per-request TTFT,
+  occupancy, the sampler and pipeline counts and the kernel launch
+  counts.
+- ``--mode static``: the fixed-batch loop — ``--batch`` prompts of
+  ``--prompt-len`` tokens drawn from ``default_rng(--seed)`` (the
+  reference draws them from ``jax.random``), one full-prompt prefill,
+  then ``--gen`` greedy decode steps; prints the prefill seconds, ms per
+  token-step and the first sequence.
+
+A sliding-window arch (h2o-danube-3-4b) serves from ring caches on
+either pool.
 
 Runs on ``--device cuda`` (default) and fails without a card; ``--device
 cpu`` takes the plain versions of the kernels.  ``--min-prompt-len``
@@ -31,15 +43,16 @@ planes roll K tokens per window, one batched verify scores them).
 (implies ``--no-pipeline``); ``--no-pipeline`` keeps device sampling but
 syncs every step, as the reference's flags do.
 
-Flags of the reference that this port does not have yet are refused
-with the ROADMAP item that brings them: ``--mode static``, ``--cache
-slot``, ``--ckpt-dir``.
+``--ckpt-dir``, a flag of the reference that this port does not have
+yet, is refused with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops as kops
@@ -48,11 +61,9 @@ from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qat import policy_for
 from repro_torch.serve import SamplingParams, ServeEngine
 from repro_torch.spec import SpecConfig
-from repro_torch.train.serve import quantize_for_serving
+from repro_torch.train.serve import make_decode_step, quantize_for_serving
 
 _UNPORTED = (  # (flag test, flag, ROADMAP item)
-    (lambda a: a.mode != "continuous", "--mode static", "slice A, item 3 (rest)"),
-    (lambda a: a.cache != "paged", "--cache slot", "slice A, item 3 (rest)"),
     (lambda a: a.ckpt_dir, "--ckpt-dir", "slice D, item 10"),
 )
 
@@ -66,9 +77,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", choices=("continuous", "static"), default="continuous")
     ap.add_argument("--bits", type=int, default=4)
     ap.add_argument("--policy-json", default=None)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static mode: fixed batch size")
+    ap.add_argument("--seed", type=int, default=1,
+                    help="static mode: numpy seed of the prompts")
     ap.add_argument("--num-slots", type=int, default=4,
                     help="max concurrent sequences")
-    ap.add_argument("--cache", choices=("paged", "slot"), default="paged")
+    ap.add_argument("--cache", choices=("paged", "slot"), default="paged",
+                    help="paged: block pool + chunked prefill; slot: one "
+                         "contiguous row per sequence + full-prompt prefill")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -200,7 +217,7 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
     spec = (SpecConfig(k=args.spec_k, draft_bits=args.draft_bits)
             if args.spec_k else None)
     engine = ServeEngine(model, sparams, num_slots=args.num_slots,
-                         max_len=args.prompt_len + args.gen + 1,
+                         max_len=args.prompt_len + args.gen + 1, cache=args.cache,
                          block_size=args.block_size, num_blocks=args.num_blocks,
                          prefill_chunk=args.prefill_chunk, tracer=tracer,
                          prefix_cache=args.prefix_cache,
@@ -212,12 +229,13 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
     m = engine.metrics()
     kv = (f", KV blocks at {args.kv_bits} bits" + (" (f32 oracle)" if args.kv_oracle else "")
           if args.kv_bits else "")
-    print(f"served {args.requests} requests on {args.num_slots} paged rows "
+    paged = args.cache == "paged"
+    print(f"served {args.requests} requests on {args.num_slots} {args.cache} rows "
           f"(avg policy {policy.average_bits():.1f} bits{kv}) on {args.device}")
     print(f"tokens/s={m['tokens_per_s']:.1f} occupancy={m['mean_occupancy']:.2f} "
-          f"decode_steps={m['decode_steps']} tokens={m['tokens_total']} "
-          f"preemptions={m['preemptions']} "
-          f"block_occ={m['mean_block_occupancy']:.2f}")
+          f"decode_steps={m['decode_steps']} tokens={m['tokens_total']}"
+          + (f" preemptions={m['preemptions']} "
+             f"block_occ={m['mean_block_occupancy']:.2f}" if paged else ""))
     sm, pl = m["sampler"], m["pipeline"]
     print(f"sampler={'device' if sm['device'] else 'host'} "
           f"fallbacks={sm['fallbacks']} "
@@ -226,16 +244,16 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
           f"recompiles={m['recompiles']} graph_captures={engine.graph_captures}")
     print(f"decode step p50={m['decode_step_p50_ms']:.2f} ms "
           f"device/host p50={m['decode_device_p50_ms']:.2f}/"
-          f"{m['decode_host_p50_ms']:.2f} ms "
-          f"prefill_launches={m['prefill_launches']}")
-    pc = m["prefix_cache"]
-    print(f"prefix_cache={'on' if pc['enabled'] else 'off'} "
-          f"hit_rate={m['prefix_hit_rate']:.3f} "
-          f"hits={m['prefix_hits']}/{m['prefix_lookups']} lookups "
-          f"blocks_shared={m['blocks_shared']:.1f} "
-          f"prefill_launches={m['prefill_launches']} "
-          f"hit_tokens={pc['hit_tokens']} cow={pc['cow_copies']} "
-          f"evictions={pc['evictions']}")
+          f"{m['decode_host_p50_ms']:.2f} ms")
+    if paged:
+        pc = m["prefix_cache"]
+        print(f"prefix_cache={'on' if pc['enabled'] else 'off'} "
+              f"hit_rate={m['prefix_hit_rate']:.3f} "
+              f"hits={m['prefix_hits']}/{m['prefix_lookups']} lookups "
+              f"blocks_shared={m['blocks_shared']:.1f} "
+              f"prefill_launches={m['prefill_launches']} "
+              f"hit_tokens={pc['hit_tokens']} cow={pc['cow_copies']} "
+              f"evictions={pc['evictions']}")
     if "spec" in m:
         s = m["spec"]
         print(f"spec k={s['k']} draft_bits={args.draft_bits} "
@@ -254,13 +272,62 @@ def continuous(args, cfg, model, sparams, policy) -> ServeEngine:
     return engine
 
 
-def main(argv=None) -> ServeEngine:
+def static_prompts(args, vocab_size: int) -> np.ndarray:
+    """The static loop's ``(--batch, --prompt-len)`` prompts, from
+    ``default_rng(--seed)``."""
+    rng = np.random.default_rng(args.seed)
+    return rng.integers(0, vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def static(args, cfg, model, sparams, policy) -> dict:
+    """The fixed-batch loop: one full-prompt prefill of ``--batch``
+    prompts, then ``--gen`` greedy decode steps over the contiguous cache
+    (on the card a captured step; it writes the cache in place, where the
+    reference's un-donated step returns a new one).  Prints and returns
+    the prefill seconds, ms per token-step and the greedy tokens
+    ``(batch, gen + 1)``."""
+    tokens = torch.from_numpy(static_prompts(args, cfg.vocab_size)).to(args.device)
+    _sync(args.device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(sparams, tokens=tokens,
+                                  max_len=args.prompt_len + args.gen + 1)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    _sync(args.device)
+    prefill_s = time.perf_counter() - t0
+    dec = make_decode_step(model, device=args.device)
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(args.gen):
+        logits, cache = dec(sparams, cache, tok)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    out = torch.cat(toks, dim=1).cpu().numpy()
+    dt = time.perf_counter() - t0
+    ms = dt / max(args.gen, 1) * 1e3
+    print(f"served batch={args.batch} gen={args.gen} at {ms:.1f} ms/token-step, "
+          f"prefill {prefill_s:.3f} s (avg policy {policy.average_bits():.1f} bits) "
+          f"on {args.device}")
+    print("kernel launches:", dict(kops.counts))
+    print("first sequence:", out[0].tolist())
+    return {"prefill_s": prefill_s, "ms_per_step": ms, "tokens": out}
+
+
+def main(argv=None):
+    """Run the launcher; returns the engine (continuous mode) or the
+    static loop's results."""
     args = parse_args(argv)
     if args.log_json:
         from repro_torch.obs import configure
 
         configure(json_mode=True)
     cfg, model, sparams, policy = build(args)
+    if args.mode == "static":
+        return static(args, cfg, model, sparams, policy)
     return continuous(args, cfg, model, sparams, policy)
 
 

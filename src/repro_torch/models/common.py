@@ -111,10 +111,16 @@ def chunk_attention(
     k_new: torch.Tensor,    # (B, C, KV, hd) — this chunk's keys (pre-write)
     v_new: torch.Tensor,    # (B, C, KV, hd)
     q_pos: torch.Tensor,    # (B, C) absolute token index per query
+    *,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention: queries attend [context cache ; own
-    chunk], masked purely in absolute token positions; f32 masked softmax,
-    the same arithmetic as :func:`decode_attention`."""
+    chunk], masked purely in absolute token positions, so one code covers
+    linear caches, ring caches (slot s holds the youngest token = s mod T)
+    and paged gathers; ``window`` also drops keys ``window`` or more
+    positions back.  The chunk's keys come from ``k_new``, never the
+    cache, so a ring slot the chunk is about to overwrite is not read.
+    f32 masked softmax, the same arithmetic as :func:`decode_attention`."""
     B, C, H, hd = q.shape
     KV = k_new.shape[2]
     G = H // KV
@@ -126,6 +132,8 @@ def chunk_attention(
 
     def mask(key_pos):  # (B, Tk) -> (B, 1, 1, C, Tk)
         ok = (key_pos[:, None, :] >= 0) & (key_pos[:, None, :] <= q_pos[:, :, None])
+        if window is not None:
+            ok &= q_pos[:, :, None] - key_pos[:, None, :] < window
         return ok[:, None, None]
 
     s = torch.cat(

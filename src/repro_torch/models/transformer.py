@@ -8,12 +8,23 @@ fixed-shape chunked prefill (``prefill_chunk`` over ``_chunk_body``),
 the speculative verifier (``verify_chunk``, the same body over every pool
 row) and the one-token ``decode_step`` over a ``PagedCachePool`` with fp
 blocks, quantized KV blocks (int8, or nibble-packed int4) or the fp32
-kv-oracle — and the quantization API (``quant_groups``, ``kv_quant_groups``,
+kv-oracle — the slot path (the full-prompt ``prefill`` into a contiguous
+cache, and ``decode_step`` over it, as ``SlotCachePool`` and the static
+loop use them), sliding-window (ring) caches on both paths, and the
+quantization API (``quant_groups``, ``kv_quant_groups``,
 ``frozen_bits``).  Every packed matmul goes through ``apply_linear`` ->
-``kernels.ops.qmm``, every decode attention through
+``kernels.ops.qmm``, every paged decode attention through
 ``kernels.ops.paged_attention``, and a quantized-KV decode step with
 packed q/k/v through ``kernels.ops.fused_qkv_paged_decode``, so on the
-card the hand-written Hopper kernels carry the whole path.
+card the hand-written Hopper kernels carry the whole path.  A windowed
+layer never takes the fused op (it writes at ``min(length, Tc - 1)``,
+not at the ring slot), as the reference takes it only without a window.
+
+Ring caches (``cfg.sliding_window``): a sequence's cache holds
+``cache_len(max_len) = min(max_len, window)`` tokens, token position p at
+slot ``p % Tc``; decode writes at ``length % Tc`` and attends the
+``min(length + 1, Tc)`` live slots, and a chunk reads its context at the
+positions its ring slots hold and writes at ``positions % Tc``.
 
 Params are plain dicts of tensors with the reference's structure: the
 training layout stacks each repeated leaf along a leading layer axis in
@@ -23,8 +34,7 @@ matrices and a ``QDQ`` embedding.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): MoE, hybrid and other families, M-RoPE and absolute-sinusoid
-positions, sliding-window (ring) caches, and the full-prompt
-``prefill``.
+positions.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from repro_torch.models.common import (
     blocked_attention,
     chunk_attention,
     chunked_ce,
+    decode_attention,
     dense_init,
     embed_init,
     rms_norm,
@@ -87,9 +98,6 @@ class TransformerLM:
             raise not_ported(f"model family {cfg.family!r}", "slice C, item 9")
         if cfg.rope != "rope":
             raise not_ported(f"positions {cfg.rope!r}", "slice C, item 9")
-        if cfg.sliding_window is not None:
-            raise not_ported("sliding-window (ring) paged caches",
-                             "slice A, item 3 (rest)")
         self.cfg = cfg
 
     @property
@@ -160,12 +168,17 @@ class TransformerLM:
         vsc[phys, sub] = v_sc
         return out
 
-    @staticmethod
-    def _write_slot(bt, length, bs: int):
-        """(physical block, offset) of each row's new token: logical slot
-        ``min(length, Tc - 1)`` through the block table."""
-        Tc = bt.shape[1] * bs
-        slot = torch.clamp(length, max=Tc - 1).long()
+    def _slot(self, length, Tc: int):
+        """Each row's cache slot for its new token: ``length % Tc`` in a
+        ring, else ``min(length, Tc - 1)``."""
+        if self.cfg.sliding_window is not None:
+            return (length % Tc).long()
+        return torch.clamp(length, max=Tc - 1).long()
+
+    def _write_slot(self, bt, length, bs: int):
+        """(physical block, offset) of each row's new token: its logical
+        slot (:meth:`_slot`) through the block table."""
+        slot = self._slot(length, bt.shape[1] * bs)
         phys = bt.long().gather(1, (slot // bs)[:, None])[:, 0]
         return phys, slot % bs
 
@@ -174,7 +187,10 @@ class TransformerLM:
         through :func:`blocked_attention` (training).  Else one-token
         decode over the paged pool: write the new K/V into its owning
         block, then attend by block table (``kernels.ops.paged_attention``).
-        A quantized pool with packed q/k/v takes the fused op instead."""
+        A quantized pool with packed q/k/v and no window takes the fused op
+        instead.  A contiguous cache (no block tables: the slot pool, the
+        static loop) is written at the row's slot and attended with
+        :func:`decode_attention`, as the reference does it (no kernel)."""
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -188,10 +204,8 @@ class TransformerLM:
             out = blocked_attention(q, k, v, causal=True, window=cfg.sliding_window,
                                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
             return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
-        if "block_tables" not in cache:
-            raise not_ported("slot-pool decode", "slice A, item 3 (rest)")
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if (S == 1 and "k_scale" in cache
+        if (S == 1 and "k_scale" in cache and cfg.sliding_window is None
                 and all(isinstance(p["attn"][m], Packed) for m in ("wq", "wk", "wv"))):
             out = self._fused_decode_attn(h, p, cache, layer)
             return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
@@ -201,6 +215,15 @@ class TransformerLM:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         kc, vc, length = cache["k"][layer], cache["v"][layer], cache["length"]
+        if "block_tables" not in cache:
+            # contiguous (B, T, KV, hd) rows, written in place at the slot
+            Tc = kc.shape[1]
+            rows = torch.arange(B, device=x.device)
+            slot = self._slot(length, Tc)
+            kc[rows, slot] = k[:, 0].to(kc.dtype)
+            vc[rows, slot] = v[:, 0].to(vc.dtype)
+            out = decode_attention(q, kc, vc, torch.clamp(length + 1, max=Tc))
+            return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         bt = cache["block_tables"]                          # (B, nb) int32
         phys, sub = self._write_slot(bt, length, kc.shape[1])
         eff_len = torch.clamp(length + 1, max=bt.shape[1] * kc.shape[1]).to(torch.int32)
@@ -317,21 +340,59 @@ class TransformerLM:
 
     # --------------------------------------------------------------- decode
 
-    def prefill(self, *args, **kwargs):
-        raise not_ported("full-prompt prefill (slot pool)", "slice A, item 3 (rest)")
+    def cache_len(self, max_len: int) -> int:
+        """Tokens a sequence's cache holds: the window for a ring."""
+        w = self.cfg.sliding_window
+        return min(max_len, w) if w else max_len
 
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None) -> dict:
-        """Contiguous per-row cache; the paged pool reads its leaf shapes
-        and dtypes as the template for its blocks."""
+        """Contiguous per-row cache of ``cache_len(max_len)`` tokens; the
+        paged pool reads its leaf shapes and dtypes as the template for its
+        blocks."""
         cfg = self.cfg
         device = resolve_device(device)
         dtype = dtype or self.dtype
         L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+        T = self.cache_len(max_len)
         return {
-            "k": torch.zeros((L, batch, max_len, KV, hd), dtype=dtype, device=device),
-            "v": torch.zeros((L, batch, max_len, KV, hd), dtype=dtype, device=device),
+            "k": torch.zeros((L, batch, T, KV, hd), dtype=dtype, device=device),
+            "v": torch.zeros((L, batch, T, KV, hd), dtype=dtype, device=device),
             "length": torch.zeros((batch,), dtype=torch.int32, device=device),
         }
+
+    def prefill(self, params, tokens=None, embeds=None, max_len: int | None = None):
+        """Forward over whole prompts, building a contiguous cache sized for
+        ``max_len`` total tokens (prompt + decode budget).  Returns
+        (last-token logits (B, 1, V) f32, cache).  Per layer over the
+        serving layout: each layer's K/V is captured for the cache (the
+        last ``Tc`` tokens; a ring rolls them so that position p sits at
+        slot ``p % Tc``), then the layer runs as the training forward."""
+        cfg = self.cfg
+        h = embeds.to(self.dtype) if embeds is not None else self._embed_in(params, tokens)
+        B, S, _ = h.shape
+        KV, hd = cfg.num_kv_heads, cfg.hd
+        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :].expand(B, S)
+        cache = self.init_cache(B, max(S, max_len or 0, 1), device=h.device)
+        Tc = cache["k"].shape[2]
+        Tmin = min(S, Tc)
+        # element i of the last Tmin tokens is position S - Tmin + i
+        shift = (S - Tmin) % Tc if cfg.sliding_window is not None else 0
+        for l in range(cfg.num_layers):
+            p = self._layer_slice(params, l)
+            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+            k = apply_rope(apply_linear(hn, p["attn"]["wk"]).reshape(B, S, KV, hd),
+                           positions, cfg.rope_theta)
+            v = apply_linear(hn, p["attn"]["wv"]).reshape(B, S, KV, hd)
+            for key, new in (("k", k), ("v", v)):
+                rows = cache[key][l]                       # (B, Tc, KV, hd)
+                rows[:, :Tmin] = new[:, S - Tmin:].to(rows.dtype)
+                if shift:
+                    rows.copy_(torch.roll(rows, shift, dims=1))
+            h = self._attn(h, p, positions, None, None)
+            h = self._ffn(h, p)
+        cache["length"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return self._readout(params, h[:, -1:]), cache
 
     def _layer_slice(self, params, l: int):
         """Per-layer param view: stacked tree or pre-unrolled serving list."""
@@ -400,14 +461,26 @@ class TransformerLM:
             k_codes, k_sc = kv_quantize(k, qmax)           # (B, C, KV, hd), (B, C, KV)
             v_codes, v_sc = kv_quantize(v, qmax)
             k_att, v_att = kv_dequantize(k_codes, k_sc), kv_dequantize(v_codes, v_sc)
+        window = cfg.sliding_window
         s_idx = torch.arange(Tc, device=x.device)[None, :]
-        ctx_pos = torch.where(s_idx < starts[:, None], s_idx, -1)
-        out = chunk_attention(q, k_ctx, v_ctx, ctx_pos, k_att, v_att, positions)
+        if window is None:
+            ctx_pos = torch.where(s_idx < starts[:, None], s_idx, -1)
+        else:
+            # ring: slot s holds the youngest token p = s (mod Tc), p < start
+            p_tok = starts[:, None] - 1 - ((starts[:, None] - 1 - s_idx) % Tc)
+            ctx_pos = torch.where(p_tok >= 0, p_tok, -1)
+        out = chunk_attention(q, k_ctx, v_ctx, ctx_pos, k_att, v_att, positions,
+                              window=window)
 
         i_idx = torch.arange(C, device=x.device)[None, :]
-        blk = bt.gather(1, torch.clamp(positions // bs, 0, nb - 1).long())
+        logical = positions if window is None else positions % Tc
+        blk = bt.gather(1, torch.clamp(logical // bs, 0, nb - 1).long())
         keep = i_idx < valids[:, None]                     # (B, C)
-        sub = (positions % bs).long()
+        if window is not None and C > Tc:
+            # a chunk longer than the ring: only its last Tc tokens land
+            # (each slot once, the youngest token of it)
+            keep &= i_idx >= valids[:, None] - Tc
+        sub = (logical % bs).long()
         # in place, as in _attn (the reference scatters with mode="drop")
         phys, sub = blk[keep], sub[keep]
         if quant:

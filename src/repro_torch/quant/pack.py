@@ -78,18 +78,18 @@ def pack_bitplanes(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def unpack_bitplanes(packed: torch.Tensor, bits: int) -> torch.Tensor:
-    """Inverse: (bits, K//8, N) uint8 -> signed codes (K, N) int32.  One
-    plane at a time, so the largest temporary is one (K, N) plane."""
+    """Inverse: (bits, K//8, N) uint8 -> signed codes (K, N) int32.  The
+    unsigned codes (at most 8 bits) are gathered in a uint8 (K, N) one
+    plane at a time, then widened once."""
     b, K8, N = packed.shape
     if b != bits:
         raise ValueError(f"packed has {b} planes, expected {bits}")
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device).view(1, 8, 1)
-    u = torch.zeros((K8 * 8, N), dtype=torch.int32, device=packed.device)
+    u = torch.zeros((K8, 8, N), dtype=torch.uint8, device=packed.device)
     for p in range(bits):
-        bit = ((packed[p][:, None, :] >> shifts) & 1).reshape(K8 * 8, N)
-        u |= bit.to(torch.int32) << p
+        u |= ((packed[p][:, None, :] >> shifts) & 1) << p
     n = 2 ** (bits - 1) - 1 if bits > 1 else 1
-    return u - n
+    return u.reshape(K8 * 8, N).to(torch.int32) - n
 
 
 def pack_weight(w: torch.Tensor, bits: int):

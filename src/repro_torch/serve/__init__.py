@@ -5,8 +5,10 @@ ReLeQ-quantized models (torch port of ``repro.serve``).
   reference's numpy-only modules (requests, host token selection from
   per-request ``SeedSequence`` streams, FIFO admission, block-aware
   continuous scheduling with preempt-and-requeue).
-- ``cache.py``: ``PagedCachePool`` with fp or quantized blocks and the
-  refcounted prefix cache (trie, copy on write, LRU parking).
+- ``cache.py``: ``PagedCachePool`` with fp or quantized blocks (ring
+  blocks for a sliding window) and the refcounted prefix cache (trie,
+  copy on write, LRU parking); ``SlotCachePool``, one contiguous row per
+  sequence, filled by the full-prompt prefill.
 - ``engine.py``: ``ServeEngine`` — chunked prefill (over the tail of a
   prefix hit), the one-token decode step with device sampling and the
   lookahead, and speculative decoding with the quantized self-draft.
@@ -21,7 +23,7 @@ Use::
     engine.run_until_drained()
     tokens, stats = engine.output(rid), engine.metrics()
 """
-from repro_torch.serve.cache import PagedCachePool
+from repro_torch.serve.cache import PagedCachePool, SlotCachePool
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.queue import AdmissionQueue
 from repro_torch.serve.request import Request, RequestState, SamplingParams
@@ -29,5 +31,5 @@ from repro_torch.serve.scheduler import ContinuousScheduler
 
 __all__ = [
     "AdmissionQueue", "ContinuousScheduler", "PagedCachePool", "Request",
-    "RequestState", "SamplingParams", "ServeEngine",
+    "RequestState", "SamplingParams", "ServeEngine", "SlotCachePool",
 ]

@@ -1,5 +1,6 @@
-"""Paged KV-cache pool for continuous batching (torch port of
-``repro.serve.cache.PagedCachePool``: fp or quantized blocks).
+"""KV-cache pools for continuous batching (torch port of
+``repro.serve.cache``): the paged ``PagedCachePool`` (fp or quantized
+blocks) and the slot-granular ``SlotCachePool``.
 
 Transformer K/V lives as fixed-size *blocks* in one ``(L, num_blocks,
 block_size, KV, hd)`` pool per leaf and each sequence owns an ordered
@@ -9,6 +10,13 @@ grows block by block as a sequence decodes, and block exhaustion is an
 allocation failure the scheduler turns into preempt-and-requeue (never a
 crash).  ``length`` keeps slot semantics (``models.model.
 cache_batch_axis``).
+
+Sliding-window (ring) models: a sequence's cache is a ring of ``Tc =
+min(max_len, window)`` tokens, and the ring arithmetic needs
+``blocks_per_seq * block_size == Tc``, so the block size shrinks to the
+largest divisor of ``Tc`` not above the one asked for.  A ring fits any
+sequence length (``length_bound`` is None), and it rewrites its blocks in
+place, so the prefix cache turns itself off for it.
 
 Physical block 0 is a reserved garbage sink: empty batch rows point their
 block tables at it, so the fixed-shape decode step can write K/V for
@@ -83,6 +91,7 @@ import heapq
 import numpy as np
 import torch
 
+from repro_torch.models.model import cache_batch_axis
 from repro_torch.obs.trace import NULL_TRACER
 
 PAGED_KEYS = ("k", "v")  # transformer KV pages; everything else is O(1)/seq
@@ -179,7 +188,12 @@ class PagedCachePool:
         self.kv_bits = kv_bits
         self.kv_oracle = bool(kv_oracle)
         T = template["k"].shape[2]                      # (L, B, T, KV, hd)
-        self.block_size = min(block_size, T)
+        self._ring = getattr(model.cfg, "sliding_window", None) is not None
+        bs = min(block_size, T)
+        if self._ring:   # the ring arithmetic needs blocks_per_seq * bs == T
+            while T % bs:
+                bs -= 1
+        self.block_size = bs
         self.blocks_per_seq = -(-T // self.block_size)
         usable = (num_blocks - 1 if num_blocks is not None
                   else num_seqs * self.blocks_per_seq)
@@ -207,9 +221,10 @@ class PagedCachePool:
                     dtype=dt, device=self.device)
             else:
                 self.cache[key] = leaf
-        # sound only where the paged KV is the whole per-token state
+        # sound only where the paged KV is the whole per-token state and
+        # is never rewritten in place (a ring is)
         recurrent = set(template) - set(self.paged_keys) - {"length"}
-        self.prefix_cache = bool(prefix_cache and not recurrent)
+        self.prefix_cache = bool(prefix_cache and not recurrent and not self._ring)
         del template
         if self.kv_bits is not None:
             self.cache["kv_qmax"] = torch.tensor(
@@ -246,8 +261,9 @@ class PagedCachePool:
         # device mirror of block_tables, updated in place when it changed
         self._bt_dev = DeviceTable(self.block_tables, self.device)
         self._bt_dirty = True
-        # per-sequence token bound: blocks_per_seq · block_size tokens
-        self.length_bound = self.blocks_per_seq * self.block_size
+        # per-sequence token bound: blocks_per_seq · block_size tokens, or
+        # None for a ring, which fits any length
+        self.length_bound = None if self._ring else self.blocks_per_seq * self.block_size
 
     # ----------------------------------------------------------- bookkeeping
     @property
@@ -291,7 +307,9 @@ class PagedCachePool:
         only *new* blocks: trie-matched prefix blocks arrive by incref.
         A block-aligned full-prompt hit costs one block more, the copy of
         the last shared block that the one-token tail prefill writes."""
-        if not self._free_seqs or n_tokens > self.length_bound:
+        if not self._free_seqs:
+            return False
+        if self.length_bound is not None and n_tokens > self.length_bound:
             return False
         need = self.blocks_needed(n_tokens)
         free = self.num_free_blocks
@@ -584,3 +602,91 @@ class PagedCachePool:
         """Paged-leaf bytes (the number "equal cache bytes" compares)."""
         return sum(self.cache[k].numel() * self.cache[k].element_size()
                    for k in self.paged_keys)
+
+
+class SlotCachePool:
+    """Slot-granular pool: one contiguous ``cache_len(max_len)``-token
+    cache row per sequence, ``(L, num_slots, T, KV, hd)`` K and V leaves
+    (the model's ``init_cache``).  Admission splices a batch-1 cache from
+    the full-prompt ``prefill`` into the row in place (``write``), so the
+    leaves keep their addresses and a captured decode step binds them
+    once.  fp KV only, and no block sharing, as the reference's."""
+
+    tracer = NULL_TRACER  # the engine points this at its tracer
+
+    def __init__(self, model, num_slots: int, max_len: int, dtype=None, device=None):
+        if num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.cache = model.init_cache(num_slots, max_len, dtype, device=device)
+        # per-sequence token bound (None: a ring fits any length)
+        self.length_bound = (max_len if getattr(model.cfg, "sliding_window", None) is None
+                             else None)
+        # min-heap: heappop -> lowest id (a sorted range is already a heap)
+        self._free = list(range(num_slots))
+        self._active: set[int] = set()
+
+    def occupancy(self) -> float:
+        return len(self._active) / self.num_slots
+
+    def can_admit(self, n_tokens: int, reserve_blocks: int = 0, tokens=None) -> bool:
+        """A free slot and a sequence that fits its row.  ``reserve_blocks``
+        and ``tokens`` (the paged pool's headroom and prefix hint) are
+        accepted and ignored: a row is preallocated and never shared."""
+        if self.length_bound is not None and n_tokens > self.length_bound:
+            return False
+        return bool(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError(f"all {self.num_slots} slots in use")
+        slot = heapq.heappop(self._free)
+        self._active.add(slot)
+        return slot
+
+    alloc_seq = alloc
+
+    def ensure(self, slot: int, n_tokens: int) -> bool:
+        """A row is preallocated to its full length: always True."""
+        return True
+
+    def free(self, slot: int) -> None:
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._active.remove(slot)
+        heapq.heappush(self._free, slot)
+
+    free_seq = free
+
+    def write(self, slot: int, single_cache: dict) -> None:
+        """Splice a batch-1 cache (one prefilled sequence) into ``slot``:
+        K/V in place, ``length`` as a new tensor (the pool's may be a
+        captured step's output buffer)."""
+        if slot not in self._active:
+            raise ValueError(f"slot {slot} is not allocated")
+        if set(single_cache) != set(self.cache):
+            raise ValueError(f"cache keys {sorted(single_cache)} != pool {sorted(self.cache)}")
+        for key, leaf in self.cache.items():
+            ax = cache_batch_axis(key)
+            want = leaf.shape[:ax] + (1,) + leaf.shape[ax + 1:]
+            if tuple(single_cache[key].shape) != tuple(want):
+                raise ValueError(f"cache[{key!r}] shape {tuple(single_cache[key].shape)} "
+                                 f"!= {tuple(want)}")
+        for key, leaf in self.cache.items():
+            if key != "length":
+                leaf.narrow(cache_batch_axis(key), slot, 1).copy_(single_cache[key])
+        length = self.cache["length"].clone()
+        length[slot:slot + 1] = single_cache["length"].to(length.dtype)
+        self.cache["length"] = length
+
+    def step_cache(self) -> dict:
+        return dict(self.cache)
+
+    def accept(self, cache: dict) -> None:
+        self.cache = dict(cache)
+
+    def cache_bytes(self) -> int:
+        """K/V leaf bytes (what the paged pool's equal-bytes claim compares)."""
+        return sum(self.cache[k].numel() * self.cache[k].element_size()
+                   for k in PAGED_KEYS if k in self.cache)

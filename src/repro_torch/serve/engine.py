@@ -70,10 +70,21 @@ every decode attention a hand-written paged-attention kernel
 decode step with packed q/k/v runs the fused QKV + paged-decode kernel.
 Metric keys are byte-compatible with the reference.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``cache="slot"`` and mesh placement.  The reference's recurrent
-snapshot and fix-up verify of a spec window, and its ring cap, come with
-the families that need them (ROADMAP item 9).
+``cache="slot"`` keeps one contiguous cache row per sequence
+(``SlotCachePool``): admission runs the full-prompt ``model.prefill`` at
+the prompt's own length and splices the batch-1 cache into the row in
+place; decode is the same step (captured on the card), over contiguous
+rows.  fp KV only, no prefix cache and no spec, as the reference's.
+
+Sliding-window models serve from ring blocks (``serve.cache``); a spec
+window never wraps the ring (a wrapped draft write would overwrite live
+in-window K/V that a rejection cannot restore), so a row within ``k`` of
+the ring's end speculates less, down to ``k = 0``, as the reference's
+ring cap does.
+
+Not ported yet: mesh placement, and the reference's recurrent snapshot
+and fix-up verify of a spec window, which come with the families that
+need them (ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -83,16 +94,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.obs import Registry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.quant.policy import QuantPolicy
-from repro_torch.serve.cache import DeviceTable, PagedCachePool
+from repro_torch.serve.cache import DeviceTable, PagedCachePool, SlotCachePool
 from repro_torch.serve.queue import AdmissionQueue
 from repro_torch.serve.request import Request, SamplingParams
 from repro_torch.serve.sampler import greedy_rows, row_arrays, sample_rows
 from repro_torch.serve.scheduler import ContinuousScheduler
-from repro_torch.train.serve import make_decode_step
+from repro_torch.train.serve import make_decode_step, make_prefill
 
 
 def _param_device(sparams) -> torch.device:
@@ -128,8 +139,13 @@ class ServeEngine:
                  registry=None, tracer=None, sample_device: bool = True,
                  pipeline: bool = True, decode_fn=None,
                  device=None):
-        if cache != "paged":
-            raise not_ported(f"cache={cache!r}", "slice A, item 3 (rest)")
+        if cache not in ("paged", "slot"):
+            raise ValueError(f"cache={cache!r} (want 'paged' or 'slot')")
+        if (kv_bits is not None or kv_oracle) and cache != "paged":
+            raise ValueError("kv_bits / kv_oracle require cache='paged' "
+                             "(the slot pool stores fp KV only)")
+        if spec is not None and cache != "paged":
+            raise ValueError("speculative decoding requires cache='paged'")
         if metrics_window < 1:
             raise ValueError("metrics_window must be >= 1")
         self.device = resolve_device(device)
@@ -141,11 +157,15 @@ class ServeEngine:
         self.cache_kind = cache
         self.obs = registry if registry is not None else Registry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.pool = PagedCachePool(model, num_slots, max_len,
-                                   block_size=block_size,
-                                   num_blocks=num_blocks, device=self.device,
-                                   kv_bits=kv_bits, kv_oracle=kv_oracle,
-                                   prefix_cache=prefix_cache)
+        if cache == "paged":
+            self.pool = PagedCachePool(model, num_slots, max_len,
+                                       block_size=block_size,
+                                       num_blocks=num_blocks, device=self.device,
+                                       kv_bits=kv_bits, kv_oracle=kv_oracle,
+                                       prefix_cache=prefix_cache)
+        else:
+            self.pool = SlotCachePool(model, num_slots, max_len, device=self.device)
+            self._prefill = make_prefill(model)
         self.prefill_chunk = prefill_chunk
         self.pool.tracer = self.tracer
         self.queue = AdmissionQueue(max_pending)
@@ -246,7 +266,7 @@ class ServeEngine:
                eos_id: int | None = None) -> int:
         req = Request(self._next_id, np.asarray(prompt), max_new_tokens,
                       sampling or SamplingParams(), eos_id)
-        if req.total_len() > self._length_bound:
+        if self._length_bound is not None and req.total_len() > self._length_bound:
             raise ValueError(
                 f"request needs {req.total_len()} cache tokens > pool "
                 f"max_len {self._length_bound}")
@@ -294,6 +314,17 @@ class ServeEngine:
             self.tracer.instant("cuda_graph.capture", kind="decode", step=self._step_idx)
 
     # ------------------------------------------------------------- prefill
+    def _admit_slot(self, req: Request, slot: int):
+        """Full-prompt prefill at the prompt's own length, spliced into the
+        slot's row (the slot pool never preempts, so there is no replay)."""
+        with self.tracer.span("prefill.full", request=req.request_id,
+                              tokens=len(req.prompt)):
+            tokens = torch.from_numpy(np.asarray(req.prompt, np.int32)[None, :]).to(self.device)
+            logits, cache1 = self._prefill(self.sparams, tokens, self.pool.max_len)
+            self.pool.write(slot, cache1)
+        self._c_prefill_launches.inc()
+        return req.select_token(logits[0, -1].cpu().numpy()), len(req.prompt), True
+
     def _admit_paged(self, req: Request, seq: int, hit: int = 0):
         """Chunked prefill straight into the sequence's blocks.  Every
         chunk has the same shape.  ``hit`` tokens were already mapped from
@@ -359,7 +390,10 @@ class ServeEngine:
                         requeued=req.preemptions > 0)
             with tr.span("admit", request=req.request_id, seq=slot,
                          prefix_hit_tokens=hit) as sp:
-                tok, cached, emitted = self._admit_paged(req, slot, hit)
+                if self.cache_kind == "paged":
+                    tok, cached, emitted = self._admit_paged(req, slot, hit)
+                else:
+                    tok, cached, emitted = self._admit_slot(req, slot)
                 sp.set(replay_tokens=cached, new_tokens=cached - hit)
             if emitted:
                 self._emit(req, tok, events)
@@ -376,7 +410,7 @@ class ServeEngine:
         else:
             # 2) reserve next-token blocks; exhaustion preempts youngest
             #    (spec reserves per window inside _spec_step instead)
-            if self.spec is None:
+            if self.cache_kind == "paged" and self.spec is None:
                 for req in self.scheduler.reserve_for_decode():
                     events["preempted"].append(req.request_id)
                     tr.instant("preempt", request=req.request_id, step=self._step_idx)
@@ -401,9 +435,10 @@ class ServeEngine:
         of tokens or logits); ``decode.host`` the rest (host sampling,
         bookkeeping)."""
         self._c_occ_sum.inc(self.pool.occupancy())
-        self._c_block_occ_sum.inc(self.pool.block_occupancy())
-        if self.pool.prefix_cache:
-            self._h_shared.observe(self.pool.blocks_shared)
+        if self.cache_kind == "paged":
+            self._c_block_occ_sum.inc(self.pool.block_occupancy())
+            if self.pool.prefix_cache:
+                self._h_shared.observe(self.pool.blocks_shared)
         self._c_decode_steps.inc()
         self._device_seconds = 0.0
         t_dec = time.perf_counter()
@@ -600,10 +635,17 @@ class ServeEngine:
 
         pool, sched, spec, dev = self.pool, self.scheduler, self.spec, self.device
         B = pool.num_slots
+        # a ring's window never wraps: a row near the ring's end falls back
+        # to a shorter window, down to k = 0 (one token a step, verified)
+        ring_cap = (pool.blocks_per_seq * pool.block_size
+                    if self.model.cfg.sliding_window is not None else None)
         want = {}
         for slot, seq in sched.running.items():
             req = seq.request
-            want[slot] = max(min(spec.k, req.max_new_tokens - len(req.output_tokens) - 1), 0)
+            k = min(spec.k, req.max_new_tokens - len(req.output_tokens) - 1)
+            if ring_cap is not None:
+                k = min(k, ring_cap - 1 - seq.cached_len)
+            want[slot] = max(k, 0)
         granted, preempted = sched.reserve_for_spec(want)
         for req in preempted:
             events["preempted"].append(req.request_id)
@@ -832,11 +874,13 @@ class ServeEngine:
                 out["decode_tok_p50_ms"] = self._h_decode_tok.percentile(50) * 1e3
         if self._h_queue_wait.count:
             out["queue_wait_p50_ms"] = self._h_queue_wait.percentile(50) * 1e3
+        if self.cache_kind == "slot":   # the paged pool's keys, as the reference's
+            return out
+        out["prefill_launches"] = int(self._c_prefill_launches.value)
         out["mean_block_occupancy"] = (self._c_block_occ_sum.value / decode_steps
                                        if decode_steps else 0.0)
         out["block_size"] = pool.block_size
         out["num_blocks"] = pool.num_blocks
-        out["prefill_launches"] = int(self._c_prefill_launches.value)
         total = self._h_admit_total.window_sum()
         out["prefix_hit_rate"] = (self._h_admit_hit.window_sum() / total
                                   if total else 0.0)

@@ -22,7 +22,9 @@ copy of one matrix beside its masters.
 ``jax.jit`` decode step: it captures the fixed-shape decode step
 in a CUDA graph on the card (:class:`GraphedDecodeStep`) and is the
 eager ``model.decode_step`` on the CPU; the chunked prefill stays the
-eager ``model.prefill_chunk`` (it runs once per admission).
+eager ``model.prefill_chunk`` (it runs once per admission), and
+:func:`make_prefill` is the eager full-prompt ``model.prefill`` of the
+slot pool and the static loop.
 :class:`GraphedFn` captures a function of tensors once per shape; the
 device sampler (``serve.sampler``) is two of them.
 
@@ -168,7 +170,8 @@ class GraphedDecodeStep:
     replayed afterwards.
 
     It owns static buffers for the per-step inputs (tokens (B, 1),
-    ``length`` (B,), ``block_tables`` (B, nb)) and copies the caller's
+    ``length`` (B,), and ``block_tables`` (B, nb) where the cache has
+    them: a contiguous slot cache has none) and copies the caller's
     values into them before each replay; every other cache leaf and every
     serving-param tensor is bound by address, and the graph is keyed on
     those addresses (as the jit cache keys on shapes; the params tree is
@@ -189,6 +192,7 @@ class GraphedDecodeStep:
         self.capture_seconds = 0.0
         self._graph: _Graph | None = None
         self._key = None
+        self._copied: tuple[str, ...] = ()
         self._params = None
         self._param_leaves: list[torch.Tensor] = []
 
@@ -197,7 +201,8 @@ class GraphedDecodeStep:
             self._params, self._param_leaves = params, list(_leaves(params))
         bound = tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
                       for k, v in cache.items() if k not in self.COPIED)
-        copied = tuple((tuple(cache[k].shape), cache[k].dtype) for k in self.COPIED)
+        copied = tuple((k, tuple(cache[k].shape), cache[k].dtype)
+                       for k in self.COPIED if k in cache)
         return (tokens.device, tuple(tokens.shape), copied, bound,
                 tuple(map(torch.Tensor.data_ptr, self._param_leaves)))
 
@@ -206,10 +211,10 @@ class GraphedDecodeStep:
         if key != self._key:
             self._capture(params, cache, tokens)
             self._key = key
-        tok, length, bt = self._graph.inputs
+        tok, *copied = self._graph.inputs
         tok.copy_(tokens)
-        length.copy_(cache["length"])
-        bt.copy_(cache["block_tables"])
+        for buf, k in zip(copied, self._copied):
+            buf.copy_(cache[k])
         logits, new_length = self._graph.replay()
         return logits, {**cache, "length": new_length}
 
@@ -218,20 +223,31 @@ class GraphedDecodeStep:
             self.recaptures += 1
         self._graph = None   # its private pool goes with it
         bound = {k: v for k, v in cache.items() if k not in self.COPIED}
+        self._copied = tuple(k for k in self.COPIED if k in cache)
         decode = self.model.decode_step
 
-        def step(tok, length, bt):
-            logits, out = decode(params, {**bound, "length": length, "block_tables": bt}, tok)
+        def step(tok, *copied):
+            logits, out = decode(params, {**bound, **dict(zip(self._copied, copied))}, tok)
             moved = [k for k in bound if out[k] is not bound[k]]
             if moved:
                 raise RuntimeError(f"decode_step replaced cache leaves {moved}; a "
                                    "captured step needs them written in place")
             return logits, out["length"]
 
-        self._graph = _Graph(step, [tokens.clone(), cache["length"].clone(),
-                                    cache["block_tables"].clone()])
+        self._graph = _Graph(step, [tokens.clone()] + [cache[k].clone() for k in self._copied])
         self.captures += 1
         self.capture_seconds += self._graph.seconds
+
+
+def make_prefill(model):
+    """The slot path's full-prompt prefill: ``pre(sparams, tokens (B, S),
+    max_len) -> (last-token logits, contiguous cache)``, eager (it runs
+    once per admission, at the prompt's own length)."""
+
+    def pre(sparams, tokens, max_len):
+        return model.prefill(sparams, tokens=tokens, max_len=max_len)
+
+    return pre
 
 
 def make_decode_step(model, device=None):

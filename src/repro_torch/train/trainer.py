@@ -7,7 +7,10 @@
   running EMA; a step slower than ``straggler_factor x`` the EMA counts and
   fires ``on_straggler``.
 - **NaN quarantine**: a non-finite loss drops the step, reloads the last
-  checkpoint and skips the offending batch.
+  checkpoint and skips the offending batch.  With no checkpoint to reload
+  (``ckpt_dir=None``, or none saved yet) it raises, naming the step: the
+  optimizer has already written that step's gradients into its moments in
+  place (``optim.adamw``), so the state cannot be carried on.
 
 Elastic restore onto a mesh (``mesh=``) needs the port's ``dist``
 (ROADMAP queue 1, item 11).  Each step reads its loss on the host: that
@@ -110,8 +113,12 @@ class Trainer:
             if not math.isfinite(loss):
                 # NaN quarantine: reload the last checkpoint, skip this batch
                 del new_state
-                if self.ckpt_dir is not None and ckpt_lib.latest_step(self.ckpt_dir) is not None:
-                    state, _, step = self._reload(state)
+                if self.ckpt_dir is None or ckpt_lib.latest_step(self.ckpt_dir) is None:
+                    raise FloatingPointError(
+                        f"non-finite loss {loss} at step {step + 1} and no checkpoint to "
+                        f"reload (ckpt_dir={self.ckpt_dir!r}): the optimizer state was "
+                        f"updated in place with this step's gradients")
+                state, _, step = self._reload(state)
                 self.data.index += 1
                 continue
             state = new_state

@@ -79,6 +79,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 def test_launcher_refuses_unported_flags():
     from repro_torch.launch import serve as launcher
 
-    for flags in (["--cache", "slot"], ["--mode", "static"], ["--ckpt-dir", "ck"]):
-        with pytest.raises(SystemExit):
-            launcher.parse_args(["--device", "cpu", *flags])
+    with pytest.raises(SystemExit):
+        launcher.parse_args(["--device", "cpu", "--ckpt-dir", "ck"])
+    # ported since: the slot pool and the static loop parse
+    for flags in (["--cache", "slot"], ["--mode", "static"]):
+        launcher.parse_args(["--device", "cpu", *flags])

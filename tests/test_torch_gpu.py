@@ -714,7 +714,7 @@ def test_paged_attention_split_kv_matches_plain(sm90, lengths, nb, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G", [1, 16, 128])
-@pytest.mark.parametrize("hd", [64, 96, 128])
+@pytest.mark.parametrize("hd", [64, 96, 120, 128])
 def test_paged_attention_head_dims_and_groups(sm90, hd, G):
     case = _paged_case(sm90, 3, 2, G, hd, 16, 9, [0, 70, 144], torch.bfloat16, seed=hd + G)
     _check_paged(*case)
@@ -774,7 +774,7 @@ def test_paged_attention_quant_split_kv_matches_plain(sm90, lengths, nb, kv_bits
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
 @pytest.mark.parametrize("G", [1, 16, 128])
-@pytest.mark.parametrize("hd", [64, 96, 128])
+@pytest.mark.parametrize("hd", [64, 96, 120, 128])
 def test_paged_attention_quant_head_dims_and_groups(sm90, hd, G, kv_bits):
     # a table of 20 pages: wider than 16, so splits hold 2 pages
     case = _quant_case(sm90, 3, 2, G, hd, 16, 20, [0, 70, 300], kv_bits, seed=hd + G + kv_bits)
@@ -1312,3 +1312,148 @@ def test_spec_engine_graphs_equal_eager(sm90, bits, kv_bits):
     m, captures = runs["graphed"][1], runs["graphed"][2]
     assert m["spec"] == runs["eager"][1]["spec"] and m["spec"]["windows"] > 0
     assert m["recompiles"] == 0 and captures["decode"] == 1 and captures["draft"] == 1
+
+
+# ---------------------------------------------------------------------------
+# sliding-window (ring) serving at head dim 120 (h2o-danube-3-4b)
+# ---------------------------------------------------------------------------
+
+
+def _ring_tables(B, nb, lengths, dev, seed=4):
+    """Ring block tables: each row a full, shuffled set of nb blocks of its
+    own (the newest token sits mid-table once a ring has wrapped)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(B * nb) + 1
+    bt = torch.from_numpy(perm.reshape(B, nb)).to(dev, torch.int32)
+    return B * nb + 1, bt, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+RING_LENGTHS = [1, 17, 255, 256]     # min(length + 1, Tc) at a ring of 16 x 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_paged_attention_hd120_ring_tables_match_plain(sm90, dtype):
+    """Row 2 at h2o-danube's decode head shape (KV 8, G 4, hd 120, bs 16)
+    over ring tables: within 1e-4 * max|plain|, bitwise across two calls."""
+    NB, bt, ln = _ring_tables(4, 16, RING_LENGTHS, sm90)
+    gen = torch.Generator(device=sm90).manual_seed(12)
+    q = torch.randn((4, 8, 4, 120), generator=gen, device=sm90).to(dtype)
+    kp, vp = (torch.randn((NB, 16, 8, 120), generator=gen, device=sm90).to(dtype)
+              for _ in range(2))
+    _check_paged(q, kp, vp, bt, ln)
+
+
+def _offset_view(t, offset: int):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past a
+    256-byte-aligned allocation."""
+    flat = torch.empty(t.numel() * t.element_size() + offset, dtype=torch.uint8, device=t.device)
+    view = flat[offset:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 256 == offset % 256
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 4, 1], ids=["aligned", "4-byte", "1-byte"])
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_paged_attention_quant_hd120_ring_tables_match_plain(sm90, kv_bits, offset):
+    """Row 3 at hd 120 over ring tables: int8 rows of 120 bytes (8-byte
+    staging pieces) and packed int4 rows of 60 (4-byte pieces), the pools'
+    base aligned, 4 bytes past alignment (int8 rows then take byte loads,
+    int4 rows stay on cp.async) and 1 byte past (byte loads for both)."""
+    NB, bt, ln = _ring_tables(4, 16, RING_LENGTHS, sm90)
+    gen = torch.Generator(device=sm90).manual_seed(13 + kv_bits)
+    kc, vc, ks, vs, _ = _quant_pool(NB, 16, 8, 120, kv_bits, gen, sm90)
+    q = torch.randn((4, 8, 4, 120), generator=gen, device=sm90).to(torch.bfloat16)
+    _check_paged_quant(q, _offset_view(kc, offset), _offset_view(vc, offset), ks, vs, bt, ln)
+
+
+def _small_ring_served(bits, dev, window=64):
+    """A narrow windowed model of h2o-danube's head dim (2 layers, d_model
+    480, 4 heads over 2 KV heads of 120 dims, window 64), its serving params
+    at ``bits`` on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b", smoke=True), num_layers=2,
+                              d_model=480, num_heads=4, num_kv_heads=2, head_dim=120,
+                              d_ff=1280, vocab_size=1000, sliding_window=window)
+    sm = build_model(cfg)
+    params = sm.init(seed=6, device="cpu")
+    return sm, quantize_for_serving(sm, params, policy_for(sm, bits), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [None, 8, 4], ids=["fp", "int8", "int4"])
+def test_graphed_ring_decode_step_equals_eager_bitwise(sm90, kv_bits):
+    """Twin ring pools (window 64, blocks of 16) fed the same prefills and
+    tokens: the captured step's logits, every pool byte and ``length``
+    equal the eager step's over replays that wrap both rows past the ring;
+    a windowed layer never launches the fused kernel, even with packed
+    q/k/v over int4 blocks; one capture."""
+    from repro_torch.serve.cache import PagedCachePool
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    sm, sp = _small_ring_served(4, sm90)
+    pools = [PagedCachePool(sm, 2, 200, block_size=16, device=sm90, kv_bits=kv_bits)
+             for _ in range(2)]
+    assert pools[0].blocks_per_seq * pools[0].block_size == 64
+    graphed = GraphedDecodeStep(sm)
+    rng = np.random.default_rng(5)
+    for n in (60, 90):                    # row 1 has wrapped in its prefill
+        toks = torch.from_numpy(rng.integers(0, 1000, (1, 32)).astype(np.int32)).to(sm90)
+        for pool in pools:
+            seq = pool.alloc_seq()
+            assert pool.ensure(seq, n + 1)
+            for lo in range(0, n, 32):
+                _, cache = sm.prefill_chunk(sp, pool.step_cache(), toks, seq, lo,
+                                            min(32, n - lo))
+                pool.accept(cache)
+    for i in range(8):                    # row 0 wraps at its fifth replay
+        feed = torch.from_numpy(rng.integers(0, 1000, (2, 1)).astype(np.int32)).to(sm90)
+        outs, counts = [], []
+        for pool, fn in zip(pools, (sm.decode_step, graphed)):
+            ops.reset_counts()
+            logits, cache = fn(sp, pool.step_cache(), feed)
+            pool.accept(cache)
+            torch.cuda.synchronize()
+            outs.append(logits.clone())
+            counts.append(dict(ops.counts))
+        assert torch.equal(outs[0], outs[1]), f"replay {i}: logits differ"
+        for key, leaf in pools[0].cache.items():
+            assert torch.equal(leaf, pools[1].cache[key]), f"replay {i}: {key} differs"
+        want = "paged_attention" if kv_bits is None else "paged_attention_quant"
+        assert counts[0][want] == 2 and counts[0]["fused_qkv_paged_decode"] == 0, counts
+        assert counts[0]["plain"] == 0
+    assert (graphed.captures, graphed.recaptures) == (1, 0)
+
+
+@pytest.mark.gpu
+def test_graphed_slot_decode_step_equals_eager_bitwise(sm90):
+    """The captured step over a contiguous ring cache (the slot pool and the
+    static loop: no block tables), fed by the full-prompt prefill: logits,
+    the K/V rows and ``length`` equal the eager step's past the wrap."""
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    sm, sp = _small_ring_served(4, sm90)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 1000, (3, 50))
+                            .astype(np.int32)).to(sm90)
+    caches = [sm.prefill(sp, tokens=toks, max_len=200)[1] for _ in range(2)]
+    graphed = GraphedDecodeStep(sm)
+    feed = toks[:, -1:]
+    for i in range(20):                   # the ring of 64 wraps at step 14
+        outs = []
+        for j, fn in enumerate((sm.decode_step, graphed)):
+            logits, caches[j] = fn(sp, caches[j], feed)
+            outs.append(logits.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]), f"step {i}: logits differ"
+        for key in caches[0]:
+            assert torch.equal(caches[0][key], caches[1][key]), f"step {i}: {key} differs"
+        feed = torch.argmax(outs[0][:, -1], -1).to(torch.int32)[:, None]
+    assert (graphed.captures, graphed.recaptures) == (1, 0)

@@ -442,6 +442,50 @@ class TestTrainerRestart:
         assert all(np.isfinite(h["loss"]) for h in tr.history)
 
 
+    @pytest.mark.parametrize("opt8", [False, True], ids=["fp32", "int8"])
+    def test_nan_loss_without_a_checkpoint_raises(self, opt8):
+        """No checkpoint to reload: the run raises at the poisoned step
+        instead of looping (AdamW has already consumed that step's
+        gradients in place).  The run goes on a thread of its own with a
+        time limit, and the step function refuses to run past a bound, so
+        a regression fails here instead of hanging."""
+        import threading
+
+        from repro_torch.train.train_step import init_state
+
+        model, opt, bm, inner = _trainer_parts(opt8)
+        calls = {"n": 0}
+
+        def poisoned(state, batch, bmm):
+            calls["n"] += 1
+            if calls["n"] > 20:
+                raise AssertionError("the trainer looped past the poisoned step")
+            new, m = inner(state, batch, bmm)
+            if calls["n"] == 3:
+                m = dict(m, loss=torch.tensor(float("nan")))
+            return new, m
+
+        tr = Trainer(model=model, optimizer=opt,
+                     data=SyntheticLMData(seed=0, global_batch=4, seq_len=16,
+                                          vocab=model.cfg.vocab_size),
+                     step_fn=poisoned, bits_map=bm, ckpt_dir=None, log_every=0)
+        caught = []
+
+        def run():
+            try:
+                tr.run(init_state(model, opt, seed=0, device="cpu"), 6)
+            except Exception as e:          # handed to the test's thread
+                caught.append(e)
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive(), "the trainer did not return within 120 s"
+        assert len(caught) == 1 and isinstance(caught[0], FloatingPointError), caught
+        assert "step 3" in str(caught[0]) and calls["n"] == 3
+        assert [h["step"] for h in tr.history] == [1, 2]
+
+
 # ---- the launcher -----------------------------------------------------------------
 def test_train_launcher_on_cpu(tmp_path):
     from repro_torch.launch import train
