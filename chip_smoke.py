@@ -42,7 +42,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    max|plain| and bitwise across two calls, timed beside the plain
    version, SDPA over the gathered pages and the bound; qmm bit-serial at
    M in {1, 4} and dequant at M = 256 at every danube (K, N) at 4 bits,
-   and the lm_head at the 8 bits it is served at.  The
+   and the lm_head at the 8 bits it is served at.  The same two attention
+   rows at hymba-1.5b's decode shape (KV 5, G 5, hd 64, bs 16) over
+   1024-token ring tables (lengths {1, 17, 1023, 1024} and four full
+   rings; bf16, int8 and int4), and qmm bit-serial at M = 4 and dequant
+   at M = 256 at every rwkv6-1.6b and hymba-1.5b (K, N) (RWKV's f32
+   activations where its path feeds them; K 1600, N 320 and hymba's
+   32001-wide lm_head among them).  The
    WRPN fake-quant at every ResNet-20 and LeNet weight shape, glm4-9b's
    wg (4096, 13696) and a ragged (7, 300), bits 1-8, 16 and 32, f32 and
    bf16: bitwise (max|kernel - plain| == 0), and the STE's forward and
@@ -162,6 +168,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
       from ``--seed``, 96 greedy steps): prefill seconds and ms per
       token-step, its streams a paged engine's on the same prompts up to
       flagged ties.
+   Six serve the recurrent families at their published widths, random
+   weights from seed 0, ``--bits 4``: rwkv6-1.6b (24 layers, d_model
+   2048, 32 wkv heads of 64, d_ff 7168, vocab 65536: O(1) state rows, no
+   KV blocks) and hymba-1.5b (32 layers, d_model 1600, 25 heads over 5 KV
+   heads of 64, d_ff 5504, vocab 32001, a Mamba branch of 3200 channels
+   with state 16, a 1024-token window):
+   o. rwkv6-1.6b on path a's traffic, then on l's (4 prompts of
+      4032-4160 tokens in 256-token chunks, 48-96 new): qmm launched, no
+      paged kernel, the pool without blocks or prefix cache; the bytes of
+      a row's state;
+   p. hymba-1.5b, fp ring blocks: 4 requests of 960-1200 prompt tokens
+      in 256-token chunks and 48-96 new ones on 4 rows (max_len 1297, a
+      ring of 1024: some rows wrap in prefill, the others in decode):
+      ``paged_attention`` at G 5 launched, the fused decode never;
+   q. p with ``--kv-bits 8``: the unfused ``paged_attention_quant``;
+   r. o's first mix and p with spec k 4 and the 2-bit draft, through an
+      engine of the script's own that watches the draft and verify
+      calls: acceptance, fix-ups (at least one), the fix-up's CUDA-event
+      span beside the window verify's and the device busy time of the
+      first of each (``torch.profiler``), the streams against o's and
+      p's up to flagged ties (the bound widened to twice the measured
+      difference between the decode path's and the chunk path's logits
+      at the divergence: RWKV's layers amplify rounding), the proposals
+      the budget and hymba's ring cap left;
+   s. the paper's baselines: after d, every LeNet policy over bits {2,
+      3, 4, 6, 8} without retraining (625 points), the Pareto frontier
+      and the distance of d's policy from it; after e, the ADMM selector
+      on e's ResNet-20 at 4.0 average bits (its squared errors through
+      the flat fake-quant kernel, 140 launches), its bits equal to a CPU
+      run's on the same weights.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
    the plain-version counter must be 0; the serving paths print the p50
@@ -193,7 +229,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    6 requests of 72-100 prompt tokens (past the ring in prefill) and 48
    greedy tokens, served on the card (kernels) and on the CPU (plain
    versions) with fp and int8 ring blocks: streams equal up to flagged
-   ties, the ring's kernel launched and the fused decode never.
+   ties, the ring's kernel launched and the fused decode never.  Phase
+   4o: narrow models of the recurrent families (RWKV: 2 layers, d_model
+   256, 4 heads of 64, d_ff 896, vocab 65536; hymba: 2 layers, d_model
+   320, 5 heads over 1 KV head of 64, window 64, d_ff 1088, vocab 32001)
+   served the same way, fp for both and int8 ring blocks for hymba.
 
 5. Where the time goes (read only, after the checks): for each serving
    path, four requests decode on its served model, through the served
@@ -208,7 +248,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    calls per step that can block the host (stream and device syncs,
    memcpys), and for the 4-layer glm4-9b QAT step (phase 5j: weight
    matmuls, attention tiles, CE chunks, AdamW, fake-quant forward and
-   backward).
+   backward).  Phase 5o: the same decode-step trace on 3o's and 3p's
+   served engines (the wkv, scan and shift arithmetic falls in "other
+   torch kernels").
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -255,6 +297,12 @@ LENET_FP_ACC_MIN = 0.80    # the port on the CPU reaches 0.873 at the same 300 s
 RESNET20_PRETRAIN = 600      # the port on the CPU leaves chance level at 350-450 steps
 RESNET20_FP_ACC_MIN = 0.90   # ... and reaches 1.0000 at 500 and 600 steps (PERF.md)
 RESNET20_EPISODES = 110      # about 30 s of search on the card
+
+
+def f32_peak_of(torch) -> float:
+    """The card's dense f32 rate outside the tensor cores (F32_PEAKS)."""
+    name = torch.cuda.get_device_name(0)
+    return next((v for k, v in F32_PEAKS.items() if k in name), F32_PEAKS["H100"])
 
 
 def fail(msg: str) -> None:
@@ -345,14 +393,16 @@ def check_qmm(torch, timer, peaks, rows, shapes=GLM4_QMM + EXTRA_BITS, ms=QMM_MS
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    for name, K, N, bits, _ in shapes:
+    for name, K, N, bits, _, *xdt in shapes:
+        # bf16 activations, or f32 where the path feeds f32 (RWKV's mixes)
+        xdt = torch.float32 if xdt == ["f32"] else torch.bfloat16
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         planes, scale = pack_weight(w, bits)
-        dense = dequant_ref(planes, scale, bits).to(torch.bfloat16)  # yardstick
+        dense = dequant_ref(planes, scale, bits).to(xdt)  # yardstick
         del w
         for path, Ms in ms:
             for M in Ms:
-                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
                 got = qmm_cuda(x, planes, scale, bits, path)
                 again = qmm_cuda(x, planes, scale, bits, path)
                 torch.cuda.synchronize()
@@ -365,22 +415,30 @@ def check_qmm(torch, timer, peaks, rows, shapes=GLM4_QMM + EXTRA_BITS, ms=QMM_MS
                     fail(f"qmm_{path} {name} M={M}: max|kernel-plain| {err:.3g} "
                          f"> {TOL} * {ref_max:.3g}")
                 worst = max(worst, err)
-                nbytes = M * K * 2 + planes.numel() + N * 4 + M * N * 4
-                b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peaks)
+                nbytes = M * K * x.element_size() + planes.numel() + N * 4 + M * N * 4
+                # f32 products run outside the tensor cores
+                flop_peaks = peaks if xdt == torch.bfloat16 else (peaks[0], f32_peak_of(torch))
+                b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, flop_peaks)
+                # the TPU kernel rounds x to bf16 in its body: the same product's
+                # bound with bf16 x on the tensor cores
+                b16_ms = bound_ms(nbytes - M * K * (x.element_size() - 2), 2.0 * M * K * N,
+                                  peaks)[0]
                 plan = (dequant_plan if path == "dequant" else bitserial_plan)(M, K, N, bits)
                 row = {"kernel": f"qmm_{path}", "shape": name, "M": M, "K": K,
-                       "N": N, "bits": bits, "max_abs_err": err,
+                       "N": N, "bits": bits, "x_dtype": str(xdt).split(".")[-1],
+                       "max_abs_err": err,
                        "plan": plan._asdict(),
                        "rel_err": err / ref_max,
                        "ms": timer(lambda: qmm_cuda(x, planes, scale, bits, path)),
                        "plain_ms": timer(lambda: qmm_ref(x, planes, scale, bits), iters=5),
                        "library_ms": timer(lambda: torch.matmul(x, dense)),
-                       "bound_ms": b_ms, "bound_by": b_by}
+                       "bound_ms": b_ms, "bound_by": b_by, "bound_bf16_ms": b16_ms}
                 rows.append(row)
                 print(f"  qmm_{path:9s} {name:8s} M={M:3d} K={K:5d} N={N:6d} "
-                      f"b={bits} err={err:.2e} (rel {row['rel_err']:.1e}) "
+                      f"b={bits} x={row['x_dtype']} err={err:.2e} (rel {row['rel_err']:.1e}) "
                       f"kernel={row['ms']:.4f} plain={row['plain_ms']:.4f} "
                       f"matmul={row['library_ms']:.4f} bound={b_ms:.4f} ms"
+                      + (f" (bf16 x: {b16_ms:.4f})" if xdt == torch.float32 else "")
                       + (f" [{plan.ctas} CTAs of {plan.kgroups} warpgroups, "
                          f"{plan.splits} K splits, bitwise on 2 calls]" if path == "dequant"
                          else f" [{plan.ctas} CTAs of {plan.warps} warps, {plan.splits} K "
@@ -543,6 +601,10 @@ def check_paged_attention_quant(torch, timer, peaks, rows):
 # served cell's steady state, every row's ring full (the per-step row)
 RING = {"B": 4, "KV": 8, "G": 4, "hd": 120, "bs": 16, "nb": 256}
 RING_LENGTHS = (("hd120 ring", [1, 17, 4095, 4096]), ("hd120 decode", [4096] * 4))
+# hymba-1.5b's: KV 5, G 5 (one full warp of 4 heads and one more), head dim
+# 64, 1024-token rings (64 blocks of 16)
+HYMBA_RING = {"B": 4, "KV": 5, "G": 5, "hd": 64, "bs": 16, "nb": 64}
+HYMBA_RING_LENGTHS = (("g5 ring", [1, 17, 1023, 1024]), ("g5 decode", [1024] * 4))
 
 
 def ring_tables(torch, B, nb, seed):
@@ -554,20 +616,22 @@ def ring_tables(torch, B, nb, seed):
     return B * nb + 1, torch.from_numpy(perm.reshape(B, nb)).to("cuda", torch.int32)
 
 
-def check_ring_attention(torch, timer, peaks, rows):
-    """Rows 2 and 3 at head dim 120 over ring tables: bf16 pools, int8 codes
-    (120-byte rows) and packed int4 (60-byte rows), against the plain
-    versions within TOL * max|plain|, bitwise across two calls; timed with
-    the plain version, SDPA over the gathered (dequantized) pages and the
-    bound.  Returns the worst errors (fp, quantized)."""
+def check_ring_attention(torch, timer, peaks, rows, ring=RING, ring_lengths=RING_LENGTHS,
+                         seed=21):
+    """Rows 2 and 3 at a served ring shape (h2o-danube's head dim 120 by
+    default) over ring tables: bf16 pools, int8 codes (hd-byte rows) and
+    packed int4 (hd/2-byte rows), against the plain versions within TOL *
+    max|plain|, bitwise across two calls; timed with the plain version,
+    SDPA over the gathered (dequantized) pages and the bound.  Returns the
+    worst errors (fp, quantized)."""
     from repro_torch.kernels.paged_attention import paged_attention_cuda, split_plan
     from repro_torch.kernels.paged_attention_quant import paged_attention_quant_cuda
     from repro_torch.kernels.ref import (gather_dequant, paged_attention_ref,
                                          quant_paged_attention_ref)
 
-    B, KV, G, hd, bs, nb = (RING[k] for k in ("B", "KV", "G", "hd", "bs", "nb"))
+    B, KV, G, hd, bs, nb = (ring[k] for k in ("B", "KV", "G", "hd", "bs", "nb"))
     H = KV * G
-    gen = torch.Generator(device="cuda").manual_seed(21)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = {"fp": 0.0, "quant": 0.0}
     pps, splits = split_plan(nb)
     for container in ("bf16", "int8", "int4"):
@@ -584,7 +648,7 @@ def check_ring_attention(torch, timer, peaks, rows):
             kg, vg = (gather_dequant(c, sc, bl).to(torch.bfloat16)
                       for c, sc in ((kc, ks), (vc, vs)))
             token_bytes = kc.shape[-1] + 4
-        for label, lengths in RING_LENGTHS:
+        for label, lengths in ring_lengths:
             q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
             q4 = q.reshape(B, KV, G, hd)
             ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -788,8 +852,7 @@ def check_fake_quant(torch, timer, peaks, rows):
     from repro_torch.kernels.ref import fake_quant_ref
     from repro_torch.quant.wrpn import _levels, fake_quant_ste, tensor_scale
 
-    f32_peak = next((v for k, v in F32_PEAKS.items() if k in torch.cuda.get_device_name(0)),
-                    F32_PEAKS["H100"])
+    f32_peak = f32_peak_of(torch)
     resnet = weight_shapes("resnet20")
     calls = {}
     for _, shape in resnet:
@@ -897,8 +960,7 @@ def check_fake_quant_group(torch, timer, peaks, rows):
     from repro_torch.kernels.ref import fake_quant_group_bwd_ref, fake_quant_group_ref
     from repro_torch.quant.wrpn import _levels, tensor_scale
 
-    f32_peak = next((v for k, v in F32_PEAKS.items() if k in torch.cuda.get_device_name(0)),
-                    F32_PEAKS["H100"])
+    f32_peak = f32_peak_of(torch)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [(net, dtype, ()) for net in ("lenet", "resnet20")
              for dtype in (torch.float32, torch.bfloat16)]
@@ -1026,11 +1088,12 @@ def releq_quickstart(torch):
         fail(f"[lenet quickstart] fp accuracy {out['fp_acc']:.4f} < {LENET_FP_ACC_MIN}")
     check_search_record("lenet quickstart", out["task"], out["result"], 30, out["rel_acc"])
     print(f"[lenet quickstart] wall {wall:.2f} s ({out['wall']}), launch counts {counts}")
-    return {"fp_acc": out["fp_acc"], "best_bits": out["bits"], "avg_bits": out["avg_bits"],
-            "rel_acc": out["rel_acc"], "stripes_speedup": out["stripes_speedup"],
-            "tvm_cpu_speedup": out["tvm_cpu_speedup"],
-            "energy_reduction": out["energy_reduction"], "wall_s": out["wall"],
-            "total_s": wall, "counts": counts}
+    return out["task"], {"fp_acc": out["fp_acc"], "best_bits": out["bits"],
+                         "avg_bits": out["avg_bits"], "rel_acc": out["rel_acc"],
+                         "stripes_speedup": out["stripes_speedup"],
+                         "tvm_cpu_speedup": out["tvm_cpu_speedup"],
+                         "energy_reduction": out["energy_reduction"], "wall_s": out["wall"],
+                         "total_s": wall, "counts": counts}
 
 
 def check_qat_counts(label, counts):
@@ -1626,9 +1689,11 @@ def eager_witness(torch, r):
             "wall_s": wall_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def prefill_margin(torch, model, sparams, tokens, device="cuda", chunk=64):
-    """Top-2 logit margin and max|logit| after ``tokens``, from an eager
-    chunked prefill on a fresh one-row pool on ``device``."""
+def fresh_logits(torch, model, sparams, tokens, device="cuda", chunk=64, decoded=0):
+    """The f32 logits after ``tokens`` on a fresh one-row pool on
+    ``device``: an eager chunked prefill of all of them, or (``decoded``
+    = n) of all but the last n, which the decode step then takes one at a
+    time, as a served row does."""
     import numpy as np
 
     from repro_torch.serve.cache import PagedCachePool
@@ -1637,17 +1702,279 @@ def prefill_margin(torch, model, sparams, tokens, device="cuda", chunk=64):
     pool = PagedCachePool(model, 1, len(tokens) + 1, block_size=16, device=device,
                           prefix_cache=False)
     seq = pool.alloc_seq()
-    pool.ensure(seq, len(tokens))
-    for lo in range(0, len(tokens), chunk):
-        valid = min(chunk, len(tokens) - lo)
+    pool.ensure(seq, len(tokens) + 1)
+    n = len(tokens) - decoded
+    for lo in range(0, n, chunk):
+        valid = min(chunk, n - lo)
         buf = np.zeros((1, chunk), np.int32)
         buf[0, :valid] = tokens[lo:lo + valid]
         logits, cache = model.prefill_chunk(sparams, pool.step_cache(),
                                             torch.from_numpy(buf).to(device), seq, lo, valid)
         pool.accept(cache)
-    row = logits[0, 0].float()
+    for tok in tokens[n:]:
+        logits, cache = model.decode_step(sparams, pool.step_cache(),
+                                          torch.tensor([[int(tok)]], dtype=torch.int32,
+                                                       device=device))
+        pool.accept(cache)
+    return logits[0, 0].float()
+
+
+def prefill_margin(torch, model, sparams, tokens, device="cuda", chunk=64):
+    """Top-2 logit margin and max|logit| after ``tokens``, from an eager
+    chunked prefill on a fresh one-row pool on ``device``."""
+    row = fresh_logits(torch, model, sparams, tokens, device, chunk)
     top = row.topk(2).values
     return float(top[0] - top[1]), float(row.abs().max())
+
+
+def tie_check(row, tok):
+    """``tok`` on one f32 logit row: (the row's argmax, the gap from the
+    top logit, the tie bound MARGIN * max|logit|)."""
+    top = float(row.max())
+    return int(row.argmax()), top - float(row[tok]), MARGIN * float(row.abs().max())
+
+
+class PathReplay:
+    """Recomputes served greedy streams on each one's own path: a fresh
+    pool of the served pool's shape (rows, blocks, ``kv_bits``), the
+    model's calls made eagerly one at a time with the state handled here
+    plainly.  A row's numbers depend only on its own tokens and on the
+    batch shape, which is the served one's, so the replay computes each
+    token as the served engine did, but without its snapshots, graphs or
+    lookahead.  A served token must be the replay's argmax, or within
+    MARGIN * max|logit| of its top (a flagged tie: the request then leaves
+    the replay, since what follows was computed from another token).
+    Anything else fails.
+
+    - ``spec(log, outs)`` replays a spec engine's event log (``SpecLog``):
+      each window verify from the state the last kept call left, the
+      window resolved greedily here, and a fix-up from a copy of that
+      state at the lengths this replay accepted;
+    - ``decode(upto, outs)`` replays the decode path: the prompt
+      prefilled, then one decode step a token, up to token ``upto[rid]``
+      of each request."""
+
+    def __init__(self, torch, r, like, label):
+        from repro_torch.serve.cache import PagedCachePool
+
+        self.torch, self.model, self.sparams, self.label = torch, r["model"], r["sparams"], label
+        self.work, self.chunk = r["work"], r["args"].prefill_chunk
+        self.dev = like.device
+        self.pool = PagedCachePool(self.model, like.num_seqs, like.max_len,
+                                   block_size=like.block_size, kv_bits=like.kv_bits,
+                                   prefix_cache=False, device=self.dev)
+        self.row, self.n, self.len, self.ties = {}, {}, {}, {}
+        self.exact = 0
+        self.partial = []   # (window's log index, accepted, proposed) for 0 < accepted < proposed
+
+    def check(self, rid, row, tok):
+        top, gap, bound = tie_check(row, tok)
+        if top == tok:
+            self.exact += 1
+            return True
+        if gap > bound:
+            fail(f"[{self.label}] request {rid} token {self.n[rid]} is {tok}, {gap:.4g} below "
+                 f"its own path's top logit ({top}), over the tie bound {bound:.4g}")
+        self.ties[rid] = {"token": self.n[rid], "gap": gap, "bound": bound}
+        self.drop(rid)
+        return False
+
+    def drop(self, rid):
+        self.pool.free_seq(self.row.pop(rid))
+
+    def live(self, rid):
+        return rid in self.row
+
+    def _lengths(self):
+        torch = self.torch
+        lengths = torch.zeros((self.pool.num_seqs,), dtype=torch.int32)
+        for rid, row in self.row.items():
+            lengths[row] = self.len[rid]
+        self.pool.cache["length"] = lengths.to(self.dev)
+
+    def admit(self, rid, out):
+        import numpy as np
+
+        torch, prompt = self.torch, np.asarray(self.work[rid][0], np.int32)
+        seq = self.pool.alloc_seq()
+        self.pool.ensure(seq, self.pool.max_len)
+        for lo in range(0, len(prompt), self.chunk):
+            valid = min(self.chunk, len(prompt) - lo)
+            buf = np.zeros((1, self.chunk), np.int32)
+            buf[0, :valid] = prompt[lo:lo + valid]
+            logits, cache = self.model.prefill_chunk(self.sparams, self.pool.step_cache(),
+                                                     torch.from_numpy(buf).to(self.dev), seq, lo, valid)
+            self.pool.accept(cache)
+        self.row[rid], self.n[rid], self.len[rid] = seq, 0, len(prompt)
+        if self.check(rid, logits[0, 0].float().cpu(), out[0]):
+            self.n[rid] = 1
+
+    def advance(self, rid, k, out):
+        self.n[rid] += k
+        self.len[rid] += k
+        if self.n[rid] == len(out):
+            self.drop(rid)
+
+    def _verify(self, toks, starts, valids):
+        torch = self.torch
+        self._lengths()
+        logits, cache = self.model.verify_chunk(
+            self.sparams, self.pool.step_cache(), torch.from_numpy(toks).to(self.dev),
+            torch.from_numpy(starts).to(self.dev), torch.from_numpy(valids).to(self.dev))
+        self.pool.accept(cache)
+        return logits.float().cpu()
+
+    def window(self, idx, ev, outs):
+        import numpy as np
+
+        for rid in ev["rids"].values():
+            if rid not in self.n:
+                self.admit(rid, outs[rid])
+        live = {rid: slot for slot, rid in ev["rids"].items() if self.live(rid)}
+        if not live:
+            return
+        B, C = ev["toks"].shape
+        toks, starts, valids = (np.zeros((B, C), np.int32), np.zeros((B,), np.int32),
+                                np.zeros((B,), np.int32))
+        for rid, slot in live.items():
+            row, n = self.row[rid], self.n[rid]
+            if ev["toks"][slot, 0] != outs[rid][n - 1] or ev["starts"][slot] != self.len[rid]:
+                fail(f"[{self.label}] request {rid}: the served window fed token "
+                     f"{ev['toks'][slot, 0]} at {ev['starts'][slot]}, its stream has "
+                     f"{outs[rid][n - 1]} at {self.len[rid]}")
+            toks[row], starts[row], valids[row] = ev["toks"][slot], self.len[rid], ev["valids"][slot]
+        snap = {key: self.pool.cache[key].clone() for key in self.pool.recurrent_keys}
+        logits = self._verify(toks, starts, valids)
+        emitted = {}
+        for rid in live:
+            row, k, e = self.row[rid], int(valids[self.row[rid]]) - 1, 0
+            for j in range(k + 1):
+                tok = outs[rid][self.n[rid] + j]
+                if not self.check(rid, logits[row, j], tok):
+                    break
+                e = j + 1
+                if j == k or toks[row, j + 1] != tok:
+                    break
+            if self.live(rid):
+                emitted[rid] = e
+                if 2 <= e <= k:
+                    self.partial.append((idx, e - 1, k))
+        if any(e < valids[self.row[rid]] for rid, e in emitted.items()):
+            for key, saved in snap.items():
+                self.pool.cache[key].copy_(saved)
+            valids2 = np.zeros((B,), np.int32)
+            for rid, e in emitted.items():
+                valids2[self.row[rid]] = e
+            self._verify(toks, starts, valids2)
+        for rid, e in emitted.items():
+            self.advance(rid, e, outs[rid])
+
+    def step(self, rids, outs):
+        """One decode step over ``rids`` (each already admitted)."""
+        import numpy as np
+
+        torch = self.torch
+        live = [rid for rid in rids if self.live(rid)]
+        if not live:
+            return
+        toks = np.zeros((self.pool.num_seqs, 1), np.int32)
+        for rid in live:
+            toks[self.row[rid], 0] = outs[rid][self.n[rid] - 1]
+        self._lengths()
+        logits, cache = self.model.decode_step(self.sparams, self.pool.step_cache(),
+                                               torch.from_numpy(toks).to(self.dev))
+        self.pool.accept(cache)
+        logits = logits[:, 0].float().cpu()
+        for rid in live:
+            if self.check(rid, logits[self.row[rid]], outs[rid][self.n[rid]]):
+                self.advance(rid, 1, outs[rid])
+
+    def spec(self, log, outs):
+        for idx, ev in enumerate(log):
+            if ev["kind"] == "verify":
+                self.window(idx, ev, outs)
+            elif ev["kind"] == "decode":
+                for rid in ev["rids"].values():
+                    if rid not in self.n:
+                        self.admit(rid, outs[rid])
+                self.step(list(ev["rids"].values()), outs)
+        self.finish(outs)
+
+    def decode(self, upto, outs):
+        """Token ``upto[rid]`` (and every one before it) of each request
+        through the decode path, ``num_seqs`` requests at a time."""
+        rids, B = sorted(upto), self.pool.num_seqs
+        for lo in range(0, len(rids), B):
+            group = rids[lo:lo + B]
+            for rid in group:
+                self.admit(rid, outs[rid])
+            while True:
+                for rid in group:
+                    if self.live(rid) and self.n[rid] > upto[rid]:
+                        self.drop(rid)
+                if not any(self.live(rid) for rid in group):
+                    break
+                self.step(group, outs)
+
+    def finish(self, outs):
+        short = [rid for rid in outs if rid not in self.ties and self.n.get(rid) != len(outs[rid])]
+        if short:
+            fail(f"[{self.label}] the replay did not reach the end of requests {short}")
+        print(f"  [{self.label}] {self.exact} tokens the argmax of their own path, "
+              f"{len(self.ties)} at a flagged tie: {self.ties}")
+
+
+class SpecLog:
+    """Wraps a spec engine's draft step, verify and target decode step to
+    log, per verify or decode call, the rows it served (slot -> request)
+    and, for a verify, the window it was handed; the first verify after a
+    draft roll is the window verify (``kind`` "verify") and a second one
+    its fix-up ("fixup").  ``PathReplay.spec`` reads the log."""
+
+    def __init__(self, engine):
+        self.engine, self.events, self.open = engine, [], False
+        self.draft, self.verify, self.decode = (engine._draft_decode, engine._verify,
+                                                engine._decode)
+        engine._draft_decode, engine._verify, engine._decode = (
+            self._draft_call, self._verify_call, self._decode_call)
+
+    def rids(self):
+        return {slot: seq.request.request_id
+                for slot, seq in self.engine.scheduler.running.items()}
+
+    def _draft_call(self, *args):
+        self.open = False
+        return self.draft(*args)
+
+    def _verify_call(self, *args):
+        self.events.append({"kind": "fixup" if self.open else "verify", "rids": self.rids(),
+                            "args": args[2:5]})
+        self.open = True
+        return self.verify(*args)
+
+    def _decode_call(self, *args):
+        self.events.append({"kind": "decode", "rids": self.rids()})
+        return self.decode(*args)
+
+    def numpy(self):
+        for ev in self.events:
+            if "args" in ev:
+                ev["toks"], ev["starts"], ev["valids"] = (a.cpu().numpy() for a in ev.pop("args"))
+        return self.events
+
+
+def first_divergences(label, got, want, n):
+    """[(request, index of its first differing token)] of ``got``'s
+    greedy streams against ``want``'s, for requests 0..n-1 (each must
+    emit as many tokens)."""
+    out = []
+    for rid in range(n):
+        a, b = got.output(rid), want.output(rid)
+        if len(a) != len(b):
+            fail(f"[{label}] request {rid} emitted {len(a)} tokens, the baseline {len(b)}")
+        if a != b:
+            out.append((rid, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)))
+    return out
 
 
 def compare_streams(torch, label, got, want, work, margin_of):
@@ -1657,13 +1984,8 @@ def compare_streams(torch, label, got, want, work, margin_of):
     import numpy as np
 
     out = []
-    for rid in range(len(work)):
+    for rid, i in first_divergences(label, got, want, len(work)):
         a, b = got.output(rid), want.output(rid)
-        if len(a) != len(b):
-            fail(f"[{label}] request {rid} emitted {len(a)} tokens, the baseline {len(b)}")
-        if a == b:
-            continue
-        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
         margin, top = margin_of(np.concatenate([work[rid][0], np.asarray(b[:i], np.int64)]))
         print(f"  [{label}] request {rid} first diverges at token {i} ({a[i]} against "
               f"{b[i]}); top-2 margin {margin:.4g}, bound {MARGIN} * {top:.4g} = "
@@ -1806,8 +2128,8 @@ def spec_cell(torch, fp, need):
     return {**cell_summary(r), "diverged": diverged}
 
 
-def snapped_build(torch):
-    """glm4-9b at its published widths, params from seed 0 snapped to the
+def snapped_build(torch, arch="glm4-9b"):
+    """``arch`` at its published widths, params from seed 0 snapped to the
     2-bit grid (``snap_params_to_grid``), packed at 4 bits: the 2-bit
     draft's levels are exact at 4 bits."""
     from repro_torch.configs import get_config
@@ -1817,7 +2139,7 @@ def snapped_build(torch):
     from repro_torch.train.serve import quantize_for_serving
 
     t0 = time.perf_counter()
-    cfg = get_config("glm4-9b", smoke=False)
+    cfg = get_config(arch, smoke=False)
     model = build_model(cfg)
     params = snap_params_to_grid(model, model.init(seed=0, device="cuda"), 2)
     policy = policy_for(model, 4)
@@ -1825,7 +2147,7 @@ def snapped_build(torch):
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"  snapped glm4-9b params packed at 4 bits in {time.perf_counter() - t0:.1f} s")
+    print(f"  snapped {arch} params packed at 4 bits in {time.perf_counter() - t0:.1f} s")
     return cfg, model, sparams, policy
 
 
@@ -2304,8 +2626,7 @@ def check_fake_quant_col(torch, timer, peaks, rows):
     from repro_torch.models import build_model
     from repro_torch.quant.qat import bits_assignment, bits_to_device
 
-    f32_peak = next((v for k, v in F32_PEAKS.items() if k in torch.cuda.get_device_name(0)),
-                    F32_PEAKS["H100"])
+    f32_peak = f32_peak_of(torch)
     gen = torch.Generator(device="cuda").manual_seed(17)
     glm = [shape for _, shape in lm_leaves()]
     small = [shape for _, shape in weight_shapes("lenet")] + [(3, 7, 300)]
@@ -2790,6 +3111,289 @@ def ring_card_vs_cpu(torch):
     return out
 
 
+# ---- the recurrent families at their published widths (phases 3o-3s, 4o, 5o) ----
+RWKV_ARCH, HYMBA_ARCH = "rwkv6-1.6b", "hymba-1.5b"
+# (name, K, N, bits, calls per decode step, [x dtype]): rwkv6-1.6b's time-mix
+# r/k/v/g, channel-mix r and k take the f32 token-shift mixes; wo and the
+# channel-mix v take bf16; the lm_head is served at 8 bits
+RWKV_QMM = [("rwkv tm.r/k/v/g, cm.r", 2048, 2048, 4, 120, "f32"),
+            ("rwkv tm.wo", 2048, 2048, 4, 24), ("rwkv cm.wk", 2048, 7168, 4, 24, "f32"),
+            ("rwkv cm.wv", 7168, 2048, 4, 24), ("rwkv lm_head", 2048, 65536, 8, 1)]
+# hymba-1.5b, bf16 activations: K 1600 is 12.5 steps of 128, N 320 five
+# heads of k/v, N 32001 planes not 16-byte aligned
+HYMBA_QMM = [("hymba wq/wo", 1600, 1600, 4, 64), ("hymba wk/wv", 1600, 320, 4, 64),
+             ("hymba wg/wu", 1600, 5504, 4, 64), ("hymba wd", 5504, 1600, 4, 32),
+             ("hymba in_x/in_z", 1600, 3200, 4, 64), ("hymba ssm.out", 3200, 1600, 4, 32),
+             ("hymba lm_head", 1600, 32001, 8, 1)]
+RECURRENT_MS = (("bitserial", (4,)), ("dequant", (256,)))
+PUBLISHED.update({RWKV_ARCH: ((24, 2048, 32, 32, 64, 7168, 65536), None),
+                  HYMBA_ARCH: ((32, 1600, 25, 5, 64, 5504, 32001), 1024)})
+# phase 3p/3q: 4 requests of 960-1200 prompt tokens on 4 rows, 48-96 new
+# ones: max_len 1297 > the 1024-token window, so some rows wrap the ring in
+# prefill and the others in decode
+HYMBA_CELL = ["--requests", "4", "--num-slots", "4", "--block-size", "16", "--prompt-len",
+              "1200", "--min-prompt-len", "960", "--prefill-chunk", "256", "--gen", "96",
+              "--temperature", "0"]
+PAGED = ("paged_attention", "paged_attention_quant", "fused_qkv_paged_decode")
+
+
+def state_bytes(pool) -> int:
+    """Bytes of one row's O(1) recurrent state in a pool."""
+    return sum(pool.cache[k].numel() * pool.cache[k].element_size()
+               for k in pool.recurrent_keys) // pool.num_slots
+
+
+def recurrent_serving(torch):
+    """Phases 3o, 3p, 3q: rwkv6-1.6b (the glm4 cell's traffic, then
+    danube's long prompts) and hymba-1.5b (fp ring blocks, then int8) at
+    their published widths through the launcher, 4-bit weights."""
+    need = ("qmm_bitserial", "qmm_dequant")
+    out = {}
+    short = serve_path(torch, "rwkv short", ["--bits", "4"], need, arch=RWKV_ARCH, forbid=PAGED)
+    built = tuple(short[k] for k in ("cfg", "model", "sparams", "policy"))
+    phase("phase 3o, second mix: rwkv6-1.6b, 4 prompts of 4032-4160 tokens in 256-token chunks")
+    long = serve_path(torch, "rwkv long", ["--bits", "4"], need, built, base=DANUBE,
+                      arch=RWKV_ARCH, forbid=PAGED)
+    for r in (short, long):
+        pool = r["engine"].pool
+        if pool.blocks_per_seq or pool.cache_bytes() or r["metrics"]["prefix_cache"]["enabled"]:
+            fail(f"[{r['label']}] the O(1)-state pool holds blocks or its prefix cache")
+        r["state_bytes_per_row"] = state_bytes(pool)
+        print(f"[{r['label']}] {pool.recurrent_keys} take {r['state_bytes_per_row']:,} bytes "
+              f"a row, whatever the length")
+    out["3o"], out["3o long"] = short, long
+    phase("phase 3p: hymba-1.5b serving end to end, --bits 4, fp KV ring blocks")
+    fp = serve_path(torch, "hymba fp KV", ["--bits", "4"], need + ("paged_attention",),
+                    base=HYMBA_CELL, arch=HYMBA_ARCH, forbid=PAGED[1:])
+    pool = fp["engine"].pool
+    if pool.blocks_per_seq * pool.block_size != 1024 or pool.prefix_cache:
+        fail(f"[hymba fp KV] ring of {pool.blocks_per_seq} x {pool.block_size} tokens, "
+             f"prefix cache {pool.prefix_cache}")
+    fp["state_bytes_per_row"] = state_bytes(pool)
+    out["3p"] = fp
+    phase("phase 3q: hymba-1.5b, --kv-bits 8 ring blocks (unfused quantized attention)")
+    out["3q"] = serve_path(torch, "hymba int8 KV", ["--bits", "4", "--kv-bits", "8"],
+                           need + ("paged_attention_quant",),
+                           tuple(fp[k] for k in ("cfg", "model", "sparams", "policy")),
+                           base=HYMBA_CELL, arch=HYMBA_ARCH,
+                           forbid=("paged_attention", "fused_qkv_paged_decode"))
+    return out
+
+
+def spec_recurrent(torch, base, label, partial=False):
+    """Phase 3r on one served cell: its workload and params through a
+    spec engine (k 4, 2-bit draft, the engine's defaults otherwise), the
+    draft step and the verify calls watched: per spec step the first
+    verify scores the windows and a second one is the fix-up, each timed
+    by CUDA events around the call (its device span, host gaps inside
+    included), and the first of each traced for its device busy time.
+
+    The spec streams are scored by the chunk path (a verify), the base
+    run's by the decode path, and at depth the two paths round apart far
+    enough to part streams (PERF.md, 3r).  So each stream is held against
+    its own path (``PathReplay``): every spec token against a plain replay
+    of the engine's windows, and each base stream up to its first
+    divergence from the spec one against a replay of the decode steps.
+    Fails unless both hold, a fix-up ran, no plain call or fused launch
+    happened, and the draft's step was captured once; with ``partial``,
+    also unless some window accepted part of its draft (0 < accepted <
+    proposed) and was followed by a fix-up."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import SamplingParams, ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    a = base["args"]
+    kv = {"kv_bits": a.kv_bits[0]} if a.kv_bits else {}
+    engine = ServeEngine(base["model"], base["sparams"], num_slots=a.num_slots,
+                         max_len=a.prompt_len + a.gen + 1, block_size=a.block_size,
+                         prefill_chunk=a.prefill_chunk, spec=SpecConfig(k=4, draft_bits=2),
+                         device="cuda", **kv)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    log = SpecLog(engine)
+    calls, draft, verify = [], engine._draft_decode, engine._verify
+    busy = {}   # device busy ms of the first window verify and the first fix-up
+
+    def draft_call(*args):
+        if not calls or calls[-1]:
+            calls.append([])
+        return draft(*args)
+
+    def verify_call(*args):
+        kind = "fixup" if calls[-1] else "verify"
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        if kind in busy:
+            ev[0].record()
+            out = verify(*args)
+            ev[1].record()
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ev[0].record()
+                out = verify(*args)
+                ev[1].record()
+                torch.cuda.synchronize()
+            busy[kind] = sum(e.self_device_time_total for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA) / 1e3
+        calls[-1].append(ev)
+        return out
+
+    engine._draft_decode, engine._verify = draft_call, verify_call
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    launcher.drive(engine, base["work"], a.arrival_every, SamplingParams(temperature=0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, m = dict(ops.counts), engine.metrics()
+    fixups = int(engine.obs.get("spec.fixups").value)
+    spans = {"verify": [c[0][0].elapsed_time(c[0][1]) for c in calls if c],
+             "fixup": [c[1][0].elapsed_time(c[1][1]) for c in calls if len(c) == 2]}
+    if (counts["plain"] or counts["fused_qkv_paged_decode"] or counts["qmm_bitserial"] <= 0
+            or counts["qmm_dequant"] <= 0):
+        fail(f"[{label}] launch counts {counts}")
+    if fixups <= 0 or fixups != len(spans["fixup"]):
+        fail(f"[{label}] {fixups} fix-ups counted, {len(spans['fixup'])} seen")
+    if m["recompiles"] or engine.graph_captures["draft"] != 1:
+        fail(f"[{label}] captures {engine.graph_captures}, recompiles {m['recompiles']}")
+    sp = m["spec"]
+    print(f"[{label}] spec k=4 draft_bits=2: windows {sp['windows']}, proposed "
+          f"{sp['proposed']} of k * windows = {sp['k'] * sp['windows']} (the rest cut by the "
+          f"budget or the ring), accepted {sp['accepted']}, acceptance "
+          f"{sp['acceptance_rate']:.4f}; {fixups} fix-ups, CUDA-event span p50 "
+          f"{statistics.median(spans['fixup']):.3f} ms ({sum(spans['fixup']):.1f} ms in all) "
+          f"against the window verify's {statistics.median(spans['verify']):.3f} ms; device "
+          f"busy in the first fix-up {busy.get('fixup', float('nan')):.3f} ms, first window "
+          f"verify {busy.get('verify', float('nan')):.3f} ms (profiler); "
+          f"tokens/s {m['tokens_per_s']:.2f} (no spec {base['metrics']['tokens_per_s']:.2f}), "
+          f"decode_tok_p50 {m['decode_tok_p50_ms']:.3f} ms, wall {wall:.2f} s; "
+          f"launch counts {counts}")
+
+    work = base["work"]
+    outs = {rid: engine.output(rid) for rid in range(len(work))}
+    base_outs = {rid: base["engine"].output(rid) for rid in range(len(work))}
+    diverged = first_divergences(f"{label} vs no spec", engine, base["engine"], len(work))
+    events = log.numpy()
+    t0 = time.perf_counter()
+    own = PathReplay(torch, base, engine.pool, f"{label}, chunk path replay")
+    own.spec(events, outs)
+    dec = PathReplay(torch, base, base["engine"].pool, f"{label} base, decode path replay")
+    dec.decode(dict(diverged), base_outs)
+    print(f"  [{label} base, decode path replay] {dec.exact} tokens the argmax of their own "
+          f"path, {len(dec.ties)} at a flagged tie: {dec.ties}")
+    replay_s = time.perf_counter() - t0
+    partial_fixed = [p for p in own.partial if p[0] + 1 < len(events)
+                     and events[p[0] + 1]["kind"] == "fixup"]
+    print(f"  [{label}] {len(own.partial)} windows accepted part of their draft "
+          f"(0 < accepted < proposed), {len(partial_fixed)} of them followed by a fix-up "
+          f"(accepted, proposed: {[p[1:] for p in own.partial[:12]]}); replays {replay_s:.1f} s")
+    if len(partial_fixed) != len(own.partial) or (partial and not partial_fixed):
+        fail(f"[{label}] partly accepted windows {own.partial}, followed by a fix-up "
+             f"{partial_fixed}")
+    rows = []
+    for rid, i in diverged:
+        rows.append({"request": rid, "token": i, "spec": outs[rid][i], "base": base_outs[rid][i],
+                     "spec_tie": own.ties.get(rid), "base_tie": dec.ties.get(rid)})
+        print(f"  [{label}] request {rid} first diverges at token {i} ({outs[rid][i]} against "
+              f"{base_outs[rid][i]}); spec on its chunk path: "
+              f"{own.ties.get(rid) or 'the argmax'}; base on its decode path: "
+              f"{dec.ties.get(rid) or 'the argmax'}")
+    return {"metrics": {k: v for k, v in m.items() if k != "requests"}, "counts": counts,
+            "wall_s": wall, "fixups": fixups, "diverged": rows,
+            "own_path": {"spec_exact": own.exact, "spec_ties": own.ties,
+                         "base_exact": dec.exact, "base_ties": dec.ties, "replay_s": replay_s},
+            "partial_windows": len(own.partial), "partial_fixed": len(partial_fixed),
+            "verify_span_ms_p50": statistics.median(spans["verify"]),
+            "fixup_span_ms_p50": statistics.median(spans["fixup"]),
+            "fixup_span_ms_total": sum(spans["fixup"]),
+            "verify_device_ms_first": busy.get("verify"), "fixup_device_ms_first": busy.get("fixup"),
+            "ttft_p50_s": statistics.median(q["ttft_s"] for q in m["requests"])}
+
+
+def pareto_lenet(torch, task, bits):
+    """Phase 3s (Fig 6): every LeNet policy over bitset (2, 3, 4, 6, 8),
+    no retrain, as benchmarks/paper.py enumerates it; the frontier and
+    the distance of 3d's ReLeQ point from it."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.pareto import distance_to_frontier, enumerate_space, pareto_frontier
+    from repro_torch.kernels import ops
+
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    pts = enumerate_space(task.groups, lambda b: task.evaluate_bits(b, retrain_steps=0),
+                          bitset=(2, 3, 4, 6, 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    front = pareto_frontier(pts)
+    point = {"bits": bits, "acc": task.evaluate_bits(bits, retrain_steps=0),
+             "quant": cm.state_of_quantization([bits[g.name] for g in task.groups],
+                                               task.groups)}
+    d = distance_to_frontier(point, front)
+    if len(pts) != 625 or not front or not all(math.isfinite(p["acc"]) for p in pts):
+        fail(f"[pareto] {len(pts)} points, frontier of {len(front)}")
+    counts = dict(ops.counts)
+    if counts["plain"] or counts["fake_quant_group"] < 625:
+        fail(f"[pareto] launch counts {counts}")
+    print(f"[pareto] LeNet: {len(pts)} points in {wall:.2f} s ({wall / len(pts) * 1e3:.2f} ms "
+          f"a point), frontier of {len(front)}, ReLeQ point (quant {point['quant']:.4f}, acc "
+          f"{point['acc']:.4f}) at distance {d:.4f}; launch counts {counts}")
+    return {"points": len(pts), "frontier": len(front), "releq_distance": d, "wall_s": wall,
+            "frontier_pts": [(p["quant"], p["acc"]) for p in front], "counts": counts}
+
+
+def admm_resnet20(torch, task):
+    """Phase 3s (Table 4): the ADMM selector on 3e's pretrained ResNet-20
+    at 4.0 average bits; its bits must equal a CPU run's on the same
+    weights (the plain fake-quant)."""
+    from repro_torch.core.admm_baseline import admm_select
+    from repro_torch.kernels import ops
+
+    weights = task.weights_by_name()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    bits = admm_select(task.groups, weights, budget_avg_bits=4.0)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    cpu = admm_select(task.groups, {n: w.cpu() for n, w in weights.items()}, budget_avg_bits=4.0)
+    if bits != cpu:
+        fail(f"[admm] card bits {bits} != CPU bits {cpu}")
+    if counts["fake_quant"] != 7 * len(task.groups) or counts["plain"]:
+        fail(f"[admm] launch counts {counts}")
+    vec = [bits[g.name] for g in task.groups]
+    avg = sum(g.n_weights * b for g, b in zip(task.groups, vec)) / sum(
+        g.n_weights for g in task.groups)
+    print(f"[admm] ResNet-20 at 4.0 average bits: {vec} (weighted average {avg:.4f}), equal "
+          f"to the CPU's; {counts['fake_quant']} fake-quant launches, {wall:.3f} s")
+    return {"bits": vec, "weighted_avg_bits": avg, "wall_s": wall, "counts": counts}
+
+
+def recurrent_card_vs_cpu(torch):
+    """Phase 4o: narrow models of both families served on the card and on
+    the CPU, 6 prompts of 72-100 tokens and 48 greedy tokens: RWKV (2
+    layers, d_model 256, 4 heads of 64, d_ff 896, vocab 65536) and hymba
+    (2 layers, d_model 320, 5 heads over 1 KV head of 64, window 64, Di
+    640, d_ff 1088, vocab 32001; fp and int8 ring blocks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    lens = (72, 100, 85, 91, 77, 96)
+    rwkv = build_model(dataclasses.replace(get_config(RWKV_ARCH), num_layers=2, d_model=256,
+                                           num_heads=4, num_kv_heads=4, d_ff=896))
+    hymba = build_model(dataclasses.replace(get_config(HYMBA_ARCH), num_layers=2, d_model=320,
+                                            num_heads=5, num_kv_heads=1, d_ff=1088,
+                                            sliding_window=64))
+    out = {}
+    for name, sm, kv_bits, need, forbid in (
+            ("rwkv", rwkv, None, ("qmm_bitserial",), PAGED),
+            ("hymba fp", hymba, None, ("qmm_bitserial", "paged_attention"), PAGED[1:]),
+            ("hymba int8", hymba, 8, ("qmm_bitserial", "paged_attention_quant"),
+             ("paged_attention", "fused_qkv_paged_decode"))):
+        params = sm.init(seed=11, device="cpu")
+        out[name] = served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=lens, gen=48,
+                                               need=need, forbid=forbid)
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2846,6 +3450,12 @@ def main() -> None:
     pa120_err, paq120_err = check_ring_attention(torch, timer, peaks, rows)
     print("  h2o-danube-3-4b's qmm shapes")
     qmm_err = max(qmm_err, check_qmm(torch, timer, peaks, rows, DANUBE_QMM, DANUBE_MS, seed=3))
+    print("  hymba-1.5b's decode attention: KV 5, G 5, hd 64, bs 16, 1024-token rings")
+    pa64_err, paq64_err = check_ring_attention(torch, timer, peaks, rows, HYMBA_RING,
+                                               HYMBA_RING_LENGTHS, seed=22)
+    print("  rwkv6-1.6b's and hymba-1.5b's qmm shapes")
+    qmm_err = max(qmm_err, check_qmm(torch, timer, peaks, rows, RWKV_QMM + HYMBA_QMM,
+                                     RECURRENT_MS, seed=4))
     fused_err = check_fused_decode(torch, timer, peaks, rows)
     fq_err = check_fake_quant(torch, timer, peaks, rows)
     fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
@@ -2946,7 +3556,10 @@ def main() -> None:
     # order), so the accuracy floors below need a run that repeats.
     torch.backends.cudnn.deterministic = True
     phase("phase 3d: the quickstart twin on LeNet (pretrain 300, 30 episodes, long retrain 150)")
-    lenet = releq_quickstart(torch)
+    lenet_task, lenet = releq_quickstart(torch)
+    phase("phase 3s: the Fig 6 enumeration of LeNet's policies and its Pareto frontier")
+    baselines = {"pareto": pareto_lenet(torch, lenet_task, lenet["best_bits"])}
+    del lenet_task
     phase(f"phase 3e: ReLeQ search on ResNet-20 at full width (pretrain {RESNET20_PRETRAIN}, "
           f"{RESNET20_EPISODES} episodes at episode_end, long retrain 200)")
     task, resnet = releq_resnet20(torch)
@@ -2954,6 +3567,8 @@ def main() -> None:
     resnet["card_vs_cpu"] = resnet_step_card_vs_cpu(torch, task)
     phase("phase 5e: ResNet-20 QAT step breakdown")
     qat_breakdown = profile_qat_step(torch, task)
+    phase("phase 3s: the Table 4 ADMM selector on 3e's ResNet-20 at 4.0 average bits")
+    baselines["admm"] = admm_resnet20(torch, task)
     del task
     torch.cuda.empty_cache()
 
@@ -2980,6 +3595,37 @@ def main() -> None:
     danube = danube_serving(torch)
     phase("phase 4l: a windowed hd-120 model served on the card and on the CPU, past the wrap")
     ring_streams = ring_card_vs_cpu(torch)
+    for r in danube.values():
+        for key in ("engine", "model", "sparams"):
+            r.pop(key, None)
+    torch.cuda.empty_cache()
+
+    # ---- the recurrent families: rwkv6-1.6b and hymba-1.5b
+    phase("phase 3o: rwkv6-1.6b serving end to end, --bits 4, the glm4 cell's traffic")
+    rec = recurrent_serving(torch)
+    phase("phase 3r: speculative decoding on rwkv6-1.6b (3o) and hymba-1.5b (3p), "
+          "--spec-k 4 --draft-bits 2")
+    rec_spec = {"rwkv": spec_recurrent(torch, rec["3o"], "rwkv spec"),
+                "hymba": spec_recurrent(torch, rec["3p"], "hymba spec")}
+    phase("phase 3r, snapped: rwkv6-1.6b on params snapped to the 2-bit grid (3i's regime), "
+          "no spec, then spec")
+    snapped = serve_path(torch, "rwkv snapped, no spec", ["--bits", "4"],
+                         ("qmm_bitserial", "qmm_dequant"), snapped_build(torch, RWKV_ARCH),
+                         arch=RWKV_ARCH, forbid=PAGED)
+    rec_spec["rwkv snapped"] = spec_recurrent(torch, snapped, "rwkv snapped spec", partial=True)
+    rec_spec["rwkv snapped"]["no_spec"] = cell_summary(snapped)
+    del snapped
+    phase("phase 5o: decode step breakdown, rwkv6-1.6b and hymba-1.5b")
+    rec_breakdown = {}
+    for cell, label in (("3o", "rwkv"), ("3p", "hymba fp KV")):
+        print(f"  [{label}, pipeline]")
+        rec_breakdown[label] = profile_decode(torch, rec[cell]["engine"], rec[cell]["work"])
+    for r in rec.values():
+        for key in ("engine", "model", "sparams"):
+            r.pop(key, None)
+    torch.cuda.empty_cache()
+    phase("phase 4o: narrow rwkv6 and hymba models served on the card and on the CPU")
+    rec_streams = recurrent_card_vs_cpu(torch)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -2998,6 +3644,19 @@ def main() -> None:
     attn120_q = per_step(rows, "paged_attention_quant",
                          lambda r: 24 if r["shape"] == "hd120 decode"
                          and r["container"] == "int8" else 0)
+    # the recurrent families' decode steps (M = 4) and 256-token prefill chunks
+    rec_calls = {name: n for name, _, _, _, n, *_ in RWKV_QMM + HYMBA_QMM}
+
+    def rec_qmm(kernel, prefix, M):
+        return per_step(rows, kernel, lambda r: rec_calls.get(r["shape"], 0)
+                        if r["M"] == M and r["shape"].startswith(prefix)
+                        and (M == 4 or "lm_head" not in r["shape"]) else 0,
+                        ("bound_bf16_ms",))
+
+    attn64 = per_step(rows, "paged_attention", lambda r: 32 if r["shape"] == "g5 decode" else 0)
+    attn64_q = per_step(rows, "paged_attention_quant",
+                        lambda r: 32 if r["shape"] == "g5 decode"
+                        and r["container"] == "int8" else 0)
     fused = per_step(rows, "fused_qkv_paged_decode", main_int("int4"),
                      [f"{launch}_{key}" for launch in ("project", "attend")
                       for key in ("ms", "library_ms", "bound_ms")])
@@ -3036,6 +3695,22 @@ def main() -> None:
          "replaces": "src/repro/kernels/paged_attention.py:117",
          "launches": danube["3m"]["counts"]["paged_attention_quant"], "max_abs_err": paq120_err,
          **attn120_q},
+        *({"name": f"qmm_{path}_{fam}", "route": "cuda", "source": "src/repro_torch/csrc/qmm.cu",
+           "replaces": f"src/repro/kernels/qmm.py:{78 if path == 'bitserial' else 57}",
+           "launches": rec[cell]["counts"][f"qmm_{path}"], "max_abs_err": qmm_err,
+           **rec_qmm(f"qmm_{path}", fam, 4 if path == "bitserial" else 256)}
+          for fam, cell in (("rwkv", "3o"), ("hymba", "3p"))
+          for path in ("bitserial", "dequant")),
+        {"name": "paged_attention_g5_hd64", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:37",
+         "launches": rec["3p"]["counts"]["paged_attention"], "max_abs_err": pa64_err,
+         **attn64},
+        {"name": "paged_attention_quant_g5_hd64", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention_quant.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:117",
+         "launches": rec["3q"]["counts"]["paged_attention_quant"], "max_abs_err": paq64_err,
+         **attn64_q},
         {"name": "fused_qkv_paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_decode.cu",
          "replaces": "src/repro/kernels/fused_decode.py:63",
@@ -3067,7 +3742,9 @@ def main() -> None:
                      "setup_s": r["setup_s"], "wall_s": r["wall_s"],
                      "peak_mem_gib": r["peak_mem_gib"]}
              for label, r in (*fp_runs.items(), ("int4 KV", int4), ("int8 KV", int8),
-                              *((f"danube {c}", danube[c]) for c in ("3l", "3m", "3n")))}
+                              *((f"danube {c}", danube[c]) for c in ("3l", "3m", "3n")),
+                              *((f"{RWKV_ARCH if c.startswith('3o') else HYMBA_ARCH} {c}",
+                                 rec[c]) for c in rec))}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3089,7 +3766,13 @@ def main() -> None:
                          "glm4-9b cell (9 leaves, bf16, phase 3j's mixed policy), launches from "
                          "phase 3j; paged_attention_hd120 / paged_attention_quant_hd120 (int8): "
                          "h2o-danube-3-4b's decode step, 24 calls over full 4096-token rings "
-                         "(KV 8, G 4, hd 120), launches from phases 3l / 3m",
+                         "(KV 8, G 4, hd 120), launches from phases 3l / 3m; "
+                         "qmm_*_rwkv / qmm_*_hymba: one decode step at M=4 (193 / 321 calls, "
+                         "lm_head included) and one 256-token prefill chunk (192 / 320 layer "
+                         "calls), launches from phases 3o / 3p; paged_attention_g5_hd64 and "
+                         "paged_attention_quant_g5_hd64 (int8): hymba-1.5b's decode step, 32 "
+                         "calls over full 1024-token rings (KV 5, G 5, hd 64), launches from "
+                         "phases 3p / 3q",
         "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
         "served_streams": streams,
         "danube": {"3n_diverged": danube["3n"]["diverged"], "static": danube["3n static"],
@@ -3097,6 +3780,10 @@ def main() -> None:
         "releq": {"lenet_quickstart": lenet, "resnet20": resnet,
                   "qat_step_breakdown": qat_breakdown},
         "lm": lm,
+        "recurrent": {"state_bytes_per_row": {c: r.get("state_bytes_per_row")
+                                              for c, r in rec.items()},
+                      "spec_3r": rec_spec, "decode_breakdown_5o": rec_breakdown,
+                      "streams_4o": rec_streams, "baselines_3s": baselines},
         "total_s": time.perf_counter() - T_START}, indent=1, default=str))
     print(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi_line)

@@ -137,6 +137,10 @@ class CNNTask:
         # ddof 0, as jnp.std
         return {n: float(self.params[n]["w"].std(correction=0)) for n in self.names}
 
+    def weights_by_name(self) -> dict:
+        """Quantized layer -> its weight tensor (the ADMM baseline's input)."""
+        return {n: self.params[n]["w"] for n in self.names}
+
     def make_env_factory(self, *, retrain_steps: int = 4,
                          reward_mode: str = "proposed",
                          bitset=(2, 3, 4, 5, 6, 7, 8),

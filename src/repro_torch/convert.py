@@ -10,8 +10,9 @@ dict:
 - a ``repro.quant.pack.QDQ`` as ``{"w", "bits"}``.
 
 :func:`params_from_numpy` maps that tree onto the port's: the training
-layout (stacked ``blocks``) and the serving layout (per-layer lists,
-``Packed`` and ``QDQ`` leaves) alike.  bfloat16 arrays (numpy dtype name
+layout (stacked ``blocks``: a list of one stacked subtree, or RWKV's one
+stacked dict; hymba's ``ssm`` subtree and 0-d ``mix`` with them) and the
+serving layout (per-layer lists, ``Packed`` and ``QDQ`` leaves) alike.  bfloat16 arrays (numpy dtype name
 ``bfloat16``) go through float32, which is exact both ways.  A ``QDQ``
 embedding gets its quantize-dequantize value computed once, as
 ``train.serve.quantize_for_serving`` does.

@@ -7,9 +7,9 @@
 - search.py     episode loop
 - evalcache.py  thread-safe evaluate() memo (copy)
 - costmodel.py  State-of-Quantization + Stripes / TVM-CPU models (copy)
-
-``pareto.py`` and ``admm_baseline.py`` are not ported yet (ROADMAP.md
-queue 1, slice B).
+- pareto.py     design-space enumeration + Pareto frontier (Fig 6; copy,
+                ``as_archive`` waits for ``autotune``)
+- admm_baseline.py  the ADMM bitwidth-selection baseline (Table 4)
 """
 from repro_torch.core.env import STATE_DIM, QuantEnv  # noqa: F401
 from repro_torch.core.evalcache import EvalCache  # noqa: F401

@@ -22,12 +22,17 @@ _NEG = -1e30  # finite "-inf" so masked softmax rows stay NaN-free
 
 
 def apply_linear(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w where w is a dense tensor or a Packed bitplane weight."""
+    """x @ w where w is a dense tensor or a Packed bitplane weight.  A
+    dense product of two dtypes runs in the wider one, as jnp promotes
+    ``x @ w`` (RWKV feeds f32 token-shift mixes to bf16 weights)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.quant.pack import Packed
 
     if isinstance(w, Packed):
         return kops.qmm(x, w.planes, w.scale, bits=w.bits).to(x.dtype)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x @ w
 
 

@@ -29,13 +29,33 @@ def cache_batch_axis(key: str) -> int:
     return 0 if key == "length" else 1
 
 
+# decode-cache leaves that are not O(1) per-row state: K/V (paged blocks
+# or contiguous rows) and their quantization scales, written at a slot and
+# never rewritten in place, and the per-call bookkeeping
+_NOT_RECURRENT = ("k", "v", "k_scale", "v_scale", "kv_qmax", "length", "block_tables")
+
+
+def recurrent_keys(cache) -> tuple[str, ...]:
+    """The leaves of a decode cache (or its template from ``init_cache``)
+    that hold O(1) recurrent state a row carries from token to token,
+    rewritten in place by the decode step and the chunk body: RWKV's
+    ``wkv``/``x_tm``/``x_cm``, hymba's ``ssm_h``/``ssm_conv``.  The pool's
+    row reset, the spec path's snapshot and the graphed step's capture all
+    read this one list."""
+    return tuple(k for k in cache if k not in _NOT_RECURRENT)
+
+
 def build_model(cfg):
-    """Config -> model object.  Only the dense transformer family is
-    ported so far."""
+    """Config -> model object: the dense and hybrid families as a
+    ``TransformerLM``, the ssm family (RWKV6) as an ``RWKV6LM``.  MoE,
+    vlm and audio are not ported yet."""
     from repro_torch import not_ported
+    from repro_torch.models.rwkv import RWKV6LM
     from repro_torch.models.transformer import TransformerLM
 
-    if cfg.family != "dense":
+    if cfg.family == "ssm":
+        return RWKV6LM(cfg)
+    if cfg.family not in ("dense", "hybrid"):
         raise not_ported(f"model family {cfg.family!r} ({cfg.name})",
                          "slice C, item 9")
     return TransformerLM(cfg)

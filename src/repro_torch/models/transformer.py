@@ -1,4 +1,5 @@
-"""TransformerLM, dense family (torch port of ``repro.models.transformer``).
+"""TransformerLM, the dense and hybrid families (torch port of
+``repro.models.transformer``).
 
 Ported: ``init`` (stacked training layout), the teacher-forced training
 ``forward`` and ``loss`` (blocked flash attention with its manual
@@ -26,6 +27,15 @@ slot ``p % Tc``; decode writes at ``length % Tc`` and attends the
 ``min(length + 1, Tc)`` live slots, and a chunk reads its context at the
 positions its ring slots hold and writes at ``positions % Tc``.
 
+The hybrid family (hymba): each layer runs attention and a Mamba SSM
+branch (``models.mamba``) in parallel on the same normed input and mixes
+them with a learned per-layer weight, as the reference does:
+``x + mix * (attn(x) - x) + (1 - mix) * ssm(x)`` with the subtraction and
+``mix = sigmoid(p["mix"])`` in the activation dtype.  The SSM state is
+O(1) per row (``ssm_h`` (L, B, Di, N) f32, ``ssm_conv`` (L, B, ks - 1,
+Di)): the decode step writes it in place, and the chunk body carries each
+row's state (a row's first chunk, start 0, from zero state).
+
 Params are plain dicts of tensors with the reference's structure: the
 training layout stacks each repeated leaf along a leading layer axis in
 ``params["blocks"][0]``; the serving layout (``train.serve.
@@ -33,8 +43,8 @@ quantize_for_serving``) holds a per-layer list there, with ``Packed``
 matrices and a ``QDQ`` embedding.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE, hybrid and other families, M-RoPE and absolute-sinusoid
-positions.
+item): MoE and the other families, M-RoPE and absolute-sinusoid
+positions, and training the hybrid family (``loss``).
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import gather_dequant
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import (
     apply_linear,
     apply_rope,
@@ -94,7 +105,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid"):
             raise not_ported(f"model family {cfg.family!r}", "slice C, item 9")
         if cfg.rope != "rope":
             raise not_ported(f"positions {cfg.rope!r}", "slice C, item 9")
@@ -135,6 +146,11 @@ class TransformerLM:
         ones = torch.ones((L, D), dtype=torch.float32, device=device)
         blocks = {"ln1": ones, "ln2": ones.clone(), "attn": stack(shapes),
                   "mlp": stack(mlp)}
+        if cfg.family == "hybrid":
+            ssm = [mamba_mod.init_mamba(gen, D, cfg.ssm_expand * D, cfg.ssm_state,
+                                        cfg.ssm_conv, dt, device) for _ in range(L)]
+            blocks["ssm"] = {k: torch.stack([s[k] for s in ssm]) for k in ssm[0]}
+            blocks["mix"] = torch.full((L,), 0.5, dtype=torch.float32, device=device)
         params = {
             "embed": embed_init(gen, cfg.vocab_size, D, dt, device),
             "blocks": [blocks],
@@ -271,6 +287,35 @@ class TransformerLM:
             z = F.gelu(g.float(), approximate="tanh").to(h.dtype)
         return apply_linear(z, p["wd"])
 
+    def _ssm_branch(self, x, p, cache=None, layer=None):
+        """The hybrid SSM branch on ``ln1(x)``: the whole sequence
+        (``cache=None``), or one decode token over the row's state, which
+        is written back in place."""
+        h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        if cache is None:
+            y, _ = mamba_mod.mamba_forward(h, p["ssm"], chunk=self.cfg.chunk_size)
+            return y
+        ssm_h, ssm_conv = cache["ssm_h"][layer], cache["ssm_conv"][layer]
+        y, st = mamba_mod.mamba_step(h, p["ssm"], {"h": ssm_h, "conv": ssm_conv})
+        ssm_h.copy_(st["h"])
+        ssm_conv.copy_(st["conv"])
+        return y
+
+    def _combine(self, x, attn_out, s, p):
+        """Hymba's parallel mix: ``x + mix * (attn_out - x) + (1 - mix) *
+        s``, the subtraction and ``mix`` in x's dtype, as the reference."""
+        a = attn_out - x
+        mix = torch.sigmoid(p["mix"]).to(x.dtype)
+        return x + mix * a + (1.0 - mix) * s
+
+    def _mixer(self, x, p, positions, cache=None, layer=None):
+        """The token mixer of one layer: attention, and for the hybrid
+        family the SSM branch beside it."""
+        out = self._attn(x, p, positions, cache, layer)
+        if self.cfg.family != "hybrid":
+            return out
+        return self._combine(x, out, self._ssm_branch(x, p, cache, layer), p)
+
     # ------------------------------------------------------------- embed/out
     def _embed_in(self, params, tokens):
         emb = params["embed"]
@@ -287,9 +332,9 @@ class TransformerLM:
 
     # ------------------------------------------------------------- forwards
     def _sub_forward(self, h, p, positions):
-        """One attention + FFN residual block -> (h, aux); aux is 0 for the
-        dense family."""
-        h = self._attn(h, p, positions, None, None)
+        """One token-mixer + FFN residual block -> (h, aux); aux is 0 for
+        the dense and hybrid families."""
+        h = self._mixer(h, p, positions)
         return self._ffn(h, p), torch.zeros((), dtype=torch.float32, device=h.device)
 
     def forward(self, params, tokens=None, embeds=None, positions=None,
@@ -332,6 +377,9 @@ class TransformerLM:
         readout in rematerialized sequence chunks (:func:`chunked_ce`), so
         the (tokens x vocab) f32 logits never materialize whole.  Returns
         (loss, {"nll", "aux"}), all 0-d f32 tensors on the device."""
+        if self.cfg.family != "dense":
+            raise not_ported(f"training the {self.cfg.family} family (TransformerLM.loss)",
+                             "slice C, item 9")
         h, aux = self.forward(params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                               positions=batch.get("positions"), remat=remat,
                               return_hidden=True)
@@ -348,17 +396,23 @@ class TransformerLM:
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None) -> dict:
         """Contiguous per-row cache of ``cache_len(max_len)`` tokens; the
         paged pool reads its leaf shapes and dtypes as the template for its
-        blocks."""
+        blocks.  The hybrid family adds its O(1) SSM state per row."""
         cfg = self.cfg
         device = resolve_device(device)
         dtype = dtype or self.dtype
         L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
         T = self.cache_len(max_len)
-        return {
+        cache = {
             "k": torch.zeros((L, batch, T, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((L, batch, T, KV, hd), dtype=dtype, device=device),
             "length": torch.zeros((batch,), dtype=torch.int32, device=device),
         }
+        if cfg.family == "hybrid":
+            Di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+            cache["ssm_h"] = torch.zeros((L, batch, Di, N), dtype=torch.float32, device=device)
+            cache["ssm_conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, Di), dtype=dtype,
+                                            device=device)
+        return cache
 
     def prefill(self, params, tokens=None, embeds=None, max_len: int | None = None):
         """Forward over whole prompts, building a contiguous cache sized for
@@ -366,7 +420,8 @@ class TransformerLM:
         (last-token logits (B, 1, V) f32, cache).  Per layer over the
         serving layout: each layer's K/V is captured for the cache (the
         last ``Tc`` tokens; a ring rolls them so that position p sits at
-        slot ``p % Tc``), then the layer runs as the training forward."""
+        slot ``p % Tc``; the hybrid family's SSM state too), then the layer
+        runs as the training forward."""
         cfg = self.cfg
         h = embeds.to(self.dtype) if embeds is not None else self._embed_in(params, tokens)
         B, S, _ = h.shape
@@ -388,8 +443,14 @@ class TransformerLM:
                 rows[:, :Tmin] = new[:, S - Tmin:].to(rows.dtype)
                 if shift:
                     rows.copy_(torch.roll(rows, shift, dims=1))
-            h = self._attn(h, p, positions, None, None)
-            h = self._ffn(h, p)
+            out = self._attn(h, p, positions, None, None)
+            if cfg.family == "hybrid":
+                y, st = mamba_mod.mamba_forward(hn, p["ssm"], chunk=cfg.chunk_size,
+                                                return_state=True)
+                cache["ssm_h"][l] = st["h"]
+                cache["ssm_conv"][l] = st["conv"].to(cache["ssm_conv"].dtype)
+                out = self._combine(h, out, y, p)
+            h = self._ffn(out, p)
         cache["length"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         return self._readout(params, h[:, -1:]), cache
@@ -404,8 +465,9 @@ class TransformerLM:
     def decode_step(self, params, cache, tokens, positions=None):
         """One token for every pool row.  tokens: (B, 1) int.
 
-        Returns (logits (B, 1, V) f32, cache).  The pool's K/V leaves are
-        written in place; ``length`` is a new tensor, one larger."""
+        Returns (logits (B, 1, V) f32, cache).  The pool's K/V leaves (and
+        the hybrid family's SSM state) are written in place; ``length`` is
+        a new tensor, one larger."""
         cfg = self.cfg
         cache = dict(cache)
         h = self._embed_in(params, tokens)
@@ -413,7 +475,7 @@ class TransformerLM:
             positions = cache["length"][:, None]
         for l in range(cfg.num_layers):
             p = self._layer_slice(params, l)
-            h = self._attn(h, p, positions, cache, l)
+            h = self._mixer(h, p, positions, cache, l)
             h = self._ffn(h, p)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits = self._readout(params, h)
@@ -498,6 +560,24 @@ class TransformerLM:
         out = apply_linear(out.reshape(B, C, H * hd), p["attn"]["wo"])
         return x + out
 
+    def _chunk_ssm(self, x, p, cache, layer, rows, starts, valids):
+        """The hybrid SSM branch over a chunk, carrying each row's cached
+        state (zero on a row's first chunk, start 0: a new admission may
+        reuse a row whose previous occupant's state is still there),
+        padding masked out of the update; the new state is written back in
+        place."""
+        h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        rows = rows.long()
+        ssm_h, ssm_conv = cache["ssm_h"], cache["ssm_conv"]
+        continuing = (starts > 0)[:, None, None]
+        state = {"h": torch.where(continuing, ssm_h[layer, rows], 0.0),
+                 "conv": torch.where(continuing, ssm_conv[layer, rows], 0).to(ssm_conv.dtype)}
+        y, st = mamba_mod.mamba_forward(h, p["ssm"], chunk=self.cfg.chunk_size,
+                                        return_state=True, init_state=state, valid=valids)
+        ssm_h[layer, rows] = st["h"]
+        ssm_conv[layer, rows] = st["conv"].to(ssm_conv.dtype)
+        return y
+
     def _chunk_body(self, params, cache, tokens, rows, starts, valids):
         """Fixed-shape chunk forward over pooled-cache rows.  ``tokens``
         (B, C), garbage past each lane's ``valid``; ``rows``/``starts``/
@@ -511,8 +591,11 @@ class TransformerLM:
                                                    device=h.device)[None, :]
         for l in range(cfg.num_layers):
             p = self._layer_slice(params, l)
-            h = self._chunk_attn(h, p, positions, cache, l, rows, starts, valids)
-            h = self._ffn(h, p)
+            out = self._chunk_attn(h, p, positions, cache, l, rows, starts, valids)
+            if cfg.family == "hybrid":
+                s = self._chunk_ssm(h, p, cache, l, rows, starts, valids)
+                out = self._combine(h, out, s, p)
+            h = self._ffn(out, p)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         length = cache["length"].clone()
         length[rows.long()] = (starts + valids).to(length.dtype)
@@ -575,6 +658,11 @@ class TransformerLM:
             if cfg.act == "swiglu":
                 add(pre + "mlp.wu", base + ("mlp", "wu"), l, (D, Fd), D * Fd)
             add(pre + "mlp.wd", base + ("mlp", "wd"), l, (Fd, D), D * Fd)
+            if cfg.family == "hybrid":
+                Di = cfg.ssm_expand * D
+                add(pre + "ssm.in_x", base + ("ssm", "in_x"), l, (D, Di), D * Di)
+                add(pre + "ssm.in_z", base + ("ssm", "in_z"), l, (D, Di), D * Di)
+                add(pre + "ssm.out", base + ("ssm", "out"), l, (Di, D), D * Di)
         if not cfg.tie_embeddings:
             add("lm_head", ("lm_head",), None, (D, cfg.vocab_size), D * cfg.vocab_size)
         return groups

@@ -6,12 +6,14 @@ ReLeQ-quantized models (torch port of ``repro.serve``).
   per-request ``SeedSequence`` streams, FIFO admission, block-aware
   continuous scheduling with preempt-and-requeue).
 - ``cache.py``: ``PagedCachePool`` with fp or quantized blocks (ring
-  blocks for a sliding window) and the refcounted prefix cache (trie,
-  copy on write, LRU parking); ``SlotCachePool``, one contiguous row per
+  blocks for a sliding window; O(1) recurrent state rows beside them, or
+  instead of them for RWKV) and the refcounted prefix cache (trie, copy
+  on write, LRU parking); ``SlotCachePool``, one contiguous row per
   sequence, filled by the full-prompt prefill.
 - ``engine.py``: ``ServeEngine`` — chunked prefill (over the tail of a
   prefix hit), the one-token decode step with device sampling and the
-  lookahead, and speculative decoding with the quantized self-draft.
+  lookahead, and speculative decoding with the quantized self-draft (with
+  a recurrent family, the state snapshot and the fix-up verify).
 - ``sampler.py``: the device sampler (the reference's threefry stream).
 
 Use::

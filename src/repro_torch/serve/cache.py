@@ -11,6 +11,16 @@ allocation failure the scheduler turns into preempt-and-requeue (never a
 crash).  ``length`` keeps slot semantics (``models.model.
 cache_batch_axis``).
 
+O(1)-state families (RWKV's ``wkv`` and token-shift rows, hymba's Mamba
+``ssm_h``/``ssm_conv``) keep that state in slot rows beside the blocks:
+``(L, num_seqs, ...)`` leaves the model writes in place.  RWKV has no
+paged K/V at all, so its pool has no blocks (``blocks_per_seq = 0``),
+admission needs only a free row, ``length_bound`` is None, and
+``kv_bits`` is refused.  A row's previous occupant's state is never read:
+the model's chunk body starts a row's first chunk (start 0) from zero
+state.  ``recurrent_keys`` names these leaves; the spec path snapshots
+them before a draft roll.
+
 Sliding-window (ring) models: a sequence's cache is a ring of ``Tc =
 min(max_len, window)`` tokens, and the ring arithmetic needs
 ``blocks_per_seq * block_size == Tc``, so the block size shrinks to the
@@ -91,7 +101,7 @@ import heapq
 import numpy as np
 import torch
 
-from repro_torch.models.model import cache_batch_axis
+from repro_torch.models.model import cache_batch_axis, recurrent_keys
 from repro_torch.obs.trace import NULL_TRACER
 
 PAGED_KEYS = ("k", "v")  # transformer KV pages; everything else is O(1)/seq
@@ -176,7 +186,12 @@ class PagedCachePool:
         self.max_len = max_len
         template = model.init_cache(num_seqs, max_len, dtype, device=device)
         self.paged_keys = tuple(k for k in PAGED_KEYS if k in template)
-        L = template["k"].shape[0]
+        if kv_bits is not None and not self.paged_keys:
+            raise ValueError(
+                "kv_bits quantizes paged attention KV blocks; this model "
+                "family keeps O(1) recurrent state (nothing paged to "
+                "quantize)")
+        L = template[self.paged_keys[0]].shape[0] if self.paged_keys else 0
         if kv_bits is not None:
             bits = ([int(kv_bits)] * L if isinstance(kv_bits, (int, np.integer))
                     else [int(b) for b in kv_bits])
@@ -187,30 +202,34 @@ class PagedCachePool:
             kv_bits = bits
         self.kv_bits = kv_bits
         self.kv_oracle = bool(kv_oracle)
-        T = template["k"].shape[2]                      # (L, B, T, KV, hd)
-        self._ring = getattr(model.cfg, "sliding_window", None) is not None
-        bs = min(block_size, T)
-        if self._ring:   # the ring arithmetic needs blocks_per_seq * bs == T
-            while T % bs:
-                bs -= 1
-        self.block_size = bs
-        self.blocks_per_seq = -(-T // self.block_size)
+        self._ring = (getattr(model.cfg, "sliding_window", None) is not None
+                      and bool(self.paged_keys))
+        if self.paged_keys:
+            T = template["k"].shape[2]                  # (L, B, T, KV, hd)
+            bs = min(block_size, T)
+            if self._ring:   # the ring arithmetic needs blocks_per_seq * bs == T
+                while T % bs:
+                    bs -= 1
+            self.block_size = bs
+            self.blocks_per_seq = -(-T // self.block_size)
+        else:            # O(1)-state family: slot rows, no blocks at all
+            self.block_size = block_size
+            self.blocks_per_seq = 0
         usable = (num_blocks - 1 if num_blocks is not None
                   else num_seqs * self.blocks_per_seq)
-        if usable < self.blocks_per_seq:
+        if self.blocks_per_seq and usable < self.blocks_per_seq:
             raise ValueError(
                 f"num_blocks={num_blocks} leaves {usable} usable blocks < "
                 f"{self.blocks_per_seq} needed for a single full sequence")
         self.num_blocks = usable + 1  # + reserved garbage block 0
-        self.device = template["k"].device
+        self.device = template["length"].device
 
         pack4 = (self.kv_bits is not None and not self.kv_oracle
                  and all(b == 4 for b in self.kv_bits))
-        KV = template["k"].shape[3]
         self.cache = {}
         for key, leaf in template.items():
             if key in self.paged_keys:
-                hd, dt = leaf.shape[4], leaf.dtype
+                KV, hd, dt = leaf.shape[3], leaf.shape[4], leaf.dtype
                 if self.kv_bits is not None:
                     # oracle: f32 QDQ values; else int8 codes, or packed int4
                     dt = (torch.float32 if self.kv_oracle
@@ -221,16 +240,19 @@ class PagedCachePool:
                     dtype=dt, device=self.device)
             else:
                 self.cache[key] = leaf
+        # the O(1) per-row state beside the blocks (snapshotted by spec)
+        self.recurrent_keys = recurrent_keys(template)
         # sound only where the paged KV is the whole per-token state and
         # is never rewritten in place (a ring is)
-        recurrent = set(template) - set(self.paged_keys) - {"length"}
-        self.prefix_cache = bool(prefix_cache and not recurrent and not self._ring)
+        self.prefix_cache = bool(prefix_cache and self.blocks_per_seq
+                                 and not self.recurrent_keys and not self._ring)
         del template
         if self.kv_bits is not None:
             self.cache["kv_qmax"] = torch.tensor(
                 [float(2 ** (b - 1) - 1) for b in self.kv_bits],
                 dtype=torch.float32, device=self.device)
             if not self.kv_oracle:
+                KV = self.cache["k"].shape[3]
                 for key in ("k_scale", "v_scale"):
                     self.cache[key] = torch.zeros(
                         (L, self.num_blocks, self.block_size, KV),
@@ -238,7 +260,7 @@ class PagedCachePool:
                 self.paged_keys = self.paged_keys + ("k_scale", "v_scale")
 
         self.block_tables = torch.zeros(
-            (num_seqs, self.blocks_per_seq), dtype=torch.int32)  # host copy
+            (num_seqs, max(self.blocks_per_seq, 1)), dtype=torch.int32)  # host copy
         # min-heaps: heappop -> lowest id (sorted ranges are valid heaps)
         self._free_seqs = list(range(num_seqs))
         self._active: set[int] = set()
@@ -262,8 +284,9 @@ class PagedCachePool:
         self._bt_dev = DeviceTable(self.block_tables, self.device)
         self._bt_dirty = True
         # per-sequence token bound: blocks_per_seq · block_size tokens, or
-        # None for a ring, which fits any length
-        self.length_bound = None if self._ring else self.blocks_per_seq * self.block_size
+        # None for a ring or O(1) state, which fit any length
+        self.length_bound = (self.blocks_per_seq * self.block_size
+                             if self.blocks_per_seq and not self._ring else None)
 
     # ----------------------------------------------------------- bookkeeping
     @property
@@ -294,6 +317,8 @@ class PagedCachePool:
         return 1.0 - self.num_free_blocks / usable if usable else 0.0
 
     def blocks_needed(self, n_tokens: int) -> int:
+        if not self.blocks_per_seq:
+            return 0
         n = min(n_tokens, self.blocks_per_seq * self.block_size)
         return -(-n // self.block_size)
 
@@ -311,6 +336,8 @@ class PagedCachePool:
             return False
         if self.length_bound is not None and n_tokens > self.length_bound:
             return False
+        if not self.blocks_per_seq:
+            return True  # O(1) state: a free row is the whole decision
         need = self.blocks_needed(n_tokens)
         free = self.num_free_blocks
         if tokens is not None and self.prefix_cache:
@@ -607,10 +634,12 @@ class PagedCachePool:
 class SlotCachePool:
     """Slot-granular pool: one contiguous ``cache_len(max_len)``-token
     cache row per sequence, ``(L, num_slots, T, KV, hd)`` K and V leaves
-    (the model's ``init_cache``).  Admission splices a batch-1 cache from
-    the full-prompt ``prefill`` into the row in place (``write``), so the
-    leaves keep their addresses and a captured decode step binds them
-    once.  fp KV only, and no block sharing, as the reference's."""
+    (the model's ``init_cache``), and the O(1) state rows of a recurrent
+    family.  Admission splices a batch-1 cache from the full-prompt
+    ``prefill`` into the row in place (``write``: every leaf of the row,
+    state included), so the leaves keep their addresses and a captured
+    decode step binds them once.  fp KV only, and no block sharing, as
+    the reference's."""
 
     tracer = NULL_TRACER  # the engine points this at its tracer
 
@@ -620,8 +649,9 @@ class SlotCachePool:
         self.num_slots = num_slots
         self.max_len = max_len
         self.cache = model.init_cache(num_slots, max_len, dtype, device=device)
-        # per-sequence token bound (None: a ring fits any length)
-        self.length_bound = (max_len if getattr(model.cfg, "sliding_window", None) is None
+        # per-sequence token bound (None: a ring or O(1) state fits any length)
+        self.length_bound = (max_len if "k" in self.cache
+                             and getattr(model.cfg, "sliding_window", None) is None
                              else None)
         # min-heap: heappop -> lowest id (a sorted range is already a heap)
         self._free = list(range(num_slots))

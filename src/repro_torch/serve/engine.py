@@ -82,9 +82,17 @@ in-window K/V that a rejection cannot restore), so a row within ``k`` of
 the ring's end speculates less, down to ``k = 0``, as the reference's
 ring cap does.
 
-Not ported yet: mesh placement, and the reference's recurrent snapshot
-and fix-up verify of a spec window, which come with the families that
-need them (ROADMAP item 9).
+Recurrent families (RWKV, hymba's SSM branch) keep O(1) state per row
+that every decode and verify call advances in place.  A spec step copies
+those leaves (``pool.recurrent_keys``) before the draft roll, copies them
+back before the verify, and after any rejection copies them back again
+and runs one fix-up verify at the accepted lengths (the same chunk with
+``valid`` cut to each row's emitted count: an identical prefix, so the
+state it leaves is the one the emitted tokens give).  The fix-up has its
+own ``spec.fixup`` span and counts in ``spec.fixups``.  The copies go
+back into the pool's own tensors, so a captured step stays bound to them.
+
+Not ported yet: mesh placement.
 """
 from __future__ import annotations
 
@@ -241,6 +249,8 @@ class ServeEngine:
         self._c_spec_windows = obs.counter("spec.windows")
         self._c_spec_proposed = obs.counter("spec.proposed", unit="tokens")
         self._c_spec_accepted = obs.counter("spec.accepted", unit="tokens")
+        self._c_spec_fixups = obs.counter(
+            "spec.fixups", desc="fix-up verifies of recurrent state after a rejection")
         self._c_fallbacks = obs.counter(
             "sampler.fallbacks", unit="steps",
             desc="device-sampling steps resolved via host logits fetch")
@@ -662,6 +672,9 @@ class ServeEngine:
             self._c_fallbacks.inc()
 
         lengths0 = {s: seq.cached_len for s, seq in sched.running.items()}
+        # the O(1) recurrent leaves, copied: the draft and the verify
+        # advance them in place, and a rejection restores the pre-draft state
+        snap = {key: pool.cache[key].clone() for key in pool.recurrent_keys}
         draft_toks: dict[int, list[int]] = {s: [] for s in granted}
         q_probs: dict[int, list] = {s: [] for s in granted}
         cur = np.zeros((B, 1), np.int32)
@@ -742,12 +755,14 @@ class ServeEngine:
             ver_toks_dev = torch.nn.functional.pad(body, (0, C - body.shape[1]))
         else:
             ver_toks_dev = torch.from_numpy(ver_toks).to(dev)
+        for key, saved in snap.items():  # the state before the draft roll
+            pool.cache[key].copy_(saved)
         cache_v = dict(pool.cache)
         cache_v["block_tables"] = pool.block_tables_dev()
+        starts_dev = torch.from_numpy(starts).to(dev)
         t_dev = time.perf_counter()
         with self.tracer.span("spec.verify", rows=len(sched.running), width=C):
-            logits, cache = self._verify(self.sparams, cache_v, ver_toks_dev,
-                                         torch.from_numpy(starts).to(dev),
+            logits, cache = self._verify(self.sparams, cache_v, ver_toks_dev, starts_dev,
                                          torch.from_numpy(valids).to(dev))
             pool.accept(cache)
             if greedy_fast:
@@ -780,6 +795,25 @@ class ServeEngine:
             self._c_spec_proposed.inc(proposed)
             self._c_spec_accepted.inc(accepted_total)
             sp_res.set(proposed=proposed, accepted=accepted_total)
+
+        # --- recurrent fix-up: after a rejection the verify has advanced
+        # the state through tokens never emitted; run the same chunk again
+        # from the snapshot at the accepted lengths
+        if snap and any(len(emitted_by_slot[s]) < int(valids[s]) for s in emitted_by_slot):
+            valids2 = np.zeros((B,), np.int32)
+            for slot, emitted in emitted_by_slot.items():
+                valids2[slot] = len(emitted)
+            for key, saved in snap.items():
+                pool.cache[key].copy_(saved)
+            cache_f = dict(pool.cache)
+            cache_f["block_tables"] = pool.block_tables_dev()
+            t_dev = time.perf_counter()
+            with self.tracer.span("spec.fixup", rows=int((valids2 > 0).sum())):
+                _, cache = self._verify(self.sparams, cache_f, ver_toks_dev, starts_dev,
+                                        torch.from_numpy(valids2).to(dev))
+                pool.accept(cache)
+            self._device_seconds += time.perf_counter() - t_dev
+            self._c_spec_fixups.inc()
 
         # --- emit (EOS or the budget may land mid-window), then set the
         # host's lengths: the verify wrote start + valid

@@ -5,7 +5,9 @@ bitwidths into bitplane weights.
 the serving layout:
 
 - a per-layer LIST under ``params["blocks"][0]`` (each layer's packed
-  buffers keep their own bitwidth),
+  buffers keep their own bitwidth); RWKV's ``blocks``, one stacked dict
+  rather than a list of them, becomes the per-layer list itself, as in
+  the reference,
 - every packable matrix replaced by ``Packed(planes (bits, K//8, N)
   uint8, scale (1, N) f32, bits)``; ``bits >= 16`` stays dense,
 - the embedding kept dense but wrapped as ``QDQ(w, bits, value)``.  The
@@ -42,6 +44,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.models.model import recurrent_keys
 from repro_torch.quant.pack import QDQ, Packed, pack_weight
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qat import get_by_path, set_by_path
@@ -64,14 +67,16 @@ def _layer(tree, l: int, device):
 
 def quantize_for_serving(model, params, policy: QuantPolicy, device=None) -> dict:
     device = resolve_device(device)
-    stacked = params["blocks"][0]
+    blocks = params["blocks"]
+    nested = isinstance(blocks, list)   # transformer: [stacked subtree]; rwkv: the subtree
+    stacked = blocks[0] if nested else blocks
     layers = [_layer(stacked, l, device) for l in range(model.cfg.num_layers)]
     out = {key: val for key, val in params.items() if key != "blocks"}
     out["final_norm"] = params["final_norm"].to(device)
     for g in model.quant_groups():
         bits = policy.get(g.name)
         if g.path[0] == "blocks":
-            rest = g.path[2:]
+            rest = g.path[2:] if nested else g.path[1:]
             w = get_by_path(stacked, rest)[g.layer]
             layers[g.layer] = set_by_path(layers[g.layer], rest,
                                           _pack_matrix(w, bits, device))
@@ -83,7 +88,7 @@ def quantize_for_serving(model, params, policy: QuantPolicy, device=None) -> dic
             out["lm_head"] = _pack_matrix(params["lm_head"], bits, device)
         else:  # pragma: no cover - future group kinds
             raise ValueError(f"no serving transform for group {g.name}")
-    out["blocks"] = [layers]
+    out["blocks"] = [layers] if nested else layers
     return out
 
 
@@ -181,7 +186,13 @@ class GraphedDecodeStep:
     ``serve.recompiles``); the pool and the params keep their tensors, so
     steady-state serving shows none.  Returns ``(logits, cache)``: the
     graph's logits buffer and the caller's cache with ``length`` the
-    graph's output buffer, as the eager step returns a new ``length``."""
+    graph's output buffer, as the eager step returns a new ``length``.
+
+    A capture's warm-up is a real step.  Its K/V writes land at the slots
+    the first replay writes again with the same values, but a recurrent
+    state leaf (RWKV's ``wkv`` and token-shift rows, hymba's ``ssm_h`` and
+    ``ssm_conv``: ``models.model.recurrent_keys``) would advance twice,
+    so those leaves are copied before a capture and put back after it."""
 
     COPIED = ("length", "block_tables")
 
@@ -234,7 +245,10 @@ class GraphedDecodeStep:
                                    "captured step needs them written in place")
             return logits, out["length"]
 
+        state = {k: bound[k].clone() for k in recurrent_keys(bound)}
         self._graph = _Graph(step, [tokens.clone()] + [cache[k].clone() for k in self._copied])
+        for k, v in state.items():   # undo the warm-up's advance (class docstring)
+            bound[k].copy_(v)
         self.captures += 1
         self.capture_seconds += self._graph.seconds
 

@@ -1457,3 +1457,216 @@ def test_graphed_slot_decode_step_equals_eager_bitwise(sm90):
             assert torch.equal(caches[0][key], caches[1][key]), f"step {i}: {key} differs"
         feed = torch.argmax(outs[0][:, -1], -1).to(torch.int32)[:, None]
     assert (graphed.captures, graphed.recaptures) == (1, 0)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' shapes (hymba-1.5b, rwkv6-1.6b)
+# ---------------------------------------------------------------------------
+
+HYMBA_RING = [1, 17, 1023, 1024]     # min(length + 1, Tc) over 1024-token rings
+
+
+@pytest.mark.gpu
+def test_paged_attention_g5_hd64_ring_tables_match_plain(sm90):
+    """Row 2 at hymba's decode head shape (KV 5, G 5: one full warp of 4
+    heads and one more, hd 64, bs 16) over 1024-token ring tables."""
+    NB, bt, ln = _ring_tables(4, 64, HYMBA_RING, sm90, seed=21)
+    gen = torch.Generator(device=sm90).manual_seed(21)
+    q = torch.randn((4, 5, 5, 64), generator=gen, device=sm90).to(torch.bfloat16)
+    kp, vp = (torch.randn((NB, 16, 5, 64), generator=gen, device=sm90).to(torch.bfloat16)
+              for _ in range(2))
+    _check_paged(q, kp, vp, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_paged_attention_quant_g5_hd64_ring_tables_match_plain(sm90, kv_bits):
+    """Row 3 at hymba's shape: 64-byte int8 and 32-byte packed int4 code
+    rows, G 5, over 1024-token ring tables."""
+    NB, bt, ln = _ring_tables(4, 64, HYMBA_RING, sm90, seed=22)
+    gen = torch.Generator(device=sm90).manual_seed(22 + kv_bits)
+    kc, vc, ks, vs, _ = _quant_pool(NB, 16, 5, 64, kv_bits, gen, sm90)
+    q = torch.randn((4, 5, 5, 64), generator=gen, device=sm90).to(torch.bfloat16)
+    _check_paged_quant(q, kc, vc, ks, vs, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("path,M", [("bitserial", 4), ("dequant", 256)])
+@pytest.mark.parametrize("K,N", [(1600, 320), (1600, 32001), (3200, 1600), (5504, 1600),
+                                 (2048, 7168), (7168, 2048)])
+def test_qmm_recurrent_family_shapes_match_plain(sm90, K, N, path, M, dtype):
+    """Both qmm bodies at hymba's and RWKV's shapes: K 1600 (a partial last
+    128-wide K step), N 320 (k/v of 5 heads), N 32001 (hymba's lm_head,
+    planes not 16-byte aligned); f32 activations as RWKV's token-shift
+    mixes feed its projections.  Bitwise repeatable."""
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=K + N + M)
+    x = x.to(dtype)
+    got = qmm_cuda(x, planes, scale, 4, path)
+    again = qmm_cuda(x, planes, scale, 4, path)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    plain = tref.qmm_ref(x, planes, scale, 4)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,M", [("bitserial", 1), ("bitserial", 5), ("bitserial", 20),
+                                    ("dequant", 64), ("dequant", 130)])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 7168)])
+def test_qmm_f32_activations_match_plain(sm90, K, N, path, M):
+    """The SIMT bodies that take RWKV's f32 activations at every row count
+    its served path gives them (decode 1-4, verify 20, prefill chunks)."""
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M + N)
+    x = x.float()
+    got = qmm_cuda(x, planes, scale, 4, path)
+    torch.cuda.synchronize()
+    plain = tref.qmm_ref(x, planes, scale, 4)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_decode_and_chunk_paths_agree_at_full_width(sm90, arch):
+    """Two layers at the published widths: the logits after a prompt fed
+    through chunked prefill and then the decode step, one token at a time,
+    against the same tokens all through chunked prefill, within the bf16
+    logit bound (2e-2 * max|logit|), on the card and on the CPU alike."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.serve.cache import PagedCachePool
+    from repro_torch.train.serve import quantize_for_serving
+
+    sm = build_model(dataclasses.replace(get_config(arch), num_layers=2, vocab_size=1000))
+    params = sm.init(seed=3, device="cpu")
+    toks = np.random.default_rng(3).integers(0, 1000, 72).astype(np.int32)
+    for dev in (sm90, torch.device("cpu")):
+        sp = quantize_for_serving(sm, params, policy_for(sm, 4), device=dev)
+        rows = []
+        for decoded in (8, 0):
+            pool = PagedCachePool(sm, 1, 80, block_size=16, device=dev, prefix_cache=False)
+            seq = pool.alloc_seq()
+            assert pool.ensure(seq, 73)
+            n = len(toks) - decoded
+            for lo in range(0, n, 32):
+                buf = np.zeros((1, 32), np.int32)
+                buf[0, :min(32, n - lo)] = toks[lo:min(lo + 32, n)]
+                logits, cache = sm.prefill_chunk(sp, pool.step_cache(),
+                                                 torch.from_numpy(buf).to(dev), seq, lo,
+                                                 min(32, n - lo))
+                pool.accept(cache)
+            for t in toks[n:]:
+                logits, cache = sm.decode_step(sp, pool.step_cache(),
+                                               torch.tensor([[int(t)]], device=dev))
+                pool.accept(cache)
+            rows.append(logits[0, 0].float().cpu())
+        err = (rows[0] - rows[1]).abs().max().item()
+        assert err <= 2e-2 * rows[1].abs().max().item(), (dev, err)
+
+
+def _small_recurrent_served(arch, dev, bits=4):
+    """2-layer models of the recurrent families at narrow widths (RWKV:
+    d_model 256, 4 heads of 64; hymba: d_model 320, 5 heads over 1 KV head
+    of 64, window 64), their serving params at ``bits`` on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    over = (dict(d_model=256, num_heads=4, num_kv_heads=4, head_dim=64, d_ff=896,
+                 wkv_lora_rank=64, chunk_size=16) if arch == "rwkv6-1.6b" else
+            dict(d_model=320, num_heads=5, num_kv_heads=1, head_dim=64, d_ff=1088,
+                 sliding_window=64, ssm_state=16, chunk_size=64))
+    cfg = dataclasses.replace(get_config(arch, smoke=True), num_layers=2, vocab_size=1000,
+                              **over)
+    sm = build_model(cfg)
+    params = sm.init(seed=8, device="cpu")
+    return sm, quantize_for_serving(sm, params, policy_for(sm, bits), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_bits", [("rwkv6-1.6b", None), ("hymba-1.5b", None),
+                                          ("hymba-1.5b", 8), ("hymba-1.5b", 4)],
+                         ids=["rwkv", "hymba-fp", "hymba-int8", "hymba-int4"])
+def test_graphed_recurrent_decode_step_equals_eager_bitwise(sm90, arch, kv_bits):
+    """Twin pools fed the same chunked prefills and tokens: the captured
+    step's logits and every pool byte (the recurrent state leaves, updated
+    in place inside the graph, and hymba's ring blocks past the wrap) equal
+    the eager step's; hymba never launches the fused kernel; one capture."""
+    from repro_torch.serve.cache import PagedCachePool
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    sm, sp = _small_recurrent_served(arch, sm90)
+    pools = [PagedCachePool(sm, 2, 200, block_size=16, device=sm90, kv_bits=kv_bits)
+             for _ in range(2)]
+    graphed = GraphedDecodeStep(sm)
+    rng = np.random.default_rng(9)
+    for n in (60, 90):
+        toks = torch.from_numpy(rng.integers(0, 1000, (1, 32)).astype(np.int32)).to(sm90)
+        for pool in pools:
+            seq = pool.alloc_seq()
+            assert pool.ensure(seq, n + 1)
+            for lo in range(0, n, 32):
+                _, cache = sm.prefill_chunk(sp, pool.step_cache(), toks, seq, lo,
+                                            min(32, n - lo))
+                pool.accept(cache)
+    for i in range(8):
+        feed = torch.from_numpy(rng.integers(0, 1000, (2, 1)).astype(np.int32)).to(sm90)
+        outs, counts = [], []
+        for pool, fn in zip(pools, (sm.decode_step, graphed)):
+            ops.reset_counts()
+            logits, cache = fn(sp, pool.step_cache(), feed)
+            pool.accept(cache)
+            torch.cuda.synchronize()
+            outs.append(logits.clone())
+            counts.append(dict(ops.counts))
+        assert torch.equal(outs[0], outs[1]), f"replay {i}: logits differ"
+        for key, leaf in pools[0].cache.items():
+            assert torch.equal(leaf, pools[1].cache[key]), f"replay {i}: {key} differs"
+        if i:   # a capture's warm-up is a real step, counted on top of replay 0
+            assert counts[1] == counts[0], counts
+        assert counts[0]["plain"] == 0 and counts[0]["qmm_bitserial"] > 0, counts
+        assert counts[0]["fused_qkv_paged_decode"] == 0, counts
+    assert (graphed.captures, graphed.recaptures) == (1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_bits", [("rwkv6-1.6b", None), ("hymba-1.5b", 4)],
+                         ids=["rwkv", "hymba-int4"])
+def test_spec_engine_recurrent_fixup_graphed_equals_eager(sm90, arch, kv_bits):
+    """The spec engine (k 4, 2-bit draft) with the captured draft and target
+    steps against the same engine run eagerly: equal streams and window
+    counts, at least one fix-up, no fused launch on hymba's windowed layers,
+    and no plain call."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    sm, sp = _small_recurrent_served(arch, sm90)
+    rng = np.random.default_rng(10)
+    work = [(rng.integers(0, 1000, n).astype(np.int32), 24) for n in (9, 30, 17, 21)]
+    runs = {}
+    for name, kw in (("graphed", {}), ("eager", {"decode_fn": sm.decode_step})):
+        eng = ServeEngine(sm, sp, num_slots=4, max_len=64, block_size=16, prefill_chunk=16,
+                          device=sm90, kv_bits=kv_bits, spec=SpecConfig(k=4, draft_bits=2),
+                          **kw)
+        for prompt, n in work:
+            eng.submit(prompt, n)
+        ops.reset_counts()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert ops.counts["plain"] == 0 and ops.counts["fused_qkv_paged_decode"] == 0
+        runs[name] = ([eng.output(r) for r in range(len(work))], eng.metrics(),
+                      int(eng.obs.get("spec.fixups").value))
+    assert runs["graphed"][0] == runs["eager"][0]
+    assert runs["graphed"][1]["spec"] == runs["eager"][1]["spec"]
+    assert runs["graphed"][2] == runs["eager"][2] > 0
+    assert runs["graphed"][1]["recompiles"] == 0

@@ -129,11 +129,17 @@ def test_unported_paths_raise():
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    for arch in ("hymba-1.5b", "rwkv6-1.6b", "moonshot-v1-16b-a3b", "qwen2-vl-7b"):
+    for arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b", "musicgen-large"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(arch, smoke=True))
-    # ported since: the sliding-window (ring) arch builds
+    # ported since: the sliding-window (ring) arch and both recurrent archs build
     assert build_model(get_config("h2o-danube-3-4b", smoke=True)).cache_len(100) == 8
+    from repro_torch.models.rwkv import RWKV6LM
+    from repro_torch.models.transformer import TransformerLM
+
+    assert isinstance(build_model(get_config("rwkv6-1.6b", smoke=True)), RWKV6LM)
+    hymba = build_model(get_config("hymba-1.5b", smoke=True))
+    assert isinstance(hymba, TransformerLM) and hymba.cfg.family == "hybrid"
 
 
 def test_quant_groups_match_reference():
