@@ -48,7 +48,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rings; bf16, int8 and int4), and qmm bit-serial at M = 4 and dequant
    at M = 256 at every rwkv6-1.6b and hymba-1.5b (K, N) (RWKV's f32
    activations where its path feeds them; K 1600, N 320 and hymba's
-   32001-wide lm_head among them).  The
+   32001-wide lm_head among them).  The moe, vlm and audio families'
+   shapes: qmm bit-serial at M = 32 and dequant at M = 384 at
+   moonshot's expert (K 2048, N 1408) and (1408, 2048), at M = 4 and 64
+   at its projections and 8-bit lm_head (N 163840), at qwen2-vl's
+   (K 3584, N 18944 and back, N 152064) and musicgen's (N 8192, a
+   2048-wide lm_head); both paged kernels at G 1 (KV 16, hd 128; KV 32,
+   hd 64) and G 7 (KV 4, hd 128) at lengths {1, 17, 100, 112} and the
+   served {41, 58, 73, 96}; the fused decode at moonshot's H 16 over KV
+   16 (G 1), hd 128, D 2048.  The
    WRPN fake-quant at every ResNet-20 and LeNet weight shape, glm4-9b's
    wg (4096, 13696) and a ragged (7, 300), bits 1-8, 16 and 32, f32 and
    bf16: bitwise (max|kernel - plain| == 0), and the STE's forward and
@@ -183,21 +191,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
       ring of 1024: some rows wrap in prefill, the others in decode):
       ``paged_attention`` at G 5 launched, the fused decode never;
    q. p with ``--kv-bits 8``: the unfused ``paged_attention_quant``;
-   r. o's first mix and p with spec k 4 and the 2-bit draft, through an
+   r. o's first mix and p's traffic at a quarter of the published depth
+      (6 and 8 layers, the widths published: at full depth the eager
+      verify windows and replays below took 134 s) with and without spec
+      k 4 and the 2-bit draft, through an
       engine of the script's own that watches the draft and verify
       calls: acceptance, fix-ups (at least one), the fix-up's CUDA-event
       span beside the window verify's and the device busy time of the
-      first of each (``torch.profiler``), the streams against o's and
-      p's up to flagged ties (the bound widened to twice the measured
-      difference between the decode path's and the chunk path's logits
-      at the divergence: RWKV's layers amplify rounding), the proposals
-      the budget and hymba's ring cap left;
+      first of each (``torch.profiler``), each stream replayed on its
+      own path, the proposals the budget and hymba's ring cap left; then
+      rwkv6-1.6b at full depth on params snapped to the 2-bit grid;
    s. the paper's baselines: after d, every LeNet policy over bits {2,
       3, 4, 6, 8} without retraining (625 points), the Pareto frontier
       and the distance of d's policy from it; after e, the ADMM selector
       on e's ResNet-20 at 4.0 average bits (its squared errors through
       the flat fake-quant kernel, 140 launches), its bits equal to a CPU
       run's on the same weights.
+   Three serve the moe, vlm and audio families at their published widths
+   and depth through the launcher on path a's traffic, random weights
+   from seed 0, ``--bits 4``:
+   t. moonshot-v1-16b-a3b (48 layers, d_model 2048, 16 heads over 16 KV
+      of 128, 64 experts top-6 of d_ff 1408 in every layer, vocab
+      163840): fp KV (``paged_attention`` at G 1), then ``--kv-bits 4``
+      (the fused decode at G 1); every expert's product one qmm launch
+      (bit-serial at a decode step's 32 rows, dequant at a chunk's 384);
+      prints step p50, tokens/s, TTFT p50, weight bytes, the peaks while
+      building and serving and the launches of one graphed step;
+   u. qwen2-vl-7b (28 layers, d_model 3584, 28 heads over 4 KV of 128: G
+      7, M-RoPE, d_ff 18944, vocab 152064): fp KV, then ``--kv-bits 8``
+      (the unfused quantized attention: M-RoPE never takes the fused
+      decode, which rotates by RoPE);
+   v. musicgen-large (48 layers, d_model 2048, 32 heads over 32 KV of 64:
+      G 1, absolute sinusoids, GELU d_ff 8192, vocab 2048): fp KV.
+   Each full-width cell's request 0 prefilled again gives finite logits
+   whose argmax is its first token.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
    the plain-version counter must be 0; the serving paths print the p50
@@ -234,6 +261,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    256, 4 heads of 64, d_ff 896, vocab 65536; hymba: 2 layers, d_model
    320, 5 heads over 1 KV head of 64, window 64, d_ff 1088, vocab 32001)
    served the same way, fp for both and int8 ring blocks for hymba.
+   Phase 4t: narrow models of the moe, vlm and audio families (2 layers,
+   d_model 256; moonshot's 2 heads over 2 KV of 128 with 16 experts
+   top-6, fp and int4 KV; qwen2-vl's 7 heads over 1 KV of 128, fp and
+   int8; musicgen's 4 over 4 of 64, fp) served the same way, held to the
+   same token bound (a MoE stream's diverging token has its routing
+   replayed on the CPU: the smallest gap between a k-th and (k+1)-th gate
+   in any layer is printed beside the margin, with the smallest of its
+   context, and passes nothing); then the narrow MoE model's captured
+   decode step against its eager step over twin pools (fp and int4 KV):
+   logits and every pool byte bitwise.
 
 5. Where the time goes (read only, after the checks): for each serving
    path, four requests decode on its served model, through the served
@@ -250,7 +287,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    matmuls, attention tiles, CE chunks, AdamW, fake-quant forward and
    backward).  Phase 5o: the same decode-step trace on 3o's and 3p's
    served engines (the wkv, scan and shift arithmetic falls in "other
-   torch kernels").
+   torch kernels").  Phase 5t: the same on 3t's served moonshot engine,
+   the router (f32 matmul, softmax) and the dispatch / undispatch (sorts,
+   searches, gathers, scatters) as families of their own; qmm's time
+   split by graphs of layer 0's 192 expert launches and of its 4
+   projection launches, each replayed alone and timed by CUDA events.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -697,7 +738,10 @@ def check_ring_attention(torch, timer, peaks, rows, ring=RING, ring_lengths=RING
     return worst["fp"], worst["quant"]
 
 
-def check_fused_decode(torch, timer, peaks, rows):
+def check_fused_decode(torch, timer, peaks, rows, shape=(4, 2, 16, 128, 16, 4096),
+                       theta=1e4, prefix="", seed=3):
+    """Row 4 at ``shape`` = (B, KV, G, hd, bs, D): glm4-9b's by default;
+    ``prefix`` tags the rows' shape labels."""
     from repro_torch.kernels.fused_decode import (attend_plan, fused_attend_cuda,
                                                   fused_project_cuda,
                                                   fused_qkv_paged_decode_cuda, project_plan)
@@ -707,9 +751,9 @@ def check_fused_decode(torch, timer, peaks, rows):
     from repro_torch.models.common import rope_cos_sin
     from repro_torch.quant.pack import Packed, kv_unpack_int4, pack_weight
 
-    B, KV, G, hd, bs, D = 4, 2, 16, 128, 16, 4096
+    B, KV, G, hd, bs, D = shape
     H = KV * G
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     ws = []
     for n in (H * hd, KV * hd, KV * hd):
         planes, scale = pack_weight(torch.randn((D, n), generator=gen, device="cuda")
@@ -720,13 +764,13 @@ def check_fused_decode(torch, timer, peaks, rows):
     worst = 0.0
     for kv_bits, container in ((8, "int8"), (4, "int4")):
         unpack = kv_unpack_int4 if kv_bits == 4 else (lambda c: c)
-        for label, lengths in KV_LENGTHS:
+        for label, lengths in ((prefix + name, ln) for name, ln in KV_LENGTHS):
             nb = -(-(max(lengths) + 1) // bs)    # the new token fits: len <= Tc - 1
             NB, bt = block_tables(torch, B, nb, len(label) + 7)
             kc, vc, ks, vs, qmax = quant_pools(torch, NB, bs, KV, hd, kv_bits, gen)
             ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             x = torch.randn((B, D), generator=gen, device="cuda").to(torch.bfloat16)
-            cos, sin = rope_cos_sin(ln, hd, 1e4)
+            cos, sin = rope_cos_sin(ln, hd, theta)
             qm = torch.tensor(qmax, device="cuda")
             args = (kc, vc, ks, vs, bt, ln, cos, sin, qm)
             got = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
@@ -737,7 +781,7 @@ def check_fused_decode(torch, timer, peaks, rows):
                 fail(f"{what}: two calls differ in out, codes or scales")
             pps, splits = attend_plan(nb)
             pplan = project_plan(B, D, [w.scale.numel() for w in ws])
-            if label == "main" and splits <= 1:     # page splits, besides the new token's CTA
+            if label.endswith("main") and splits <= 1:  # page splits, besides the new token's CTA
                 fail(f"{what}: {B * KV * (splits + 1)} attend CTAs over {splits} page split")
             plain = fused_qkv_paged_decode_ref(x, *ws, *args, H, KV)
             out, po = got[0].reshape(B, 1, H, hd), plain[0].float()
@@ -1320,29 +1364,37 @@ PUBLISHED = {"glm4-9b": ((40, 4096, 32, 2, 128, 13696, 151552), None),
              "h2o-danube-3-4b": ((24, 3840, 32, 8, 120, 10240, 32000), 4096)}
 
 
-def serve_path(torch, label, flags, need, built=None, base=CELL, arch="glm4-9b", forbid=()):
+def serve_path(torch, label, flags, need, built=None, base=CELL, arch="glm4-9b", forbid=(),
+               layers=None):
     """Serve ``base`` + ``flags`` of ``arch`` at its published widths
     through the launcher; the launch counters are zeroed just before and
     read just after: every ``need`` kernel must have launched, no
     ``forbid`` one.  ``built`` reuses (cfg, model, sparams, policy) of the
-    same ``--bits``."""
+    same ``--bits``; ``layers``, the depth ``built`` was cut to (the
+    widths stay the published ones)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
 
     args = launcher.parse_args(["--arch", arch, "--no-smoke", "--device", "cuda",
                                 *base, *flags])
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     cfg, model, sparams, policy = built or launcher.build(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     widths = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
               cfg.hd, cfg.d_ff, cfg.vocab_size)
-    if (widths, cfg.sliding_window) != PUBLISHED[arch]:
+    want, window = PUBLISHED[arch]
+    if layers:
+        want = (layers, *want[1:])
+    if (widths, cfg.sliding_window) != (want, window):
         fail(f"{arch} widths {widths}, window {cfg.sliding_window} are not the published "
-             f"ones {PUBLISHED[arch]}")
+             f"ones {(want, window)}")
     print(f"[{label}] {arch} serving params ready in {setup_s:.1f} s "
           f"(avg policy {policy.average_bits():.2f} bits, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated"
+          + (f", peak {build_peak_gib:.2f} GiB while building)" if not built else ")"))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -1419,7 +1471,8 @@ def serve_path(torch, label, flags, need, built=None, base=CELL, arch="glm4-9b",
     return {"args": args, "cfg": cfg, "model": model, "sparams": sparams, "label": label,
             "policy": policy, "engine": engine, "work": work, "counts": counts,
             "metrics": m, "setup_s": setup_s, "wall_s": wall_s,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "build_peak_gib": None if built else build_peak_gib}
 
 
 def check_outputs(torch, cfg, model, sparams, engine, work):
@@ -1537,7 +1590,10 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 
     decode step, device sampling, lookahead), each launching every
     ``need`` kernel and no ``forbid`` one.  Each card run gives the CPU's
     streams, or a first divergence where the CPU's top-2 logit margin is
-    within the bf16 logit bound (2e-2 * max|logit|)."""
+    within the bf16 logit bound (2e-2 * max|logit|).  On a MoE model the
+    diverging token's routing (the token whose logits chose it, replayed on
+    the CPU) is recorded beside the margin: its smallest gap between a k-th
+    and (k+1)-th gate in any layer, and the smallest of its context."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1548,11 +1604,13 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 
     rng = np.random.default_rng(9)
     work = [(rng.integers(0, sm.cfg.vocab_size, int(n)), gen) for n in lens]
     host = {"sample_device": False, "pipeline": False}
-    runs = {}
+    runs, cpu_sp = {}, None
     for name, dev, kw in (("card, host sampling", "cuda", host),
                           ("card, device sampling + pipeline", "cuda", {}),
                           ("cpu", "cpu", host)):
         sp = quantize_for_serving(sm, params, policy_for(sm, 4), device=dev)
+        if dev == "cpu":
+            cpu_sp = sp
         eng = ServeEngine(sm, sp, num_slots=4, max_len=max(lens) + gen + 1, block_size=16,
                           prefill_chunk=16, device=dev, kv_bits=kv_bits, **kw)
         margins = {}
@@ -1579,6 +1637,8 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 
                      f"{m['recompiles']}, pipeline {m['pipeline']}")
         runs[name] = ([eng.output(r) for r in range(len(work))], margins)
     kv = f"kv_bits={kv_bits}" if kv_bits else "fp KV"
+    if sm.cfg.family not in ("dense", "hybrid", "ssm"):
+        kv += f", {sm.cfg.family}"
     if sm.cfg.sliding_window:
         kv += f", ring of {sm.cfg.sliding_window}, hd {sm.cfg.hd}"
     out = {"requests": len(work), "tokens_per_request": gen}
@@ -1593,11 +1653,17 @@ def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 
                 continue
             i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
             margin, top = runs["cpu"][1][rid][i]
+            entry = {"request": rid, "token": i, "margin": margin, "bound": 2e-2 * top}
+            route = ""
+            if sm.cfg.num_experts:
+                entry["route_gap"], entry["route_gap_min"] = route_gaps(
+                    torch, sm, cpu_sp, work[rid][0], want[:i])
+                route = (f"; gate gap {entry['route_gap']:.4g} at the token, "
+                         f"{entry['route_gap_min']:.4g} in its context")
             print(f"  served streams ({kv}, {name}): request {rid} first diverges at token "
                   f"{i} (card {got[i]}, cpu {want[i]}); CPU top-2 margin {margin:.4g}, "
-                  f"bound 2e-2 * {top:.4g} = {2e-2 * top:.4g}")
-            diverged.append({"request": rid, "token": i, "margin": margin,
-                             "bound": 2e-2 * top})
+                  f"bound 2e-2 * {top:.4g} = {2e-2 * top:.4g}{route}")
+            diverged.append(entry)
             if margin > 2e-2 * top:
                 fail(f"served streams ({kv}, {name}): request {rid} diverged at token {i} "
                      f"where the CPU's top-2 margin {margin:.4g} exceeds 2e-2 * max|logit| "
@@ -2128,10 +2194,11 @@ def spec_cell(torch, fp, need):
     return {**cell_summary(r), "diverged": diverged}
 
 
-def snapped_build(torch, arch="glm4-9b"):
-    """``arch`` at its published widths, params from seed 0 snapped to the
-    2-bit grid (``snap_params_to_grid``), packed at 4 bits: the 2-bit
-    draft's levels are exact at 4 bits."""
+def snapped_build(torch, arch="glm4-9b", snap=True, layers=None):
+    """``arch`` at its published widths (``layers`` deep where given),
+    params from seed 0 snapped to the 2-bit grid (``snap_params_to_grid``;
+    with ``snap`` False, as drawn), packed at 4 bits: the 2-bit draft's
+    levels are exact at 4 bits."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.quant.qat import policy_for
@@ -2140,14 +2207,19 @@ def snapped_build(torch, arch="glm4-9b"):
 
     t0 = time.perf_counter()
     cfg = get_config(arch, smoke=False)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)
-    params = snap_params_to_grid(model, model.init(seed=0, device="cuda"), 2)
+    params = model.init(seed=0, device="cuda")
+    if snap:
+        params = snap_params_to_grid(model, params, 2)
     policy = policy_for(model, 4)
     sparams = quantize_for_serving(model, params, policy, device="cuda")
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"  snapped {arch} params packed at 4 bits in {time.perf_counter() - t0:.1f} s")
+    print(f"  {'snapped ' if snap else ''}{arch} params ({cfg.num_layers} layers) packed at "
+          f"4 bits in {time.perf_counter() - t0:.1f} s")
     return cfg, model, sparams, policy
 
 
@@ -2420,10 +2492,11 @@ def sampler_graph_times(torch, V, B=4, reps=20):
     return out
 
 
-def profile_decode(torch, engine, work, timed=4, traced=4):
+def profile_decode(torch, engine, work, timed=4, traced=4, family=None):
     """Decode-only steps on 4 running rows: host-clock step time, then a
     torch.profiler trace for device time by kernel family (the sampler
-    graph's argmax as its own)."""
+    graph's argmax as its own); ``family(kernel name)`` names a family
+    first where it returns one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2450,7 +2523,8 @@ def profile_decode(torch, engine, work, timed=4, traced=4):
         if us <= 0:
             continue
         name = ev.key
-        fam = ("sampler graph" if "ArgMax" in name
+        fam = (family and family(name)) or (
+               "sampler graph" if "ArgMax" in name
                else "qmm" if "qmm_" in name else "fused_project" if "fused_project" in name
                else "fused_attend" if "fused_attend" in name
                else "paged_attention_quant" if "paged_attention_quant" in name
@@ -2471,7 +2545,7 @@ def profile_decode(torch, engine, work, timed=4, traced=4):
     for ms, n, name in sorted(top, reverse=True)[:8]:
         print(f"    top: {ms:8.3f} ms/step  {n:4d} launches/step  {name}")
     return {"step_ms": step_ms, "device_ms": busy, "families_ms": fams,
-            "idle_share": 1 - busy / step_ms}
+            "idle_share": 1 - busy / step_ms, "traced_steps": traced}
 
 
 # ---- the LM QAT path at glm4-9b's widths (phases 2, 3j, 3k, 4j, 5j) ---------
@@ -3113,6 +3187,10 @@ def ring_card_vs_cpu(torch):
 
 # ---- the recurrent families at their published widths (phases 3o-3s, 4o, 5o) ----
 RWKV_ARCH, HYMBA_ARCH = "rwkv6-1.6b", "hymba-1.5b"
+# phase 3r's spec checks on drawn weights run a quarter of the published
+# depth (24 and 32 layers), at the published widths: their eager verify
+# windows and replays take most of the script's time at full depth
+SPEC_RECURRENT_LAYERS = {RWKV_ARCH: 6, HYMBA_ARCH: 8}
 # (name, K, N, bits, calls per decode step, [x dtype]): rwkv6-1.6b's time-mix
 # r/k/v/g, channel-mix r and k take the f32 token-shift mixes; wo and the
 # channel-mix v take bf16; the lm_head is served at 8 bits
@@ -3177,6 +3255,27 @@ def recurrent_serving(torch):
                            tuple(fp[k] for k in ("cfg", "model", "sparams", "policy")),
                            base=HYMBA_CELL, arch=HYMBA_ARCH,
                            forbid=("paged_attention", "fused_qkv_paged_decode"))
+    return out
+
+
+def spec_recurrent_cut(torch):
+    """Phase 3r's spec checks on drawn weights: rwkv6-1.6b on 3o's first
+    mix and hymba-1.5b on 3p's traffic, each at the published widths and
+    SPEC_RECURRENT_LAYERS deep, served without spec and then through
+    ``spec_recurrent``."""
+    out = {}
+    for name, arch, base, need, forbid in (
+            ("rwkv", RWKV_ARCH, CELL, ("qmm_bitserial", "qmm_dequant"), PAGED),
+            ("hymba", HYMBA_ARCH, HYMBA_CELL,
+             ("qmm_bitserial", "qmm_dequant", "paged_attention"), PAGED[1:])):
+        layers = SPEC_RECURRENT_LAYERS[arch]
+        cut = serve_path(torch, f"{name} {layers} layers, no spec", ["--bits", "4"],
+                         need, snapped_build(torch, arch, snap=False, layers=layers),
+                         base=base, arch=arch, forbid=forbid, layers=layers)
+        out[name] = spec_recurrent(torch, cut, f"{name} spec")
+        out[name]["layers"] = layers
+        del cut
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3394,6 +3493,361 @@ def recurrent_card_vs_cpu(torch):
     return out
 
 
+# ---- the moe, vlm and audio families at their published widths (phases 3t-3v, 4t, 5t) ----
+MOONSHOT_ARCH, QWEN_ARCH, MUSICGEN_ARCH = "moonshot-v1-16b-a3b", "qwen2-vl-7b", "musicgen-large"
+PUBLISHED.update({MOONSHOT_ARCH: ((48, 2048, 16, 16, 128, 1408, 163840), None),
+                  QWEN_ARCH: ((28, 3584, 28, 4, 128, 18944, 152064), None),
+                  MUSICGEN_ARCH: ((48, 2048, 32, 32, 64, 8192, 2048), None)})
+# (name, K, N, bits, -): moonshot's experts take 32 rows a decode step (4
+# rows x capacity 8) and 384 a 64-token chunk (capacity 64 x 6); the other
+# products 4 rows and 64 tokens; lm_heads at the 8 bits they are served at
+MOE_EXPERT_QMM = [("moonshot expert wg/wu", 2048, 1408, 4, 0),
+                  ("moonshot expert wd", 1408, 2048, 4, 0)]
+MOE_EXPERT_MS = (("bitserial", (32,)), ("dequant", (384,)))
+MVA_QMM = [("2048x2048 attention", 2048, 2048, 4, 0), ("moonshot lm_head", 2048, 163840, 8, 0),
+           ("qwen2-vl wq/wo", 3584, 3584, 4, 0), ("qwen2-vl wk/wv", 3584, 512, 4, 0),
+           ("qwen2-vl wg/wu", 3584, 18944, 4, 0), ("qwen2-vl wd", 18944, 3584, 4, 0),
+           ("qwen2-vl lm_head", 3584, 152064, 8, 0), ("musicgen wg", 2048, 8192, 4, 0),
+           ("musicgen wd", 8192, 2048, 4, 0), ("musicgen lm_head", 2048, 2048, 8, 0)]
+MVA_MS = (("bitserial", (4,)), ("dequant", (64,)))
+# qmm calls per decode step (fp KV: q, k, v and wo unfused), by shape row
+MVA_STEP_CALLS = {
+    "moonshot": {"moonshot expert wg/wu": 6144, "moonshot expert wd": 3072,
+                 "2048x2048 attention": 192, "moonshot lm_head": 1},
+    "qwen2-vl": {"qwen2-vl wq/wo": 56, "qwen2-vl wk/wv": 56, "qwen2-vl wg/wu": 56,
+                 "qwen2-vl wd": 28, "qwen2-vl lm_head": 1},
+    "musicgen": {"2048x2048 attention": 192, "musicgen wg": 48, "musicgen wd": 48,
+                 "musicgen lm_head": 1}}
+# decode attention heads: moonshot G 1 at hd 128 (KV 16), musicgen G 1 at
+# hd 64 (KV 32), qwen2-vl G 7 at hd 128 (KV 4: a warp's last head slot
+# idle); tables of 7 blocks of 16, the served cell's lengths
+MVA_HEADS = {"g1 hd128": {"B": 4, "KV": 16, "G": 1, "hd": 128, "bs": 16, "nb": 7},
+             "g1 hd64": {"B": 4, "KV": 32, "G": 1, "hd": 64, "bs": 16, "nb": 7},
+             "g7 hd128": {"B": 4, "KV": 4, "G": 7, "hd": 128, "bs": 16, "nb": 7}}
+MVA_LAYERS = {"g1 hd128": 48, "g1 hd64": 48, "g7 hd128": 28}
+
+
+def check_mva_kernels(torch, timer, peaks, rows):
+    """Phase 2's rows at the moe, vlm and audio families' shapes: qmm at
+    moonshot's expert and other products, qwen2-vl's and musicgen's; both
+    paged kernels at G 1 (hd 128 and 64) and G 7; the fused decode at
+    moonshot's H 16 over KV 16, hd 128, D 2048.  Returns the worst errors
+    (qmm, fp attention, quantized attention, fused)."""
+    print("  moonshot-v1-16b-a3b's experts (32 rows a decode step, 384 a chunk)")
+    qmm_err = check_qmm(torch, timer, peaks, rows, MOE_EXPERT_QMM, MOE_EXPERT_MS, seed=5)
+    print("  moonshot's, qwen2-vl-7b's and musicgen-large's other qmm shapes")
+    qmm_err = max(qmm_err, check_qmm(torch, timer, peaks, rows, MVA_QMM, MVA_MS, seed=6))
+    pa_err = paq_err = 0.0
+    for tag, heads in MVA_HEADS.items():
+        print(f"  decode attention {tag}: KV {heads['KV']}, G {heads['G']}, hd {heads['hd']}, "
+              f"bs 16, tables of {heads['nb']} blocks")
+        a, b = check_ring_attention(torch, timer, peaks, rows, heads,
+                                    ((f"{tag} lengths", [1, 17, 100, 112]),
+                                     (f"{tag} decode", [41, 58, 73, 96])), seed=31)
+        pa_err, paq_err = max(pa_err, a), max(paq_err, b)
+    print("  the fused decode at moonshot's shape: H 16 over KV 16 (G 1), hd 128, D 2048")
+    fused_err = check_fused_decode(torch, timer, peaks, rows, shape=(4, 16, 1, 128, 16, 2048),
+                                   theta=5e4, prefix="g1 ", seed=23)
+    return qmm_err, pa_err, paq_err, fused_err
+
+
+def mva_qmm(rows, fam, decode: bool):
+    """qmm per decode step (``decode``) or per 64-token chunk of one family,
+    from phase 2's rows: experts at 32 / 384 rows, the rest at 4 / 64 (a
+    chunk reads out one token: no lm_head)."""
+    calls = MVA_STEP_CALLS[fam]
+
+    def pick(r):
+        n = calls.get(r["shape"], 0)
+        expert = "expert" in r["shape"]
+        if decode:
+            return n if r["M"] == (32 if expert else 4) else 0
+        return n if r["M"] == (384 if expert else 64) and "lm_head" not in r["shape"] else 0
+
+    return per_step(rows, "qmm_bitserial" if decode else "qmm_dequant", pick)
+
+
+def weight_bytes(sparams) -> int:
+    from repro_torch.train.serve import _leaves
+
+    return sum(t.numel() * t.element_size() for t in _leaves(sparams))
+
+
+def mva_summary(torch, r):
+    """A served cell's step p50, tokens/s, TTFT p50, weight bytes, peaks and
+    launches per graphed decode step; printed and returned."""
+    m = r["metrics"]
+    out = {"decode_step_p50_ms": m["decode_step_p50_ms"], "tokens_per_s": m["tokens_per_s"],
+           "ttft_p50_s": statistics.median(q["ttft_s"] for q in m["requests"]),
+           "weight_bytes": weight_bytes(r["sparams"]), "peak_mem_gib": r["peak_mem_gib"],
+           "build_peak_gib": r["build_peak_gib"],
+           "launches_per_step": dict(r["engine"]._decode._graph.launches)}
+    print(f"[{r['label']}] step p50 {out['decode_step_p50_ms']:.3f} ms, tokens/s "
+          f"{out['tokens_per_s']:.2f}, TTFT p50 {out['ttft_p50_s']:.4f} s, weight bytes "
+          f"{out['weight_bytes']:,}, peak {out['peak_mem_gib']:.2f} GiB serving"
+          + (f" / {out['build_peak_gib']:.2f} GiB building" if out["build_peak_gib"] else "")
+          + f"; launches a graphed decode step {out['launches_per_step']}")
+    return out
+
+
+def qmm_split(torch, r, reps=20):
+    """Phase 5t's split of qmm device time: layer 0's expert products (64
+    experts x wg, wu, wd on 32 rows each, the stacks included) and its four
+    attention projections (4 rows), each captured in a graph on the served
+    params, replayed ``reps`` times and timed by CUDA events; x 48 layers."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import apply_linear, swiglu
+    from repro_torch.train.serve import _Graph
+
+    cfg, p = r["cfg"], r["sparams"]["blocks"][0][0]
+    E, D, dt = cfg.num_experts, cfg.d_model, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xe = torch.randn((E, 32, D), generator=gen, device="cuda").to(dt)
+    h = torch.randn((4, 1, D), generator=gen, device="cuda").to(dt)
+
+    def experts(x):
+        g = swiglu(moe._bank(x, p["moe"]["wg"], dt), moe._bank(x, p["moe"]["wu"], dt))
+        return moe._bank(g, p["moe"]["wd"], dt)
+
+    def projections(x):
+        return [apply_linear(x, p["attn"][m]) for m in ("wq", "wk", "wv", "wo")]
+
+    out = {}
+    for name, fn, arg in (("expert_qmm_ms", experts, xe), ("projection_qmm_ms", projections, h)):
+        g = _Graph(fn, [arg])
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.graph.replay()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        out[name] = statistics.median(times) * cfg.num_layers
+        out[name.replace("_ms", "_launches_per_layer")] = g.launches
+        del g
+    return out
+
+
+def moe_family(name):
+    """Phase 5t's families beside the defaults: the router (its f32 matmul
+    and softmax) and the dispatch / combine (sorts, searches, gathers and
+    scatters)."""
+    low = name.lower()
+    if any(k in low for k in ("sort", "radix", "searchsorted", "scatter", "gather")):
+        return "dispatch / undispatch"
+    if "softmax" in low or any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "router"
+    return None
+
+
+def mva_serving(torch):
+    """Phases 3t (moonshot-v1-16b-a3b, fp then int4 KV), 5t (its graphed
+    decode step profiled), 3u (qwen2-vl-7b, fp then int8 KV) and 3v
+    (musicgen-large, fp KV), at published widths and depth through the
+    launcher on 3a's traffic, 4-bit weights."""
+    need = ("qmm_bitserial", "qmm_dequant")
+    out = {}
+    fp = serve_path(torch, "moonshot fp KV", ["--bits", "4"], need + ("paged_attention",),
+                    arch=MOONSHOT_ARCH, forbid=PAGED[1:])
+    cfg = fp["cfg"]
+    if (cfg.num_experts, cfg.experts_per_token, cfg.moe_interleave) != (64, 6, 1):
+        fail(f"moonshot: {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+             f"interleave {cfg.moe_interleave}: not the published 64 top-6 in every layer")
+    check_outputs_full(torch, fp)
+    out["3t"] = fp
+    fp["summary"] = mva_summary(torch, fp)
+    phase("phase 5t: moonshot's graphed decode step, device time by family")
+    fp["breakdown"] = profile_decode(torch, fp["engine"], fp["work"], family=moe_family)
+    fp["breakdown"]["qmm_split"] = split = qmm_split(torch, fp)
+    print(f"  qmm alone, 48 layers: experts {split['expert_qmm_ms']:.3f} ms "
+          f"({split['expert_qmm_launches_per_layer']} a layer), attention projections "
+          f"{split['projection_qmm_ms']:.3f} ms ({split['projection_qmm_launches_per_layer']} "
+          f"a layer)")
+    phase("phase 3t, int4 KV: moonshot-v1-16b-a3b, --kv-bits 4 (the fused decode at G 1)")
+    built = tuple(fp[k] for k in ("cfg", "model", "sparams", "policy"))
+    int4 = serve_path(torch, "moonshot int4 KV", ["--bits", "4", "--kv-bits", "4"],
+                      need + ("fused_qkv_paged_decode",), built, arch=MOONSHOT_ARCH,
+                      forbid=("paged_attention", "paged_attention_quant"))
+    int4["summary"] = mva_summary(torch, int4)
+    out["3t int4"] = int4
+    for r in (fp, int4):
+        for key in ("engine", "model", "sparams"):
+            r.pop(key, None)
+    del built
+    torch.cuda.empty_cache()
+    phase("phase 3u: qwen2-vl-7b serving end to end, --bits 4, fp KV (M-RoPE, G 7)")
+    fp = serve_path(torch, "qwen2-vl fp KV", ["--bits", "4"], need + ("paged_attention",),
+                    arch=QWEN_ARCH, forbid=PAGED[1:])
+    check_outputs_full(torch, fp)
+    fp["summary"] = mva_summary(torch, fp)
+    phase("phase 3u, int8 KV: qwen2-vl-7b, --kv-bits 8 (unfused: M-RoPE takes no fused decode)")
+    q8 = serve_path(torch, "qwen2-vl int8 KV", ["--bits", "4", "--kv-bits", "8"],
+                    need + ("paged_attention_quant",),
+                    tuple(fp[k] for k in ("cfg", "model", "sparams", "policy")), arch=QWEN_ARCH,
+                    forbid=("paged_attention", "fused_qkv_paged_decode"))
+    q8["summary"] = mva_summary(torch, q8)
+    out["3u"], out["3u int8"] = fp, q8
+    for r in (fp, q8):
+        for key in ("engine", "model", "sparams"):
+            r.pop(key, None)
+    torch.cuda.empty_cache()
+    phase("phase 3v: musicgen-large serving end to end, --bits 4, fp KV (sinusoids, G 1, hd 64)")
+    mg = serve_path(torch, "musicgen fp KV", ["--bits", "4"], need + ("paged_attention",),
+                    arch=MUSICGEN_ARCH, forbid=PAGED[1:])
+    check_outputs_full(torch, mg)
+    mg["summary"] = mva_summary(torch, mg)
+    out["3v"] = mg
+    for key in ("engine", "model", "sparams"):
+        mg.pop(key, None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_outputs_full(torch, r):
+    """A full-width served cell's request 0 prefilled again on its pool:
+    finite logits of the vocab's width whose argmax is its first token."""
+    import numpy as np
+
+    model, sparams, engine = r["model"], r["sparams"], r["engine"]
+    prompt = np.asarray(r["work"][0][0], np.int32)
+    logits = fresh_logits(torch, model, sparams, prompt, chunk=engine.prefill_chunk)
+    if logits.shape != (r["cfg"].vocab_size,) or not torch.isfinite(logits).all():
+        fail(f"[{r['label']}] full-width logits of shape {tuple(logits.shape)} or not finite")
+    if int(logits.argmax()) != engine.output(0)[0]:
+        fail(f"[{r['label']}] request 0 prefilled again does not give its first token")
+
+
+def route_gaps(torch, model, sparams, prompt, emitted, chunk=16):
+    """On the CPU: the prompt prefilled in chunks and the emitted tokens
+    decoded one at a time, as a served row takes them; returns (the
+    smallest gate gap of the last token, i.e. the one whose logits chose
+    the next token, the smallest gap of any routing choice in the
+    context)."""
+    import numpy as np
+
+    from repro_torch.models.moe import RouteLog
+
+    tokens = np.concatenate([prompt, np.asarray(emitted, np.int64)]).astype(np.int32)
+    with RouteLog() as log:
+        fresh_logits(torch, model, sparams, tokens, device="cpu", chunk=chunk,
+                     decoded=len(emitted))
+    last = min(float(g[:, -1].min()) for g in log.gaps[-model.cfg.num_layers:])
+    return last, min(float(g.min()) for g in log.gaps)
+
+
+def graphed_twin_replays(torch, sm, sp, kv_bits, device="cuda", replays=8):
+    """A model's captured decode step against its eager step over twin
+    pools fed the same chunked prefills (60 and 90 tokens) and the same
+    tokens.  Returns {"mismatch": None, or the first replay and leaf that
+    differ, "counts": [(eager, graphed) ``ops.counts`` a replay],
+    "captures": (captures, recaptures), "launches": launches a replay}."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.cache import PagedCachePool
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    pools = [PagedCachePool(sm, 2, 200, block_size=16, device=device, kv_bits=kv_bits)
+             for _ in range(2)]
+    graphed = GraphedDecodeStep(sm)
+    rng = np.random.default_rng(10)
+    for n in (60, 90):
+        toks = torch.from_numpy(rng.integers(0, sm.cfg.vocab_size, (1, 32))
+                                .astype(np.int32)).to(device)
+        for pool in pools:
+            seq = pool.alloc_seq()
+            if not pool.ensure(seq, n + 1):
+                raise RuntimeError(f"twin pool could not hold {n + 1} tokens")
+            for lo in range(0, n, 32):
+                _, cache = sm.prefill_chunk(sp, pool.step_cache(), toks, seq, lo,
+                                            min(32, n - lo))
+                pool.accept(cache)
+    out = {"mismatch": None, "counts": []}
+    for i in range(replays):
+        feed = torch.from_numpy(rng.integers(0, sm.cfg.vocab_size, (2, 1))
+                                .astype(np.int32)).to(device)
+        logits, counts = [], []
+        for pool, fn in zip(pools, (sm.decode_step, graphed)):
+            ops.reset_counts()
+            lg, cache = fn(sp, pool.step_cache(), feed)
+            pool.accept(cache)
+            torch.cuda.synchronize()
+            logits.append(lg.clone())
+            counts.append(dict(ops.counts))
+        out["counts"].append(tuple(counts))
+        if not torch.equal(logits[0], logits[1]):
+            out["mismatch"] = f"replay {i}: logits differ from eager"
+        for key, leaf in pools[0].cache.items():
+            if out["mismatch"] is None and not torch.equal(leaf, pools[1].cache[key]):
+                out["mismatch"] = f"replay {i}: pool leaf {key} differs from eager"
+        if out["mismatch"]:
+            break
+    out["captures"] = (graphed.captures, graphed.recaptures)
+    out["launches"] = graphed._graph.launches if graphed._graph is not None else None
+    return out
+
+
+def moe_graphed_witness(torch, sm, params):
+    """Phase 4t: one narrow MoE model's captured decode step against its
+    eager step over twin pools (fp and int4 KV): logits and every pool
+    byte bitwise, one capture."""
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    sp = quantize_for_serving(sm, params, policy_for(sm, 4), device="cuda")
+    out = {}
+    for kv_bits in (None, 4):
+        twin = graphed_twin_replays(torch, sm, sp, kv_bits)
+        if twin["mismatch"]:
+            fail(f"[4t MoE graphed, kv_bits={kv_bits}] {twin['mismatch']}")
+        if twin["captures"] != (1, 0):
+            fail(f"[4t MoE graphed] captures, recaptures {twin['captures']}")
+        n = len(twin["counts"])
+        out[f"kv_bits={kv_bits}"] = {"replays": n, "launches_per_replay": twin["launches"]}
+        print(f"  MoE graphed step (kv_bits={kv_bits}): {n} replays, logits and every pool "
+              f"byte bitwise the eager step's; launches a replay {twin['launches']}")
+    return out
+
+
+def mva_card_vs_cpu(torch):
+    """Phase 4t: narrow models of the three families served on the card and
+    on the CPU, 6 prompts of 72-100 tokens and 48 greedy tokens: moonshot
+    (2 layers, d_model 256, 2 heads over 2 KV of 128, 16 experts top-6 of
+    d_ff 128; fp and int4 KV), qwen2-vl (7 heads over 1 KV of 128: G 7,
+    M-RoPE sections (16, 24, 24); fp and int8) and musicgen (4 heads over
+    4 KV of 64, GELU d_ff 1024, vocab 2048; fp).  A divergence is allowed
+    at a flagged token near-tie (the CPU's top-2 margin within 2e-2 *
+    max|logit|); a MoE divergence also records its gate gaps.  Then the
+    narrow moonshot's graphed decode step against its eager one, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    lens = (72, 100, 85, 91, 77, 96)
+    moe = build_model(dataclasses.replace(get_config(MOONSHOT_ARCH), num_layers=2, d_model=256,
+                                          num_heads=2, num_kv_heads=2, head_dim=128, d_ff=128,
+                                          vocab_size=1000, num_experts=16))
+    qwen = build_model(dataclasses.replace(get_config(QWEN_ARCH), num_layers=2, d_model=256,
+                                           num_heads=7, num_kv_heads=1, head_dim=128, d_ff=688,
+                                           vocab_size=1000))
+    mg = build_model(dataclasses.replace(get_config(MUSICGEN_ARCH), num_layers=2, d_model=256,
+                                         num_heads=4, num_kv_heads=4, d_ff=1024))
+    out = {}
+    for name, sm, kv_bits, need, forbid in (
+            ("moonshot fp", moe, None, ("qmm_bitserial", "paged_attention"), PAGED[1:]),
+            ("moonshot int4", moe, 4, ("qmm_bitserial", "fused_qkv_paged_decode"),
+             ("paged_attention", "paged_attention_quant")),
+            ("qwen2-vl fp", qwen, None, ("qmm_bitserial", "paged_attention"), PAGED[1:]),
+            ("qwen2-vl int8", qwen, 8, ("qmm_bitserial", "paged_attention_quant"),
+             ("paged_attention", "fused_qkv_paged_decode")),
+            ("musicgen fp", mg, None, ("qmm_bitserial", "paged_attention"), PAGED[1:])):
+        params = sm.init(seed=13, device="cpu")
+        out[name] = served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=lens, gen=48,
+                                               need=need, forbid=forbid)
+    out["moe graphed"] = moe_graphed_witness(torch, moe, moe.init(seed=13, device="cpu"))
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3457,6 +3911,7 @@ def main() -> None:
     qmm_err = max(qmm_err, check_qmm(torch, timer, peaks, rows, RWKV_QMM + HYMBA_QMM,
                                      RECURRENT_MS, seed=4))
     fused_err = check_fused_decode(torch, timer, peaks, rows)
+    mva_errs = check_mva_kernels(torch, timer, peaks, rows)
     fq_err = check_fake_quant(torch, timer, peaks, rows)
     fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
     fqc_err = check_fake_quant_col(torch, timer, peaks, rows)
@@ -3603,10 +4058,9 @@ def main() -> None:
     # ---- the recurrent families: rwkv6-1.6b and hymba-1.5b
     phase("phase 3o: rwkv6-1.6b serving end to end, --bits 4, the glm4 cell's traffic")
     rec = recurrent_serving(torch)
-    phase("phase 3r: speculative decoding on rwkv6-1.6b (3o) and hymba-1.5b (3p), "
-          "--spec-k 4 --draft-bits 2")
-    rec_spec = {"rwkv": spec_recurrent(torch, rec["3o"], "rwkv spec"),
-                "hymba": spec_recurrent(torch, rec["3p"], "hymba spec")}
+    phase("phase 3r: speculative decoding on rwkv6-1.6b and hymba-1.5b at 6 and 8 layers "
+          "(3o's and 3p's traffic), --spec-k 4 --draft-bits 2")
+    rec_spec = spec_recurrent_cut(torch)
     phase("phase 3r, snapped: rwkv6-1.6b on params snapped to the 2-bit grid (3i's regime), "
           "no spec, then spec")
     snapped = serve_path(torch, "rwkv snapped, no spec", ["--bits", "4"],
@@ -3626,6 +4080,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("phase 4o: narrow rwkv6 and hymba models served on the card and on the CPU")
     rec_streams = recurrent_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+
+    # ---- the moe, vlm and audio families: moonshot, qwen2-vl, musicgen
+    phase("phase 3t: moonshot-v1-16b-a3b serving end to end, --bits 4, fp KV (64 experts top-6)")
+    mva = mva_serving(torch)
+    phase("phase 4t: narrow moonshot, qwen2-vl and musicgen models served on the card and on "
+          "the CPU; a MoE graphed step against its eager one")
+    mva_streams = mva_card_vs_cpu(torch)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -3716,6 +4178,36 @@ def main() -> None:
          "replaces": "src/repro/kernels/fused_decode.py:63",
          "launches": counts["int4 KV"]["fused_qkv_paged_decode"], "max_abs_err": fused_err,
          **fused},
+        *({"name": f"qmm_{path}_{fam}", "route": "cuda", "source": "src/repro_torch/csrc/qmm.cu",
+           "replaces": f"src/repro/kernels/qmm.py:{78 if path == 'bitserial' else 57}",
+           "launches": mva[cell]["counts"][f"qmm_{path}"], "max_abs_err": mva_errs[0],
+           **mva_qmm(rows, fam, path == "bitserial")}
+          for fam, cell in (("moonshot", "3t"), ("qwen2-vl", "3u"), ("musicgen", "3v"))
+          for path in ("bitserial", "dequant")),
+        *({"name": f"paged_attention_{tag.replace(' ', '_')}", "route": "cuda",
+           "source": "src/repro_torch/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention.py:37",
+           "launches": mva[cell]["counts"]["paged_attention"], "max_abs_err": mva_errs[1],
+           **per_step(rows, "paged_attention",
+                      lambda r, tag=tag: MVA_LAYERS[tag] if r["shape"] == f"{tag} decode" else 0)}
+          for tag, cell in (("g1 hd128", "3t"), ("g7 hd128", "3u"), ("g1 hd64", "3v"))),
+        {"name": "paged_attention_quant_g7_hd128", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention_quant.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:117",
+         "launches": mva["3u int8"]["counts"]["paged_attention_quant"],
+         "max_abs_err": mva_errs[2],
+         **per_step(rows, "paged_attention_quant",
+                    lambda r: 28 if r["shape"] == "g7 hd128 decode"
+                    and r["container"] == "int8" else 0)},
+        {"name": "fused_qkv_paged_decode_g1", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_decode.cu",
+         "replaces": "src/repro/kernels/fused_decode.py:63",
+         "launches": mva["3t int4"]["counts"]["fused_qkv_paged_decode"],
+         "max_abs_err": mva_errs[3],
+         **per_step(rows, "fused_qkv_paged_decode",
+                    lambda r: 48 if r["shape"] == "g1 main" and r["container"] == "int4" else 0,
+                    [f"{launch}_{key}" for launch in ("project", "attend")
+                     for key in ("ms", "library_ms", "bound_ms")])},
         {"name": "fake_quant", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:33",
          "launches": resnet["counts"]["fake_quant"], "max_abs_err": fq_err, **fq},
@@ -3744,7 +4236,8 @@ def main() -> None:
              for label, r in (*fp_runs.items(), ("int4 KV", int4), ("int8 KV", int8),
                               *((f"danube {c}", danube[c]) for c in ("3l", "3m", "3n")),
                               *((f"{RWKV_ARCH if c.startswith('3o') else HYMBA_ARCH} {c}",
-                                 rec[c]) for c in rec))}
+                                 rec[c]) for c in rec),
+                              *((f"{r['args'].arch} {c}", r) for c, r in mva.items()))}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "card": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3772,7 +4265,14 @@ def main() -> None:
                          "calls), launches from phases 3o / 3p; paged_attention_g5_hd64 and "
                          "paged_attention_quant_g5_hd64 (int8): hymba-1.5b's decode step, 32 "
                          "calls over full 1024-token rings (KV 5, G 5, hd 64), launches from "
-                         "phases 3p / 3q",
+                         "phases 3p / 3q; qmm_*_moonshot / qwen2-vl / musicgen: one fp-KV "
+                         "decode step (moonshot's 9,216 expert calls at 32 rows, 192 "
+                         "projections and the lm_head at 4 rows) and one 64-token chunk "
+                         "(experts at 384 rows, the rest at 64, no lm_head), launches from "
+                         "phases 3t / 3u / 3v; paged_attention_g1_hd128 / g7_hd128 / g1_hd64 "
+                         "and paged_attention_quant_g7_hd128 (int8): 48 / 28 / 48 calls at "
+                         "the served lengths 41-96; fused_qkv_paged_decode_g1 (int4): "
+                         "moonshot's 48 calls, launches from phase 3t's int4 turn",
         "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
         "served_streams": streams,
         "danube": {"3n_diverged": danube["3n"]["diverged"], "static": danube["3n static"],
@@ -3784,6 +4284,9 @@ def main() -> None:
                                               for c, r in rec.items()},
                       "spec_3r": rec_spec, "decode_breakdown_5o": rec_breakdown,
                       "streams_4o": rec_streams, "baselines_3s": baselines},
+        "moe_vlm_audio": {"summaries": {c: r["summary"] for c, r in mva.items()},
+                          "decode_breakdown_5t": mva["3t"]["breakdown"],
+                          "streams_4t": mva_streams},
         "total_s": time.perf_counter() - T_START}, indent=1, default=str))
     print(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi_line)

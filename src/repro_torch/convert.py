@@ -10,9 +10,14 @@ dict:
 - a ``repro.quant.pack.QDQ`` as ``{"w", "bits"}``.
 
 :func:`params_from_numpy` maps that tree onto the port's: the training
-layout (stacked ``blocks``: a list of one stacked subtree, or RWKV's one
+layout (stacked ``blocks``: a list of stacked subtrees, or RWKV's one
 stacked dict; hymba's ``ssm`` subtree and 0-d ``mix`` with them) and the
-serving layout (per-layer lists, ``Packed`` and ``QDQ`` leaves) alike.  bfloat16 arrays (numpy dtype name
+serving layout (per-layer lists, ``Packed`` and ``QDQ`` leaves) alike.
+A MoE model's ``blocks`` is a list of ``n_sub`` stacked subtrees (the
+MoE sub last, its router f32) in the training layout and ``n_sub``
+per-layer lists in the serving layout, where an expert bank is a
+``Packed`` with 4-D planes ``(E, bits, K//8, N)`` and scales ``(E, 1,
+N)``; the walk carries each as it is.  bfloat16 arrays (numpy dtype name
 ``bfloat16``) go through float32, which is exact both ways.  A ``QDQ``
 embedding gets its quantize-dequantize value computed once, as
 ``train.serve.quantize_for_serving`` does.

@@ -21,7 +21,10 @@ frozen embed/lm_head, or ``--policy-json``), then
   token-step and the first sequence.
 
 A sliding-window arch (h2o-danube-3-4b) serves from ring caches on
-either pool.
+either pool.  The moe (moonshot-v1-16b-a3b; llama4-maverick-400b-a17b,
+too large for one card), vlm (qwen2-vl-7b, M-RoPE) and audio
+(musicgen-large, absolute sinusoids) archs serve through the same paths
+from token prompts (their frontends are stubs, as in the reference).
 
 Runs on ``--device cuda`` (default) and fails without a card; ``--device
 cpu`` takes the plain versions of the kernels.  ``--min-prompt-len``

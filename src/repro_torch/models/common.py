@@ -1,7 +1,7 @@
 """Shared building blocks (torch port of ``repro.models.common``): the
-packed-or-dense linear, norms, RoPE, the training path's blocked (flash)
-attention and sequence-chunked cross-entropy, chunk and decode attention,
-and the initializers.
+packed-or-dense linear, norms, RoPE and M-RoPE, the training path's
+blocked (flash) attention and sequence-chunked cross-entropy, chunk and
+decode attention, and the initializers.
 
 Plain functions over tensors, each repeating the reference's dtype
 discipline (f32 inside norms, RoPE and softmax; results cast back to the
@@ -13,6 +13,8 @@ Pallas kernel of the reference is a hand-written CUDA kernel behind
 ``kernels.ops``.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -73,7 +75,7 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE and M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -101,6 +103,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, hd); positions: broadcastable to (..., S) int32."""
     cos, sin = rope_cos_sin(positions, x.shape[-1], theta)   # (..., S, hd/2)
     return rope_rotate(x, cos[..., None, :], sin[..., None, :]).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: three position streams (t, h, w) rotate
+    disjoint sections of each head's half-dim.
+
+    x: (B, S, H, hd); positions3: (3, B, S) int; ``sections`` splits the
+    half-dim (summing to hd // 2, e.g. hd 128 -> (16, 24, 24)): frequency
+    i takes the stream of the section it falls in."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, device=x.device)                 # (hd/2,)
+    idx = torch.arange(hd // 2, device=x.device)
+    # section id of each frequency, 0 / 1 / 2, against the bounds as host
+    # numbers (no host-to-device copy: a captured decode step runs this)
+    sec_id = sum((idx >= b).long() for b in itertools.accumulate(sections))
+    pos_sel = positions3.float()[sec_id]                          # (hd/2, B, S)
+    ang = torch.movedim(pos_sel, 0, -1) * inv                     # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return rope_rotate(x, cos, sin).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

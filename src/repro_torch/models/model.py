@@ -46,16 +46,12 @@ def recurrent_keys(cache) -> tuple[str, ...]:
 
 
 def build_model(cfg):
-    """Config -> model object: the dense and hybrid families as a
-    ``TransformerLM``, the ssm family (RWKV6) as an ``RWKV6LM``.  MoE,
-    vlm and audio are not ported yet."""
-    from repro_torch import not_ported
+    """Config -> model object: the ssm family (RWKV6) as an ``RWKV6LM``,
+    every other family (dense, moe, vlm, audio, hybrid) as a
+    ``TransformerLM``."""
     from repro_torch.models.rwkv import RWKV6LM
     from repro_torch.models.transformer import TransformerLM
 
     if cfg.family == "ssm":
         return RWKV6LM(cfg)
-    if cfg.family not in ("dense", "hybrid"):
-        raise not_ported(f"model family {cfg.family!r} ({cfg.name})",
-                         "slice C, item 9")
     return TransformerLM(cfg)

@@ -257,7 +257,7 @@ class RWKV6LM:
         return self._readout(params, h), aux
 
     def loss(self, params, batch, remat: str = "none"):
-        raise not_ported("training the ssm family (RWKV6LM.loss)", "slice C, item 9")
+        raise not_ported("training the ssm family (RWKV6LM.loss)", "slice C, item 9b")
 
     # --------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None) -> dict:

@@ -1,5 +1,5 @@
-"""TransformerLM, the dense and hybrid families (torch port of
-``repro.models.transformer``).
+"""TransformerLM, the dense, moe, vlm, audio and hybrid families (torch
+port of ``repro.models.transformer``).
 
 Ported: ``init`` (stacked training layout), the teacher-forced training
 ``forward`` and ``loss`` (blocked flash attention with its manual
@@ -36,15 +36,30 @@ O(1) per row (``ssm_h`` (L, B, Di, N) f32, ``ssm_conv`` (L, B, ks - 1,
 Di)): the decode step writes it in place, and the chunk body carries each
 row's state (a row's first chunk, start 0, from zero state).
 
-Params are plain dicts of tensors with the reference's structure: the
-training layout stacks each repeated leaf along a leading layer axis in
-``params["blocks"][0]``; the serving layout (``train.serve.
-quantize_for_serving``) holds a per-layer list there, with ``Packed``
-matrices and a ``QDQ`` embedding.
+The MoE family (moonshot, maverick): a "sub" is one attention + FFN
+residual block, and ``moe_interleave`` subs make a superblock whose last
+sub routes over experts (``models.moe``; maverick's ``shared`` dense MLP
+beside it), the others dense.  Layer ``l`` is sub ``l % n_sub``, index
+``l // n_sub``.  Serving routes drop-free (``exact``: ``decode_step`` and
+the chunk body); the training ``forward`` and the full-prompt ``prefill``
+drop choices past capacity, as the reference's do.  Positions: ``rope``,
+``mrope`` (qwen2-vl: three streams (t, h, w) over sections of the
+half-dim; a (B, S) position is broadcast to all three) and ``abs_sin``
+(musicgen: sinusoids added to the embedding, no rotation).  The vlm and
+audio frontends are stubs, as in the reference: ``forward`` and
+``prefill`` take precomputed ``embeds``.  The fused decode op rotates by
+RoPE, so it is taken only under ``rope``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE and the other families, M-RoPE and absolute-sinusoid
-positions, and training the hybrid family (``loss``).
+Params are plain dicts of tensors with the reference's structure: the
+training layout stacks each repeated leaf along a leading axis of
+``L_super = num_layers // n_sub`` in ``params["blocks"][s]``, one stacked
+subtree per sub ``s``; the serving layout (``train.serve.
+quantize_for_serving``) holds a per-layer list there, with ``Packed``
+matrices (an expert bank's planes with a leading E axis) and a ``QDQ``
+embedding.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+training every family but dense (``loss``).
 """
 from __future__ import annotations
 
@@ -63,6 +78,7 @@ from repro_torch.kernels.ref import gather_dequant
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.common import (
     apply_linear,
+    apply_mrope,
     apply_rope,
     blocked_attention,
     chunk_attention,
@@ -74,6 +90,7 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.models.model import QuantGroup
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.quant.pack import (QDQ, Packed, kv_dequantize, kv_pack_int4,
                                     kv_qdq, kv_quantize)
 
@@ -105,11 +122,13 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "hybrid"):
-            raise not_ported(f"model family {cfg.family!r}", "slice C, item 9")
-        if cfg.rope != "rope":
-            raise not_ported(f"positions {cfg.rope!r}", "slice C, item 9")
+        if cfg.family == "ssm":
+            raise ValueError("use RWKV6LM for family='ssm'")
         self.cfg = cfg
+        self.n_sub = cfg.moe_interleave if cfg.num_experts else 1
+        if cfg.num_layers % self.n_sub:
+            raise ValueError("num_layers must divide moe_interleave")
+        self.L_super = cfg.num_layers // self.n_sub
 
     @property
     def dtype(self) -> torch.dtype:
@@ -119,13 +138,14 @@ class TransformerLM:
     def init(self, seed: int = 0, device=None) -> dict:
         """Random params in the stacked training layout, drawn layer by
         layer from a ``torch.Generator`` seeded with ``seed`` on
-        ``device`` (the card unless ``device="cpu"``).  torch cannot
-        reproduce ``jax.random``: to compare with the reference, carry the
-        reference's params over with ``repro_torch.convert``."""
+        ``device`` (the card unless ``device="cpu"``): one stacked
+        subtree of ``L_super`` layers per sub, the MoE sub last.  torch
+        cannot reproduce ``jax.random``: to compare with the reference,
+        carry the reference's params over with ``repro_torch.convert``."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         cfg, dt = self.cfg, self.dtype
-        L, D, H, KV, hd, Fd = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+        L, D, H, KV, hd, Fd = (self.L_super, cfg.d_model, cfg.num_heads,
                                cfg.num_kv_heads, cfg.hd, cfg.d_ff)
         shapes = {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
                   "wo": (H * hd, D)}
@@ -143,17 +163,36 @@ class TransformerLM:
                 out[name] = w
             return out
 
-        ones = torch.ones((L, D), dtype=torch.float32, device=device)
-        blocks = {"ln1": ones, "ln2": ones.clone(), "attn": stack(shapes),
-                  "mlp": stack(mlp)}
-        if cfg.family == "hybrid":
-            ssm = [mamba_mod.init_mamba(gen, D, cfg.ssm_expand * D, cfg.ssm_state,
-                                        cfg.ssm_conv, dt, device) for _ in range(L)]
-            blocks["ssm"] = {k: torch.stack([s[k] for s in ssm]) for k in ssm[0]}
-            blocks["mix"] = torch.full((L,), 0.5, dtype=torch.float32, device=device)
+        def stack_moe():
+            E = cfg.num_experts
+            out = {"router": torch.empty((L, D, E), dtype=torch.float32, device=device),
+                   "wg": torch.empty((L, E, D, Fd), dtype=dt, device=device),
+                   "wu": torch.empty((L, E, D, Fd), dtype=dt, device=device),
+                   "wd": torch.empty((L, E, Fd, D), dtype=dt, device=device)}
+            for l in range(L):
+                for name, w in init_moe(gen, E, D, Fd, dt, device).items():
+                    out[name][l] = w
+            return out
+
+        subs = []
+        for s in range(self.n_sub):
+            ones = torch.ones((L, D), dtype=torch.float32, device=device)
+            blocks = {"ln1": ones, "ln2": ones.clone(), "attn": stack(shapes)}
+            if cfg.num_experts and s == self.n_sub - 1:
+                blocks["moe"] = stack_moe()
+                if cfg.shared_expert:
+                    blocks["shared"] = stack(mlp)
+            else:
+                blocks["mlp"] = stack(mlp)
+            if cfg.family == "hybrid":
+                ssm = [mamba_mod.init_mamba(gen, D, cfg.ssm_expand * D, cfg.ssm_state,
+                                            cfg.ssm_conv, dt, device) for _ in range(L)]
+                blocks["ssm"] = {k: torch.stack([m[k] for m in ssm]) for k in ssm[0]}
+                blocks["mix"] = torch.full((L,), 0.5, dtype=torch.float32, device=device)
+            subs.append(blocks)
         params = {
             "embed": embed_init(gen, cfg.vocab_size, D, dt, device),
-            "blocks": [blocks],
+            "blocks": subs,
             "final_norm": torch.ones((D,), dtype=torch.float32, device=device),
         }
         if not cfg.tie_embeddings:
@@ -198,38 +237,51 @@ class TransformerLM:
         phys = bt.long().gather(1, (slot // bs)[:, None])[:, 0]
         return phys, slot % bs
 
+    def _rotate(self, t, positions):
+        """Rotate q or k (B, S, heads, hd) by the config's positions:
+        RoPE, or M-RoPE over (3, B, S) streams (a (B, S) position is
+        broadcast to all three, as the reference does); ``abs_sin`` and
+        ``none`` rotate nothing."""
+        cfg = self.cfg
+        if cfg.rope == "rope":
+            return apply_rope(t, positions, cfg.rope_theta)
+        if cfg.rope == "mrope":
+            if positions.ndim == 2:
+                positions = positions[None].expand(3, *positions.shape)
+            return apply_mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+        return t
+
     def _attn(self, x, p, positions, cache, layer):
         """Residual attention sublayer.  ``cache=None``: the full sequence
         through :func:`blocked_attention` (training).  Else one-token
         decode over the paged pool: write the new K/V into its owning
         block, then attend by block table (``kernels.ops.paged_attention``).
-        A quantized pool with packed q/k/v and no window takes the fused op
-        instead.  A contiguous cache (no block tables: the slot pool, the
-        static loop) is written at the row's slot and attended with
-        :func:`decode_attention`, as the reference does it (no kernel)."""
+        A quantized pool with packed q/k/v, no window and RoPE positions
+        takes the fused op instead.  A contiguous cache (no block tables:
+        the slot pool, the static loop) is written at the row's slot and
+        attended with :func:`decode_attention`, as the reference does it
+        (no kernel)."""
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
         if cache is None:           # the training forward: the full sequence
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
-            q = apply_rope(apply_linear(h, p["attn"]["wq"]).reshape(B, S, H, hd),
-                           positions, cfg.rope_theta)
-            k = apply_rope(apply_linear(h, p["attn"]["wk"]).reshape(B, S, KV, hd),
-                           positions, cfg.rope_theta)
+            q = self._rotate(apply_linear(h, p["attn"]["wq"]).reshape(B, S, H, hd), positions)
+            k = self._rotate(apply_linear(h, p["attn"]["wk"]).reshape(B, S, KV, hd), positions)
             v = apply_linear(h, p["attn"]["wv"]).reshape(B, S, KV, hd)
             out = blocked_attention(q, k, v, causal=True, window=cfg.sliding_window,
                                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
             return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if (S == 1 and "k_scale" in cache and cfg.sliding_window is None
+                and cfg.rope == "rope"
                 and all(isinstance(p["attn"][m], Packed) for m in ("wq", "wk", "wv"))):
             out = self._fused_decode_attn(h, p, cache, layer)
             return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         q = apply_linear(h, p["attn"]["wq"]).reshape(B, S, H, hd)
         k = apply_linear(h, p["attn"]["wk"]).reshape(B, S, KV, hd)
         v = apply_linear(h, p["attn"]["wv"]).reshape(B, S, KV, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q, k = self._rotate(q, positions), self._rotate(k, positions)
         kc, vc, length = cache["k"][layer], cache["v"][layer], cache["length"]
         if "block_tables" not in cache:
             # contiguous (B, T, KV, hd) rows, written in place at the slot
@@ -275,9 +327,20 @@ class TransformerLM:
         out = apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         return x + out
 
-    def _ffn(self, x, p):
-        h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
-        return x + self._dense_mlp(h, p["mlp"])
+    def _ffn(self, x, p, exact: bool = False):
+        """Residual FFN sublayer -> (x + y, aux loss f32, or None for a
+        dense sub).  A MoE sub routes over its experts (``exact``:
+        drop-free, the serving paths), with maverick's shared dense MLP
+        beside it."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if "moe" not in p:
+            return x + self._dense_mlp(h, p["mlp"]), None
+        y, aux = moe_ffn(h, p["moe"], k=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor, no_drop=exact)
+        if "shared" in p:
+            y = y + self._dense_mlp(h, p["shared"])
+        return x + y, aux
 
     def _dense_mlp(self, h, p):
         g = apply_linear(h, p["wg"])
@@ -317,11 +380,33 @@ class TransformerLM:
         return self._combine(x, out, self._ssm_branch(x, p, cache, layer), p)
 
     # ------------------------------------------------------------- embed/out
-    def _embed_in(self, params, tokens):
+    def _embed_in(self, params, tokens, embeds=None):
+        """Token embeddings, or the caller's precomputed ``embeds`` (the
+        vlm and audio frontends are stubs) in the model dtype."""
+        if embeds is not None:
+            return embeds.to(self.dtype)
         emb = params["embed"]
         if isinstance(emb, QDQ):  # serving embed: the quantize-dequantized table
             emb = emb.value
         return F.embedding(tokens.long(), emb)
+
+    def _add_abs_sin(self, h, positions):
+        """``abs_sin`` positions: ``h`` + sinusoids of the (B, S)
+        positions (or the first of three streams), cast to h's dtype."""
+        if self.cfg.rope != "abs_sin":
+            return h
+        p2 = positions if positions.ndim == 2 else positions[0]
+        return h + self._abs_sin(p2, h.shape[-1]).to(h.dtype)
+
+    def _abs_sin(self, positions, D: int):
+        """Sinusoids (..., D) f32 of int positions: sin then cos of
+        ``position * 10000^(-i / (D/2))``."""
+        half = D // 2
+        freq = torch.exp(-math.log(10_000.0)
+                         * torch.arange(half, dtype=torch.float32, device=positions.device)
+                         / half)
+        ang = positions[..., None].float() * freq
+        return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
     def _readout(self, params, h):
         w = params.get("lm_head")
@@ -332,10 +417,15 @@ class TransformerLM:
 
     # ------------------------------------------------------------- forwards
     def _sub_forward(self, h, p, positions):
-        """One token-mixer + FFN residual block -> (h, aux); aux is 0 for
-        the dense and hybrid families."""
-        h = self._mixer(h, p, positions)
-        return self._ffn(h, p), torch.zeros((), dtype=torch.float32, device=h.device)
+        """One token-mixer + FFN residual block of the training forward ->
+        (h, aux or None); a MoE sub drops choices past capacity."""
+        return self._ffn(self._mixer(h, p, positions), p)
+
+    def _positions(self, B: int, S: int, device):
+        """Default (B, S) positions ``arange(S)``; (3, B, S) for M-RoPE,
+        the same position in every stream."""
+        pos = torch.arange(S, dtype=torch.int32, device=device)[None, :].expand(B, S)
+        return pos[None].expand(3, B, S) if self.cfg.rope == "mrope" else pos
 
     def forward(self, params, tokens=None, embeds=None, positions=None,
                 remat: str = "none", return_hidden: bool = False):
@@ -349,24 +439,25 @@ class TransformerLM:
         cfg = self.cfg
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be none, full or dots, got {remat!r}")
-        if embeds is not None:
-            h = embeds.to(self.dtype)
-        else:
-            h = self._embed_in(params, tokens)
+        h = self._embed_in(params, tokens, embeds)
         B, S, _ = h.shape
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :].expand(B, S)
+            positions = self._positions(B, S, h.device)
+        h = self._add_abs_sin(h, positions)
         kwargs = {}
         if remat == "dots":
             kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for p in _unstack(params["blocks"][0], cfg.num_layers):
-            if remat == "none":
-                h, a = self._sub_forward(h, p, positions)
-            else:
-                h, a = checkpoint(self._sub_forward, h, p, positions, use_reentrant=False,
-                                  **kwargs)
-            aux = aux + a
+        subs = [_unstack(b, self.L_super) for b in params["blocks"]]
+        for i in range(self.L_super):
+            for sub in subs:          # the superblock: layer i * n_sub + s
+                if remat == "none":
+                    h, a = self._sub_forward(h, sub[i], positions)
+                else:
+                    h, a = checkpoint(self._sub_forward, h, sub[i], positions,
+                                      use_reentrant=False, **kwargs)
+                if a is not None:
+                    aux = aux + a
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         if return_hidden:
             return h, aux
@@ -379,7 +470,7 @@ class TransformerLM:
         (loss, {"nll", "aux"}), all 0-d f32 tensors on the device."""
         if self.cfg.family != "dense":
             raise not_ported(f"training the {self.cfg.family} family (TransformerLM.loss)",
-                             "slice C, item 9")
+                             "slice C, item 9b")
         h, aux = self.forward(params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                               positions=batch.get("positions"), remat=remat,
                               return_hidden=True)
@@ -423,10 +514,11 @@ class TransformerLM:
         slot ``p % Tc``; the hybrid family's SSM state too), then the layer
         runs as the training forward."""
         cfg = self.cfg
-        h = embeds.to(self.dtype) if embeds is not None else self._embed_in(params, tokens)
+        h = self._embed_in(params, tokens, embeds)
         B, S, _ = h.shape
         KV, hd = cfg.num_kv_heads, cfg.hd
-        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :].expand(B, S)
+        positions = self._positions(B, S, h.device)
+        h = self._add_abs_sin(h, positions)
         cache = self.init_cache(B, max(S, max_len or 0, 1), device=h.device)
         Tc = cache["k"].shape[2]
         Tmin = min(S, Tc)
@@ -435,8 +527,8 @@ class TransformerLM:
         for l in range(cfg.num_layers):
             p = self._layer_slice(params, l)
             hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-            k = apply_rope(apply_linear(hn, p["attn"]["wk"]).reshape(B, S, KV, hd),
-                           positions, cfg.rope_theta)
+            k = self._rotate(apply_linear(hn, p["attn"]["wk"]).reshape(B, S, KV, hd),
+                             positions)
             v = apply_linear(hn, p["attn"]["wv"]).reshape(B, S, KV, hd)
             for key, new in (("k", k), ("v", v)):
                 rows = cache[key][l]                       # (B, Tc, KV, hd)
@@ -450,17 +542,18 @@ class TransformerLM:
                 cache["ssm_h"][l] = st["h"]
                 cache["ssm_conv"][l] = st["conv"].to(cache["ssm_conv"].dtype)
                 out = self._combine(h, out, y, p)
-            h = self._ffn(out, p)
+            h, _ = self._ffn(out, p)     # a MoE sub drops, as the reference's prefill
         cache["length"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         return self._readout(params, h[:, -1:]), cache
 
     def _layer_slice(self, params, l: int):
-        """Per-layer param view: stacked tree or pre-unrolled serving list."""
-        stacked = params["blocks"][0]
+        """Layer ``l``'s params (sub ``l % n_sub``, index ``l // n_sub``):
+        a view into the stacked tree, or the serving layout's list entry."""
+        stacked = params["blocks"][l % self.n_sub]
         if isinstance(stacked, list):  # serving layout: per-layer list
-            return stacked[l]
-        return _index(stacked, l)
+            return stacked[l // self.n_sub]
+        return _index(stacked, l // self.n_sub)
 
     def decode_step(self, params, cache, tokens, positions=None):
         """One token for every pool row.  tokens: (B, 1) int.
@@ -473,10 +566,11 @@ class TransformerLM:
         h = self._embed_in(params, tokens)
         if positions is None:
             positions = cache["length"][:, None]
+        h = self._add_abs_sin(h, positions)
         for l in range(cfg.num_layers):
             p = self._layer_slice(params, l)
             h = self._mixer(h, p, positions, cache, l)
-            h = self._ffn(h, p)
+            h, _ = self._ffn(h, p, exact=True)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits = self._readout(params, h)
         cache["length"] = cache["length"] + 1
@@ -495,8 +589,7 @@ class TransformerLM:
         q = apply_linear(h, p["attn"]["wq"]).reshape(B, C, H, hd)
         k = apply_linear(h, p["attn"]["wk"]).reshape(B, C, KV, hd)
         v = apply_linear(h, p["attn"]["wv"]).reshape(B, C, KV, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q, k = self._rotate(q, positions), self._rotate(k, positions)
 
         kc, vc = cache["k"][layer], cache["v"][layer]      # (NB, bs, KV, hd[/2])
         bt = cache["block_tables"][rows.long()].long()     # (B, nb)
@@ -589,13 +682,14 @@ class TransformerLM:
         h = self._embed_in(params, tokens)
         positions = starts[:, None] + torch.arange(C, dtype=torch.int32,
                                                    device=h.device)[None, :]
+        h = self._add_abs_sin(h, positions)
         for l in range(cfg.num_layers):
             p = self._layer_slice(params, l)
             out = self._chunk_attn(h, p, positions, cache, l, rows, starts, valids)
             if cfg.family == "hybrid":
                 s = self._chunk_ssm(h, p, cache, l, rows, starts, valids)
                 out = self._combine(h, out, s, p)
-            h = self._ffn(out, p)
+            h, _ = self._ffn(out, p, exact=True)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         length = cache["length"].clone()
         length[rows.long()] = (starts + valids).to(length.dtype)
@@ -649,20 +743,31 @@ class TransformerLM:
 
         add("embed", ("embed",), None, (cfg.vocab_size, D), 0)
         for l in range(cfg.num_layers):
-            pre, base = f"L{l:02d}.", ("blocks", 0)
-            add(pre + "attn.wq", base + ("attn", "wq"), l, (D, H * hd), D * H * hd)
-            add(pre + "attn.wk", base + ("attn", "wk"), l, (D, KV * hd), D * KV * hd)
-            add(pre + "attn.wv", base + ("attn", "wv"), l, (D, KV * hd), D * KV * hd)
-            add(pre + "attn.wo", base + ("attn", "wo"), l, (H * hd, D), D * H * hd)
-            add(pre + "mlp.wg", base + ("mlp", "wg"), l, (D, Fd), D * Fd)
-            if cfg.act == "swiglu":
-                add(pre + "mlp.wu", base + ("mlp", "wu"), l, (D, Fd), D * Fd)
-            add(pre + "mlp.wd", base + ("mlp", "wd"), l, (Fd, D), D * Fd)
+            s, i, pre = l % self.n_sub, l // self.n_sub, f"L{l:02d}."
+            base = ("blocks", s)
+            add(pre + "attn.wq", base + ("attn", "wq"), i, (D, H * hd), D * H * hd)
+            add(pre + "attn.wk", base + ("attn", "wk"), i, (D, KV * hd), D * KV * hd)
+            add(pre + "attn.wv", base + ("attn", "wv"), i, (D, KV * hd), D * KV * hd)
+            add(pre + "attn.wo", base + ("attn", "wo"), i, (H * hd, D), D * H * hd)
+            if cfg.num_experts and s == self.n_sub - 1:
+                E, k = cfg.num_experts, cfg.experts_per_token
+                active = D * Fd * k  # per token, per matrix; the router is no group
+                add(pre + "moe.wg", base + ("moe", "wg"), i, (E, D, Fd), active)
+                add(pre + "moe.wu", base + ("moe", "wu"), i, (E, D, Fd), active)
+                add(pre + "moe.wd", base + ("moe", "wd"), i, (E, Fd, D), active)
+                if cfg.shared_expert:
+                    for m, sh in (("wg", (D, Fd)), ("wu", (D, Fd)), ("wd", (Fd, D))):
+                        add(pre + f"shared.{m}", base + ("shared", m), i, sh, D * Fd)
+            else:
+                add(pre + "mlp.wg", base + ("mlp", "wg"), i, (D, Fd), D * Fd)
+                if cfg.act == "swiglu":
+                    add(pre + "mlp.wu", base + ("mlp", "wu"), i, (D, Fd), D * Fd)
+                add(pre + "mlp.wd", base + ("mlp", "wd"), i, (Fd, D), D * Fd)
             if cfg.family == "hybrid":
                 Di = cfg.ssm_expand * D
-                add(pre + "ssm.in_x", base + ("ssm", "in_x"), l, (D, Di), D * Di)
-                add(pre + "ssm.in_z", base + ("ssm", "in_z"), l, (D, Di), D * Di)
-                add(pre + "ssm.out", base + ("ssm", "out"), l, (Di, D), D * Di)
+                add(pre + "ssm.in_x", base + ("ssm", "in_x"), i, (D, Di), D * Di)
+                add(pre + "ssm.in_z", base + ("ssm", "in_z"), i, (D, Di), D * Di)
+                add(pre + "ssm.out", base + ("ssm", "out"), i, (Di, D), D * Di)
         if not cfg.tie_embeddings:
             add("lm_head", ("lm_head",), None, (D, cfg.vocab_size), D * cfg.vocab_size)
         return groups

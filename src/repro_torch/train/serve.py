@@ -4,12 +4,15 @@ bitwidths into bitplane weights.
 ``quantize_for_serving`` turns training-layout params + a QuantPolicy into
 the serving layout:
 
-- a per-layer LIST under ``params["blocks"][0]`` (each layer's packed
-  buffers keep their own bitwidth); RWKV's ``blocks``, one stacked dict
-  rather than a list of them, becomes the per-layer list itself, as in
-  the reference,
+- a per-layer LIST under each ``params["blocks"][s]``, ``[[layer, ...]
+  for sub]`` (each layer's packed buffers keep their own bitwidth);
+  RWKV's ``blocks``, one stacked dict rather than a list of them, becomes
+  the per-layer list itself, as in the reference,
 - every packable matrix replaced by ``Packed(planes (bits, K//8, N)
-  uint8, scale (1, N) f32, bits)``; ``bits >= 16`` stays dense,
+  uint8, scale (1, N) f32, bits)``, an (E, K, N) expert bank expert by
+  expert into ``Packed(planes (E, bits, K//8, N), scale (E, 1, N),
+  bits)``; ``bits >= 16`` stays dense (the MoE router is no group and
+  stays f32),
 - the embedding kept dense but wrapped as ``QDQ(w, bits, value)``.  The
   reference re-quantizes the whole ``(V, D)`` table on every lookup;
   here ``value = fake_quant(w, bits, axis=0)`` is computed once, with
@@ -58,6 +61,22 @@ def _pack_matrix(w, bits: int, device):
     return Packed(planes, scale, bits)
 
 
+def _pack_bank(w, bits: int, device):
+    """(E, K, N) expert bank -> per-expert packed planes, one expert's f32
+    copy at a time."""
+    if bits >= 16:
+        return w.to(device)
+    pairs = [pack_weight(m.to(device).float(), bits) for m in w]
+    return Packed(torch.stack([p for p, _ in pairs]), torch.stack([s for _, s in pairs]), bits)
+
+
+def _depth(tree) -> int:
+    """The stacked layer count of a subtree: its leaves' leading dim."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
 def _layer(tree, l: int, device):
     """Layer ``l`` of a stacked subtree, on ``device``."""
     if isinstance(tree, dict):
@@ -68,18 +87,18 @@ def _layer(tree, l: int, device):
 def quantize_for_serving(model, params, policy: QuantPolicy, device=None) -> dict:
     device = resolve_device(device)
     blocks = params["blocks"]
-    nested = isinstance(blocks, list)   # transformer: [stacked subtree]; rwkv: the subtree
-    stacked = blocks[0] if nested else blocks
-    layers = [_layer(stacked, l, device) for l in range(model.cfg.num_layers)]
+    nested = isinstance(blocks, list)   # transformer: n_sub stacked subtrees; rwkv: one
+    subs = blocks if nested else [blocks]
+    layers = [[_layer(sub, l, device) for l in range(_depth(sub))] for sub in subs]
     out = {key: val for key, val in params.items() if key != "blocks"}
     out["final_norm"] = params["final_norm"].to(device)
     for g in model.quant_groups():
         bits = policy.get(g.name)
         if g.path[0] == "blocks":
-            rest = g.path[2:] if nested else g.path[1:]
-            w = get_by_path(stacked, rest)[g.layer]
-            layers[g.layer] = set_by_path(layers[g.layer], rest,
-                                          _pack_matrix(w, bits, device))
+            s, rest = (g.path[1], g.path[2:]) if nested else (0, g.path[1:])
+            w = get_by_path(subs[s], rest)[g.layer]
+            pack = _pack_bank if w.ndim == 3 else _pack_matrix
+            layers[s][g.layer] = set_by_path(layers[s][g.layer], rest, pack(w, bits, device))
         elif g.path == ("embed",):
             emb = params["embed"].to(device)
             out["embed"] = (QDQ(emb, bits, fake_quant(emb, bits, axis=0))
@@ -88,7 +107,7 @@ def quantize_for_serving(model, params, policy: QuantPolicy, device=None) -> dic
             out["lm_head"] = _pack_matrix(params["lm_head"], bits, device)
         else:  # pragma: no cover - future group kinds
             raise ValueError(f"no serving transform for group {g.name}")
-    out["blocks"] = [layers] if nested else layers
+    out["blocks"] = layers if nested else layers[0]
     return out
 
 

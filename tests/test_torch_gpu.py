@@ -19,6 +19,9 @@ split-K qmm bodies (bit-serial and dequant) and the split-KV attention add
 their partials in a fixed order, so two calls on the same inputs are
 bitwise equal.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1670,3 +1673,187 @@ def test_spec_engine_recurrent_fixup_graphed_equals_eager(sm90, arch, kv_bits):
     assert runs["graphed"][1]["spec"] == runs["eager"][1]["spec"]
     assert runs["graphed"][2] == runs["eager"][2] > 0
     assert runs["graphed"][1]["recompiles"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the moe, vlm and audio families' shapes (moonshot-v1-16b-a3b, qwen2-vl-7b,
+# musicgen-large)
+# ---------------------------------------------------------------------------
+
+# (KV, G, hd): moonshot (16 heads over 16 KV), musicgen (32 over 32, hd 64),
+# qwen2-vl (28 over 4: G 7, a warp's last head slot idle)
+MVA_HEADS = [(16, 1, 128), (32, 1, 64), (4, 7, 128)]
+MVA_IDS = ["g1-hd128", "g1-hd64", "g7-hd128"]
+MVA_LENGTHS = [1, 17, 100, 300]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("KV,G,hd", MVA_HEADS, ids=MVA_IDS)
+def test_paged_attention_g1_g7_match_plain(sm90, KV, G, hd):
+    """Row 2 at G 1 (hd 128 and 64) and G 7, shuffled blocks of 16."""
+    NB, bt, ln = _tables(4, 19, MVA_LENGTHS, sm90)
+    gen = torch.Generator(device=sm90).manual_seed(31 + G)
+    q = torch.randn((4, KV, G, hd), generator=gen, device=sm90).to(torch.bfloat16)
+    kp, vp = (torch.randn((NB, 16, KV, hd), generator=gen, device=sm90).to(torch.bfloat16)
+              for _ in range(2))
+    _check_paged(q, kp, vp, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("KV,G,hd", MVA_HEADS, ids=MVA_IDS)
+def test_paged_attention_quant_g1_g7_match_plain(sm90, KV, G, hd, kv_bits):
+    """Row 3 at the same shapes, int8 and packed int4 codes."""
+    NB, bt, ln = _tables(4, 19, MVA_LENGTHS, sm90)
+    gen = torch.Generator(device=sm90).manual_seed(37 + G + kv_bits)
+    kc, vc, ks, vs, _ = _quant_pool(NB, 16, KV, hd, kv_bits, gen, sm90)
+    q = torch.randn((4, KV, G, hd), generator=gen, device=sm90).to(torch.bfloat16)
+    _check_paged_quant(q, kc, vc, ks, vs, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_fused_decode_g1_matches_plain(sm90, kv_bits):
+    """Row 4 at moonshot's decode shape: H 16 over KV 16 (G 1), hd 128,
+    D 2048, 4-bit q/k/v, at the fused decode's tolerances."""
+    from repro_torch.kernels.fused_decode import fused_qkv_paged_decode_cuda
+    from repro_torch.models.common import rope_cos_sin
+    from repro_torch.quant.pack import Packed, kv_unpack_int4
+
+    B, KV, G, hd, bs, nb, D = 4, 16, 1, 128, 16, 19, 2048
+    H = KV * G
+    gen = torch.Generator(device=sm90).manual_seed(41)
+    NB, bt, ln = _tables(B, nb, [0, 16, 41, nb * bs - 1], sm90)
+    kc, vc, ks, vs, qmax = _quant_pool(NB, bs, KV, hd, kv_bits, gen, sm90)
+    ws = []
+    for n in (H * hd, KV * hd, KV * hd):
+        planes, scale = pack_weight(torch.randn((D, n), generator=gen, device=sm90) * D ** -0.5, 4)
+        ws.append(Packed(planes, scale, 4))
+    x = torch.randn((B, D), generator=gen, device=sm90).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(ln, hd, 5e4)
+    qm = torch.tensor(qmax, device=sm90)
+    got = fused_qkv_paged_decode_cuda(x, *ws, kc, vc, ks, vs, bt, ln, cos, sin, qm, H)
+    again = fused_qkv_paged_decode_cuda(x, *ws, kc, vc, ks, vs, bt, ln, cos, sin, qm, H)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    plain = tref.fused_qkv_paged_decode_ref(x, *ws, kc, vc, ks, vs, bt, ln, cos, sin, qm, H, KV)
+    out, po = got[0].reshape(B, 1, H, hd), plain[0].float()
+    assert (out - po).abs().max().item() <= 2e-2 * po.abs().max().item()
+    for g, p in zip(got[3:], plain[3:]):
+        assert ((g - p).abs() <= 2.0 ** -7 * p.abs()).all()
+    unpack = kv_unpack_int4 if kv_bits == 4 else (lambda c: c)
+    for g, p in zip(got[1:3], plain[1:3]):
+        assert (unpack(g).int() - unpack(p).int()).abs().max().item() <= 1
+
+
+# (K, N, bits, M of the bit-serial and the dequant body): moonshot's experts
+# (32 rows a decode step: 4 rows x capacity 8; 384 a 64-token chunk) and
+# lm_head, qwen2-vl's MLP and lm_head, musicgen's MLP and 2048-wide lm_head
+MVA_QMM = [(2048, 1408, 4, 32, 384), (1408, 2048, 4, 32, 384), (2048, 163840, 8, 4, 64),
+           (3584, 18944, 4, 4, 64), (18944, 3584, 4, 4, 64), (3584, 152064, 8, 4, 64),
+           (2048, 8192, 4, 4, 64), (8192, 2048, 4, 4, 64), (2048, 2048, 8, 4, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["bitserial", "dequant"])
+@pytest.mark.parametrize("K,N,bits,Mb,Md", MVA_QMM,
+                         ids=[f"{k}x{n}@{b}" for k, n, b, _, _ in MVA_QMM])
+def test_qmm_moe_vlm_audio_shapes_match_plain(sm90, K, N, bits, Mb, Md, path):
+    """Both qmm bodies at the experts' (K 1408 / N 1408), qwen2-vl's,
+    musicgen's and the three lm_heads' shapes; bitwise on two calls."""
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    M = Mb if path == "bitserial" else Md
+    x, planes, scale = _qmm_inputs(M, K, N, bits, sm90, seed=K + N)
+    got = qmm_cuda(x, planes, scale, bits, path)
+    again = qmm_cuda(x, planes, scale, bits, path)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    plain = tref.qmm_ref(x, planes, scale, bits)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+def _small_moe_served(dev, arch="moonshot-v1-16b-a3b", bits=4):
+    """A 2-layer MoE model at narrow widths (d_model 256, 2 heads over 2 KV
+    of 128, 8 experts top-2 of d_ff 128, vocab 1000), its serving params
+    at ``bits`` on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), num_layers=2, d_model=256,
+                              num_heads=2, num_kv_heads=2, head_dim=128, d_ff=128,
+                              vocab_size=1000, num_experts=8, experts_per_token=2)
+    sm = build_model(cfg)
+    params = sm.init(seed=8, device="cpu")
+    return sm, quantize_for_serving(sm, params, policy_for(sm, bits), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [None, 4], ids=["fp", "int4"])
+def test_graphed_moe_decode_step_equals_eager_bitwise(sm90, kv_bits):
+    """Twin pools fed the same chunked prefills and tokens: the captured
+    MoE step's logits and every pool byte equal the eager step's (the
+    routing sort, the sentinel scatter and the fixed-order combine inside
+    the graph); one qmm launch per expert and matrix; one capture."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    sm, sp = _small_moe_served(sm90)
+    twin = chip_smoke.graphed_twin_replays(torch, sm, sp, kv_bits, device=sm90)
+    assert twin["mismatch"] is None, twin["mismatch"]
+    assert len(twin["counts"]) == 8 and twin["captures"] == (1, 0)
+    # 2 layers x 8 experts x 3 matrices, + wo (+ q/k/v unfused) + lm_head
+    qkv = 0 if kv_bits == 4 else 3
+    for i, (eager, graphed) in enumerate(twin["counts"]):
+        if i:
+            assert graphed == eager, (eager, graphed)
+        assert eager["qmm_bitserial"] == 2 * (8 * 3 + 1 + qkv) + 1, eager
+        assert eager["fused_qkv_paged_decode"] == (2 if kv_bits == 4 else 0)
+        assert eager["plain"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("no_drop", [False, True], ids=["drop", "no-drop"])
+def test_moe_ffn_card_matches_cpu(sm90, no_drop):
+    """``moe_ffn`` on packed 4-bit banks (moonshot's expert widths, 16
+    experts top-6, 64 bf16 tokens a row) on the card against its CPU
+    result: the same choices where the CPU's k-th and (k+1)-th gates are
+    more than 1e-4 apart, and outputs within 2e-2 * max|cpu| on the rows
+    whose choices all agree."""
+    from repro_torch.models import moe
+    from repro_torch.quant.pack import Packed
+
+    E, k, D, F, B, S = 16, 6, 2048, 1408, 2, 64
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((B, S, D), generator=gen).to(torch.bfloat16)
+    p = {"router": torch.randn((D, E), generator=gen) * D ** -0.5}
+    for name, (din, dout) in (("wg", (D, F)), ("wu", (D, F)), ("wd", (F, D))):
+        pairs = [pack_weight(torch.randn((din, dout), generator=gen) * din ** -0.5, 4)
+                 for _ in range(E)]
+        p[name] = Packed(torch.stack([a for a, _ in pairs]), torch.stack([s for _, s in pairs]), 4)
+    cuda = {n: (Packed(w.planes.to(sm90), w.scale.to(sm90), 4) if isinstance(w, Packed)
+                else w.to(sm90)) for n, w in p.items()}
+    want, want_aux = moe.moe_ffn(x, p, k=k, no_drop=no_drop)
+    ops.reset_counts()
+    got, got_aux = moe.moe_ffn(x.to(sm90), cuda, k=k, no_drop=no_drop)
+    torch.cuda.synchronize()
+    assert ops.counts["plain"] == 0 and ops.counts["qmm_dequant"] + ops.counts["qmm_bitserial"] == 3 * E
+    gates, _, idx = moe._route(x, p["router"], k)
+    _, _, idx_card = moe._route(x.to(sm90), cuda["router"], k)
+    v = torch.sort(gates, dim=-1, descending=True).values
+    clear = (v[..., k - 1] - v[..., k]) > 1e-4
+    assert torch.equal(idx_card.cpu()[clear], idx[clear])
+    same = (idx_card.cpu() == idx).all(dim=-1)
+    if no_drop:   # drop-free: a token's output depends on its own choices only
+        got, want = got.cpu()[same].float(), want[same].float()
+    else:         # capacity: a flipped choice moves later tokens of its row
+        rows = same.all(dim=-1)
+        got, want = got.cpu()[rows].float(), want[rows].float()
+    if want.numel():
+        assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-4 * float(want_aux) or not bool(same.all())

@@ -126,25 +126,39 @@ def test_prefill_and_decode_logits_match_reference(dtype, packed):
 
 
 def test_unported_paths_raise():
+    """Every config builds (the moe, vlm and audio families since they
+    were ported); training any family but dense is refused in ``loss``
+    with its ROADMAP item."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-
-    for arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch, smoke=True))
-    # ported since: the sliding-window (ring) arch and both recurrent archs build
-    assert build_model(get_config("h2o-danube-3-4b", smoke=True)).cache_len(100) == 8
     from repro_torch.models.rwkv import RWKV6LM
     from repro_torch.models.transformer import TransformerLM
 
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    for arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b", "qwen2-vl-7b",
+                 "musicgen-large"):
+        model = build_model(get_config(arch, smoke=True))
+        assert isinstance(model, TransformerLM)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
+            model.loss(None, batch)
+    maverick = build_model(get_config("llama4-maverick-400b-a17b", smoke=True))
+    assert (maverick.n_sub, maverick.L_super) == (2, 2)
+    # the sliding-window (ring) arch and both recurrent archs build
+    assert build_model(get_config("h2o-danube-3-4b", smoke=True)).cache_len(100) == 8
     assert isinstance(build_model(get_config("rwkv6-1.6b", smoke=True)), RWKV6LM)
     hymba = build_model(get_config("hymba-1.5b", smoke=True))
     assert isinstance(hymba, TransformerLM) and hymba.cfg.family == "hybrid"
 
 
 def test_quant_groups_match_reference():
-    jm, tm = models()
-    jg, tg = jm.quant_groups(), tm.quant_groups()
-    assert [(g.name, g.shape, g.n_weights, g.n_macs, g.layer) for g in tg] == \
-        [(g.name, g.shape, g.n_weights, g.n_macs, g.layer) for g in jg]
-    assert tm.frozen_bits() == jm.frozen_bits()
+    """Names, paths, stacked-layer indices, shapes, weight and MAC counts
+    and the frozen groups, for the dense config and the moe (banks, and
+    maverick's interleaved subs with a shared expert), vlm and audio ones."""
+    for arch in ("glm4-9b", "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+                 "qwen2-vl-7b", "musicgen-large"):
+        jm, tm = models(arch)
+        jg, tg = jm.quant_groups(), tm.quant_groups()
+        assert [(g.name, g.path, g.shape, g.n_weights, g.n_macs, g.layer) for g in tg] == \
+            [(g.name, g.path, g.shape, g.n_weights, g.n_macs, g.layer) for g in jg], arch
+        assert tm.frozen_bits() == jm.frozen_bits(), arch
