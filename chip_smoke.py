@@ -77,7 +77,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scales and gradients bit pattern for bit pattern; timed per QAT forward
    and backward of the cell against the library (per layer
    ``abs().amax(dim=-2)`` + ``fake_quantize_per_channel_affine``, and its
-   autograd backward), the plain versions and the bound.  For each shape: kernel,
+   autograd backward), the plain versions and the bound; the same pair at
+   moonshot's three expert banks of phase 3w (4 x 64 x 2048 x 1408, bf16)
+   with one bitwidth a stacked layer shared by its 64 experts, beside the
+   edge leaves, bitwise from two bits offsets and timed the same way.
+   For each shape: kernel,
    plain and library yardstick times (median of per-launch CUDA-event
    times, L2 flushed before each launch, the start event held behind a
    device spin that covers the wrapper's host work) and the bound from
@@ -225,6 +229,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
       G 1, absolute sinusoids, GELU d_ff 8192, vocab 2048): fp KV.
    Each full-width cell's request 0 prefilled again gives finite logits
    whose argmax is its first token.
+   Three train the moe, vlm, audio, hybrid and ssm families:
+   w. QAT through ``launch/train.py``'s path (``--remat full --lr 3e-4``)
+      at the published widths of moonshot-v1-16b-a3b, qwen2-vl-7b,
+      musicgen-large, hymba-1.5b and rwkv6-1.6b, depth cut to 4 layers,
+      batch 2 x 4096: 2 steps at 8 bits, then 2 at the mixed policy;
+      fails unless every loss is finite and every step made one
+      per-column forward and one backward launch (moonshot's expert banks
+      among the leaves, at one bitwidth a stacked layer) and no plain
+      call; prints step p50, tokens/s and peak memory;
+   x. 3k's search on w's moonshot params, 3 episodes; every bank a group
+      of its own stacked layer;
+   y. the narrow moonshot and rwkv6 models of phase 4w in bf16 trained 3
+      steps with ``--ckpt-dir``, then served from it through
+      ``launch/serve.py``'s ``build``: greedy streams bitwise those of
+      the trainer's final params served from memory.
    Launch counters are zeroed just before each path and read just after;
    every request must complete, each path's kernels must have launched and
    the plain-version counter must be 0; the serving paths print the p50
@@ -270,7 +289,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in any layer is printed beside the margin, with the smallest of its
    context, and passes nothing); then the narrow MoE model's captured
    decode step against its eager step over twin pools (fp and int4 KV):
-   logits and every pool byte bitwise.
+   logits and every pool byte bitwise.  Phase 4w: one f32 QAT step
+   (mixed bits, AdamW lr 1e-3) of each 3w family's narrow model (2
+   layers, d_model 256-320; moonshot's 16 experts at capacity factor 0.5,
+   so choices drop, counted on the CPU) on the card and on the CPU from
+   the same params: loss within 1e-4, grads within 1e-4 of each leaf's
+   max (rwkv6's 1e-3: its f32 gradients are ill-conditioned, see
+   ``FAM_GRAD_TOL``), new params within 2 lr; a MoE record holds whether
+   card and CPU routed alike and the smallest gate gap.
 
 5. Where the time goes (read only, after the checks): for each serving
    path, four requests decode on its served model, through the served
@@ -292,6 +318,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    searches, gathers, scatters) as families of their own; qmm's time
    split by graphs of layer 0's 192 expert launches and of its 4
    projection launches, each replayed alone and timed by CUDA events.
+   Phase 5w: the same as 5j on a 3w moonshot step, the router and the
+   dispatch / undispatch forwards as families of their own.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
@@ -2771,30 +2799,16 @@ def check_fake_quant_col(torch, timer, peaks, rows):
     return 0.0
 
 
-def lm_train(torch):
-    """Phase 3j: QAT training at the 4-layer glm4-9b cell through
-    ``repro_torch.launch.train``'s path (``setup``: ``Trainer`` +
-    ``make_train_step``, ``--remat full``): LM_UNIFORM_STEPS steps at
-    uniform 8 bits, then LM_MIXED_STEPS at the mixed policy, each step's
-    launches counted apart."""
-    import numpy as np
-
+def run_qat_steps(torch, run, uniform: int, mixed: int, label: str, log_every: int = 0):
+    """Runs a ``launch/train.py`` ``setup``'s trainer ``uniform`` steps at
+    its bits, then ``mixed`` at the mixed policy, each step's launches
+    counted apart; fails unless every loss is finite and every step made
+    one per-column forward and one backward launch and no plain call.
+    -> (state, {"losses", "step_s", "wall_s", "per_step", "counts"})."""
     from repro_torch.kernels import ops
-    from repro_torch.launch import train
-    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.quant.qat import bits_assignment, bits_to_device
 
-    args = train.parse_args(LM_TRAIN + ["--steps", str(LM_UNIFORM_STEPS)])
-    t0 = time.perf_counter()
-    run = train.setup(args, lm_cell())
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     model, trainer = run["model"], run["trainer"]
-    n = sum(p.numel() for p in tree_leaves(run["state"]["params"]))
-    n_w = sum(g.n_weights for g in model.quant_groups())
-    if (n, n_w) != (LM_PARAMS, LM_WEIGHTS):
-        fail(f"[lm train] {n:,} params of which {n_w:,} quantized, not {LM_PARAMS:,} "
-             f"and {LM_WEIGHTS:,}")
     per_step = []
     inner = trainer.step_fn
 
@@ -2805,33 +2819,61 @@ def lm_train(torch):
         return out
 
     trainer.step_fn = counted
-    trainer.log_every = 5
+    trainer.log_every = log_every
     ops.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = trainer.run(run["state"], LM_UNIFORM_STEPS)
+    state = trainer.run(run["state"], uniform)
     trainer.bits_map = bits_to_device(bits_assignment(model.quant_groups(),
                                                       lm_mixed_policy(model)), "cuda")
-    state = trainer.run(state, LM_UNIFORM_STEPS + LM_MIXED_STEPS, start_step=LM_UNIFORM_STEPS)
+    state = trainer.run(state, uniform + mixed, start_step=uniform)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(ops.counts)
-    losses = [h["loss"] for h in trainer.history]
-    dts = [h["dt"] for h in trainer.history]
-    if len(losses) != LM_UNIFORM_STEPS + LM_MIXED_STEPS or not all(map(math.isfinite, losses)):
-        fail(f"[lm train] losses {losses}")
+    rec = {"losses": [h["loss"] for h in trainer.history],
+           "step_s": [h["dt"] for h in trainer.history], "wall_s": time.perf_counter() - t0,
+           "per_step": per_step, "counts": dict(ops.counts)}
+    losses = rec["losses"]
+    if len(losses) != uniform + mixed or not all(map(math.isfinite, losses)):
+        fail(f"{label} losses {losses}")
+    want = {"fake_quant_group_col": 1, "fake_quant_group_col_bwd": 1}
+    bad = [i for i, c in enumerate(per_step) if c != want]
+    if bad or rec["counts"]["plain"]:
+        fail(f"{label} steps {bad} launched {[per_step[i] for i in bad]}, not {want}; "
+             f"plain calls {rec['counts']['plain']}")
+    return state, rec
+
+
+def lm_train(torch):
+    """Phase 3j: QAT training at the 4-layer glm4-9b cell through
+    ``repro_torch.launch.train``'s path (``setup``: ``Trainer`` +
+    ``make_train_step``, ``--remat full``): LM_UNIFORM_STEPS steps at
+    uniform 8 bits, then LM_MIXED_STEPS at the mixed policy
+    (:func:`run_qat_steps`); the loss must fall."""
+    import numpy as np
+
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    args = train.parse_args(LM_TRAIN + ["--steps", str(LM_UNIFORM_STEPS)])
+    t0 = time.perf_counter()
+    run = train.setup(args, lm_cell())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = run["model"]
+    n = sum(p.numel() for p in tree_leaves(run["state"]["params"]))
+    n_w = sum(g.n_weights for g in model.quant_groups())
+    if (n, n_w) != (LM_PARAMS, LM_WEIGHTS):
+        fail(f"[lm train] {n:,} params of which {n_w:,} quantized, not {LM_PARAMS:,} "
+             f"and {LM_WEIGHTS:,}")
+    torch.cuda.reset_peak_memory_stats()
+    state, rec = run_qat_steps(torch, run, LM_UNIFORM_STEPS, LM_MIXED_STEPS, "[lm train]",
+                               log_every=5)
+    losses, dts, per_step, counts = (rec[k] for k in ("losses", "step_s", "per_step", "counts"))
     first, last = np.mean(losses[:5]), np.mean(losses[LM_UNIFORM_STEPS - 5:LM_UNIFORM_STEPS])
     if not last < first:
         fail(f"[lm train] the loss did not fall: mean of the first 5 {first:.4f}, of the last 5 "
              f"uniform steps {last:.4f}")
-    want = {"fake_quant_group_col": 1, "fake_quant_group_col_bwd": 1}
-    bad = [i for i, c in enumerate(per_step) if c != want]
-    if bad or counts["plain"]:
-        fail(f"[lm train] steps {bad} launched {[per_step[i] for i in bad]}, not {want}; "
-             f"plain calls {counts['plain']}")
     p50 = statistics.median(dts[2:])
     tokens = 2 * 4096
-    out = {"setup_s": setup_s, "wall_s": wall, "losses": losses, "step_s": dts,
+    out = {"setup_s": setup_s, "wall_s": rec["wall_s"], "losses": losses, "step_s": dts,
            "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
            "uniform_p50_ms": statistics.median(dts[2:LM_UNIFORM_STEPS]) * 1e3,
            "mixed_p50_ms": statistics.median(dts[LM_UNIFORM_STEPS:]) * 1e3,
@@ -2848,10 +2890,10 @@ def lm_train(torch):
     return run, state, out
 
 
-def lm_search_phase(torch, model, params):
+def lm_search_phase(torch, model, params, episodes=LM_EPISODES, label="[lm search]"):
     """Phase 3k: ``launch/lm_search.py --lockstep``'s path on 3j's params:
     the LM env factory (2 retrain steps from a fresh ``opt.init``, no
-    remat, as the reference's factory), ``episode_end``, LM_EPISODES
+    remat, as the reference's factory), ``episode_end``, ``episodes``
     episodes."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import ops
@@ -2860,34 +2902,34 @@ def lm_search_phase(torch, model, params):
     data = SyntheticLMData(seed=1, global_batch=2, seq_len=4096, vocab=model.cfg.vocab_size)
     ops.reset_counts()
     t0 = time.perf_counter()
-    factory, res = lm_search.search(model, params, data, LM_EPISODES, "cuda", finetune_steps=2,
+    factory, res = lm_search.search(model, params, data, episodes, "cuda", finetune_steps=2,
                                     eval_mode="episode_end", log_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(ops.counts)
     names = {g.name for g in model.quant_groups()}
-    if len(res.episodes) != LM_EPISODES or set(res.best_bits) != names:
-        fail(f"[lm search] {len(res.episodes)} episodes, best bits over "
+    if len(res.episodes) != episodes or set(res.best_bits) != names:
+        fail(f"{label} {len(res.episodes)} episodes, best bits over "
              f"{len(res.best_bits)} of {len(names)} groups")
     if res.best_reward != max(e["reward"] for e in res.episodes):
-        fail("[lm search] best reward is not the best episode's")
+        fail(f"{label} best reward is not the best episode's")
     for name, b in model.frozen_bits().items():
         if res.best_bits[name] != b:
-            fail(f"[lm search] frozen group {name} left {b} bits")
+            fail(f"{label} frozen group {name} left {b} bits")
     accs = [e["acc"] for e in res.episodes]
     if not all(math.isfinite(a) and a > 0 for a in accs):
-        fail(f"[lm search] accuracy proxies {accs}")
+        fail(f"{label} accuracy proxies {accs}")
     if (counts["fake_quant_group_col"] <= 0 or counts["fake_quant_group_col_bwd"] <= 0
             or counts["plain"]):
-        fail(f"[lm search] launch counts {counts}")
+        fail(f"{label} launch counts {counts}")
     stats = res.cache_stats
     if not stats or stats["misses"] < 1:
-        fail(f"[lm search] the memo's stats are missing: {stats}")
-    out = {"episodes": LM_EPISODES, "wall_s": wall, "episodes_per_s": LM_EPISODES / wall,
+        fail(f"{label} the memo's stats are missing: {stats}")
+    out = {"episodes": episodes, "wall_s": wall, "episodes_per_s": episodes / wall,
            "acc": accs, "rewards": [e["reward"] for e in res.episodes],
            "best_reward": res.best_reward, "avg_bits": res.average_bits(),
            "best_bits": res.best_bits, "cache": stats, "counts": counts}
-    print(f"[lm search] {LM_EPISODES} episodes in {wall:.1f} s; acc proxies "
+    print(f"{label} {episodes} episodes in {wall:.1f} s; acc proxies "
           f"{[round(a, 4) for a in accs]}; best reward {res.best_reward:.4f}, avg bits "
           f"{out['avg_bits']:.2f}; memo {stats}; launch counts {counts}")
     return out
@@ -2969,28 +3011,35 @@ def _wrap_range(torch, fn, label):
     return wrapper
 
 
-def profile_lm_step(torch, run, state, traced=2):
-    """Phase 5j: 4-layer QAT train steps at the mixed policy under
+def profile_lm_step(torch, run, state, traced=2, cell="glm4-9b 4L"):
+    """Phase 5j (and 5w): 4-layer QAT train steps at the mixed policy under
     ``torch.profiler``: device time by family (the per-column fake-quant
     forward and backward by kernel name; the attention tiles, the CE
-    chunks and AdamW by the ranges wrapped around ``_Flash``'s forward and
-    backward, ``_ce_chunk`` and ``AdamW.update`` here; the weight matmuls
-    as the gemm kernels outside them), the idle share against the host
-    clock, and the runtime calls per step that can block the host."""
+    chunks, AdamW and a MoE's router and dispatch / undispatch forwards by
+    the ranges wrapped around ``_Flash``'s forward and backward,
+    ``_ce_chunk``, ``AdamW.update``, ``moe._route``, ``moe._dispatch`` and
+    ``moe._undispatch`` here; the weight matmuls, the banks' einsums
+    among them, as the gemm kernels outside them; the MoE backward's
+    gathers and scatters fall in "other torch kernels"), the idle share
+    against the host clock, and the runtime calls per step that can block
+    the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import common
+    from repro_torch.models import common, moe
     from repro_torch.optim import adamw
 
     trainer = run["trainer"]
     step_fn, data, bm = trainer.step_fn, run["data"], trainer.bits_map
     saved = (common._Flash.forward, common._Flash.backward, common._ce_chunk,
-             adamw.AdamW.update)
+             adamw.AdamW.update, moe._route, moe._dispatch, moe._undispatch)
     common._Flash.forward = staticmethod(_wrap_range(torch, saved[0], "lm:attention tiles"))
     common._Flash.backward = staticmethod(_wrap_range(torch, saved[1], "lm:attention tiles"))
     common._ce_chunk = _wrap_range(torch, saved[2], "lm:CE chunks")
     adamw.AdamW.update = _wrap_range(torch, saved[3], "lm:AdamW")
+    moe._route = _wrap_range(torch, saved[4], "lm:router")
+    moe._dispatch = _wrap_range(torch, saved[5], "lm:dispatch / undispatch")
+    moe._undispatch = _wrap_range(torch, saved[6], "lm:dispatch / undispatch")
     try:
         state, _ = step_fn(state, data.next(), bm)          # warm, with the ranges on
         torch.cuda.synchronize()
@@ -3010,6 +3059,7 @@ def profile_lm_step(torch, run, state, traced=2):
         (common._Flash.forward, common._Flash.backward, common._ce_chunk,
          adamw.AdamW.update) = (staticmethod(saved[0]), staticmethod(saved[1]), saved[2],
                                 saved[3])
+        moe._route, moe._dispatch, moe._undispatch = saved[4:]
     busy = 0.0
     by_name: dict[str, float] = {}
     host = {"cudaStreamSynchronize": 0.0, "cudaDeviceSynchronize": 0.0, "cudaMemcpyAsync": 0.0}
@@ -3059,7 +3109,7 @@ def profile_lm_step(torch, run, state, traced=2):
            "idle_share": 1 - busy / traced_ms, "families_ms": fams,
            "host_calls_per_step": host,
            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])}
-    print(f"  glm4-9b 4L QAT step (batch 2 x 4096, remat full, mixed bits; host clock) = "
+    print(f"  {cell} QAT step (batch 2 x 4096, remat full, mixed bits; host clock) = "
           f"{step_ms:.1f} ms untraced, {traced_ms:.1f} ms traced; device busy {busy:.1f} "
           f"ms/step -> idle share {out['idle_share']:.3f} of the traced step")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
@@ -3848,6 +3898,341 @@ def mva_card_vs_cpu(torch):
     return out
 
 
+# ---- QAT training of the moe, vlm, audio, hybrid and ssm families (phases 2, 3w-3y, 4w) ----
+# each family at its published widths, depth cut to FAM_LAYERS (moonshot's
+# 48 layers need ~35 B params' f32 moments), global batch 2 x FAM_SEQ
+FAM_ARCHS = (MOONSHOT_ARCH, QWEN_ARCH, MUSICGEN_ARCH, HYMBA_ARCH, RWKV_ARCH)
+FAM_LAYERS = 4
+FAM_SEQ = {MOONSHOT_ARCH: 4096, QWEN_ARCH: 4096, MUSICGEN_ARCH: 4096, HYMBA_ARCH: 4096,
+           RWKV_ARCH: 4096}
+FAM_UNIFORM_STEPS, FAM_MIXED_STEPS = 2, 2
+FAM_EPISODES = 3
+# moonshot's expert banks at the 3w cell: wg, wu (L, E, D, F) and wd (L, E, F, D)
+BANK_SHAPES = ((FAM_LAYERS, 64, 2048, 1408), (FAM_LAYERS, 64, 2048, 1408),
+               (FAM_LAYERS, 64, 1408, 2048))
+BANK_BITS = (2, 3, 4, 5, 6, 7, 8)
+
+
+def bank_bits(torch, shapes, offset):
+    """Per bank (L, E, K, N) an int32 (L,) bits tensor on the card, one
+    bitwidth a stacked layer shared by its E experts, BANK_BITS cycling."""
+    return [torch.tensor([BANK_BITS[(i + l + offset) % len(BANK_BITS)] for l in range(s[0])],
+                         dtype=torch.int32, device="cuda") for i, s in enumerate(shapes)]
+
+
+def check_fake_quant_col_banks(torch, timer, peaks, rows):
+    """Phase 2, kernel 5'' at moonshot's expert banks: the three (L, E, K,
+    N) banks of the 3w cell in bf16 with (L,) bits (each layer's bits
+    shared by its 64 experts, the reference's ``_qdq`` broadcast), forward
+    and STE bit pattern for bit pattern against the plain versions from two
+    bits offsets, with the edge leaves beside them at their own per-layer
+    bits; then one QAT forward and backward of the three banks timed
+    against the plain versions, the library (per expert matrix: amax +
+    fake_quantize_per_channel_affine, and its autograd backward) and the
+    bound."""
+    from repro_torch.kernels.fake_quant import (fake_quant_col_plan,
+                                                fake_quant_group_col_bwd_cuda,
+                                                fake_quant_group_col_cuda)
+    from repro_torch.kernels.ref import fake_quant_group_col_bwd_ref, fake_quant_group_col_ref
+
+    f32_peak = f32_peak_of(torch)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    ws, gs = col_inputs(torch, BANK_SHAPES, torch.bfloat16, gen, edges=True)
+    n_banks = len(BANK_SHAPES)
+    for offset in range(2):
+        bits = (bank_bits(torch, BANK_SHAPES, offset)
+                + col_bits(torch, [w.shape for w in ws[n_banks:]], offset))
+        check_col_bitwise(torch, "fake_quant_col moonshot banks bf16", ws, gs, bits)
+    plan = fake_quant_col_plan([w.shape for w in ws], torch.bfloat16)
+    print(f"  {'fake_quant_col moonshot banks bf16':46s} forward and backward bitwise at 2 "
+          f"bits offsets (3 banks with (L,) bits + 3 edge leaves, {plan.ctas[0]} CTAs)")
+    ws, gs = ws[:n_banks], gs[:n_banks]
+    bits = bank_bits(torch, BANK_SHAPES, 0)
+    bits_host = [[int(b) for b in v.tolist() for _ in range(s[1])]
+                 for v, s in zip(bits, BANK_SHAPES)]
+    numel = sum(w.numel() for w in ws)
+    n_scales = sum(math.prod(w.shape[:-2]) * w.shape[-1] for w in ws)
+    outs, scales, _ = fake_quant_group_col_cuda(ws, bits)
+    del outs
+    lib, lib_leaves, lib_dtype = library_col(torch, ws, bits_host)
+    b_ms, b_by = bound_ms(2 * numel * 2 + 4 * n_scales, (FQ_OPS + 2) * numel,
+                          (peaks[0], f32_peak))
+    fwd = {"kernel": "fake_quant_group_col", "shape": "moonshot banks 4L", "dtype": "bfloat16",
+           "leaves": n_banks, "numel": numel, "calls_per_forward": 1, "max_abs_err": 0.0,
+           "ms": timer(lambda: fake_quant_group_col_cuda(ws, bits), iters=5),
+           "plain_ms": timer(lambda: fake_quant_group_col_ref(ws, bits), iters=2, warmup=1),
+           "library_ms": timer(lambda: lib(lib_leaves), iters=3, warmup=1),
+           "library": f"per expert matrix of each bank: abs().amax(dim=-2) + "
+                      f"fake_quantize_per_channel_affine (axis 1), in {lib_dtype}",
+           "bound_ms": b_ms, "bound_by": b_by}
+    leaves = [w.detach().requires_grad_(True) for w in lib_leaves]
+    lib_outs = lib(leaves)
+    lib_gs = []
+    for w, g in zip(lib_leaves, gs):
+        lib_gs += g.to(w.dtype).reshape(-1, *w.shape[-2:]).unbind(0)
+
+    def library_bwd():
+        return torch.autograd.grad(lib_outs, leaves, lib_gs, retain_graph=True)
+
+    bb_ms, bb_by = bound_ms(3 * numel * 2 + 4 * n_scales, 3 * numel, (peaks[0], f32_peak))
+    bwd = {"kernel": "fake_quant_group_col_bwd", "shape": "moonshot banks 4L",
+           "dtype": "bfloat16", "leaves": n_banks, "numel": numel, "calls_per_forward": 1,
+           "max_abs_err": 0.0,
+           "ms": timer(lambda: fake_quant_group_col_bwd_cuda(ws, gs, scales), iters=5),
+           "plain_ms": timer(lambda: fake_quant_group_col_bwd_ref(ws, gs, scales), iters=2,
+                             warmup=1),
+           "library_ms": timer(library_bwd, iters=3, warmup=1),
+           "library": f"the autograd backward of the library forward, in {lib_dtype}",
+           "bound_ms": bb_ms, "bound_by": bb_by}
+    rows += [fwd, bwd]
+    print(f"  {'fake_quant_col moonshot banks 4L bf16':46s} per QAT forward: "
+          f"kernel={fwd['ms']:.4f} plain={fwd['plain_ms']:.4f} library={fwd['library_ms']:.4f} "
+          f"({lib_dtype}) bound={b_ms:.4f} ms ({b_by})")
+    print(f"  {'':46s} per QAT backward: kernel={bwd['ms']:.4f} plain={bwd['plain_ms']:.4f} "
+          f"library={bwd['library_ms']:.4f} bound={bb_ms:.4f} ms ({bb_by})")
+    del ws, gs, scales, leaves, lib_outs, lib_gs, lib_leaves
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def family_cell(arch):
+    """A family's published config, depth cut to FAM_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=FAM_LAYERS)
+
+
+def family_train(torch, arch):
+    """Phase 3w for one family: ``launch/train.py``'s path (``setup``:
+    ``Trainer`` + ``make_train_step``, ``--remat full --lr 3e-4``) at the
+    family's published widths and FAM_LAYERS layers, batch 2 x
+    FAM_SEQ[arch]: FAM_UNIFORM_STEPS steps at uniform 8 bits, then
+    FAM_MIXED_STEPS at the mixed policy (:func:`run_qat_steps`)."""
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    seq = FAM_SEQ[arch]
+    args = train.parse_args(["--arch", arch, "--no-smoke", "--global-batch", "2",
+                             "--seq-len", str(seq), "--remat", "full", "--bits", "8",
+                             "--lr", "3e-4", "--device", "cuda",
+                             "--steps", str(FAM_UNIFORM_STEPS)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.setup(args, family_cell(arch))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tree_leaves(run["state"]["params"]))
+    label = f"[3w {arch}]"
+    state, rec = run_qat_steps(torch, run, FAM_UNIFORM_STEPS, FAM_MIXED_STEPS, label)
+    losses, dts = rec["losses"], rec["step_s"]
+    p50 = statistics.median(dts[1:])
+    out = {"layers": FAM_LAYERS, "seq_len": seq, "params": n, "setup_s": setup_s,
+           "wall_s": rec["wall_s"], "losses": losses, "step_s": dts, "step_p50_ms": p50 * 1e3,
+           "tokens_per_s": 2 * seq / p50,
+           "mixed_p50_ms": statistics.median(dts[FAM_UNIFORM_STEPS:]) * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": rec["per_step"][-1], "counts": rec["counts"]}
+    print(f"{label} {FAM_LAYERS} layers ({n:,} params), batch 2 x {seq}, remat full: losses "
+          f"{[round(x, 4) for x in losses]}; step p50 {out['step_p50_ms']:.1f} ms (mixed "
+          f"{out['mixed_p50_ms']:.1f}), {out['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{out['peak_mem_gib']:.2f} GiB, setup {setup_s:.1f} s; per-column launches a step "
+          f"{out['launches_per_step']}")
+    return run, state, out
+
+
+def families_train(torch):
+    """Phase 3w over FAM_ARCHS, and 5w (moonshot's step profiled) ->
+    ({arch: out}, moonshot's model and params for 3x)."""
+    res, keep = {}, None
+    for arch in FAM_ARCHS:
+        run, state, res[arch] = family_train(torch, arch)
+        if arch == MOONSHOT_ARCH:
+            phase("phase 5w: a 3w moonshot QAT step, device time by family")
+            state, res[arch]["breakdown"] = profile_lm_step(torch, run, state,
+                                                            cell="moonshot-v1-16b-a3b 4L")
+            keep = (run["model"], state["params"])
+        del run, state
+        torch.cuda.empty_cache()
+    return res, keep
+
+
+def moe_search_phase(torch, model, params):
+    """Phase 3x: 3k's search (:func:`lm_search_phase`) on 3w's moonshot
+    params, FAM_EPISODES episodes; every bank is a group of its own
+    stacked layer."""
+    out = lm_search_phase(torch, model, params, FAM_EPISODES, "[3x]")
+    banks = [g.name for g in model.quant_groups() if ".moe." in g.name]
+    if len(banks) != 3 * FAM_LAYERS:
+        fail(f"[3x] {len(banks)} bank groups, not {3 * FAM_LAYERS}")
+    out["bank_bits"] = {n: out["best_bits"][n] for n in banks}
+    print(f"[3x] the best policy's bank bits {list(out['bank_bits'].values())}")
+    return out
+
+
+def moe_drops(torch, idx_calls, E: int, C: int) -> int:
+    """Choices dropped at capacity ``C`` over the routing calls a
+    ``moe.RouteLog`` recorded (each (B, S, k): a sequence's choices past
+    C of an expert drop)."""
+    total = 0
+    for idx in idx_calls:
+        hits = idx.reshape(idx.shape[0], -1, 1) == torch.arange(E, device=idx.device)
+        total += int((hits.sum(dim=1) - C).clamp(min=0).sum())
+    return total
+
+
+# the 4w models (a few layers, narrow widths); moonshot's capacity factor
+# 0.5 drops choices at capacity
+FAM_SMALL = {
+    MOONSHOT_ARCH: dict(num_layers=2, d_model=256, num_heads=2, num_kv_heads=2, head_dim=128,
+                        d_ff=128, vocab_size=1000, num_experts=16, capacity_factor=0.5),
+    QWEN_ARCH: dict(num_layers=2, d_model=256, num_heads=7, num_kv_heads=1, head_dim=128,
+                    d_ff=688, vocab_size=1000),
+    MUSICGEN_ARCH: dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=4, d_ff=1024),
+    HYMBA_ARCH: dict(num_layers=2, d_model=320, num_heads=5, num_kv_heads=1, head_dim=64,
+                     d_ff=1088, sliding_window=64),
+    RWKV_ARCH: dict(num_layers=2, d_model=256, head_dim=64, d_ff=896),
+}
+# f32 (TF32 off): loss within 1e-4 relative and grads within 1e-4 of each
+# leaf's max as 4j; RWKV's grads within 1e-3: its f32 gradients are
+# themselves ~1.6e-4 from an f64 evaluation of the same port on the CPU
+# (tests/test_torch_train_families.py states it), and the card sums in
+# other orders
+FAM_GRAD_TOL = {RWKV_ARCH: 1e-3}
+
+
+def family_step_card_vs_cpu(torch, arch):
+    """One QAT train step of ``arch``'s narrow model (FAM_SMALL: mixed
+    bits, AdamW lr 1e-3, f32, batch 2 x 128) on the card and on the CPU
+    from the same params -> a record whose ``"failure"`` is None when the
+    loss is within 1e-4, the grad norm and grads within FAM_GRAD_TOL (1e-4
+    of each leaf's max) and the new params within 2 lr.  A MoE model must
+    drop choices at capacity (counted on the CPU); its record holds the
+    drops, whether card and CPU routed alike, and the smallest gap between
+    a token's k-th and (k+1)-th gate."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import RouteLog, capacity
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, quantize_params
+    from repro_torch.train.train_step import batch_to, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **FAM_SMALL[arch])
+    model = build_model(cfg)
+    params = model.init(seed=7, device="cpu")
+    batch = SyntheticLMData(seed=2, global_batch=2, seq_len=128, vocab=cfg.vocab_size).next()
+    opt = AdamW(lr=1e-3)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_unflatten(params, [t.to(dev) for t in tree_leaves(params)])
+        bm = bits_to_device(bits_assignment(model.quant_groups(), lm_mixed_policy(model)), dev)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+        with RouteLog() as log:
+            loss, _ = model.loss(quantize_params(tree_unflatten(p, leaves), bm,
+                                                 model.quant_groups()), batch_to(batch, dev))
+        grads = torch.autograd.grad(loss, leaves)
+        state, m = make_train_step(model, opt, remat="full")({"params": p, "opt": opt.init(p)},
+                                                             batch, bm)
+        res[dev] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": [g.float().cpu() for g in grads],
+                    "params": [t.float().cpu() for t in tree_leaves(state["params"])],
+                    "idx": [i.cpu() for i in log.idx],
+                    "gap": min((float(g.detach().min()) for g in log.gaps), default=None)}
+    a, b = res["cuda"], res["cpu"]
+    out = {"failure": None, "drops": None, "smallest_gate_gap": b["gap"],
+           "loss": (a["loss"], b["loss"]),
+           "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+           "grad_norm_rel_err": abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]),
+           "grads_rel_err": max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                                for x, y in zip(a["grads"], b["grads"])),
+           "params_past_2lr": max(float(((x - y).abs() - (2 * opt.lr + 1e-6)).max())
+                                  for x, y in zip(a["params"], b["params"])),
+           "params_differing": sum(int(((x - y).abs() > 1e-6).sum())
+                                   for x, y in zip(a["params"], b["params"])),
+           "params": sum(t.numel() for t in a["params"])}
+    if cfg.num_experts:
+        out["capacity"] = C = capacity(128, cfg.experts_per_token, cfg.num_experts,
+                                       cfg.capacity_factor)
+        out["drops"] = moe_drops(torch, b["idx"], cfg.num_experts, C)
+        out["routes_equal"] = all(torch.equal(x, y) for x, y in zip(a["idx"], b["idx"]))
+        if not out["drops"]:
+            out["failure"] = f"no choice dropped at capacity {C}"
+    tol = FAM_GRAD_TOL.get(arch, 1e-4)
+    if not (math.isfinite(a["loss"]) and out["loss_rel_err"] <= 1e-4
+            and out["grad_norm_rel_err"] <= tol and out["grads_rel_err"] <= tol
+            and out["params_past_2lr"] <= 0):
+        out["failure"] = (f"loss {out['loss_rel_err']:.2e}, grad norm "
+                          f"{out['grad_norm_rel_err']:.2e}, grads {out['grads_rel_err']:.2e} "
+                          f"(tolerances 1e-4, {tol}); params past 2 lr by "
+                          f"{out['params_past_2lr']:.3g}")
+    return out
+
+
+def families_step_card_vs_cpu(torch):
+    """Phase 4w: :func:`family_step_card_vs_cpu` for every family."""
+    out = {}
+    for arch in FAM_ARCHS:
+        r = out[arch] = family_step_card_vs_cpu(torch, arch)
+        route = ("" if r["drops"] is None else
+                 f"; {r['drops']} choices dropped at capacity {r['capacity']}, routes "
+                 f"{'equal' if r['routes_equal'] else 'DIFFERENT'} card vs CPU, smallest gate "
+                 f"gap {r['smallest_gate_gap']:.3g}")
+        line = (f"[4w {arch}] card vs CPU: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f} "
+                f"({r['loss_rel_err']:.2e}), grad norm {r['grad_norm_rel_err']:.2e}, grads "
+                f"{r['grads_rel_err']:.2e} of each leaf's max; new params within 2 lr, "
+                f"{r['params_differing']} of {r['params']} differ by more than 1e-6{route}")
+        if r["failure"]:
+            fail(f"{line}: {r['failure']}")
+        print(line)
+    return out
+
+
+def train_then_serve(torch):
+    """Phase 3y: ``launch/train.py``'s path with ``--ckpt-dir`` on the card
+    (the narrow moonshot and rwkv6 models of 4w in bf16, 3 steps), then
+    ``launch/serve.py``'s ``build`` with ``--ckpt-dir`` from what it saved
+    against serving the trainer's final params from memory: greedy
+    streams bitwise equal."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch import train
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    out = {}
+    for arch in (MOONSHOT_ARCH, RWKV_ARCH):
+        cfg = dataclasses.replace(get_config(arch), **FAM_SMALL[arch])
+        d = OUT_DIR / f"ckpt_3y_{arch}"
+        shutil.rmtree(d, ignore_errors=True)
+        args = train.parse_args(["--arch", arch, "--steps", "3", "--seq-len", "64",
+                                 "--global-batch", "4", "--ckpt-dir", str(d),
+                                 "--device", "cuda"])
+        run = train.setup(args, cfg)
+        state = run["trainer"].run(run["state"], args.steps)
+        flags = ["--arch", arch, "--requests", "4", "--gen", "12", "--prompt-len", "16",
+                 "--device", "cuda"]
+        sargs = launcher.parse_args(flags + ["--ckpt-dir", str(d)])
+        restored = launcher.continuous(sargs, *launcher.build(sargs, cfg))
+        args = launcher.parse_args(flags)
+        model = run["model"]
+        policy = policy_for(model, args.bits)
+        sp = quantize_for_serving(model, state["params"], policy, device="cuda")
+        memory = launcher.continuous(args, cfg, model, sp, policy)
+        got = [restored.output(i) for i in range(args.requests)]
+        want = [memory.output(i) for i in range(args.requests)]
+        if got != want or not all(got):
+            fail(f"[3y {arch}] streams served from --ckpt-dir {got} differ from the in-memory "
+                 f"params' {want}")
+        shutil.rmtree(d, ignore_errors=True)
+        out[arch] = {"losses": [h["loss"] for h in run["trainer"].history], "streams": got}
+        print(f"[3y {arch}] trained 3 steps, saved, served from --ckpt-dir: {args.requests} "
+              f"greedy streams bitwise the in-memory params' ({sum(map(len, got))} tokens)")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3915,6 +4300,8 @@ def main() -> None:
     fq_err = check_fake_quant(torch, timer, peaks, rows)
     fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
     fqc_err = check_fake_quant_col(torch, timer, peaks, rows)
+    print("  moonshot-v1-16b-a3b's expert banks at the 3w cell, (L,) bits")
+    fqc_err = max(fqc_err, check_fake_quant_col_banks(torch, timer, peaks, rows))
     print(f"timer: {timer.retaken} samples retaken behind a longer spin, "
           f"{timer.uncovered} timed with host work inside")
     del timer
@@ -4088,6 +4475,22 @@ def main() -> None:
     phase("phase 4t: narrow moonshot, qwen2-vl and musicgen models served on the card and on "
           "the CPU; a MoE graphed step against its eager one")
     mva_streams = mva_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+
+    # ---- QAT training of the moe, vlm, audio, hybrid and ssm families
+    phase(f"phase 3w: QAT training of {len(FAM_ARCHS)} families at their published widths, "
+          f"{FAM_LAYERS} layers, batch 2 ({FAM_UNIFORM_STEPS} steps at 8 bits, "
+          f"{FAM_MIXED_STEPS} mixed)")
+    fam, (moe_model, moe_params) = families_train(torch)
+    phase(f"phase 3x: LM ReLeQ search on 3w's moonshot params ({FAM_EPISODES} episodes at "
+          f"episode_end, 2 retrain steps)")
+    fam_search = moe_search_phase(torch, moe_model, moe_params)
+    del moe_model, moe_params
+    torch.cuda.empty_cache()
+    phase("phase 4w: one QAT step of each family's narrow model, card against CPU")
+    fam_steps = families_step_card_vs_cpu(torch)
+    phase("phase 3y: train with --ckpt-dir, then serve from it")
+    fam_ckpt = train_then_serve(torch)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -4127,8 +4530,10 @@ def main() -> None:
     fqg, fqg_bwd = ({k: r[k] for k in keys} for r in rows
                     if r["kernel"] in ("fake_quant_group", "fake_quant_group_bwd")
                     and r["calls_per_forward"])
-    fqc, fqc_bwd = ({k: r[k] for k in keys} for r in rows
-                    if r["kernel"] in ("fake_quant_group_col", "fake_quant_group_col_bwd"))
+    fqc, fqc_bwd, fqb, fqb_bwd = ({k: r[k] for k in keys} for r in rows
+                                  if r["kernel"] in ("fake_quant_group_col",
+                                                     "fake_quant_group_col_bwd"))
+    moe_counts = fam[MOONSHOT_ARCH]["counts"]
     counts = {"fp KV": fp_runs["fp KV"]["counts"], "int4 KV": int4["counts"],
               "int8 KV": int8["counts"]}
     kernels = [
@@ -4228,6 +4633,15 @@ def main() -> None:
          "replaces": "src/repro/quant/wrpn.py:78",
          "launches": lm["counts"]["fake_quant_group_col_bwd"], "max_abs_err": fqc_err,
          **fqc_bwd},
+        {"name": "fake_quant_group_col_moonshot", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/fake_quant.py:33",
+         "launches": moe_counts["fake_quant_group_col"], "max_abs_err": fqc_err, **fqb},
+        {"name": "fake_quant_group_col_bwd_moonshot", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/quant/wrpn.py:78",
+         "launches": moe_counts["fake_quant_group_col_bwd"], "max_abs_err": fqc_err,
+         **fqb_bwd},
     ]
     serve = {label: {"metrics": {k: v for k, v in r["metrics"].items() if k != "requests"},
                      "requests": r["metrics"]["requests"], "counts": r["counts"],
@@ -4272,7 +4686,11 @@ def main() -> None:
                          "phases 3t / 3u / 3v; paged_attention_g1_hd128 / g7_hd128 / g1_hd64 "
                          "and paged_attention_quant_g7_hd128 (int8): 48 / 28 / 48 calls at "
                          "the served lengths 41-96; fused_qkv_paged_decode_g1 (int4): "
-                         "moonshot's 48 calls, launches from phase 3t's int4 turn",
+                         "moonshot's 48 calls, launches from phase 3t's int4 turn; "
+                         "fake_quant_group_col_moonshot / _bwd: one QAT forward / backward of "
+                         "the 3w moonshot cell's three expert banks (L 4, 64 experts, bf16, "
+                         "(L,) bits), launches from phase 3w's moonshot run (every leaf of a "
+                         "step in one launch each way)",
         "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
         "served_streams": streams,
         "danube": {"3n_diverged": danube["3n"]["diverged"], "static": danube["3n static"],
@@ -4287,6 +4705,7 @@ def main() -> None:
         "moe_vlm_audio": {"summaries": {c: r["summary"] for c, r in mva.items()},
                           "decode_breakdown_5t": mva["3t"]["breakdown"],
                           "streams_4t": mva_streams},
+        "families_train": {"3w": fam, "3x": fam_search, "4w": fam_steps, "3y": fam_ckpt},
         "total_s": time.perf_counter() - T_START}, indent=1, default=str))
     print(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi_line)

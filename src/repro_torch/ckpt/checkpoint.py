@@ -127,9 +127,22 @@ def _unflatten(node, leaves):
     return next(leaves)
 
 
-def restore(directory: str, step: int | None = None, device=None):
+def _leaf_ids(node) -> list[int]:
+    """The npz leaf indices of a subtree of plain leaves, in order."""
+    if "dict" in node:
+        return [i for v in node["dict"].values() for i in _leaf_ids(v)]
+    if "list" in node:
+        return [i for v in node["list"] for i in _leaf_ids(v)]
+    if "leaf" in node:
+        return [node["leaf"]]
+    raise ValueError(f"a restored subtree holds plain leaves only, not {sorted(node)}")
+
+
+def restore(directory: str, step: int | None = None, device=None, subtree: str | None = None):
     """-> (tree, meta, step), tensors on ``device`` (the card unless
-    ``device="cpu"``).  ``step=None`` loads the newest complete one."""
+    ``device="cpu"``).  ``step=None`` loads the newest complete one.
+    ``subtree`` names a top-level key (``"params"``): only its leaves are
+    read, and it is returned as the tree."""
     device = resolve_device(device)
     dirs = _step_dirs(directory)
     if not dirs:
@@ -143,7 +156,13 @@ def restore(directory: str, step: int | None = None, device=None):
         path = match[0]
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    node = manifest["tree"]
+    if subtree is None:
+        ids = range(manifest["num_leaves"])
+    else:
+        node = node["dict"][subtree]
+        ids = _leaf_ids(node)
     data = np.load(os.path.join(path, "leaves.npz"))
     leaves = iter([_from_numpy(data[f"leaf_{i}"], manifest["leaves"][i]["dtype"], device)
-                   for i in range(manifest["num_leaves"])])
-    return _unflatten(manifest["tree"], leaves), manifest["meta"], step
+                   for i in ids])
+    return _unflatten(node, leaves), manifest["meta"], step

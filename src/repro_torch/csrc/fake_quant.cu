@@ -487,12 +487,12 @@ struct ColLeaf {
     void* out;         // forward: the QDQ; backward: the gradient
     const void* g;     // backward: the incoming gradient
     float* scale;      // (L, N) f32: written by the forward, read by the backward
-    const int* bits;   // bits[l * bits_stride]
+    const int* bits;   // bits[bits_run ? l / bits_run : 0]
     int64_t K;
     int64_t tile0;     // first tile of this leaf
     int N;
     int tiles_n;       // column tiles per layer
-    int bits_stride;   // 1: one bitwidth per layer; 0: one for the leaf
+    int bits_run;      // flattened layers sharing a bitwidth; 0: one for the leaf
     int pad;
 };
 
@@ -617,7 +617,7 @@ fake_quant_col_kernel(const __grid_constant__ ColArgs a) {
         if (cluster.block_rank() == 0 && c.col0 + tid < N)
             L.scale[c.layer * N + c.col0 + tid] = s;
     }
-    const int bits = __ldg(L.bits + c.layer * L.bits_stride);
+    const int bits = __ldg(L.bits + (L.bits_run ? c.layer / L.bits_run : 0));
     const bool fp = bits >= FP_BITS;
     const int n = fp ? 1 : (bits >= 2 ? (1 << (bits - 1)) - 1 : 1);
     const bool tabled = !fp && n <= TABLE_N;
@@ -710,7 +710,7 @@ int launch_col(const ColArgs& a, int64_t tiles, int cluster, cudaStream_t st) {
 // Fills a launch's descriptors; -> tiles, or -1 on a bad argument.
 int64_t col_args(ColArgs& a, const void* const* ws, void* const* outs, const void* const* gs,
                  void* const* scales, const void* const* bits, const int64_t* dims,
-                 const int* bits_strides, int count, float eps, int dtype, int split) {
+                 const int* bits_runs, int count, float eps, int dtype, int split) {
     if (count < 1 || count > COL_MAX || split < 1 || split > MAX_CLUSTER ||
         (dtype != 0 && dtype != 1))
         return -1;
@@ -725,7 +725,7 @@ int64_t col_args(ColArgs& a, const void* const* ws, void* const* outs, const voi
         const int64_t tn = (N + tpc - 1) / tpc;
         a.t[i] = {ws[i], outs[i], gs ? gs[i] : nullptr, static_cast<float*>(scales[i]),
                   static_cast<const int*>(bits ? bits[i] : nullptr), K, tiles, (int)N,
-                  (int)tn, bits_strides ? bits_strides[i] : 0, 0};
+                  (int)tn, bits_runs ? bits_runs[i] : 0, 0};
         tiles += Lc * tn;
     }
     if (tiles * split > 0x7fffffff) return -1;
@@ -823,17 +823,19 @@ extern "C" void fake_quant_col_limits(int* out) {
 
 // Per-column grouped forward.  Leaf i: ws[i] and outs[i] hold dims[3i] x
 // dims[3i+1] x dims[3i+2] = (L, K, N) contiguous elements of one dtype
-// (0 = float32, 1 = bfloat16); bits[i]: int32, L of them (bits_strides[i]
-// = 1) or one (0); scales[i]: L x N float32, written.  count <= COL_MAX;
+// (0 = float32, 1 = bfloat16); bits[i]: int32, one per run of
+// bits_runs[i] layers (an expert bank's (L,) bits over L·E layers: run E;
+// one per layer: run 1) or one for the leaf (run 0); scales[i]: L x N
+// float32, written.  count <= COL_MAX;
 // split: the cluster's CTAs along K, 1 to MAX_CLUSTER.  Writes
-// outs[i][l, k, n] = qdq(ws[i][l, k, n], bits[i][l], s) with s =
+// outs[i][l, k, n] = qdq(ws[i][l, k, n], bits[i][l / run], s) with s =
 // scales[i][l, n] = max(max_k |ws[i][l, k, n]|, eps).
 extern "C" int fake_quant_col_launch(const void* const* ws, void* const* outs,
                                      void* const* scales, const void* const* bits,
-                                     const int64_t* dims, const int* bits_strides, int count,
+                                     const int64_t* dims, const int* bits_runs, int count,
                                      float eps, int dtype, int split, void* stream) {
     ColArgs a = {};
-    const int64_t tiles = col_args(a, ws, outs, nullptr, scales, bits, dims, bits_strides,
+    const int64_t tiles = col_args(a, ws, outs, nullptr, scales, bits, dims, bits_runs,
                                    count, eps, dtype, split);
     if (tiles < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);

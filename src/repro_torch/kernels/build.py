@@ -143,7 +143,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fake_quant_group_bwd_launch.restype = I
         lib.fake_quant_group_limits.argtypes = [P]
         lib.fake_quant_group_limits.restype = None
-        # ws, outs, scales, bits, dims, bits_strides (host arrays), count,
+        # ws, outs, scales, bits, dims, bits_runs (host arrays), count,
         # eps, dtype, split, stream
         lib.fake_quant_col_launch.argtypes = [P] * 6 + [I, F, I, I, P]
         lib.fake_quant_col_launch.restype = I

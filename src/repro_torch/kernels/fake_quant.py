@@ -282,17 +282,20 @@ def fake_quant_col_plan(shapes, dtype: torch.dtype) -> ColPlan:
 
 
 def _col_bits(bits, dims, dev):
-    """Each leaf's bits as int32 on ``dev`` -> (the tensors, their strides):
-    L values (stride 1) or one (stride 0)."""
-    out, strides = [], []
+    """Each leaf's bits as int32 on ``dev`` -> (the tensors, their runs):
+    one value for the leaf (run 0), or ``n`` values each shared by a run
+    of ``L / n`` flattened layers (an expert bank's ``(L,)`` bits over its
+    ``L·E`` layers: run E; one per layer: run 1)."""
+    out, runs = [], []
     for b, (L, _, _) in zip(bits, dims):
         if not isinstance(b, torch.Tensor) or b.device != dev or b.dtype != torch.int32:
             raise ValueError(f"per-column bits must be int32 tensors on {dev}")
-        if b.numel() not in (1, L):
-            raise ValueError(f"a leaf of {L} layers takes 1 or {L} bits, got {b.numel()}")
+        n = b.numel()
+        if n < 1 or L % n:
+            raise ValueError(f"a leaf of {L} layers takes 1 or a divisor of {L} bits, got {n}")
         out.append(b.contiguous())
-        strides.append(1 if b.numel() == L and L > 1 else 0)
-    return out, strides
+        runs.append(0 if n == 1 else L // n)
+    return out, runs
 
 
 def _dims(dims):
@@ -302,7 +305,8 @@ def _dims(dims):
 def fake_quant_group_col_cuda(ws, bits):
     """``ws``: contiguous leaves of one dtype (f32 or bf16) on one card, of
     2 or more dims; ``bits``: per leaf an int32 tensor on that card, one
-    value per layer of the leading dims or one for the leaf -> (the QDQ of
+    value for the leaf or one per run of flattened leading layers (one per
+    layer, or an expert bank's one per stacked layer) -> (the QDQ of
     each leaf at its per-column scales, the f32 scales of each leaf as
     ``(..., 1, N)``, launches made)."""
     dtype = _check("fake_quant_group_col_cuda", ws)
@@ -311,7 +315,7 @@ def fake_quant_group_col_cuda(ws, bits):
         raise ValueError(f"{len(ws)} leaves and {len(bits)} bits tensors")
     build.require_sm90(dev)
     plan = fake_quant_col_plan([w.shape for w in ws], dtype)
-    bits, strides = _col_bits(bits, plan.dims, dev)
+    bits, runs = _col_bits(bits, plan.dims, dev)
     outs = [torch.empty_like(w) for w in ws]
     scales = [torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32, device=dev)
               for w in ws]
@@ -321,7 +325,7 @@ def fake_quant_group_col_cuda(ws, bits):
         err = lib.fake_quant_col_launch(
             _pointers(ws[a:b]), _pointers(outs[a:b]), _pointers(scales[a:b]),
             _pointers(bits[a:b]), _dims(plan.dims[a:b]),
-            (ctypes.c_int * (b - a))(*strides[a:b]), b - a, _eps(dtype), _DTYPES[dtype],
+            (ctypes.c_int * (b - a))(*runs[a:b]), b - a, _eps(dtype), _DTYPES[dtype],
             plan.split, stream)
         build.check(err, f"fake_quant_col ({b - a} leaves, {dtype}, split {plan.split})")
     return outs, scales, len(plan.launches)

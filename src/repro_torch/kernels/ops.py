@@ -126,7 +126,8 @@ def fake_quant_group_col(ws, bits):
     """WRPN QDQ of every leaf of ``ws`` at its per-column scales
     ``max(max_k |w[..., k, n]|, eps)``, leaf i at ``bits[i]`` (an int32
     tensor on the leaves' device: one value per layer of the leading dims,
-    or one).  Returns (the QDQ leaves, the f32 scales as ``(..., 1, N)``).
+    one per stacked layer of an expert bank ``(L, E, K, N)``, or one;
+    ``kernels.ref.col_bits_view``).  Returns (the QDQ leaves, the f32 scales as ``(..., 1, N)``).
     On CUDA: one grouped launch (more only past ``COL_MAX`` leaves),
     counted per launch."""
     if _on_cuda(ws[0]):

@@ -7,6 +7,8 @@ the main path calls them when the tensors live on a card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.quant.pack import (kv_dequantize, kv_pack_int4, kv_quantize,
@@ -38,17 +40,31 @@ def fake_quant_group_bwd_ref(ws, gs, scales: torch.Tensor) -> list:
             for i, (w, g) in enumerate(zip(ws, gs))]
 
 
+def col_bits_view(w: torch.Tensor, b) -> torch.Tensor:
+    """A leaf's bits broadcast against it: one for the leaf, or ``n``
+    values over the ``Lf`` flattened leading layers (``n`` dividing
+    ``Lf``), each shared by a run of ``Lf / n`` of them.  An expert bank
+    ``(L, E, K, N)`` with ``(L,)`` bits is ``repro.quant.qat._qdq``'s
+    ``bits.reshape(bits.shape + (1,) * (leaf.ndim - bits.ndim))``."""
+    b = torch.as_tensor(b, dtype=torch.int32, device=w.device).reshape(-1)
+    lead = tuple(w.shape[:-2])
+    n, Lf = b.numel(), math.prod(lead)
+    if n == 1:
+        return b.reshape(())
+    if Lf % n:
+        raise ValueError(f"a leaf of {Lf} layers takes 1 or a divisor of {Lf} bits, got {n}")
+    return b[:, None].expand(n, Lf // n).reshape(lead + (1, 1))
+
+
 def fake_quant_group_col_ref(ws, bits):
     """Each leaf's per-column scale (``tensor_scale`` over dim ``ndim - 2``,
-    kept as ``(..., 1, N)``) and its QDQ at its bits (one per layer of the
-    leading dims, or one), leaf by leaf: ``repro.quant.qat._qdq``'s
-    forward -> (the QDQ leaves, the f32 scales)."""
+    kept as ``(..., 1, N)``) and its QDQ at its bits (:func:`col_bits_view`),
+    leaf by leaf: ``repro.quant.qat._qdq``'s forward -> (the QDQ leaves,
+    the f32 scales)."""
     outs, scales = [], []
     for w, b in zip(ws, bits):
         s = tensor_scale(w, axis=w.ndim - 2)
-        b = torch.as_tensor(b, dtype=torch.int32, device=w.device)
-        b = b.reshape(w.shape[:-2] + (1, 1)) if b.numel() > 1 else b.reshape(())
-        outs.append(_fake_quant(w, b, scale=s))
+        outs.append(_fake_quant(w, col_bits_view(w, b), scale=s))
         scales.append(s)
     return outs, scales
 

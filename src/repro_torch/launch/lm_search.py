@@ -1,6 +1,8 @@
-"""ReLeQ on a language model: search per-matrix bitwidths for a reduced
-glm4-family decoder with the QAT train/eval steps as the accuracy
-evaluator; the torch twin of ``examples/releq_lm_search.py``.
+"""ReLeQ on a language model: search per-matrix bitwidths for the reduced
+(smoke) config of ``--arch`` (glm4-9b by default; any family, the MoE's
+expert banks one group per stacked layer) with the QAT train/eval steps
+as the accuracy evaluator; the torch twin of
+``examples/releq_lm_search.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.lm_search --lockstep --device cpu
 

@@ -46,8 +46,11 @@ planes roll K tokens per window, one batched verify scores them).
 (implies ``--no-pipeline``); ``--no-pipeline`` keeps device sampling but
 syncs every step, as the reference's flags do.
 
-``--ckpt-dir``, a flag of the reference that this port does not have
-yet, is refused with the ROADMAP item that brings it.
+``--ckpt-dir DIR`` serves the ``params`` of the newest complete step
+that the port's trainer (``launch/train.py --ckpt-dir``) wrote to DIR,
+packed at the policy as freshly drawn params are.  Checkpoints that the
+JAX trainer wrote (a pickled treedef) are not read (ROADMAP.md queue 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import ckpt as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
@@ -65,11 +69,6 @@ from repro_torch.quant.qat import policy_for
 from repro_torch.serve import SamplingParams, ServeEngine
 from repro_torch.spec import SpecConfig
 from repro_torch.train.serve import make_decode_step, quantize_for_serving
-
-_UNPORTED = (  # (flag test, flag, ROADMAP item)
-    (lambda a: a.ckpt_dir, "--ckpt-dir", "slice D, item 10"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -139,21 +138,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    for unported, flag, item in _UNPORTED:
-        if unported(args):
-            ap.error(f"{flag} is not ported to repro_torch yet "
-                     f"(ROADMAP.md queue 1, {item})")
-    return args
+    return build_parser().parse_args(argv)
 
 
-def build(args):
-    """-> (cfg, model, serving params, policy).  The bf16 masters are
-    freed when this returns; only the packed weights stay."""
-    cfg = get_config(args.arch, smoke=args.smoke)
+def build(args, cfg=None):
+    """-> (cfg, model, serving params, policy) for ``cfg`` (else
+    ``--arch``/``--smoke``): random params (seed 0), or with
+    ``--ckpt-dir`` the ``params`` of the newest complete step the port's
+    trainer saved there, packed at the policy.  The bf16 masters are freed
+    when this returns; only the packed weights stay."""
+    cfg = cfg or get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
-    params = model.init(seed=0, device=args.device)
+    if args.ckpt_dir:
+        params, _, step = ckpt_lib.restore(args.ckpt_dir, device=args.device,
+                                           subtree="params")
+        print(f"restored step {step} from {args.ckpt_dir}")
+    else:
+        params = model.init(seed=0, device=args.device)
     if args.policy_json:
         policy = QuantPolicy.from_file(args.policy_json)
     else:

@@ -3,9 +3,13 @@ the torch twin of ``repro.launch.train``.
 
 Runs the fault-tolerant QAT training loop (``train/trainer.py``) on one
 card: every step QDQs every quantizable weight group at its policy bits
-(one grouped per-column fake-quant launch forward, one backward), then
-forward + backward + AdamW.  ``--smoke`` (the default) drives the reduced
-config; ``--no-smoke`` the published widths.  Runs on ``--device cuda``
+(one grouped per-column fake-quant launch forward, one backward; an
+expert bank's bits one per stacked layer), then forward + backward +
+AdamW.  ``--arch`` takes every family the port serves (dense, moe, vlm,
+audio, hybrid, ssm); ``--smoke`` (the default) drives the reduced
+config, ``--no-smoke`` the published widths.  ``--ckpt-dir`` saves the
+state every 50 steps and at the end; ``launch/serve.py --ckpt-dir``
+serves its params.  Runs on ``--device cuda``
 (default) and fails without a card; ``--device cpu`` takes the kernels'
 plain versions.  ``--mesh`` (sharded training, elastic restore) is not
 ported (ROADMAP.md queue 1, item 11).

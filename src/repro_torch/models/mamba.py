@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import apply_linear, dense_init
 
@@ -109,6 +110,16 @@ def _assoc_scan(elems):
     return [_interleave(e, o) for e, o in zip(even, odd)]
 
 
+def _chunk_step(h, dtc, xcc, Bc, Cc, A):
+    """One chunk of the selective scan from state ``h`` (B, Di, N) ->
+    (the chunk's last state, y (B, c, Di) f32)."""
+    decay = torch.exp(dtc[..., None] * A)                        # (B, c, Di, N)
+    u = (dtc * xcc.float())[..., None] * Bc[:, :, None, :]
+    acum, ucum = _assoc_scan([decay, u])
+    hs = acum * h[:, None] + ucum                                # (B, c, Di, N)
+    return hs[:, -1], torch.einsum("bcdn,bcn->bcd", hs, Cc)
+
+
 def mamba_forward(x: torch.Tensor, p: dict, *, chunk: int = 64,
                   return_state: bool = False, init_state: dict | None = None,
                   valid=None):
@@ -142,15 +153,17 @@ def mamba_forward(x: torch.Tensor, p: dict, *, chunk: int = 64,
                        for a in (xc, dt, Bm, Cm))
     h = (init_state["h"].float() if init_state is not None
          else torch.zeros((B, Di, N), dtype=torch.float32, device=x.device))
+    # under autograd each chunk is recomputed in the backward, as the
+    # reference's jax.checkpoint'ed chunk step: only the chunk boundaries'
+    # states are kept, not every level's (B, c, Di, N) terms
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xc, dt, Bm, Cm, A, h))
     ys = []
     for i in range(nc):
-        dtc = dts[:, i]
-        decay = torch.exp(dtc[..., None] * A)                    # (B, c, Di, N)
-        u = (dtc * xs[:, i].float())[..., None] * Bs[:, i][:, :, None, :]
-        acum, ucum = _assoc_scan([decay, u])
-        hs = acum * h[:, None] + ucum                            # (B, c, Di, N)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cs[:, i]))
-        h = hs[:, -1]
+        args = (h, dts[:, i], xs[:, i], Bs[:, i], Cs[:, i], A)
+        h, yc = (checkpoint(_chunk_step, *args, use_reentrant=False) if remat
+                 else _chunk_step(*args))
+        ys.append(yc)
     y = torch.cat(ys, dim=1)[:, :S]
     y = y + p["D_skip"] * xc.float()
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -6,6 +6,9 @@ sequence's (token, choice) pairs are sorted by expert (stably, so token
 order is the priority) and scattered into an (E, C, D) capacity buffer.
 Choices past an expert's capacity ``C`` are dropped (the residual carries
 them); serving passes ``no_drop`` and sizes ``C = S·k``, so nothing drops.
+Training (``TransformerLM.loss``) drops, and autograd carries the
+gradients through the selected gates of the stable sort, the dispatch's
+gather and scatter, the dense banks' einsums and the fixed-order combine.
 
 What differs from the reference, and why:
 
@@ -141,17 +144,23 @@ def _aux_loss(gates: torch.Tensor, idx_k: torch.Tensor, E: int, k: int) -> torch
     return E * torch.sum(me * ce)
 
 
+def capacity(S: int, k: int, E: int, capacity_factor: float, no_drop: bool = False) -> int:
+    """An expert's capacity over a sequence of S tokens: ``S·k`` under
+    ``no_drop``, else ``ceil(S·k·cf / E)``, then at least 8 and a multiple
+    of 8 (the reference's arithmetic)."""
+    C = S * k if no_drop else int(-(-S * k * capacity_factor // E))
+    return max(8, -(-C // 8) * 8)
+
+
 def moe_ffn(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float = 1.25,
             no_drop: bool = False):
-    """x (B, S, D) -> (output (B, S, D) in x's dtype, aux loss f32 0-d).
-    Capacity ``C = S·k`` under ``no_drop``, else ``ceil(S·k·cf / E)``,
-    then at least 8 and a multiple of 8 (the reference's arithmetic)."""
+    """x (B, S, D) -> (output (B, S, D) in x's dtype, aux loss f32 0-d),
+    each sequence's choices past :func:`capacity` dropped."""
     B, S, D = x.shape
     E = p["router"].shape[1]
     gates, gate_k, idx_k = _route(x, p["router"], k)
     aux = _aux_loss(gates, idx_k, E, k)
-    C = S * k if no_drop else int(-(-S * k * capacity_factor // E))
-    C = max(8, -(-C // 8) * 8)
+    C = capacity(S, k, E, capacity_factor, no_drop)
     bufe, meta = _dispatch(x, idx_k, E, C, k)
     y_e = _expert_ffn(bufe, p, x.dtype)
     y = _undispatch(y_e, gate_k, meta, S, k)

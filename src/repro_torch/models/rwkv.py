@@ -28,21 +28,25 @@ leaf in place (a captured step binds them by address); the chunk body
 row's first chunk (start 0) starts from zero state, whatever a previous
 occupant left there.
 
-Training (``loss``) is not ported yet.
+Training: ``loss`` is the reference's (nll + 1e-4 · z², aux 0), its
+backward through ``wkv6_chunked`` by autograd; ``forward`` takes the
+transformer's ``remat`` none / full / dots.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (apply_linear, dense_init, embed_init,
-                                       rms_norm)
+from repro_torch.models.common import (apply_linear, chunked_ce, dense_init,
+                                       embed_init, rms_norm)
 from repro_torch.models.model import QuantGroup
-from repro_torch.models.transformer import _index
+from repro_torch.models.transformer import _dots_policy, _index, _unstack
 from repro_torch.quant.pack import QDQ
 
 
@@ -244,12 +248,27 @@ class RWKV6LM:
     def forward(self, params, tokens=None, embeds=None, positions=None,
                 remat: str = "none", return_hidden: bool = False):
         """Teacher-forced forward -> (logits f32 | final hidden, aux 0).
-        No positions: RWKV has none.  ``remat`` is accepted for the
-        model protocol; this forward keeps every activation."""
+        No positions: RWKV has none.  ``remat`` as the transformer's:
+        ``"full"`` recomputes each layer in the backward, ``"dots"`` all
+        but its weight matmuls' outputs."""
         cfg = self.cfg
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be none, full or dots, got {remat!r}")
         h = embeds.to(self.dtype) if embeds is not None else self._embed(params, tokens)
-        for l in range(cfg.num_layers):
-            h, _ = self._layer(h, self._layer_slice(params, l))
+        kwargs = {}
+        if remat == "dots":
+            kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
+
+        def block(h, p):
+            return self._layer(h, p)[0]
+
+        blocks = params["blocks"]
+        layers = blocks if isinstance(blocks, list) else _unstack(blocks, cfg.num_layers)
+        for p in layers:
+            if remat == "none":
+                h = block(h, p)
+            else:
+                h = checkpoint(block, h, p, use_reentrant=False, **kwargs)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if return_hidden:
@@ -257,7 +276,14 @@ class RWKV6LM:
         return self._readout(params, h), aux
 
     def loss(self, params, batch, remat: str = "none"):
-        raise not_ported("training the ssm family (RWKV6LM.loss)", "slice C, item 9b")
+        """Mean next-token CE + 1e-4 * mean logz², the readout in
+        rematerialized sequence chunks (:func:`chunked_ce`).  Returns
+        (loss, {"nll", "aux"}), all 0-d f32 tensors on the device (``aux``
+        0: RWKV routes nothing)."""
+        h, aux = self.forward(params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                              remat=remat, return_hidden=True)
+        nll, z2 = chunked_ce(lambda hc: self._readout(params, hc), h, batch["labels"])
+        return nll + 1e-4 * z2, {"nll": nll, "aux": aux}
 
     # --------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None) -> dict:

@@ -2,9 +2,10 @@
 port of ``repro.models.transformer``).
 
 Ported: ``init`` (stacked training layout), the teacher-forced training
-``forward`` and ``loss`` (blocked flash attention with its manual
-backward, sequence-chunked cross-entropy, ``remat`` none / full / dots
-through ``torch.utils.checkpoint``), the paged serving path —
+``forward`` and ``loss`` of every family (blocked flash attention with
+its manual backward, sequence-chunked cross-entropy, the MoE aux loss,
+``remat`` none / full / dots through ``torch.utils.checkpoint``), the
+paged serving path —
 fixed-shape chunked prefill (``prefill_chunk`` over ``_chunk_body``),
 the speculative verifier (``verify_chunk``, the same body over every pool
 row) and the one-token ``decode_step`` over a ``PagedCachePool`` with fp
@@ -57,9 +58,6 @@ subtree per sub ``s``; the serving layout (``train.serve.
 quantize_for_serving``) holds a per-layer list there, with ``Packed``
 matrices (an expert bank's planes with a leading E axis) and a ``QDQ``
 embedding.
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-training every family but dense (``loss``).
 """
 from __future__ import annotations
 
@@ -71,7 +69,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import gather_dequant
@@ -468,9 +466,6 @@ class TransformerLM:
         readout in rematerialized sequence chunks (:func:`chunked_ce`), so
         the (tokens x vocab) f32 logits never materialize whole.  Returns
         (loss, {"nll", "aux"}), all 0-d f32 tensors on the device."""
-        if self.cfg.family != "dense":
-            raise not_ported(f"training the {self.cfg.family} family (TransformerLM.loss)",
-                             "slice C, item 9b")
         h, aux = self.forward(params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                               positions=batch.get("positions"), remat=remat,
                               return_hidden=True)

@@ -4,8 +4,11 @@ bitwidths as DATA (int32 tensors on the card), so a policy candidate
 changes no code path and no value leaves the device.
 
 Paths are string keys ``"blocks/0/attn/wq"``; leaves with a stacked layer
-axis get a per-layer bits vector.  :func:`quantize_params` quantizes every
-leaf of the bits map at its per-output-column scale in ONE grouped launch
+axis get a per-layer bits vector, an expert bank ``(L, E, K, N)`` too:
+its ``(L,)`` bits reach the kernel as they are, each shared by the E
+experts of its layer, as the reference's ``_qdq`` broadcasts them.
+:func:`quantize_params` quantizes every leaf of the bits map at its
+per-output-column scale in ONE grouped launch
 (``quant.wrpn.fake_quant_ste_group_col``), and its backward is one more.
 The reference's mesh branch (sharding annotations) has no counterpart on
 one card (ROADMAP queue 1, item 11).

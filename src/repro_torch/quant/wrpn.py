@@ -139,8 +139,9 @@ def fake_quant_ste_group_col(ws, bits) -> list:
     """fake_quant with a straight-through estimator for every leaf of
     ``ws`` (2 or more dims) at its per-column max|w| scales (reduced over
     dim ``ndim - 2``), leaf i at ``bits[i]``: an int or an int32 tensor on
-    the leaves' device, one value per layer of the leading dims or one.
-    Returns the QDQ leaves."""
+    the leaves' device, one value per layer of the leading dims, one per
+    stacked layer of an expert bank ``(L, E, K, N)`` (the reference's
+    ``(L,)`` bits), or one.  Returns the QDQ leaves."""
     if not ws:
         raise ValueError("fake_quant_ste_group_col needs one or more leaves")
     if len(bits) != len(ws):

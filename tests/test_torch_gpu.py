@@ -545,6 +545,56 @@ def test_lm_qat_step_launches_one_col_group_per_forward_and_backward(sm90):
     assert np.isfinite(float(m["loss"]))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_col_expert_banks_with_layer_bits_bitwise(sm90, dtype):
+    """Expert banks (L, E, K, N) with one bitwidth per stacked layer, shared
+    by its E experts (the reference's (L,) bits): moonshot's bank shapes at
+    2 layers, a ragged bank and leaves of one bit and of one per layer in
+    the same launch; forward, scales and STE bit for bit the plain
+    versions, one launch each way."""
+    gen = torch.Generator(device=sm90).manual_seed(23)
+    shapes = ((2, 64, 2048, 1408), (2, 64, 1408, 2048), (3, 5, 40, 24), (4, 17, 40),
+              (33, 9))
+    ws = [torch.randn(s, generator=gen, device=sm90).to(dtype) for s in shapes]
+    ws[2][1, 3, :, 7] = 0.0                     # an all-zero column in one expert
+    bits = [torch.tensor(b, dtype=torch.int32, device=sm90)
+            for b in ([2, 8], [5, 3], [1, 16, 32], [4, 6, 7, 2], 3)]
+    ops.reset_counts()
+    outs, scales = ops.fake_quant_group_col(ws, bits)
+    torch.cuda.synchronize()
+    for i, (w, b) in enumerate(zip(ws, bits)):
+        (want,), (want_s,) = tref.fake_quant_group_col_ref([w], [b])
+        assert _same_bits(scales[i], want_s), i
+        assert _same_bits(outs[i], want), (i, b.tolist())
+    gs = [torch.randn(s, generator=gen, device=sm90).to(dtype) for s in shapes]
+    grads = ops.fake_quant_group_col_bwd(ws, gs, scales)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(grads, ws)):
+        (want,) = tref.fake_quant_group_col_bwd_ref([w], [gs[i]], [scales[i]])
+        assert _same_bits(g, want), i
+    assert (ops.counts["fake_quant_group_col"], ops.counts["fake_quant_group_col_bwd"],
+            ops.counts["plain"]) == (1, 1, 0)
+    with pytest.raises(ValueError, match="divisor"):
+        ops.fake_quant_group_col([ws[2]], [torch.tensor([2, 3], dtype=torch.int32,
+                                                        device=sm90)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "hymba-1.5b"])
+def test_moe_and_hybrid_qat_step_card_vs_cpu(sm90, arch):
+    """chip_smoke.py's phase 4w for one family: a narrow model's QAT step
+    (f32, mixed bits) on the card against the CPU, within its stated
+    bounds; the MoE model drops choices at capacity."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    r = chip_smoke.family_step_card_vs_cpu(torch, arch)
+    assert r["failure"] is None, r
+    if arch.startswith("moonshot"):
+        assert r["drops"] > 0
+
+
 # ---- the bit-serial body: tensor cores (bf16 x), split-K with an in-launch
 # combine, its f32 SIMT route
 @pytest.mark.gpu

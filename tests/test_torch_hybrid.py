@@ -154,9 +154,18 @@ def test_forward_prefill_decode_match_reference(dtype):
 
 
 def test_loss_refused():
-    _, tm = models(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss({}, {})
+    """``loss``, refused until item 9b was ported, now trains the hybrid
+    family: loss, nll and aux on the reference's params (f32, no QAT)
+    within 1e-5 of the reference's (``tests/test_torch_train_families.py``
+    holds the gradients)."""
+    jm, tm = models(ARCH, dtype="float32")
+    jp = jm.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, 251, (2, 24)).astype(np.int32) for k in ("tokens", "labels")}
+    jl, jmet = jm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tmet = tm.loss(to_port(jp), {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert rel_err(tl.numpy(), jl) <= 1e-5 and rel_err(tmet["nll"].numpy(), jmet["nll"]) <= 1e-5
+    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
 
 
 def test_quant_groups_frozen_bits_and_serving_params_match_reference():

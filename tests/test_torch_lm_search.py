@@ -1,6 +1,8 @@
 """The LM ReLeQ search of repro_torch (``core.search.make_lm_env_factory``
 and the ``launch/lm_search.py`` twin of ``examples/releq_lm_search.py``)
-against the JAX package on the CPU, at the glm4-9b smoke size.
+against the JAX package on the CPU, at the glm4-9b smoke size, and over
+the moonshot-v1-16b-a3b smoke MoE (its banks' groups one per stacked
+layer, the std over a layer's (E, K, N) slice).
 
 Tolerances: the factory's ``compute`` (2 short-retrain steps of QAT at a
 mixed policy from transferred params, then the eval NLL ratio) within
@@ -23,7 +25,11 @@ from torch_parity import models, to_port
 
 @pytest.fixture(scope="module")
 def factories():
-    jm, tm = models(dtype="float32")
+    return _factories("glm4-9b")
+
+
+def _factories(arch):
+    jm, tm = models(arch, dtype="float32")
     jp = jm.init(jax.random.PRNGKey(0))
     kw = dict(seed=0, global_batch=2, seq_len=16, vocab=jm.cfg.vocab_size)
     jd, td = JData(**kw), SyntheticLMData(**kw)
@@ -32,8 +38,23 @@ def factories():
     return jm, jf, tf, jd, td
 
 
+@pytest.fixture(scope="module")
+def moe_factories():
+    return _factories("moonshot-v1-16b-a3b")
+
+
 def test_lm_env_factory_compute_matches_reference(factories):
-    jm, jf, tf, jd, td = factories
+    _compute_matches(*factories)
+
+
+def test_lm_env_factory_compute_matches_reference_moe(moe_factories):
+    jm = moe_factories[0]
+    banks = [g for g in jm.quant_groups() if ".moe." in g.name]
+    assert banks and all(g.layer is not None and len(g.shape) == 3 for g in banks)
+    _compute_matches(*moe_factories)
+
+
+def _compute_matches(jm, jf, tf, jd, td):
     names = [g.name for g in jm.quant_groups()]
     mixed = {n: (2, 3, 4, 5, 6, 7, 8)[i % 7] for i, n in enumerate(names)}
     mixed.update(jf(0).frozen)
@@ -65,10 +86,18 @@ def test_lm_env_evaluate_memoized(factories):
 
 
 def test_lm_search_launcher_lockstep_on_cpu():
+    _launcher_lockstep([])
+
+
+def test_lm_search_launcher_lockstep_on_cpu_moe():
+    _launcher_lockstep(["--arch", "moonshot-v1-16b-a3b"])
+
+
+def _launcher_lockstep(flags):
     from repro_torch.launch import lm_search
 
     out = lm_search.main(["--lockstep", "--device", "cpu", "--episodes", "2",
-                          "--pretrain-steps", "2"])
+                          "--pretrain-steps", "2", *flags])
     res, model = out["result"], out["model"]
     assert len(res.episodes) == 2
     assert set(res.best_bits) == {g.name for g in model.quant_groups()}

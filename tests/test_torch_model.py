@@ -126,9 +126,10 @@ def test_prefill_and_decode_logits_match_reference(dtype, packed):
 
 
 def test_unported_paths_raise():
-    """Every config builds (the moe, vlm and audio families since they
-    were ported); training any family but dense is refused in ``loss``
-    with its ROADMAP item."""
+    """Every config builds, and every family trains: ``loss`` (refused for
+    all but the dense family until item 9b was ported) gives a finite
+    loss and 0-d nll and aux tensors on each, aux > 0 only where experts
+    route."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.rwkv import RWKV6LM
@@ -137,11 +138,13 @@ def test_unported_paths_raise():
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
     for arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b", "qwen2-vl-7b",
-                 "musicgen-large"):
+                 "musicgen-large", "hymba-1.5b", "rwkv6-1.6b"):
         model = build_model(get_config(arch, smoke=True))
-        assert isinstance(model, TransformerLM)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
-            model.loss(None, batch)
+        assert isinstance(model, RWKV6LM if arch == "rwkv6-1.6b" else TransformerLM)
+        loss, met = model.loss(model.init(seed=0, device="cpu"), batch)
+        assert torch.isfinite(loss) and loss.ndim == 0, arch
+        assert set(met) == {"nll", "aux"} and all(v.ndim == 0 for v in met.values())
+        assert (float(met["aux"]) > 0) == bool(model.cfg.num_experts), arch
     maverick = build_model(get_config("llama4-maverick-400b-a17b", smoke=True))
     assert (maverick.n_sub, maverick.L_super) == (2, 2)
     # the sliding-window (ring) arch and both recurrent archs build

@@ -15,7 +15,8 @@ port against the JAX package.
   weights, prompts from ``--seed``) against the reference's static loop on
   the same prompts: equal greedy tokens, both archs.
 - The launcher runs ``--cache slot`` and ``--mode static`` end to end on
-  the CPU; ``--ckpt-dir`` is still refused; the engine refuses quantized
+  the CPU; ``--ckpt-dir`` serves a saved checkpoint's params (the static
+  loop's tokens bitwise those of the same params); the engine refuses quantized
   KV and spec on the slot pool, as the reference's does.
 """
 import jax
@@ -168,9 +169,22 @@ def test_launcher_runs_slot_and_static(extra, capsys):
         assert out["tokens"].shape == (4, 7) and "ms/token-step" in text
 
 
-def test_launcher_still_refuses_ckpt_dir():
-    with pytest.raises(SystemExit):
-        launcher.parse_args(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
+def test_launcher_still_refuses_ckpt_dir(tmp_path):
+    """``--ckpt-dir`` (refused until item 10's serving part was ported)
+    parses, refuses a directory with no checkpoint, and serves the static
+    loop from one the port's checkpoint writer made of seed-0 params: the
+    tokens of serving those params without it."""
+    from repro_torch import ckpt as ckpt_lib
+
+    args = launcher.parse_args(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
+    with pytest.raises(FileNotFoundError):
+        launcher.build(args)
+    _, tm = models("glm4-9b")
+    ckpt_lib.save(str(tmp_path), 7, {"params": tm.init(seed=0, device="cpu"), "opt": {}})
+    flags = ["--device", "cpu", "--mode", "static", "--batch", "2", "--gen", "4",
+             "--prompt-len", "8"]
+    restored = launcher.main(flags + ["--ckpt-dir", str(tmp_path)])
+    assert np.array_equal(restored["tokens"], launcher.main(flags)["tokens"])
 
 
 def test_slot_engine_refuses_quantized_kv_and_spec():
