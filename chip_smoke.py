@@ -161,7 +161,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    k. ``launch/lm_search.py --lockstep``'s path on j's params:
       ``make_lm_env_factory(finetune_steps=2)`` at ``episode_end``, 4
       episodes; fails unless the record is whole, every accuracy proxy is
-      finite and positive, and the memo's stats are there.
+      finite and positive, and the memo's stats are there;
+   z. the asynchronous autotune service (``repro_torch.autotune``) on j's
+      params: ``AutotuneService`` with ``EngineLatencyEvaluator`` (2
+      rows, 2 warm-up and 8 timed steps, the device synchronized before
+      each clock, CUDA events beside) and k's factory, 2 workers, 8
+      episodes, a PPO update every 2; prints episodes/s beside k's, every
+      s/step with the 8-bit reference, which is measured again; fails
+      unless the archive is non-empty, an all-2-bit candidate measures
+      below the 8-bit reference, the saved archive warm-starts a 2-episode
+      run and memory_allocated stays flat across candidates.  Then KV
+      groups (per-layer KV bits mixing 4 and 8, and uniform 4 in the
+      nibble-packed container: the fused decode must launch in both), two
+      ``DraftabilityEvaluator`` candidates and a spec engine drafting at
+      ``DraftSelector().policy`` off the archive; then ``deploy`` of the
+      knee into an 8-bit engine on path a's traffic (4 rows running, 4
+      queued): the drain, the held requests bitwise a fresh engine's at
+      the new weights, the prefix trie emptied by the swap's flush, the
+      decode graph captured again, the A/B gate bitwise; a second swap
+      (all 2 or all 8 bits) must change the live tokens.
    Four serve h2o-danube-3-4b at its published widths (24 layers,
    d_model 3840, 32 heads over 8 KV heads of 120 dims, d_ff 10240, vocab
    32000, a 4096-token sliding window), random weights from seed 0,
@@ -3118,6 +3136,287 @@ def profile_lm_step(torch, run, state, traced=2, cell="glm4-9b 4L"):
     return state, out
 
 
+# ---- the asynchronous autotune service at glm4-9b's widths (phase 3z) ------
+# 3j's params, 4 layers: the search's engine evaluator (2 rows, 2 warm-up and
+# 8 timed steps, the reference's defaults) and the 3k factory's 2-step
+# retrains, 2 workers; then KV groups, drafts and the deploy on 3a's traffic
+AUTOTUNE_EPISODES, AUTOTUNE_WARM_EPISODES = 8, 2
+MEM_SLACK = 64 * 2**20     # memory_allocated may not grow by more over the candidates
+
+
+def autotune_records(records, ref):
+    """One line per engine measurement: s/step on the host clock (device
+    synchronized) and by CUDA events, beside the 8-bit reference."""
+    for r in records:
+        print(f"    avg bits {r['avg_bits']:.3f}, kv {r.get('kv_bits')}: host "
+              f"{r['host_s'] * 1e3:.4f} ms/step, events {r['event_s'] * 1e3:.4f} ms "
+              f"(8-bit reference {ref * 1e3:.4f} ms)")
+
+
+def watch_memory(torch, ev, mem: list):
+    """Wrap ``ev._measure``: memory_allocated after each candidate engine
+    (dropped by then)."""
+    inner = ev._measure
+
+    def measured(bits):
+        out = inner(bits)
+        mem.append(torch.cuda.memory_allocated())
+        return out
+
+    ev._measure = measured
+
+
+def check_flat_memory(label, mem):
+    grow = max(mem) - mem[0]
+    print(f"{label} memory_allocated after the first candidate {mem[0] / 2**30:.3f} GiB, "
+          f"after the last {mem[-1] / 2**30:.3f} GiB ({len(mem)} candidates, largest rise "
+          f"{grow / 2**20:.1f} MiB; MiB over the first: "
+          f"{[round((m - mem[0]) / 2**20, 1) for m in mem]})")
+    if grow > MEM_SLACK:
+        fail(f"{label} memory grew by {grow / 2**20:.1f} MiB over {len(mem)} candidates")
+
+
+def autotune_search(torch, model, params, lockstep):
+    """Phase 3z, search: ``AutotuneService`` with ``EngineLatencyEvaluator``
+    and the LM accuracy evaluator on 3j's params; the 8-bit reference
+    measured again; an all-2-bit candidate; the saved archive warm-starts a
+    second run."""
+    from repro_torch.autotune import (AutotuneService, EngineLatencyEvaluator, ParetoArchive,
+                                      ServiceConfig)
+    from repro_torch.core.search import make_lm_env_factory
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+
+    data = SyntheticLMData(seed=2, global_batch=2, seq_len=4096, vocab=model.cfg.vocab_size)
+    factory = make_lm_env_factory(model, params, data, finetune_steps=2)
+    lat = EngineLatencyEvaluator(model, params)
+    mem: list = []
+    watch_memory(torch, lat, mem)
+    cfg = ServiceConfig(num_workers=2, batch_episodes=2, seed=0)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    svc = AutotuneService(factory, latency_eval=lat, config=cfg, device="cuda")
+    try:
+        res = svc.run(AUTOTUNE_EPISODES, log_every=2)
+    finally:
+        svc.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    s, arch = res.service_stats, svc.archive
+    lats = [e["latency"] for e in res.episodes]
+    if (len(res.episodes) != AUTOTUNE_EPISODES or not len(arch)
+            or not all(math.isfinite(x) and x > 0 for x in lats)):
+        fail(f"[autotune] {len(res.episodes)} episodes, archive {len(arch)}, latencies {lats}")
+    # the engine's 4-token prompts prefill in one 8-row chunk: the bit-serial body
+    need = ("qmm_bitserial", "paged_attention", "fake_quant_group_col",
+            "fake_quant_group_col_bwd")
+    if counts["plain"] or any(counts[k] <= 0 for k in need):
+        fail(f"[autotune] launch counts {counts}")
+    ref = lat._ref
+    print(f"[autotune] {AUTOTUNE_EPISODES} episodes in {wall:.1f} s: {s['episodes_per_s']:.4f} "
+          f"episodes/s (3k's lockstep in this call: {lockstep['episodes_per_s']:.4f}); "
+          f"{s['updates']} PPO updates, {s['stale_dropped']} stale dropped, cache hit rate "
+          f"{res.cache_stats['hit_rate']:.3f}, archive {len(arch)} of {arch.offered} offered; "
+          f"eval seconds (bucketed) p50 {svc.obs.get('autotune.eval_seconds').percentile(50):.2f}; "
+          f"counts {counts}")
+    autotune_records(lat.records, ref)
+
+    again = lat._measure({n: lat.frozen.get(n, 8) for n in lat.group_names})
+    spread = abs(again - ref) / ref
+    two = {n: lat.frozen.get(n, 2) for n in lat.group_names}
+    low, _ = lat(two)
+    print(f"[autotune] 8-bit reference again {again * 1e3:.4f} ms/step (first "
+          f"{ref * 1e3:.4f}, spread {spread:.4f}); all-2-bit {low * 1e3:.4f} ms/step "
+          f"(events {lat.records[-1]['event_s'] * 1e3:.4f})")
+    if not low < min(ref, again):
+        fail(f"[autotune] all-2-bit {low} s/step not below the 8-bit reference {ref}, {again}")
+
+    path = OUT_DIR / "autotune_archive.json"
+    OUT_DIR.mkdir(exist_ok=True)
+    arch.save(str(path))
+    warm = ParetoArchive.warm_start(str(path), arch.objectives)
+    if [e.key() for e in warm.entries()] != [e.key() for e in arch.entries()]:
+        fail("[autotune] the saved archive did not load back")
+    t0 = time.perf_counter()
+    svc2 = AutotuneService(factory, latency_eval=lat, archive=warm, config=cfg, device="cuda")
+    try:
+        res2 = svc2.run(AUTOTUNE_WARM_EPISODES)
+    finally:
+        svc2.shutdown()
+    warm_s = time.perf_counter() - t0
+    if len(res2.episodes) != AUTOTUNE_WARM_EPISODES or warm.offered < len(arch) + 2:
+        fail(f"[autotune] warm start: {len(res2.episodes)} episodes, {warm.offered} offers")
+    print(f"[autotune] warm start from {len(arch)} entries: {AUTOTUNE_WARM_EPISODES} episodes "
+          f"in {warm_s:.1f} s, archive {len(warm)}; cache {res2.cache_stats}")
+    check_flat_memory("[autotune]", mem)
+    return warm, {
+        "episodes": AUTOTUNE_EPISODES, "wall_s": wall, "episodes_per_s": s["episodes_per_s"],
+        "lockstep_episodes_per_s": lockstep["episodes_per_s"], "updates": s["updates"],
+        "stale_dropped": s["stale_dropped"], "cache": res.cache_stats,
+        "archive_size": len(arch), "archive_offered": arch.offered,
+        "records": lat.records, "ref_s": ref, "ref_again_s": again, "ref_spread": spread,
+        "all2_s": low, "warm_s": warm_s, "warm_archive": len(warm), "memory": mem,
+        "counts": counts, "staleness": svc.obs.get("autotune.staleness").snapshot(),
+        "episodes_record": res.episodes}
+
+
+def autotune_kv_and_drafts(torch, model, params, archive):
+    """Phase 3z, KV groups and drafts: ``EngineLatencyEvaluator(kv_quant=
+    True)`` at per-layer KV bits mixing 4 and 8 and at uniform 4 (the
+    nibble-packed container), row 4 launched in both; two
+    ``DraftabilityEvaluator`` candidates; a spec engine whose draft is
+    ``DraftSelector().policy`` off the search's archive."""
+    from repro_torch.autotune import DraftabilityEvaluator, EngineLatencyEvaluator
+    from repro_torch.kernels import ops
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.serve import ServeEngine
+    from repro_torch.spec import DraftSelector, SpecConfig
+    from repro_torch.train.serve import quantize_for_serving
+
+    import numpy as np
+
+    out = {}
+    ev = EngineLatencyEvaluator(model, params, kv_quant=True)
+    mem_kv: list = []
+    watch_memory(torch, ev, mem_kv)
+    pools = []
+    real = ServeEngine.from_params
+
+    def spy(*a, **k):
+        eng = real(*a, **k)
+        pools.append(str(eng.pool.cache["k"].dtype))
+        return eng
+
+    ServeEngine.from_params = staticmethod(spy)
+    try:
+        ref, _ = ev({n: ev.frozen.get(n, 8) for n in ev.group_names})
+        L = model.cfg.num_layers
+        for label, kv in (("kv mixed 4/8", [4 if l % 2 else 8 for l in range(L)]),
+                          ("kv uniform 4", [4] * L)):
+            bits = {**{n: ev.frozen.get(n, 4) for n in ev.weight_group_names},
+                    **dict(zip(ev.kv_group_names, kv))}
+            ops.reset_counts()
+            lat, _ = ev(bits)
+            counts = dict(ops.counts)
+            if counts["fused_qkv_paged_decode"] <= 0 or counts["plain"]:
+                fail(f"[autotune {label}] row 4 did not launch: {counts}")
+            out[label] = {"kv_bits": kv, "s_per_step": lat, "ref_s": ref, "counts": counts,
+                          "pool": pools[-1], "record": ev.records[-1]}
+            print(f"[autotune {label}] {lat * 1e3:.4f} ms/step (int8 KV 8-bit reference "
+                  f"{ref * 1e3:.4f}); pool {pools[-1]}; fused_qkv_paged_decode launches "
+                  f"{counts['fused_qkv_paged_decode']}; counts {counts}")
+    finally:
+        ServeEngine.from_params = real
+    if pools[-1] != "torch.uint8" or pools[-2] != "torch.int8":
+        fail(f"[autotune kv] pool containers {pools}: uniform 4 must be nibble-packed uint8")
+    autotune_records(ev.records, ref)
+
+    check_flat_memory("[autotune kv]", mem_kv)
+    dv = DraftabilityEvaluator(model, params)
+    mem_dv: list = []   # the 8-bit target is packed at the first candidate and kept
+    watch_memory(torch, dv, mem_dv)
+    names = dv.group_names
+    for label, rule in (("draft all-2", lambda i: 2), ("draft 2/4", lambda i: 2 + 2 * (i % 2))):
+        lat, dref = dv({n: dv.frozen.get(n, rule(i)) for i, n in enumerate(names)})
+        out[label] = {"s_per_token": lat, "ref_s": dref, "record": dv.records[-1]}
+        print(f"[autotune {label}] {lat * 1e3:.4f} ms per emitted token (8-bit draft "
+              f"{dref * 1e3:.4f}), {dv.records[-1]['emitted']} tokens timed")
+    autotune_records(dv.records, dv._ref)
+
+    policy = DraftSelector(acc_floor=0.0).policy(model, archive)
+    sp8 = quantize_for_serving(model, params, policy_for(model, 8), device="cuda")
+    eng = ServeEngine(model, sp8, num_slots=2, max_len=64, block_size=16, prefill_chunk=16,
+                      device="cuda", spec=SpecConfig(k=4, draft_policy=policy))
+    rng = np.random.default_rng(7)
+    ids = [eng.submit(rng.integers(0, model.cfg.vocab_size, 12), 24) for _ in range(3)]
+    eng.run_until_drained()
+    m = eng.metrics()
+    if m["spec"]["windows"] <= 0 or any(len(eng.output(i)) != 24 for i in ids):
+        fail(f"[autotune spec] {m['spec']}")
+    out["spec draft_policy"] = {"avg_bits": policy.average_bits(), "spec": m["spec"],
+                                "graph_captures": eng.graph_captures}
+    print(f"[autotune spec] draft policy off the archive (avg {policy.average_bits():.2f} "
+          f"bits): {m['spec']}; captures {eng.graph_captures}")
+    del eng, sp8
+    check_flat_memory("[autotune drafts]", mem_dv)
+    return out
+
+
+def autotune_deploy(torch, model, params, archive):
+    """Phase 3z, deploy: an 8-bit engine serving 3a's traffic shape (4 rows
+    running, 4 queued) takes ``deploy(select="knee")``: the drain, the
+    held queue run on the new weights alone, the prefix cache flushed, the
+    graphed step captured again, the A/B gate bitwise; then a policy whose
+    streams must differ is swapped in, and the live tokens change."""
+    import numpy as np
+
+    from repro_torch.autotune import ab_parity_check, compile_policy, deploy, hot_swap
+    from repro_torch.launch import serve as launcher
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.serve import ServeEngine
+
+    args = launcher.parse_args(["--device", "cuda", "--no-smoke", *CELL])
+    work = launcher.synthetic_workload(args, model.cfg.vocab_size)
+    kw = dict(num_slots=args.num_slots, max_len=args.prompt_len + args.gen + 1,
+              block_size=args.block_size, prefill_chunk=args.prefill_chunk, device="cuda")
+    eng = ServeEngine.from_params(model, params, policy_for(model, 8), **kw)
+    ids = [eng.submit(p, n) for p, n in work]
+    while eng.num_running < args.num_slots:
+        eng.step()
+    eng.step()
+    running, queued = eng.num_running, eng.num_queued
+    if running != args.num_slots or queued != len(work) - args.num_slots:
+        fail(f"[autotune deploy] {running} running, {queued} queued before the swap")
+    captures0 = dict(eng.graph_captures)
+    flushed = []   # the trie's cached blocks before and after the swap's flush
+    flush = eng.pool.flush_prefix_cache
+
+    def watched_flush():
+        before = eng.pool.prefix_cached_blocks
+        flush()
+        flushed.append((before, eng.pool.prefix_cached_blocks))
+
+    eng.pool.flush_prefix_cache = watched_flush
+    prompts = [p for p, _ in work[:2]]
+    t0 = time.perf_counter()
+    policy, report = deploy(archive, model, params, eng, select="knee",
+                            parity_prompts=prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    m = eng.metrics()
+    fresh = ServeEngine(model, eng.sparams, **kw)
+    qids = [fresh.submit(p, n) for p, n in work[args.num_slots:]]
+    fresh.run_until_drained()
+    held = [eng.output(i) for i in ids[args.num_slots:]] == [fresh.output(i) for i in qids]
+    print(f"[autotune deploy] knee (avg {policy.average_bits():.3f} bits) in {deploy_s:.1f} s: "
+          f"drained in {report['drained_steps']} steps, prefix cache blocks (before, after) "
+          f"the flush {flushed}, recompiles {m['recompiles']}, captures "
+          f"{captures0} -> {eng.graph_captures}; A/B gate match {report['parity']['match']}; "
+          f"held requests equal a fresh engine's {held}")
+    if not (report["drained_steps"] >= 1 and len(flushed) == 1 and flushed[0][0] > 0
+            and flushed[0][1] == 0 and m["recompiles"] >= 1
+            and report["parity"]["match"] and held):
+        fail(f"[autotune deploy] {({k: v for k, v in report.items() if k != 'parity'})}, "
+             f"recompiles {m['recompiles']}, held {held}")
+    knee_live = report["parity"]["outputs"]["live"]
+    other = 8 if policy.average_bits() < 5 else 2
+    hot_swap(eng, compile_policy(model, params, policy_for(model, other)))
+    gate = ab_parity_check(eng, model, eng.sparams, prompts, 16)
+    changed = gate["outputs"]["live"] != knee_live
+    print(f"[autotune deploy] then {other} bits everywhere: gate {gate['match']}, live tokens "
+          f"changed {changed}, recompiles {eng.metrics()['recompiles']}")
+    if not (gate["match"] and changed):
+        fail(f"[autotune deploy] second swap: gate {gate['match']}, tokens changed {changed}")
+    if eng.metrics()["recompiles"] <= m["recompiles"]:
+        fail("[autotune deploy] the second swap did not capture the decode step again")
+    return {"avg_bits": policy.average_bits(), "deploy_s": deploy_s, "flushed": flushed,
+            "report": {k: v for k, v in report.items() if k != "parity"},
+            "parity": report["parity"]["match"], "held_equal": held,
+            "recompiles": eng.metrics()["recompiles"], "second_swap_bits": other,
+            "second_swap_changed": changed}
+
+
 # ---- h2o-danube-3-4b: ring pools at head dim 120 (phases 3l, 3m, 3n, 4l) -----
 DANUBE_ARCH = "h2o-danube-3-4b"
 
@@ -4426,7 +4725,16 @@ def main() -> None:
     phase(f"phase 3k: LM ReLeQ search on 3j's params ({LM_EPISODES} episodes at episode_end, "
           f"2 retrain steps)")
     lm["search"] = lm_search_phase(torch, lm_model, lm_params)
-    del lm_model, lm_params
+    torch.cuda.empty_cache()
+    phase(f"phase 3z: the asynchronous autotune service on 3j's params ({AUTOTUNE_EPISODES} "
+          f"episodes, engine-measured latency, 2 workers)")
+    archive, lm["autotune"] = autotune_search(torch, lm_model, lm_params, lm["search"])
+    phase("phase 3z, KV groups and drafts: kv_quant measurements, draftability, a spec "
+          "engine's draft off the archive")
+    lm["autotune"]["kv_drafts"] = autotune_kv_and_drafts(torch, lm_model, lm_params, archive)
+    phase("phase 3z, deploy: hot-swap the knee into an engine serving 3a's traffic, A/B gate")
+    lm["autotune"]["deploy"] = autotune_deploy(torch, lm_model, lm_params, archive)
+    del lm_model, lm_params, archive
     torch.cuda.empty_cache()
     phase("phase 4j: one LM QAT step, card against CPU")
     lm["card_vs_cpu"] = lm_step_card_vs_cpu(torch)

@@ -55,6 +55,19 @@ def latest_step(directory: str) -> int | None:
     return dirs[-1][0] if dirs else None
 
 
+def step_path(directory: str, step: int | None = None) -> tuple[int, str]:
+    """-> (step, its directory): the newest complete one for ``step=None``."""
+    dirs = _step_dirs(directory)
+    if not dirs:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    if step is None:
+        return dirs[-1]
+    match = [p for s, p in dirs if s == step]
+    if not match:
+        raise FileNotFoundError(f"step {step} not in {directory}")
+    return step, match[0]
+
+
 def _flatten(tree, leaves: list):
     """-> the JSON tree node; appends the tensors to ``leaves``."""
     if isinstance(tree, dict):
@@ -144,16 +157,7 @@ def restore(directory: str, step: int | None = None, device=None, subtree: str |
     ``subtree`` names a top-level key (``"params"``): only its leaves are
     read, and it is returned as the tree."""
     device = resolve_device(device)
-    dirs = _step_dirs(directory)
-    if not dirs:
-        raise FileNotFoundError(f"no checkpoints under {directory}")
-    if step is None:
-        step, path = dirs[-1]
-    else:
-        match = [p for s, p in dirs if s == step]
-        if not match:
-            raise FileNotFoundError(f"step {step} not in {directory}")
-        path = match[0]
+    step, path = step_path(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     node = manifest["tree"]

@@ -24,6 +24,9 @@ embedding gets its quantize-dequantize value computed once, as
 """
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
 
@@ -84,3 +87,68 @@ def agent_params_from_numpy(tree, device=None):
     device = resolve_device(device)
     return {k: {n: tensor_from_numpy(a, device) for n, a in p.items()}
             for k, p in tree.items()}
+
+
+def _jax_order(tree, path=()):
+    """(path, tensor) of a params tree in ``jax.tree`` flatten order:
+    dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_order(tree[k], (*path, k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _jax_order(v, (*path, str(i)))
+    else:
+        yield path, tree
+
+
+def is_jax_checkpoint(path: str) -> bool:
+    """A step directory the reference's ``repro.ckpt.save`` wrote."""
+    return os.path.exists(os.path.join(path, "treedef.pkl"))
+
+
+def params_from_jax_checkpoint(directory: str, model, step: int | None = None,
+                               device=None):
+    """-> (params, meta, step): the training-layout params of a checkpoint
+    that the reference's trainer saved under ``directory`` (the newest
+    complete step for ``step=None``), on ``device`` (the card unless
+    ``device="cpu"``).
+
+    The model's own ``init`` gives the template; its leaves, in
+    ``jax.tree`` order, are matched to the checkpoint's last leaves, each
+    shape and dtype checked against the manifest (a mismatch raises and
+    names the leaf), and overwritten in place.  bfloat16 and float8
+    leaves, which the reference stores as raw void bytes, are viewed as
+    their bits and then as the torch dtype, exactly.  The pickled treedef
+    is never read."""
+    from repro_torch.ckpt.checkpoint import step_path
+
+    device = resolve_device(device)
+    step, path = step_path(directory, step)
+    if not is_jax_checkpoint(path):
+        raise ValueError(f"{path} was not written by the reference's repro.ckpt")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    params = model.init(seed=0, device=device)
+    leaves = list(_jax_order(params))
+    first = manifest["num_leaves"] - len(leaves)
+    if first < 0:
+        raise ValueError(f"{path} holds {manifest['num_leaves']} leaves, fewer than the "
+                         f"model's {len(leaves)} parameters")
+    with np.load(os.path.join(path, "leaves.npz")) as data:
+        for i, (name, leaf) in enumerate(leaves, start=first):
+            want = manifest["leaves"][i]
+            dtype = str(leaf.dtype).removeprefix("torch.")
+            if tuple(want["shape"]) != tuple(leaf.shape) or want["dtype"] != dtype:
+                raise ValueError(
+                    f"leaf {'/'.join(name)} (checkpoint leaf {i}): the checkpoint holds "
+                    f"{tuple(want['shape'])} {want['dtype']}, the model's template "
+                    f"{tuple(leaf.shape)} {dtype}")
+            arr = data[f"leaf_{i}"]
+            if arr.dtype.kind == "V":   # bfloat16 / float8 as raw bytes
+                raw = np.ascontiguousarray(arr).view({2: np.int16, 1: np.uint8}[arr.itemsize])
+                src = torch.from_numpy(raw).view(leaf.dtype)
+            else:
+                src = torch.from_numpy(np.ascontiguousarray(arr))
+            leaf.copy_(src)
+    return params, manifest["meta"], step

@@ -14,15 +14,21 @@ Hardware models (paper §4.4-4.5):
   energy adds the memory term.  Analytic estimates of Fig 9 / Table 4.
 - **tvm_cpu**: bit-serial vector ops on CPU — same bits-proportional
   compute law (activations stay 8-bit), Fig 8.
-
-The reference's serving model (``tpu_decode_time`` and its rate
-constants) is not copied: ROADMAP.md queue 1, slice D.
+- **decode roofline** (:func:`weight_stream_decode_time`): the
+  reference's serving model (its ``tpu_decode_time``) with the rates as
+  arguments, defaulting to one NVIDIA H100 SXM's data-sheet rates.  Decode
+  is weight-traffic-bound, so time ~ max(flops / peak, bytes(bits) / bw)
+  per layer, and the speedup over 8 bits comes from bitplane packing.
 """
 from __future__ import annotations
 
 import numpy as np
 
 E_MEM_OVER_E_MAC = 120.0
+
+# NVIDIA H100 80GB SXM, 700 W (data sheet, dense rates)
+H100_PEAK_FLOPS = 989e12      # bf16 tensor cores
+H100_HBM_BW = 3.35e12         # bytes/s
 
 
 def _weights(groups):
@@ -56,6 +62,22 @@ def stripes_energy(bits, groups, e_ratio: float = E_MEM_OVER_E_MAC) -> float:
 def tvm_cpu_time(bits, groups, act_bits: int = 8) -> float:
     """Bit-serial popcount GEMM: ops ∝ weight_bits × act_bits."""
     return float(np.sum(_macs(groups) * np.asarray(bits, np.float64) * act_bits))
+
+
+def weight_stream_decode_time(bits, groups, batch: int = 1,
+                              peak=H100_PEAK_FLOPS, bw=H100_HBM_BW) -> float:
+    """Per-token decode latency estimate: per-layer max(compute, weight
+    traffic), the reference's ``tpu_decode_time`` formula at ``peak``
+    flop/s and ``bw`` bytes/s.
+
+    Weight bytes stream at bits/8 per weight (bitplane packing); compute is
+    2·n_w·batch flops at bf16.
+    """
+    b = np.asarray(bits, np.float64)
+    w = _weights(groups)
+    t_comp = 2.0 * w * batch / peak
+    t_mem = (w * b / 8.0) / bw
+    return float(np.sum(np.maximum(t_comp, t_mem)))
 
 
 def speedup_vs_8bit(time_fn, bits, groups, **kw) -> float:

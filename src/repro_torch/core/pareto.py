@@ -7,8 +7,10 @@ rel-accuracy) per point, extract the Pareto frontier, and check where the
 ReLeQ solution lands: the paper's check that the agent finds the desired
 region of the frontier.
 
-:func:`as_archive`, which lifts the points into ``autotune.archive``'s
-``ParetoArchive``, waits for that module (ROADMAP.md queue 1, item 10).
+:func:`as_archive` lifts an enumerated space into a
+:class:`~repro_torch.autotune.archive.ParetoArchive`, whose 2-objective
+frontier equals :func:`pareto_frontier`, with dominance-pruned insertion,
+a third latency objective, JSON checkpoints and warm-start on top.
 """
 from __future__ import annotations
 
@@ -52,11 +54,10 @@ def pareto_frontier(points):
 
 
 def as_archive(points, latency_fn=None):
-    """Enumerated points -> an ``autotune`` Pareto archive (not ported)."""
-    from repro_torch import not_ported
+    """Enumerated points -> a ``repro_torch.autotune`` Pareto archive (oracle)."""
+    from repro_torch.autotune.archive import ParetoArchive
 
-    raise not_ported("core.pareto.as_archive (autotune.archive.ParetoArchive)",
-                     "slice D, item 10")
+    return ParetoArchive.from_enumeration(points, latency_fn=latency_fn)
 
 
 def distance_to_frontier(point, frontier) -> float:

@@ -32,6 +32,7 @@ class SearchResult:
     episodes: list = field(default_factory=list)   # per-episode records
     prob_evolution: list = field(default_factory=list)  # (episode, T, A)
     cache_stats: dict = field(default_factory=dict)  # evaluate() memo hit-rate
+    service_stats: dict = field(default_factory=dict)  # async-run throughput
 
     def average_bits(self, searchable_only=None) -> float:
         """Mean bitwidth over ``searchable_only`` (None -> every group).

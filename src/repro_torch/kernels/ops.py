@@ -12,7 +12,9 @@ show that the main path went through the kernels.  A wrapper called while
 a CUDA graph is captured launches nothing then: the captured callables
 (``train.serve``) take those ticks back and add them again at every
 replay (:func:`add_counts`), so a count is kernel launches, graphed or
-not.
+not.  Every bump takes a lock and also lands in the bumping thread's
+:func:`recording` blocks, so a capture in one thread takes back its own
+ticks and no launch another thread makes meanwhile.
 
 These wrappers own the shape normalisation the kernels do not: batch
 dims are flattened to rows and restored after.  Ragged edges (N or K not
@@ -36,7 +38,9 @@ op always launches it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -48,15 +52,41 @@ counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
           "fake_quant_group_col_bwd": 0, "plain": 0}
 
 
+_lock = threading.Lock()
+_local = threading.local()
+
+
 def reset_counts() -> None:
-    for key in counts:
-        counts[key] = 0
+    with _lock:
+        for key in counts:
+            counts[key] = 0
+
+
+def _bump(key: str, n: int = 1) -> None:
+    with _lock:
+        counts[key] += n
+    for rec in getattr(_local, "recorders", ()):
+        rec[key] = rec.get(key, 0) + n
 
 
 def add_counts(delta: dict, times: int = 1) -> None:
     """Add ``times`` x ``delta`` (key -> launches) to ``counts``."""
     for key, n in delta.items():
-        counts[key] += times * n
+        _bump(key, times * n)
+
+
+@contextlib.contextmanager
+def recording():
+    """-> a dict that collects the counts THIS thread bumps inside the
+    block (nested blocks each collect), whatever other threads launch
+    meanwhile."""
+    rec: dict = {}
+    stack = getattr(_local, "recorders", ())
+    _local.recorders = (*stack, rec)
+    try:
+        yield rec
+    finally:
+        _local.recorders = stack
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -85,10 +115,10 @@ def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None) -> torc
         from repro_torch.kernels.fake_quant import fake_quant_cuda
 
         out = fake_quant_cuda(w2.contiguous(), bits, scale)
-        counts["fake_quant"] += 1
+        _bump("fake_quant")
     else:
         out = kref.fake_quant_ref(w2, bits, scale)
-        counts["plain"] += 1
+        _bump("plain")
     return out.reshape(shape)
 
 
@@ -102,9 +132,9 @@ def fake_quant_group(ws, bits):
         from repro_torch.kernels.fake_quant import fake_quant_group_cuda
 
         outs, scales, launches = fake_quant_group_cuda([w.contiguous() for w in ws], bits)
-        counts["fake_quant_group"] += launches
+        _bump("fake_quant_group", launches)
         return outs, scales
-    counts["plain"] += 1
+    _bump("plain")
     return kref.fake_quant_group_ref(ws, bits)
 
 
@@ -116,9 +146,9 @@ def fake_quant_group_bwd(ws, gs, scales: torch.Tensor) -> list:
 
         grads, launches = fake_quant_group_bwd_cuda([w.contiguous() for w in ws],
                                                     [g.contiguous() for g in gs], scales)
-        counts["fake_quant_group_bwd"] += launches
+        _bump("fake_quant_group_bwd", launches)
         return grads
-    counts["plain"] += 1
+    _bump("plain")
     return kref.fake_quant_group_bwd_ref(ws, gs, scales)
 
 
@@ -134,9 +164,9 @@ def fake_quant_group_col(ws, bits):
         from repro_torch.kernels.fake_quant import fake_quant_group_col_cuda
 
         outs, scales, launches = fake_quant_group_col_cuda([w.contiguous() for w in ws], bits)
-        counts["fake_quant_group_col"] += launches
+        _bump("fake_quant_group_col", launches)
         return outs, scales
-    counts["plain"] += 1
+    _bump("plain")
     return kref.fake_quant_group_col_ref(ws, bits)
 
 
@@ -148,9 +178,9 @@ def fake_quant_group_col_bwd(ws, gs, scales) -> list:
 
         grads, launches = fake_quant_group_col_bwd_cuda(
             [w.contiguous() for w in ws], [g.contiguous() for g in gs], scales)
-        counts["fake_quant_group_col_bwd"] += launches
+        _bump("fake_quant_group_col_bwd", launches)
         return grads
-    counts["plain"] += 1
+    _bump("plain")
     return kref.fake_quant_group_col_bwd_ref(ws, gs, scales)
 
 
@@ -177,10 +207,10 @@ def qmm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
         from repro_torch.kernels.qmm import qmm_cuda
 
         out = qmm_cuda(x2.contiguous(), packed, scale.reshape(1, N), bits, path)
-        counts["qmm_" + path] += 1
+        _bump("qmm_" + path)
     else:
         out = kref.qmm_ref(x2, packed, scale, bits)
-        counts["plain"] += 1
+        _bump("plain")
     return out.to(out_dtype).reshape(*batch, N)
 
 
@@ -209,7 +239,7 @@ def paged_attention(
 
             out = paged_attention_quant_cuda(q4.contiguous(), k_pool, v_pool, k_scale,
                                              v_scale, block_tables, lengths)
-            counts["paged_attention_quant"] += 1
+            _bump("paged_attention_quant")
         else:
             from repro_torch.kernels.paged_attention import paged_attention_cuda
 
@@ -217,9 +247,9 @@ def paged_attention(
                 q4 = q4.float()
             out = paged_attention_cuda(q4.contiguous(), k_pool, v_pool,
                                        block_tables, lengths)
-            counts["paged_attention"] += 1
+            _bump("paged_attention")
         return out.reshape(B, 1, H, hd).to(q.dtype)
-    counts["plain"] += 1
+    _bump("plain")
     if quantized:
         out = kref.quant_paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
                                              block_tables, lengths)
@@ -261,9 +291,9 @@ def fused_qkv_paged_decode(
         out, kc, vc, ks, vs = fused_qkv_paged_decode_cuda(
             x.contiguous(), wq, wk, wv, k_pool, v_pool, k_scale, v_scale,
             block_tables, lengths, cos, sin, qmax, H)
-        counts["fused_qkv_paged_decode"] += 1
+        _bump("fused_qkv_paged_decode")
         return out.reshape(B, 1, H, hd).to(x.dtype), kc, vc, ks, vs
-    counts["plain"] += 1
+    _bump("plain")
     out, kc, vc, ks, vs = kref.fused_qkv_paged_decode_ref(
         x, wq, wk, wv, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
         cos, sin, qmax, H, KV)

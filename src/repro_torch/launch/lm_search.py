@@ -4,14 +4,18 @@ expert banks one group per stacked layer) with the QAT train/eval steps
 as the accuracy evaluator; the torch twin of
 ``examples/releq_lm_search.py``.
 
-    PYTHONPATH=src python -m repro_torch.launch.lm_search --lockstep --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.lm_search --device cpu
 
+By default, as the reference's, the asynchronous
+``repro_torch.autotune.AutotuneService`` runs the search: episode
+rollouts decoupled from the short retrains on a worker pool, results
+consumed out of order, every candidate offered to a Pareto archive over
+(rel-accuracy, SQ, latency), the latency from the analytic decode
+roofline (``AnalyticLatencyEvaluator``, one H100's data-sheet rates).
 ``--lockstep`` runs the paper-faithful synchronous ``ReLeQSearch`` loop
-over ``core.search.make_lm_env_factory``.  The reference's default, the
-asynchronous ``AutotuneService`` with its worker pool and Pareto archive,
-is not ported (ROADMAP.md queue 1, item 10): a run without ``--lockstep``
-raises.  Runs on ``--device cuda`` (default) and fails without a card;
-``--device cpu`` takes the kernels' plain versions.
+over ``core.search.make_lm_env_factory`` instead.  Runs on ``--device
+cuda`` (default) and fails without a card; ``--device cpu`` takes the
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.search import ReLeQSearch, make_lm_env_factory
 from repro_torch.data import SyntheticLMData
@@ -36,13 +40,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pretrain-steps", type=int, default=120)
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--lockstep", action="store_true",
-                    help="run the paper-faithful synchronous loop (the only one ported)")
+                    help="run the paper-faithful synchronous loop instead")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    if not args.lockstep:
-        raise not_ported("the asynchronous LM search (AutotuneService; run with --lockstep)",
-                         "slice D, item 10")
-    return args
+    return ap.parse_args(argv)
 
 
 def search(model, params, data, episodes: int, device, finetune_steps: int = 2,
@@ -53,6 +53,25 @@ def search(model, params, data, episodes: int, device, finetune_steps: int = 2,
     result = ReLeQSearch(factory, seed=0, device=device).run(episodes=episodes,
                                                              log_every=log_every)
     return factory, result
+
+
+def search_async(model, params, data, episodes: int, device, workers: int = 2,
+                 finetune_steps: int = 2, log_every: int = 4):
+    """The asynchronous search (the reference example's default) with the
+    analytic latency evaluator -> (service, SearchResult)."""
+    from repro_torch.autotune import AnalyticLatencyEvaluator, AutotuneService, ServiceConfig
+
+    factory = make_lm_env_factory(model, params, data, finetune_steps=finetune_steps)
+    service = AutotuneService(
+        factory,
+        latency_eval=AnalyticLatencyEvaluator(model.quant_groups(), model.frozen_bits()),
+        config=ServiceConfig(num_workers=workers, batch_episodes=2, seed=0),
+        device=device)
+    try:
+        result = service.run(episodes=episodes, log_every=log_every)
+    finally:
+        service.shutdown()
+    return service, result
 
 
 def main(argv=None) -> dict:
@@ -73,8 +92,21 @@ def main(argv=None) -> dict:
     if m is not None:
         print(f"pretrain loss: {float(m['loss']):.3f}")
 
-    print("\n== lockstep ReLeQ search ==")
-    factory, result = search(model, state["params"], data, args.episodes, device)
+    out = {"model": model, "state": state}
+    if args.lockstep:
+        print("\n== lockstep ReLeQ search ==")
+        out["factory"], result = search(model, state["params"], data, args.episodes, device)
+    else:
+        print(f"\n== async ReLeQ search ({args.workers} workers) ==")
+        out["service"], result = search_async(model, state["params"], data, args.episodes,
+                                              device, workers=args.workers)
+        s = result.service_stats
+        print(f"throughput {s['episodes_per_s']:.2f} episodes/s, {s['updates']} PPO updates, "
+              f"retrain cache hit-rate {result.cache_stats['hit_rate']:.2f}")
+        print(f"Pareto archive: {s['archive_size']} non-dominated policies")
+        for e in out["service"].archive.entries():
+            print(f"  acc={e.acc:.3f} sq={e.sq:.3f} lat={e.latency:.2e}s "
+                  f"avg_bits={np.mean([b for _, b in e.bits]):.2f}")
     bits = result.best_bits
     print(f"\nbest policy (avg {np.mean(list(bits.values())):.2f} bits):")
     for name, b in list(bits.items())[:12]:
@@ -82,7 +114,7 @@ def main(argv=None) -> dict:
     if len(bits) > 12:
         print(f"  ... (+{len(bits) - 12} groups)")
     print(f"retrain cache: {result.cache_stats}")
-    return {"model": model, "state": state, "factory": factory, "result": result}
+    return {**out, "result": result}
 
 
 if __name__ == "__main__":

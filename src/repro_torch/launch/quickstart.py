@@ -13,8 +13,9 @@ The default steps are the reference quickstart's (pretrain 300, 30
 episodes with 2 retrain steps each, long retrain 150); the step flags
 run it small.  Runs on ``--device cuda`` (default) and fails
 without a card; ``--device cpu`` takes the kernels' plain versions.  The
-reference's last line, a TPU serving estimate, is not ported (ROADMAP.md
-queue 1, slice D).
+reference's last line, its serving roofline's speedup, prints the same
+formula at one NVIDIA H100 SXM's data-sheet rates
+(``costmodel.weight_stream_decode_time``).
 """
 from __future__ import annotations
 
@@ -72,11 +73,14 @@ def main(argv=None) -> dict:
         "stripes_speedup": cm.speedup_vs_8bit(cm.stripes_time, vec, task.groups),
         "energy_reduction": cm.energy_reduction_vs_8bit(vec, task.groups),
         "tvm_cpu_speedup": cm.speedup_vs_8bit(cm.tvm_cpu_time, vec, task.groups),
+        "h100_decode_speedup": cm.speedup_vs_8bit(cm.weight_stream_decode_time, vec,
+                                                  task.groups),
     }
     print("\n== hardware benefit (paper cost models) ==")
     print(f"Stripes speedup vs 8-bit : {report['stripes_speedup']:.2f}x")
     print(f"Stripes energy reduction : {report['energy_reduction']:.2f}x")
     print(f"TVM-CPU speedup vs 8-bit : {report['tvm_cpu_speedup']:.2f}x")
+    print(f"H100 decode speedup      : {report['h100_decode_speedup']:.2f}x")
     return {"task": task, "fp_acc": fp_acc, "result": result, "bits": bits,
             "avg_bits": avg_bits, "rel_acc": rel, "wall": wall, **report}
 

@@ -46,11 +46,12 @@ planes roll K tokens per window, one batched verify scores them).
 (implies ``--no-pipeline``); ``--no-pipeline`` keeps device sampling but
 syncs every step, as the reference's flags do.
 
-``--ckpt-dir DIR`` serves the ``params`` of the newest complete step
-that the port's trainer (``launch/train.py --ckpt-dir``) wrote to DIR,
-packed at the policy as freshly drawn params are.  Checkpoints that the
-JAX trainer wrote (a pickled treedef) are not read (ROADMAP.md queue 1,
-item 10).
+``--ckpt-dir DIR`` serves the ``params`` of the newest complete step in
+DIR, packed at the policy as freshly drawn params are: a step the port's
+trainer (``launch/train.py --ckpt-dir``) wrote (its manifest's JSON
+``tree``), or one the reference's trainer wrote (a ``treedef.pkl``
+beside the leaves), read by ``convert.params_from_jax_checkpoint``
+without unpickling.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ import torch
 
 from repro_torch import ckpt as ckpt_lib
 from repro_torch.configs import get_config
+from repro_torch.convert import is_jax_checkpoint, params_from_jax_checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
 from repro_torch.quant.policy import QuantPolicy
@@ -145,13 +147,18 @@ def build(args, cfg=None):
     """-> (cfg, model, serving params, policy) for ``cfg`` (else
     ``--arch``/``--smoke``): random params (seed 0), or with
     ``--ckpt-dir`` the ``params`` of the newest complete step the port's
-    trainer saved there, packed at the policy.  The bf16 masters are freed
+    or the reference's trainer saved there, packed at the policy.  The bf16 masters are freed
     when this returns; only the packed weights stay."""
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     if args.ckpt_dir:
-        params, _, step = ckpt_lib.restore(args.ckpt_dir, device=args.device,
-                                           subtree="params")
+        _, path = ckpt_lib.step_path(args.ckpt_dir)
+        if is_jax_checkpoint(path):
+            params, _, step = params_from_jax_checkpoint(args.ckpt_dir, model,
+                                                         device=args.device)
+        else:
+            params, _, step = ckpt_lib.restore(args.ckpt_dir, device=args.device,
+                                               subtree="params")
         print(f"restored step {step} from {args.ckpt_dir}")
     else:
         params = model.init(seed=0, device=args.device)

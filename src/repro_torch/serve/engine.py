@@ -193,9 +193,7 @@ class ServeEngine:
             if self._draft_decode is not self._decode:
                 self._decode_steps.append(self._draft_decode)
             self._verify = model.verify_chunk
-            from repro_torch.spec.draft import low_bit_view
-
-            self._draft_sparams = low_bit_view(model, self.sparams, spec.draft_bits)
+            self._draft_sparams = self._resolve_draft(spec)
             # the draft's masked block tables: a device buffer of their own,
             # so the pool's mirror (which the verify reads) never holds them
             self._draft_bt = DeviceTable(self.pool.block_tables, self.device)
@@ -269,6 +267,16 @@ class ServeEngine:
 
         return cls(model, quantize_for_serving(model, params, policy,
                                                device=kw.get("device")), **kw)
+
+    def _resolve_draft(self, spec):
+        """SpecConfig -> draft serving params (most-specific source wins:
+        pre-packed sparams > per-group policy > uniform draft_bits)."""
+        if spec.draft_sparams is not None:
+            return spec.draft_sparams
+        from repro_torch.spec.draft import low_bit_view
+
+        return low_bit_view(self.model, self.sparams,
+                            bits=spec.draft_bits, policy=spec.draft_policy)
 
     # ------------------------------------------------------------- frontend
     def submit(self, prompt, max_new_tokens: int,

@@ -4,6 +4,7 @@
 - :mod:`repro_torch.spec.config` — :class:`SpecConfig`, the
   ``ServeEngine(spec=...)`` knob.
 - :mod:`repro_torch.spec.draft` — :func:`low_bit_view`,
+  :class:`DraftSelector` (a draft policy off a ``ParetoArchive``),
   :func:`snap_params_to_grid`.
 - :mod:`repro_torch.spec.sampler` — the distribution-exact rejection
   sampler that resolves each window on the host (a copy).
@@ -15,7 +16,7 @@ allocates no extra KV, and the target scores all k + 1 positions of every
 row in one batched ``verify_chunk`` call.
 """
 from repro_torch.spec.config import SpecConfig
-from repro_torch.spec.draft import low_bit_view, snap_params_to_grid
+from repro_torch.spec.draft import DraftSelector, low_bit_view, snap_params_to_grid
 from repro_torch.spec.sampler import (
     KIND_ACCEPT,
     KIND_DRAFT,
@@ -28,6 +29,7 @@ from repro_torch.spec.sampler import (
 
 __all__ = [
     "SpecConfig",
+    "DraftSelector",
     "low_bit_view",
     "snap_params_to_grid",
     "KIND_ACCEPT",

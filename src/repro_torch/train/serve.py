@@ -138,7 +138,14 @@ class _Graph:
     loads, ``cudaFuncSetAttribute``, the split-KV counters' allocation);
     its launches are real and counted.  The kernel counts that capture
     ticked (it launches nothing) are taken back and added again at every
-    replay."""
+    replay.
+
+    Other threads may use the card meanwhile (the autotune service's actor
+    runs the agent there while a worker captures an engine's step): the
+    capture runs in CUDA's thread-local error mode, so only this thread's
+    own unsafe calls can fail it, and its ticks are this thread's alone
+    (``kops.recording``).  A kernel another thread launches lands on that
+    thread's stream, never in the graph."""
 
     def __init__(self, fn, inputs):
         t0 = time.perf_counter()
@@ -148,11 +155,11 @@ class _Graph:
         with torch.cuda.stream(side):
             fn(*inputs)
         torch.cuda.current_stream().wait_stream(side)
-        before = dict(kops.counts)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with kops.recording() as ticked, \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outputs = fn(*inputs)
-        self.launches = {k: n - before[k] for k, n in kops.counts.items() if n != before[k]}
+        self.launches = {k: n for k, n in ticked.items() if n}
         kops.add_counts(self.launches, -1)
         self.seconds = time.perf_counter() - t0   # warm-up and capture, host clock
 

@@ -1907,3 +1907,149 @@ def test_moe_ffn_card_matches_cpu(sm90, no_drop):
     if want.numel():
         assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
     assert abs(float(got_aux) - float(want_aux)) <= 1e-4 * float(want_aux) or not bool(same.all())
+
+
+# ---- the autotune service's card paths: engine timing, hot swap, threads ----
+def _lm_cell_served(layers: int = 4):
+    """glm4-9b at its published widths, ``layers`` deep, random bf16 params
+    drawn on the card (chip_smoke.py's LM cell)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=layers)
+    model = build_model(cfg)
+    return model, model.init(seed=0, device="cuda")
+
+
+@pytest.mark.gpu
+def test_engine_latency_evaluator_repeatable_and_low_bits_faster(sm90):
+    """Three fresh evaluators time the 8-bit reference (device synchronized
+    before each clock); their spread is printed and stays within 15 %;
+    the all-2-bit candidate (frozen groups at 8) measures below every one."""
+    from repro_torch.autotune import EngineLatencyEvaluator
+
+    model, params = _lm_cell_served()
+    refs, low = [], None
+    for _ in range(3):
+        ev = EngineLatencyEvaluator(model, params)
+        two = {n: ev.frozen.get(n, 2) for n in ev.group_names}
+        lat, ref = ev(two)
+        refs.append(ref)
+        low = lat if low is None else min(low, lat)
+        assert all(r["event_s"] > 0 for r in ev.records)
+    spread = (max(refs) - min(refs)) / min(refs)
+    print(f"8-bit s/step {refs}, spread {spread:.3f}; all-2-bit {low}")
+    assert spread <= 0.15
+    assert low < min(refs)
+
+
+@pytest.mark.gpu
+def test_hot_swap_graphed_pipelined_engine_recaptures(sm90):
+    """A graphed, pipelined engine with rows running and queued: the swap
+    drains, holds the queue, flushes the prefix cache, and the next decode
+    step captures again; the queued and the later requests' streams equal
+    a fresh engine's at the new params bitwise.  A second swap to another
+    policy changes the live engine's tokens."""
+    from repro_torch.autotune import ab_parity_check, hot_swap
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.serve import quantize_for_serving
+
+    sm, sp8 = _small_served(8, sm90)
+    params = sm.init(seed=5, device="cpu")
+    sp4 = quantize_for_serving(sm, params, policy_for(sm, 4), device=sm90)
+    sp2 = quantize_for_serving(sm, params, policy_for(sm, 2), device=sm90)
+    kw = dict(num_slots=2, max_len=64, block_size=16, prefill_chunk=16, device=sm90)
+    eng = ServeEngine(sm, sp8, **kw)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 1000, int(n)) for n in (20, 33, 17, 26)]
+    ids = [eng.submit(p, 12) for p in prompts]
+    eng.step()
+    eng.step()
+    assert eng.num_running == 2 and eng.num_queued == 2
+    report = hot_swap(eng, sp4)
+    assert report["drained_steps"] >= 1 and report["prefix_cache_flushed"]
+    assert eng.num_running == 0 and eng.num_queued == 2 and eng.pool.prefix_cached_blocks == 0
+    eng.run_until_drained()
+    m = eng.metrics()
+    assert m["recompiles"] >= 1 and m["pipeline"]["lookahead_steps"] > 0
+    fresh = ServeEngine(sm, sp4, **kw)
+    fids = [fresh.submit(p, 12) for p in prompts[2:]]
+    fresh.run_until_drained()
+    assert [eng.output(i) for i in ids[2:]] == [fresh.output(i) for i in fids]
+    gate = ab_parity_check(eng, sm, sp4, prompts[:2], 10)
+    assert gate["match"]
+    hot_swap(eng, sp2)
+    after = ab_parity_check(eng, sm, sp2, prompts[:2], 10)
+    assert after["match"] and after["outputs"]["live"] != gate["outputs"]["live"]
+    assert eng.metrics()["recompiles"] >= 2
+
+
+@pytest.mark.gpu
+def test_graph_capture_with_another_thread_on_the_card(sm90):
+    """A second thread launches qmm, allocates and copies to the host the
+    whole time the decode step is captured: the capture (thread-local mode)
+    succeeds, records the launches of a capture made alone and nothing of
+    the other thread's, and its replay gives the eager step's logits
+    bitwise; the other thread's products equal the ones it makes alone."""
+    import threading
+    import time
+
+    from repro_torch.serve.cache import PagedCachePool
+    from repro_torch.train.serve import GraphedDecodeStep
+
+    sm, sp = _small_served(4, sm90)
+    x, planes, scale = _qmm_inputs(4, 4096, 256, 4, sm90)
+    want = ops.qmm(x, planes, scale, bits=4)
+    torch.cuda.synchronize()
+
+    def pool_with_prompt():
+        pool = PagedCachePool(sm, 2, 64, block_size=16, device=sm90)
+        seq = pool.alloc_seq()
+        pool.ensure(seq, 17)
+        toks = torch.arange(16, dtype=torch.int32, device=sm90)[None]
+        _, cache = sm.prefill_chunk(sp, pool.step_cache(), toks, seq, 0, 16)
+        pool.accept(cache)
+        return pool
+
+    tok = torch.full((2, 1), 7, dtype=torch.int32, device=sm90)
+    alone = GraphedDecodeStep(sm)
+    alone(sp, pool_with_prompt().step_cache(), tok)
+    eager_pool = pool_with_prompt()
+    eager, _ = sm.decode_step(sp, eager_pool.step_cache(), tok)
+    torch.cuda.synchronize()
+
+    stop, errors, done, launched = threading.Event(), [], [0], {}
+
+    def other():
+        try:
+            with ops.recording() as rec:
+                while not stop.is_set():
+                    got = ops.qmm(x.clone(), planes, scale, bits=4)
+                    if not torch.equal(got.cpu(), want.cpu()):
+                        errors.append("product differs")
+                    done[0] += 1
+            launched.update(rec)
+        except Exception as e:   # reported by the main thread
+            errors.append(repr(e))
+
+    t = threading.Thread(target=other)
+    t.start()
+    while done[0] < 3 and not errors:
+        time.sleep(0.001)
+    before = done[0]
+    graphed = GraphedDecodeStep(sm)
+    pool = pool_with_prompt()
+    logits, _ = graphed(sp, pool.step_cache(), tok)
+    during = done[0] - before
+    logits = logits.clone()
+    stop.set()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    print(f"other thread: {done[0]} qmm calls, {during} during the capture")
+    assert during > 0
+    assert graphed._graph.launches == alone._graph.launches
+    assert launched == {"qmm_bitserial": done[0]}
+    assert torch.equal(logits, eager)

@@ -108,10 +108,18 @@ def _launcher_lockstep(flags):
 
 
 def test_lm_search_launcher_refusals():
+    """Without ``--lockstep`` the launcher runs the asynchronous service
+    (once refused here) with the analytic latency evaluator; without a
+    card, the default device is refused."""
     from repro_torch.launch import lm_search
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        lm_search.main(["--device", "cpu", "--episodes", "1"])
+    out = lm_search.main(["--device", "cpu", "--episodes", "2", "--pretrain-steps", "2"])
+    res, service = out["result"], out["service"]
+    assert len(res.episodes) == 2 and res.service_stats["episodes"] == 2
+    assert service.archive.objectives == ("acc", "sq", "latency") and len(service.archive) >= 1
+    assert all(e["latency"] is not None and 0 < e["latency_ratio"] for e in res.episodes)
+    for name, b in out["model"].frozen_bits().items():
+        assert res.best_bits[name] == b
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             lm_search.main(["--lockstep", "--episodes", "1"])

@@ -14,7 +14,7 @@ whose squared errors go through the port's fake-quant).
 - The LeNet enumeration properties of ``tests/test_cnn_releq.py`` hold on
   the port's ``CNNTask`` after 250 pretraining steps from the reference
   task's initial weights.
-- ``as_archive`` is refused with its ROADMAP item.
+- ``as_archive`` lifts an enumerated space into the autotune archive.
 """
 import jax
 import numpy as np
@@ -57,8 +57,17 @@ def test_pareto_matches_reference(net, bitset, frozen, limit):
 
 
 def test_as_archive_refused():
-    with pytest.raises(NotImplementedError, match="slice D, item 10"):
-        tpareto.as_archive([])
+    """Once a refusal (``as_archive`` waited for ``autotune.archive``); now
+    the enumerated LeNet space lifts into the archive, whose 2-objective
+    frontier is ``pareto_frontier``'s, as the reference's is.  The
+    comparison with the reference's archive is in
+    ``tests/test_torch_autotune.py``."""
+    tg = tmodels.build_cnn("lenet").quant_groups()
+    pts = tpareto.enumerate_space(tg, _evaluate, bitset=(2, 4, 8))
+    arch = tpareto.as_archive(pts)
+    assert arch.objectives == ("acc", "sq") and arch.offered == 3 ** 4
+    assert arch.objective_set() == {(p["acc"], p["quant"]) for p in tpareto.pareto_frontier(pts)}
+    assert tpareto.as_archive([], latency_fn=len).objectives == ("acc", "sq", "latency")
 
 
 @pytest.fixture(scope="module")
