@@ -81,11 +81,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    moonshot's three expert banks of phase 3w (4 x 64 x 2048 x 1408, bf16)
    with one bitwidth a stacked layer shared by its 64 experts, beside the
    edge leaves, bitwise from two bits offsets and timed the same way.
+   The three paged kernels at head dim 16, every smoke config's (KV 2, G
+   2, bs 16: lanes 16-31 idle in P.V): fp (bf16), int8 and packed int4
+   over a 19-page ring table at lengths {1, 16, 17, 300} and over the
+   served smoke cell's 4-page tables at {17, 25, 33, 40}, and the fused
+   decode at D 64 (half of one 128-row K step), each as above.
    For each shape: kernel,
    plain and library yardstick times (median of per-launch CUDA-event
    times, L2 flushed before each launch, the start event held behind a
    device spin that covers the wrapper's host work) and the bound from
    bytes and operations.
+3sm. The launchers' default commands on the card: for every arch whose
+   smoke config the CPU tests serve (head dim 16), ``python -m
+   repro_torch.launch.serve`` with no flags, then ``--kv-bits 4`` and
+   ``--kv-bits 8`` (RWKV, which has no KV blocks, its defaults alone),
+   through the launcher's ``main``: each run's kernels launched (the fused
+   decode where RoPE and no window allow it, else the paged attention of
+   its KV), the plain version never, the decode step captured once, the
+   lookahead used, every request finished; its greedy streams against the
+   same workload served on the CPU from the same params (host sampling,
+   plain versions): equal, or a first divergence where the CPU's top-2
+   margin is within 2e-2 * max|logit|.  Then ``launch/autotune.py --hw
+   engine --deploy`` at smoke size (no ``--layers``; 4 episodes, 20
+   pretraining steps): A/B parity on the deployed weights.
 3. Eleven paths end to end.  Three serve through the launcher's continuous
    path at glm4-9b's published widths (40 layers, d_model 4096, vocab
    151552), random weights from seed 0, 8 requests, 4 rows, block 16,
@@ -4532,6 +4550,196 @@ def train_then_serve(torch):
     return out
 
 
+# ---- head dim 16: the launchers' default commands on the card (phases 2, 3sm) ----
+# every smoke config has head dim 16 (d_model 64, 4 heads over 2 KV): rows
+# 2 and 3 over a 19-page table (lengths across page and split edges) and
+# at the served smoke cell's table (prompts of 16 + up to 32 new tokens: 4
+# pages), and row 4 at the smoke shape (D 64: half of one K step)
+HD16_HEADS = {"B": 4, "KV": 2, "G": 2, "hd": 16, "bs": 16, "nb": 19}
+HD16_SERVED = {**HD16_HEADS, "nb": 4}
+HD16_LAYERS = 2           # a smoke decode step's calls of each attention kernel
+# every arch whose smoke config the CPU tests serve; RWKV has no KV blocks
+# (its defaults alone), the rest also at --kv-bits 4 and 8
+SMOKE_ARCHS = ("glm4-9b", "h2o-danube-3-4b", "hymba-1.5b", "moonshot-v1-16b-a3b",
+               "llama4-maverick-400b-a17b", "qwen2-vl-7b", "musicgen-large", "rwkv6-1.6b")
+
+
+def check_hd16_kernels(torch, timer, peaks, rows):
+    """Phase 2's rows at head dim 16: both paged kernels (bf16, int8,
+    int4) and the fused decode.  Returns the worst errors (fp, quantized,
+    fused)."""
+    pa, paq = check_ring_attention(torch, timer, peaks, rows, HD16_HEADS,
+                                   (("hd16 ragged", [1, 16, 17, 300]),), seed=41)
+    a, b = check_ring_attention(torch, timer, peaks, rows, HD16_SERVED,
+                                (("hd16 decode", [17, 25, 33, 40]),), seed=42)
+    print("  the fused decode at the smoke shape: H 4 over KV 2 (G 2), hd 16, D 64")
+    fused = check_fused_decode(torch, timer, peaks, rows, shape=(4, 2, 2, 16, 16, 64),
+                               prefix="hd16 ", seed=43)
+    return max(pa, a), max(paq, b), fused
+
+
+def smoke_need(cfg, kv: bool) -> tuple[str, ...]:
+    """The kernels a smoke config's served path must launch: qmm, and the
+    fused decode (RoPE, no window) or the paged attention of its KV."""
+    if cfg.family == "ssm":
+        return ("qmm_bitserial",)
+    if kv and cfg.rope == "rope" and cfg.sliding_window is None:
+        return ("qmm_bitserial", "fused_qkv_paged_decode")
+    return ("qmm_bitserial", "paged_attention_quant" if kv else "paged_attention")
+
+
+def cpu_streams(torch, args, cfg, model, policy):
+    """The launcher's workload served on the CPU (plain versions, host
+    sampling) from the card's params (drawn again on the card, seed 0, as
+    ``launch.serve.build`` drew them, and packed on the CPU): each
+    request's greedy stream and, per token, the CPU's top-2 logit margin
+    and max|logit|."""
+    import numpy as np
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import SamplingParams, ServeEngine
+    from repro_torch.train.serve import quantize_for_serving
+
+    params = model.init(seed=0, device="cuda")
+    sp = quantize_for_serving(model, params, policy, device="cpu")
+    del params
+    kv = {"kv_bits": args.kv_bits[0]} if args.kv_bits else {}
+    eng = ServeEngine(model, sp, num_slots=args.num_slots,
+                      max_len=args.prompt_len + args.gen + 1, cache=args.cache,
+                      block_size=args.block_size, num_blocks=args.num_blocks,
+                      prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+                      sample_device=False, pipeline=False, device="cpu", **kv)
+    margins = {}
+    submit = eng.submit
+
+    def watched(prompt, n, **kw):
+        rid = submit(prompt, n, **kw)
+        req = eng.requests[rid]
+        store = margins[rid] = []
+
+        def select(row, _orig=req.select_token):
+            top = np.sort(np.asarray(row, np.float64))[-2:]
+            store.append((float(top[1] - top[0]), float(np.abs(row).max())))
+            return _orig(row)
+
+        req.select_token = select
+        return rid
+
+    eng.submit = watched
+    launcher.drive(eng, launcher.synthetic_workload(args, cfg.vocab_size), args.arrival_every,
+                   SamplingParams(temperature=args.temperature))
+    n = len(margins)
+    return [eng.output(r) for r in range(n)], margins
+
+
+def smoke_launchers(torch):
+    """Phase 3sm: ``python -m repro_torch.launch.serve`` with its defaults
+    (``--smoke``, ``--device cuda``: head dim 16), then ``--kv-bits 4`` and
+    ``--kv-bits 8``, for every arch in ``SMOKE_ARCHS``: each run through
+    the launcher's ``main`` with its counters zeroed just before and read
+    just after (its kernels launched, the plain version never, one capture
+    of the decode step, the lookahead used), its greedy streams against
+    the same workload served on the CPU: equal, or a first divergence
+    where the CPU's top-2 margin is within MARGIN * max|logit|.  Then
+    ``launch/autotune.py --hw engine --deploy`` at smoke size with no
+    ``--layers``."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import autotune
+    from repro_torch.launch import serve as launcher
+    from repro_torch.quant.qat import policy_for
+
+    runs, launches = {}, {}
+    for arch in SMOKE_ARCHS:
+        for flags in ([], ["--kv-bits", "4"], ["--kv-bits", "8"]):
+            if flags and arch == RWKV_ARCH:
+                continue
+            argv = ["--arch", arch, *flags]
+            label = " ".join(argv)
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                engine = launcher.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = dict(ops.counts)
+            args = launcher.parse_args(argv)
+            cfg = engine.model.cfg
+            if cfg.hd != 16 or args.device != "cuda" or not args.smoke:
+                fail(f"[{label}] the defaults are not the smoke config on the card: hd "
+                     f"{cfg.hd}, device {args.device}, smoke {args.smoke}")
+            need = smoke_need(cfg, bool(flags))
+            m = engine.metrics()
+            work = launcher.synthetic_workload(args, cfg.vocab_size)
+            if any(r["state"] != "finished" or r["new_tokens"] != work[r["id"]][1]
+                   for r in m["requests"]):
+                fail(f"[{label}] a request did not finish: {m['requests']}")
+            if counts["plain"] or any(counts[k] <= 0 for k in need):
+                fail(f"[{label}] launch counts {counts}: want every one of {need}, no plain")
+            pl = m["pipeline"]
+            if (m["recompiles"] or engine.graph_captures["decode"] != 1
+                    or pl["lookahead_steps"] <= 0):
+                fail(f"[{label}] captures {engine.graph_captures}, recompiles "
+                     f"{m['recompiles']}, pipeline {pl}")
+            got = [engine.output(r) for r in range(len(work))]
+            want, margins = cpu_streams(torch, args, cfg, engine.model,
+                                        policy_for(engine.model, default_bits=args.bits))
+            diverged = []
+            for rid, (a, b) in enumerate(zip(got, want)):
+                if len(a) != len(b):
+                    fail(f"[{label}] request {rid}: {len(a)} tokens on the card, {len(b)} "
+                         f"on the CPU")
+                if a == b:
+                    continue
+                i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                margin, top = margins[rid][i]
+                diverged.append({"request": rid, "token": i, "margin": margin,
+                                 "bound": MARGIN * top})
+                if margin > MARGIN * top:
+                    fail(f"[{label}] request {rid} diverged at token {i} where the CPU's "
+                         f"top-2 margin {margin:.4g} exceeds {MARGIN} * {top:.4g}")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            runs[label] = {"counts": counts, "wall_s": wall_s,
+                           "tokens_per_s": m["tokens_per_s"],
+                           "decode_step_p50_ms": m["decode_step_p50_ms"],
+                           "decode_steps": m["decode_steps"], "diverged": diverged}
+            print(f"  [{label}] {wall_s:.2f} s, tokens/s {m['tokens_per_s']:.1f}, decode "
+                  f"step p50 {m['decode_step_p50_ms']:.3f} ms, "
+                  f"{ {k: n for k, n in counts.items() if n} }; streams: "
+                  f"{len(work) - len(diverged)}/{len(work)} equal the CPU's, "
+                  f"{len(diverged)} diverge at a flagged tie")
+            del engine
+    argv = ["--hw", "engine", "--deploy", "--episodes", "4", "--pretrain-steps", "20",
+            "--workers", "2"]
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = autotune.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(ops.counts)
+    report = out["report"]
+    if out["model"].cfg.hd != 16 or len(out["result"].episodes) != 4:
+        fail(f"[autotune {' '.join(argv)}] hd {out['model'].cfg.hd}, "
+             f"{len(out['result'].episodes)} episodes")
+    if not report["parity"]["match"] or counts["plain"] or counts["paged_attention"] <= 0:
+        fail(f"[autotune {' '.join(argv)}] parity {report['parity']['match']}, counts {counts}")
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    runs["autotune " + " ".join(argv)] = {"counts": counts, "wall_s": wall_s,
+                                          "deploy": {k: v for k, v in report.items()
+                                                     if k != "parity"}}
+    print(f"  [autotune {' '.join(argv)}] {wall_s:.2f} s, archive {len(out['archive'])}, "
+          f"deployed {out['policy'].average_bits():.2f} bits, A/B parity ok; "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    del out
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches}
+
+
 T_START = time.perf_counter()
 
 
@@ -4596,6 +4804,8 @@ def main() -> None:
                                      RECURRENT_MS, seed=4))
     fused_err = check_fused_decode(torch, timer, peaks, rows)
     mva_errs = check_mva_kernels(torch, timer, peaks, rows)
+    print("  head dim 16, every smoke config's: KV 2, G 2, bs 16")
+    hd16_errs = check_hd16_kernels(torch, timer, peaks, rows)
     fq_err = check_fake_quant(torch, timer, peaks, rows)
     fqg_err = check_fake_quant_group(torch, timer, peaks, rows)
     fqc_err = check_fake_quant_col(torch, timer, peaks, rows)
@@ -4605,6 +4815,11 @@ def main() -> None:
           f"{timer.uncovered} timed with host work inside")
     del timer
     torch.cuda.empty_cache()
+
+    # ---- the launchers' default commands: every smoke config at head dim 16
+    phase("phase 3sm: launch/serve.py with its defaults (--smoke, head dim 16), --kv-bits 4 "
+          "and 8, per arch; launch/autotune.py --hw engine --deploy at smoke size")
+    smoke = smoke_launchers(torch)
 
     # ---- phases 3-5, path a (fp KV blocks): serve, check outputs, profile
     phase("phase 3a: glm4-9b serving end to end, --bits 4, fp KV blocks")
@@ -4921,6 +5136,21 @@ def main() -> None:
                     lambda r: 48 if r["shape"] == "g1 main" and r["container"] == "int4" else 0,
                     [f"{launch}_{key}" for launch in ("project", "attend")
                      for key in ("ms", "library_ms", "bound_ms")])},
+        *({"name": f"{kernel}_hd16", "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+           "replaces": replaces, "launches": smoke["launches"][kernel], "max_abs_err": err,
+           **per_step(rows, kernel, lambda r, shape=shape, container=container:
+                      HD16_LAYERS if r["shape"] == shape
+                      and r.get("container", "bf16") == container else 0, extra)}
+          for kernel, src, replaces, err, shape, container, extra in (
+              ("paged_attention", "paged_attention.cu", "src/repro/kernels/paged_attention.py:37",
+               hd16_errs[0], "hd16 decode", "bf16", ()),
+              ("paged_attention_quant", "paged_attention_quant.cu",
+               "src/repro/kernels/paged_attention.py:117", hd16_errs[1], "hd16 decode", "int8",
+               ()),
+              ("fused_qkv_paged_decode", "fused_decode.cu", "src/repro/kernels/fused_decode.py:63",
+               hd16_errs[2], "hd16 main", "int4",
+               [f"{launch}_{key}" for launch in ("project", "attend")
+                for key in ("ms", "library_ms", "bound_ms")]))),
         {"name": "fake_quant", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:33",
          "launches": resnet["counts"]["fake_quant"], "max_abs_err": fq_err, **fq},
@@ -4998,7 +5228,12 @@ def main() -> None:
                          "fake_quant_group_col_moonshot / _bwd: one QAT forward / backward of "
                          "the 3w moonshot cell's three expert banks (L 4, 64 experts, bf16, "
                          "(L,) bits), launches from phase 3w's moonshot run (every leaf of a "
-                         "step in one launch each way)",
+                         "step in one launch each way); *_hd16: a smoke decode step's 2 calls "
+                         "at head dim 16 (KV 2, G 2; paged attention at the served smoke "
+                         "cell's lengths 17-40 over 4-page tables, int8 for the quantized row; "
+                         "the fused decode int4 at D 64 and the 'main' lengths), launches "
+                         "summed over phase 3sm's runs (every smoke arch's launcher defaults, "
+                         "--kv-bits 4 and 8, and the autotune launcher)",
         "serve": serve, "prefix": prefix, "spec": spec, "decode_breakdown": breakdown,
         "served_streams": streams,
         "danube": {"3n_diverged": danube["3n"]["diverged"], "static": danube["3n static"],
@@ -5014,6 +5249,7 @@ def main() -> None:
                           "decode_breakdown_5t": mva["3t"]["breakdown"],
                           "streams_4t": mva_streams},
         "families_train": {"3w": fam, "3x": fam_search, "4w": fam_steps, "3y": fam_ckpt},
+        "smoke_launchers_3sm": smoke,
         "total_s": time.perf_counter() - T_START}, indent=1, default=str))
     print(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi_line)

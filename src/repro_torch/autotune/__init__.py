@@ -9,16 +9,14 @@ of a synchronous offline loop:
                staleness-bounded importance correction
 - workers.py   evaluator pool: short-QAT accuracy + hardware-in-the-loop
                latency (real ServeEngine decode steps timed on the card,
-               or the analytic decode roofline) + draftability
+               the op-count roofline of the packed decode step on meta
+               tensors, or the analytic decode roofline) + draftability
                (candidate drafts for a fixed 8-bit target via
                ``repro_torch.spec``; reward = speculative seconds/token)
 - archive.py   persistent Pareto archive over (rel-acc, SQ, latency)
                with dominance pruning, JSON checkpoints and warm-start
 - deploy.py    archive winner -> packed weights -> hot-swap into a live
                ServeEngine with an A/B token-parity gate
-
-The reference's ``HLOLatencyEvaluator`` (XLA cost analysis) has no twin
-here (ROADMAP.md queue 1, item 11).
 
 CLI: ``python -m repro_torch.launch.autotune`` (search, archive, deploy).
 """
@@ -38,4 +36,5 @@ from repro_torch.autotune.workers import (  # noqa: F401
     EngineLatencyEvaluator,
     EvalResult,
     EvaluatorPool,
+    OpCountLatencyEvaluator,
 )

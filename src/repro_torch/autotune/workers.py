@@ -19,13 +19,16 @@ A candidate bitwidth policy is scored on up to two axes:
     steps (a step returns with the next one in flight), so the device is
     synchronized before each clock is read, and CUDA events time the same
     window on the card (``records``);
+  * :class:`OpCountLatencyEvaluator` (the twin of the reference's
+    ``HLOLatencyEvaluator``, which rooflines XLA's optimized HLO) builds
+    the candidate's packed decode step on meta tensors and rooflines the
+    port's own op count of it (``launch.op_costs``: aten ops and each
+    kernel's contract bytes) at one H100's rates, with nothing allocated;
   * :class:`AnalyticLatencyEvaluator` is the closed-form decode roofline
     (``costmodel.weight_stream_decode_time``, one H100's data-sheet rates
     unless others are given) for tests and benches.
 
-  The reference's ``HLOLatencyEvaluator`` reads XLA's cost analysis and
-  has no twin here (ROADMAP.md queue 1, item 11); no evaluator stands in
-  for another.  Each reports ``ref_latency`` at the all-8-bit reference so
+  Each reports ``ref_latency`` at the all-8-bit reference so
   the service can fold the *ratio* into the reward alongside SQ.
 
 - **draftability** (:class:`DraftabilityEvaluator`): the candidate bits
@@ -135,6 +138,38 @@ class AnalyticLatencyEvaluator(_LatencyBase):
         vec = [bits_by_name.get(g.name, 8) for g in self.groups]
         return costmodel.weight_stream_decode_time(vec, self.groups, batch=self.batch,
                                                    peak=self.peak, bw=self.bw)
+
+
+class OpCountLatencyEvaluator(_LatencyBase):
+    """No-card stand-in: the candidate's packed decode step, built on meta
+    tensors (``launch.specs``) and counted (``launch.op_costs``), scored
+    ``max(flops / peak, bytes / bw)`` at one H100's data-sheet rates.  It
+    sees the bitplanes ``quant.pack`` would serve, through each kernel's
+    contract (planes of ``bits·K·N/8`` bytes), so fewer bits always cost
+    fewer bytes.  One count per distinct candidate (memoized); nothing is
+    allocated on any device."""
+
+    def __init__(self, model, *, batch: int = 1, max_len: int = 32,
+                 peak=costmodel.H100_PEAK_FLOPS, bw=costmodel.H100_HBM_BW):
+        groups = model.quant_groups()
+        super().__init__((g.name for g in groups), model.frozen_bits())
+        self.model = model
+        self.batch = batch
+        self.max_len = max_len
+        self.peak, self.bw = peak, bw
+
+    def _measure(self, bits_by_name: dict) -> float:
+        from repro_torch.launch.op_costs import count_costs
+        from repro_torch.launch.specs import cache_struct, sds, serving_params_struct
+        from repro_torch.quant.policy import QuantPolicy
+
+        policy = QuantPolicy.from_array(
+            self.group_names, [bits_by_name[n] for n in self.group_names])
+        sparams = serving_params_struct(self.model, policy)
+        cache = cache_struct(self.model, self.batch, self.max_len)
+        tokens = sds((self.batch, 1), torch.int32)
+        costs = count_costs(self.model.decode_step, sparams, cache, tokens)
+        return max(costs.flops / self.peak, costs.traffic_bytes / self.bw)
 
 
 def _params_device(params) -> torch.device:

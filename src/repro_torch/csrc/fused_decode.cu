@@ -49,6 +49,11 @@
 //       arrive merges the S + 1 partials in split order, the new token
 //       last (csrc/split_kv.cuh): the reference's write-then-attend,
 //       reassociated, and bitwise repeatable.
+// Head dims 64, 96 and 128 fill whole lanes; hd 16 (every smoke config)
+// takes the padded form of kv_attention.cuh (DPL = 1 over 32 dims, lanes
+// 16-31 idle in P.V, q rows with a zero tail), and its RoPE half is 8.
+// Launch (A) at the smoke d_model of 64 runs one K step of 128 rows, half
+// of it zero-filled (bitserial.cuh masks K past D).
 // Every product that must match the plain version bitwise (RoPE, the
 // division by the scale, the dequantized new token) uses __fmul_rn /
 // __fsub_rn / __fadd_rn / __fdiv_rn, so nvcc cannot contract it into an
@@ -126,26 +131,34 @@ struct AttendArgs {
     float scale;
 };
 
-// shared memory of one attend CTA: roped q (G rows of hd f32), the new
-// token's roped k and v (2 rows), its dequantized k|v (2 rows), its codes
-// (2 rows of int8, padded to 16 bytes), the sweep, the split's page ids
+// shared memory of one attend CTA: roped q (G rows of HDP f32: hd dims
+// and, below a whole lane count, a zero tail the sweep reads), the new
+// token's roped k and v (2 rows of HDP), its dequantized k|v (2 rows of
+// hd), its codes (2 rows of int8, padded to 16 bytes), the sweep, the
+// split's page ids.  At hd 64, 96 and 128 HDP = hd: (G + 4) rows of hd.
 template <int HD, bool PACKED4>
 constexpr size_t attend_smem_bytes(int G, int warps, int pps) {
-    return (size_t)(G + 4) * HD * sizeof(float) + (2 * HD + 15) / 16 * 16 +
+    constexpr int HDP = Layout<HD, PACKED4>::HDP;
+    return ((size_t)(G + 2) * HDP + 2 * HD) * sizeof(float) + (2 * HD + 15) / 16 * 16 +
            sweep_smem_bytes<HD, PACKED4>(warps) + (size_t)pps * sizeof(int);
 }
 
-template <typename T, int DPL, bool PACKED4, int MAXT>
+// HD: the head dim; the sweep computes over HDP = 32 * DPL padded dims
+// (kv_attention.cuh): at hd 16 (every smoke config) DPL = 1, HDP = 32, and
+// lanes 16-31 hold no dims
+template <typename T, int HD, bool PACKED4, int MAXT>
 __global__ void __launch_bounds__(MAXT) fused_attend_kernel(const AttendArgs a, int vec) {
-    constexpr int HD = DPL * 32;
+    constexpr int DPL = (HD + 31) / 32, HDP = DPL * 32;
     constexpr int HALF = HD / 2;
     constexpr int HDS = PACKED4 ? HD / 2 : HD;
+    static_assert(HALF % 4 == 0, "RoPE in 4-dim groups");
     extern __shared__ __align__(16) unsigned char smem[];
     const int G = a.G, KV = a.KV;
-    float* qkv = reinterpret_cast<float*>(smem);          // [(G + 2) * HD]: q, then k, v
-    float* newkv = qkv + (G + 2) * HD;                    // [2 * HD]
+    float* qkv = reinterpret_cast<float*>(smem);          // [(G + 2) * HDP]: q, then k, v
+    float* newkv = qkv + (G + 2) * HDP;                   // [2 * HD]
     int8_t* codes = reinterpret_cast<int8_t*>(newkv + 2 * HD);   // [2 * HD]
-    uint8_t* sweep_mem = smem + (size_t)(G + 4) * HD * sizeof(float) + (2 * HD + 15) / 16 * 16;
+    uint8_t* sweep_mem = smem + ((size_t)(G + 2) * HDP + 2 * HD) * sizeof(float) +
+                         (2 * HD + 15) / 16 * 16;
     int* pages = reinterpret_cast<int*>(sweep_mem + sweep_smem_bytes<HD, PACKED4>(blockDim.x / 32));
 
     const int b = blockIdx.x, kvh = blockIdx.y, s = blockIdx.z, S = gridDim.z - 1;
@@ -168,7 +181,7 @@ __global__ void __launch_bounds__(MAXT) fused_attend_kernel(const AttendArgs a, 
     __syncthreads();
     const Pages pg{static_cast<const uint8_t*>(a.k_pool), static_cast<const uint8_t*>(a.v_pool),
                    a.k_scale, a.v_scale, pages, s * a.pps, KV, kvh, a.bs, vec != 0};
-    sweep_prefetch<DPL, PACKED4>(pg, t_begin, t_end, sweep_mem);
+    sweep_prefetch<DPL, PACKED4, HD>(pg, t_begin, t_end, sweep_mem);
     // launched after (A) as a programmatic dependent: wait for its
     // projections here (a no-op after an ordinary launch)
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -182,7 +195,7 @@ __global__ void __launch_bounds__(MAXT) fused_attend_kernel(const AttendArgs a, 
         float x1[4], x2[4];
         proj4(a.pj, a.B, b, ntot, base + j0, x1);
         proj4(a.pj, a.B, b, ntot, base + j0 + HALF, x2);
-        float* o = qkv + r * HD;
+        float* o = qkv + r * HDP;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int j = j0 + e;
@@ -197,20 +210,24 @@ __global__ void __launch_bounds__(MAXT) fused_attend_kernel(const AttendArgs a, 
             o[j + HALF] = act<T>(__fadd_rn(__fmul_rn(v1, sv), __fmul_rn(v2, c)));
         }
     }
+    if constexpr (HDP > HD) {            // the rows' zero tails (q's enter every score)
+        for (int i = threadIdx.x; i < rows * (HDP - HD); i += blockDim.x)
+            qkv[i / (HDP - HD) * HDP + HD + i % (HDP - HD)] = 0.f;
+    }
     __syncthreads();
 
     float* ws_acc = a.ws + bk * (S + 1) * G * HD;
     float* ws_ml = a.ws + (size_t)a.B * KV * (S + 1) * G * HD + bk * (S + 1) * G * 2;
-    Partial<DPL> st;
+    Partial<DPL, HD> st;
     st.init();
     if (!newtok) {
         // the split's pre-write pages
-        sweep<DPL, PACKED4>(st, qkv, pg, t_begin, t_end, a.scale, nh, sweep_mem);
+        sweep<DPL, PACKED4, HD>(st, qkv, pg, t_begin, t_end, a.scale, nh, sweep_mem);
     } else {
         // kv_quantize of the new k (row G) and v (row G + 1)
         const float qmax = *a.qmax;
         for (int which = warp; which < 2; which += nwarps) {
-            const float* xr = qkv + (G + which) * HD;
+            const float* xr = qkv + (G + which) * HDP;
             float amax = 0.f;
             for (int d = lane; d < HD; d += 32) amax = fmaxf(amax, fabsf(xr[d]));
 #pragma unroll
@@ -237,16 +254,22 @@ __global__ void __launch_bounds__(MAXT) fused_attend_kernel(const AttendArgs a, 
 #pragma unroll
         for (int h = 0; h < HPW; ++h) {
             if (h >= nh) break;                   // warp-uniform
-            const float* qh = qkv + (warp * HPW + h) * HD;
+            const float* qh = qkv + (warp * HPW + h) * HDP;
             float dot = 0.f;
 #pragma unroll
-            for (int d = 0; d < DPL; ++d) dot = fmaf(qh[lane * DPL + d], newkv[lane * DPL + d], dot);
+            for (int d = 0; d < DPL; ++d) {
+                const int j = lane * DPL + d;
+                if (HD == HDP || j < HD) dot = fmaf(qh[j], newkv[j], dot);
+            }
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
             st.m[h] = dot * a.scale;
             st.l[h] = 1.f;
 #pragma unroll
-            for (int d = 0; d < DPL; ++d) st.acc[h][d] = newkv[HD + lane * DPL + d];
+            for (int d = 0; d < DPL; ++d) {
+                const int j = lane * DPL + d;
+                st.acc[h][d] = HD == HDP || j < HD ? newkv[HD + j] : 0.f;
+            }
         }
     }
     st.store(nullptr, ws_acc, ws_ml, s, S + 1, G, warp * HPW, nh, lane);
@@ -256,21 +279,23 @@ __global__ void __launch_bounds__(MAXT) fused_attend_kernel(const AttendArgs a, 
 
 // pdl: launch as a programmatic dependent of the previous kernel on the
 // stream (launch (A)), so the CTAs' preamble overlaps its tail
-template <typename T, int DPL, bool PACKED4>
+template <typename T, int HD, bool PACKED4>
 int launch_attend(const AttendArgs& a, bool pdl, cudaStream_t st) {
-    constexpr int HD = DPL * 32;
     const int S = (a.nb + a.pps - 1) / a.pps;
     if (S + 1 > splitkv::MAX_SPLITS || a.ws == nullptr || a.arrived == nullptr)
         return (int)cudaErrorInvalidValue;
     const int warps = sweep_warps(a.G);
     const size_t smem = attend_smem_bytes<HD, PACKED4>(a.G, warps, a.pps);
-    auto kern = warps > 16 ? fused_attend_kernel<T, DPL, PACKED4, 1024>
-                           : fused_attend_kernel<T, DPL, PACKED4, 512>;
+    auto kern = warps > 16 ? fused_attend_kernel<T, HD, PACKED4, 1024>
+                           : fused_attend_kernel<T, HD, PACKED4, 512>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const int vec = reinterpret_cast<uintptr_t>(a.k_pool) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(a.v_pool) % 16 == 0;
+    // as the quantized kernel: aligned to the staging piece (16 bytes, or
+    // 8 at hd 16's packed int4 rows)
+    constexpr int PB = Layout<HD, PACKED4>::PB;
+    const int vec = reinterpret_cast<uintptr_t>(a.k_pool) % PB == 0 &&
+                    reinterpret_cast<uintptr_t>(a.v_pool) % PB == 0;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(a.B, a.KV, S + 1);
     cfg.blockDim = dim3(warps * 32);
@@ -289,9 +314,10 @@ int launch_attend(const AttendArgs& a, bool pdl, cudaStream_t st) {
 template <typename T, bool PACKED4>
 int attend_hd(int hd, const AttendArgs& a, bool pdl, cudaStream_t st) {
     switch (hd) {
-        case 64: return launch_attend<T, 2, PACKED4>(a, pdl, st);
-        case 96: return launch_attend<T, 3, PACKED4>(a, pdl, st);
-        case 128: return launch_attend<T, 4, PACKED4>(a, pdl, st);
+        case 16: return launch_attend<T, 16, PACKED4>(a, pdl, st);
+        case 64: return launch_attend<T, 64, PACKED4>(a, pdl, st);
+        case 96: return launch_attend<T, 96, PACKED4>(a, pdl, st);
+        case 128: return launch_attend<T, 128, PACKED4>(a, pdl, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -40,7 +40,12 @@
 //     HDP codes whose tail (8 or 4 bytes) is zeroed once, and q is staged
 //     as HDP dims with a zero tail.  The tail then adds fmaf(0, 0, s) = s
 //     to every score, lanes 30-31 dequantize zero codes in P.V, and
-//     nothing past hd is stored.
+//     nothing past hd is stored.  Head dim 16 (every smoke config) is the
+//     same padded form at DPL = 1: HDP = 32, lanes 16-31 hold no dims; a
+//     code row of 16 bytes (int8) or 8 (packed int4) is staged in one 16-
+//     or 8-byte piece into a staged row of 32 or 16 code bytes whose tail
+//     is zeroed once, and each lane dequantizes its one V code alone
+//     (lane_dequant's per-code loop: the one-load form needs an even DPL).
 #pragma once
 
 #include <cuda_bf16.h>

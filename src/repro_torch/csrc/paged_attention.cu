@@ -33,12 +33,17 @@
 //     an odd number of 16-byte pieces (16 to 32 bytes of padding), so the
 //     8 lanes of a 16-byte shared load of 8 token rows hit distinct banks.
 //     A pool whose base is not 16-byte aligned is staged with plain loads.
-//   * Head dims 64, 96, 120 and 128 take DPL = ceil(hd / 32) dims per lane
-//     in P.V.  At hd 120 (h2o-danube-3-4b) DPL is 4 and lanes 30-31 hold
-//     no dims: their V loads are predicated off and they store nothing.
-//     A 120-dim row is still whole 16-byte pieces (240 bytes in bf16, 480
-//     in f32), so staging is unchanged; its padding is 32 bytes (272- and
-//     496-byte staged rows), so 8 rows stay on distinct banks.
+//   * Head dims 16, 64, 96, 120 and 128 take DPL = ceil(hd / 32) dims per
+//     lane in P.V.  At hd 120 (h2o-danube-3-4b) DPL is 4 and lanes 30-31
+//     hold no dims; at hd 16 (every smoke config) DPL is 1 and lanes 16-31
+//     hold none: their V loads are predicated off and they store nothing.
+//     A 120- or 16-dim row is still whole 16-byte pieces (240 / 32 bytes in
+//     bf16, 480 / 64 in f32), so staging is unchanged; the padding keeps
+//     an odd number of pieces (272- and 496-, 48- and 80-byte staged rows),
+//     so 8 rows stay on distinct banks.  The combine's scratch, (S + 1) * G
+//     floats, runs from the slots into the warps' probabilities, which the
+//     sweep no longer needs (at hd 16 the slots alone are too small for G
+//     above 90 in bf16).
 //
 // Plain C interface (built with nvcc, loaded with ctypes).  The kernels
 // allocate nothing (the wrapper passes the split workspace); the entry
@@ -299,6 +304,7 @@ int launch_hd(int hd, const void* q, const void* k_pool, const void* v_pool, con
               const int* lengths, float* out, float* ws, int* arrived, int B, int KV, int G,
               int bs, int nb, int pps, float scale, cudaStream_t st) {
     switch (hd) {
+        case 16: return launch<T, 16>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
         case 64: return launch<T, 64>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
         case 96: return launch<T, 96>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);
         case 120: return launch<T, 120>(q, k_pool, v_pool, bt, lengths, out, ws, arrived, B, KV, G, bs, nb, pps, scale, st);

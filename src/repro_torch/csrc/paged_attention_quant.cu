@@ -31,9 +31,10 @@
 // With S > 1 the last split CTA of a (row, KV head) to finish merges the
 // partials in split order (csrc/split_kv.cuh): one launch, and outputs
 // that are bitwise repeatable.  The container (int8 or packed int4) and
-// the head dim (64, 96, 120, 128) are template parameters; at hd 120 the
-// sweep computes over 128 padded dims (kv_attention.cuh) and stages the
-// 120- or 60-byte code rows in 8- or 4-byte pieces.
+// the head dim (16, 64, 96, 120, 128) are template parameters; at hd 120
+// the sweep computes over 128 padded dims (kv_attention.cuh) and stages
+// the 120- or 60-byte code rows in 8- or 4-byte pieces, and at hd 16 over
+// 32 padded dims, staging the 16- or 8-byte rows in 16- or 8-byte pieces.
 //
 // Plain C interface (built with nvcc, loaded with ctypes).  The kernel
 // allocates nothing (the wrapper passes the split workspace); the entry
@@ -127,6 +128,7 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const void*
               const void* vs, const int* bt, const int* ln, float* out, float* ws, int* arr,
               int B, int KV, int G, int bs, int nb, int pps, float scale, cudaStream_t st) {
     switch (hd) {
+        case 16: return launch<T, 16, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
         case 64: return launch<T, 64, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
         case 96: return launch<T, 96, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);
         case 120: return launch<T, 120, PACKED4>(q, kp, vp, ks, vs, bt, ln, out, ws, arr, B, KV, G, bs, nb, pps, scale, st);

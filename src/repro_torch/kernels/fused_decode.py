@@ -30,9 +30,10 @@ from repro_torch.kernels.paged_attention import (MAX_GROUP, MAX_SPLITS, arrival_
 from repro_torch.kernels.paged_attention_quant import check_quant_pool
 from repro_torch.kernels.qmm import BS_COLS, BS_CTAS, BS_ROWS, BS_STEP, bitserial_splits
 
-# head dims of the attend launch (csrc/fused_decode.cu): whole lanes only.
-# A windowed model (h2o-danube-3-4b's hd 120) never takes the fused op.
-FUSED_HEAD_DIMS = (64, 96, 128)
+# head dims of the attend launch (csrc/fused_decode.cu): 64, 96 and 128
+# fill whole lanes; 16 (every smoke config) runs padded to 32 dims.  A
+# windowed model (h2o-danube-3-4b's hd 120) never takes the fused op.
+FUSED_HEAD_DIMS = (16, 64, 96, 128)
 
 _ACT = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = BS_STEP        # K rows of one bit-serial step: the unit of (A)'s splits

@@ -29,6 +29,16 @@ over stacked ``(L, K, N)`` leaves with per-layer bits: the LM QAT path's
 (``quant.qat.quantize_params``).  ``fake_quant`` is the flat kernel, for a
 scale the caller gives.
 
+Meta tensors (shapes with no storage: ``launch.specs`` builds a model's
+stand-ins there) take a third branch: each op returns empty outputs of
+the kernel's shapes and dtypes on meta, launches nothing, counts nothing
+in ``counts``, and charges its kernel's contract cost -- the flops and
+the bytes the kernel itself must read and write, as the bounds in
+``PERF.md`` reckon them -- to every :func:`charging` block of the
+calling thread (``launch.op_costs.count_costs`` holds one).  The plain
+version's internals, which dequantize a whole weight, are never what is
+charged.  The CUDA branch does no more host work for it.
+
 Quantized KV: ``paged_attention`` takes the quantized-block kernel when
 scales are passed, and ``fused_qkv_paged_decode`` runs the fused QKV +
 RoPE + KV-quantize + attention kernel.  The reference gates its fused
@@ -89,12 +99,50 @@ def recording():
         _local.recorders = stack
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type != "cpu":
+@contextlib.contextmanager
+def charging(sink):
+    """Inside the block, every kernel entry point THIS thread calls on
+    meta tensors calls ``sink(kernel, flops, nbytes)`` with its contract
+    cost (nested blocks each receive it)."""
+    stack = getattr(_local, "sinks", ())
+    _local.sinks = (*stack, sink)
+    try:
+        yield
+    finally:
+        _local.sinks = stack
+
+
+def _route(t: torch.Tensor) -> str:
+    """``"cuda"`` (launch the kernel), ``"cpu"`` (its plain version) or
+    ``"meta"`` (shapes only: :func:`_stand_in`)."""
+    kind = t.device.type
+    if kind not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel or plain version for device {t.device}")
-    return False
+    return kind
+
+
+def _stand_in(kernel: str, flops: float, nbytes: float, *outputs):
+    """Charge ``kernel``'s contract cost to this thread's :func:`charging`
+    blocks and return a list of empty meta tensors of ``outputs`` ((shape,
+    dtype) pairs) in place of what it would write."""
+    for sink in getattr(_local, "sinks", ()):
+        sink(kernel, float(flops), float(nbytes))
+    return [torch.empty(shape, dtype=dtype, device="meta") for shape, dtype in outputs]
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _kv_rows(k_pool, block_tables, k_scale) -> int:
+    """Bytes of the K and V rows (and scales) a block table addresses:
+    every slot of its pages, since a meta tensor holds no lengths; the
+    count XLA's analysis of the reference's decode step makes too."""
+    B, nb = block_tables.shape
+    NB, bs, KV, hds = k_pool.shape
+    rows = B * nb * bs * KV
+    per_row = hds * k_pool.element_size() + (4 if k_scale is not None else 0)
+    return 2 * rows * per_row
 
 
 def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -111,11 +159,14 @@ def fake_quant(w: torch.Tensor, bits, scale: torch.Tensor | None = None) -> torc
     scale = scale.to(torch.float32).reshape(())
     shape = w.shape
     w2 = w.reshape(-1, shape[-1]) if w.ndim != 2 else w
-    if _on_cuda(w):
+    route = _route(w)
+    if route == "cuda":
         from repro_torch.kernels.fake_quant import fake_quant_cuda
 
         out = fake_quant_cuda(w2.contiguous(), bits, scale)
         _bump("fake_quant")
+    elif route == "meta":
+        (out,) = _stand_in("fake_quant", 0, 2 * _nbytes(w2) + 4, (w2.shape, w2.dtype))
     else:
         out = kref.fake_quant_ref(w2, bits, scale)
         _bump("plain")
@@ -128,11 +179,17 @@ def fake_quant_group(ws, bits):
     int32 vector on the tensors' device).  Returns (the QDQ tensors, the
     f32 vector of scales).  On CUDA: one grouped launch (more only past
     ``GROUP_MAX`` tensors), counted per launch."""
-    if _on_cuda(ws[0]):
+    route = _route(ws[0])
+    if route == "cuda":
         from repro_torch.kernels.fake_quant import fake_quant_group_cuda
 
         outs, scales, launches = fake_quant_group_cuda([w.contiguous() for w in ws], bits)
         _bump("fake_quant_group", launches)
+        return outs, scales
+    if route == "meta":
+        *outs, scales = _stand_in("fake_quant_group", 0, 2 * _nbytes(*ws) + 8 * len(ws),
+                                  *((w.shape, w.dtype) for w in ws),
+                                  ((len(ws),), torch.float32))
         return outs, scales
     _bump("plain")
     return kref.fake_quant_group_ref(ws, bits)
@@ -141,7 +198,11 @@ def fake_quant_group(ws, bits):
 def fake_quant_group_bwd(ws, gs, scales: torch.Tensor) -> list:
     """The clipped STE of a group: ``gs[i] * (|ws[i]| <= scales[i])`` in
     each gradient's dtype.  On CUDA: one launch for the group."""
-    if _on_cuda(gs[0]):
+    route = _route(gs[0])
+    if route == "meta":
+        return _stand_in("fake_quant_group_bwd", 0, _nbytes(*ws) + 2 * _nbytes(*gs) + 4 * len(ws),
+                         *((g.shape, g.dtype) for g in gs))
+    if route == "cuda":
         from repro_torch.kernels.fake_quant import fake_quant_group_bwd_cuda
 
         grads, launches = fake_quant_group_bwd_cuda([w.contiguous() for w in ws],
@@ -160,12 +221,20 @@ def fake_quant_group_col(ws, bits):
     ``kernels.ref.col_bits_view``).  Returns (the QDQ leaves, the f32 scales as ``(..., 1, N)``).
     On CUDA: one grouped launch (more only past ``COL_MAX`` leaves),
     counted per launch."""
-    if _on_cuda(ws[0]):
+    route = _route(ws[0])
+    if route == "cuda":
         from repro_torch.kernels.fake_quant import fake_quant_group_col_cuda
 
         outs, scales, launches = fake_quant_group_col_cuda([w.contiguous() for w in ws], bits)
         _bump("fake_quant_group_col", launches)
         return outs, scales
+    if route == "meta":
+        col = [(*w.shape[:-2], 1, w.shape[-1]) for w in ws]
+        made = _stand_in("fake_quant_group_col", 0,
+                         2 * _nbytes(*ws) + 4 * sum(math.prod(c) for c in col) + _nbytes(*bits),
+                         *((w.shape, w.dtype) for w in ws),
+                         *((c, torch.float32) for c in col))
+        return made[:len(ws)], made[len(ws):]
     _bump("plain")
     return kref.fake_quant_group_col_ref(ws, bits)
 
@@ -173,7 +242,12 @@ def fake_quant_group_col(ws, bits):
 def fake_quant_group_col_bwd(ws, gs, scales) -> list:
     """The per-column clipped STE of a group: ``gs[i] * (|ws[i]| <=
     scales[i])`` in each gradient's dtype.  On CUDA: one launch."""
-    if _on_cuda(gs[0]):
+    route = _route(gs[0])
+    if route == "meta":
+        return _stand_in("fake_quant_group_col_bwd", 0,
+                         _nbytes(*ws) + 2 * _nbytes(*gs) + _nbytes(*scales),
+                         *((g.shape, g.dtype) for g in gs))
+    if route == "cuda":
         from repro_torch.kernels.fake_quant import fake_quant_group_col_bwd_cuda
 
         grads, launches = fake_quant_group_col_bwd_cuda(
@@ -203,11 +277,16 @@ def qmm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
         path = "bitserial" if M <= 32 else "dequant"
     if path not in ("bitserial", "dequant"):
         raise ValueError(f"qmm path {path!r}")
-    if _on_cuda(x):
+    route = _route(x)
+    if route == "cuda":
         from repro_torch.kernels.qmm import qmm_cuda
 
         out = qmm_cuda(x2.contiguous(), packed, scale.reshape(1, N), bits, path)
         _bump("qmm_" + path)
+    elif route == "meta":
+        # planes (bits * K * N / 8 bytes), scale, x read; y (f32) written
+        (out,) = _stand_in("qmm_" + path, 2 * M * K * N,
+                           _nbytes(packed, scale, x2) + 4 * M * N, ((M, N), torch.float32))
     else:
         out = kref.qmm_ref(x2, packed, scale, bits)
         _bump("plain")
@@ -231,7 +310,17 @@ def paged_attention(
     B, _, H, hd = q.shape
     KV = k_pool.shape[2]
     quantized = k_scale is not None
-    if _on_cuda(q):
+    route = _route(q)
+    if route == "meta":
+        # q·k and p·v over every slot the table addresses; f32 out
+        T = block_tables.shape[1] * k_pool.shape[1]
+        (out,) = _stand_in("paged_attention_quant" if quantized else "paged_attention",
+                           4 * B * H * hd * T,
+                           _nbytes(q, block_tables, lengths)
+                           + _kv_rows(k_pool, block_tables, k_scale) + 4 * B * H * hd,
+                           ((B, KV, H // KV, hd), torch.float32))
+        return out.reshape(B, 1, H, hd).to(q.dtype)
+    if route == "cuda":
         q4 = q.reshape(B, KV, H // KV, hd)
         if quantized:
             from repro_torch.kernels.paged_attention_quant import (
@@ -284,7 +373,24 @@ def fused_qkv_paged_decode(
     H, KV = num_heads, num_kv_heads
     hd = wq.scale.shape[-1] // H
     cos, sin = rope_cos_sin(lengths, hd, rope_theta)          # (B, hd/2)
-    if _on_cuda(x):
+    route = _route(x)
+    if route == "meta":
+        # launch (A): the three projections off their planes; launch (B):
+        # q·k and p·v over every slot the table addresses and the new
+        # token, the new token's codes and scales written
+        D, G, hds = x.shape[1], H // KV, k_pool.shape[-1]
+        T = block_tables.shape[1] * k_pool.shape[1]
+        out, kc, vc, ks, vs = _stand_in(
+            "fused_qkv_paged_decode",
+            2 * B * D * (H + 2 * KV) * hd + 4 * B * H * hd * (T + 1),
+            _nbytes(x, wq.planes, wq.scale, wk.planes, wk.scale, wv.planes, wv.scale,
+                    block_tables, lengths, cos, sin)
+            + _kv_rows(k_pool, block_tables, k_scale) + 4 * B * H * hd
+            + 2 * B * KV * (hds * k_pool.element_size() + 4),
+            ((B, KV, G, hd), torch.float32), ((B, KV, hds), k_pool.dtype),
+            ((B, KV, hds), k_pool.dtype), ((B, KV), torch.float32), ((B, KV), torch.float32))
+        return out.reshape(B, 1, H, hd).to(x.dtype), kc, vc, ks, vs
+    if route == "cuda":
         from repro_torch.kernels.fused_decode import fused_qkv_paged_decode_cuda
 
         qmax = torch.as_tensor(qmax, dtype=torch.float32, device=x.device)

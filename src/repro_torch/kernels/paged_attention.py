@@ -20,7 +20,9 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 96, 120, 128)  # 120: h2o-danube-3-4b (lanes 30-31 idle in P.V)
+# 120: h2o-danube-3-4b (lanes 30-31 idle in P.V); 16: every smoke config
+# (lanes 16-31 idle)
+HEAD_DIMS = (16, 64, 96, 120, 128)
 MAX_GROUP = 128  # query heads per KV head (4 per warp, 32 warps)
 MAX_SPLITS = 16  # split-KV CTAs per (row, KV head)
 

@@ -14,13 +14,14 @@ One command from "pretrained params" to "discovered policy is serving":
 
 ``--task cnn:lenet`` swaps the LM substrate for the paper's CNN oracle.
 ``--layers N`` cuts the model's depth and keeps its widths: on the card
-``--no-smoke --layers 2`` (the smoke configs' head dim 16 has no paged
-attention kernel, and a published depth with its optimizer state does
-not fit one card).
+``--no-smoke --layers 2`` reaches glm4-9b's widths (a published depth
+with its optimizer state does not fit one card); the smoke defaults run
+there as they are.
 ``--hw engine`` times real decode steps on the run's device (the card
-unless ``--device cpu``); ``--hw hlo``, the reference's XLA cost analysis,
-is refused (ROADMAP.md queue 1, item 11) and never replaced by another
-evaluator.
+unless ``--device cpu``).  ``--hw hlo`` keeps the reference's flag name
+but not its XLA: it counts the port's own ops of the candidate's packed
+decode step on meta tensors and rooflines them at H100 rates
+(``OpCountLatencyEvaluator``; nothing allocated, on any ``--device``).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import json
 
 import numpy as np
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 
 
 def _build_lm(args, device):
@@ -77,16 +78,19 @@ def _build_cnn(args, net: str, device):
 
 
 def _latency_eval(args, model, params, groups, frozen):
-    from repro_torch.autotune import AnalyticLatencyEvaluator, EngineLatencyEvaluator
+    from repro_torch.autotune import (AnalyticLatencyEvaluator, EngineLatencyEvaluator,
+                                      OpCountLatencyEvaluator)
 
     if args.hw == "none":
         return None
-    if args.hw == "engine" and model is None:
-        raise SystemExit("--hw engine needs the LM serving stack (--task lm); CNN tasks "
-                         "support --hw analytic")
+    if args.hw in ("engine", "hlo") and model is None:
+        raise SystemExit(f"--hw {args.hw} needs the LM serving stack (--task lm); CNN "
+                         f"tasks support --hw analytic")
     if args.hw == "engine":
         return EngineLatencyEvaluator(model, params, num_slots=args.hw_slots,
                                       decode_steps=args.hw_decode_steps)
+    if args.hw == "hlo":
+        return OpCountLatencyEvaluator(model)
     return AnalyticLatencyEvaluator(groups, frozen)
 
 
@@ -110,7 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default="analytic",
                     help="latency evaluator: measured ServeEngine decode steps "
                          "(engine), the closed-form decode roofline at an H100's "
-                         "rates (analytic), or none; hlo is not ported")
+                         "rates (analytic), the packed decode step's op count "
+                         "rooflined at H100 rates (hlo: the port's ops on meta "
+                         "tensors, not XLA's HLO), or none")
     ap.add_argument("--hw-weight", type=float, default=0.5,
                     help="latency-ratio share of the terminal quant state")
     ap.add_argument("--hw-slots", type=int, default=2)
@@ -138,8 +144,6 @@ def main(argv=None) -> dict:
     from repro_torch.autotune import deploy as deploy_policy_to_engine
 
     args = build_parser().parse_args(argv)
-    if args.hw == "hlo":
-        raise not_ported("--hw hlo (HLOLatencyEvaluator, XLA cost analysis)", "slice D, item 11")
     device = resolve_device(args.device)
     if args.log_json:
         from repro_torch.obs import configure

@@ -43,6 +43,15 @@ def apply_linear(x: torch.Tensor, w) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def generator(device: torch.device, seed: int) -> torch.Generator | None:
+    """The init's generator on ``device`` seeded with ``seed``; None on the
+    meta device, where a tensor has a shape and no values and nothing is
+    drawn (``launch.specs`` builds its stand-ins there)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.bfloat16, scale: float | None = None,
                device=None) -> torch.Tensor:

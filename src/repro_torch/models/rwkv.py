@@ -44,7 +44,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (apply_linear, chunked_ce, dense_init,
-                                       embed_init, rms_norm)
+                                       embed_init, generator, rms_norm)
 from repro_torch.models.model import QuantGroup
 from repro_torch.models.transformer import _dots_policy, _index, _unstack
 from repro_torch.quant.pack import QDQ
@@ -115,7 +115,7 @@ class RWKV6LM:
         unless ``device="cpu"``).  To compare with the reference, carry
         its params over with ``repro_torch.convert``."""
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(device, seed)
         cfg, dt, f32 = self.cfg, self.dtype, torch.float32
         L, D, Fd, R = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.wkv_lora_rank
 

@@ -84,6 +84,7 @@ from repro_torch.models.common import (
     decode_attention,
     dense_init,
     embed_init,
+    generator,
     rms_norm,
     swiglu,
 )
@@ -141,7 +142,7 @@ class TransformerLM:
         cannot reproduce ``jax.random``: to compare with the reference,
         carry the reference's params over with ``repro_torch.convert``."""
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(device, seed)
         cfg, dt = self.cfg, self.dtype
         L, D, H, KV, hd, Fd = (self.L_super, cfg.d_model, cfg.num_heads,
                                cfg.num_kv_heads, cfg.hd, cfg.d_ff)

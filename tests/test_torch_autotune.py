@@ -30,7 +30,7 @@ trainer wrote) against the JAX package, on the CPU.
   the JAX spec engine's (op by op).
 - ``launch/autotune.py`` with ``--device cpu`` (``--hw analytic|engine``,
   ``--deploy``, ``--layers``, ``--archive`` warm start, ``--task
-  cnn:lenet``; ``--hw hlo`` refused naming item 11); the async default
+  cnn:lenet``; ``--hw hlo`` refused for a CNN task); the async default
   of ``launch/lm_search.py`` is in ``tests/test_torch_lm_search.py``.
 - A checkpoint the JAX ``Trainer`` writes (bf16 params, int8 moments) is
   served by ``launch/serve.py --ckpt-dir`` with the greedy streams of the
@@ -567,11 +567,14 @@ def test_autotune_launcher_on_cpu(flags, tmp_path):
 
 
 def test_autotune_launcher_refuses_hlo():
+    """``--hw hlo`` counts an LM's packed decode step; a CNN task has none
+    and is refused (the LM case runs in
+    ``tests/test_torch_op_costs.py``)."""
     from repro_torch.launch import autotune
 
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(SystemExit, match="--hw hlo needs the LM serving stack"):
         autotune.main(["--device", "cpu", "--episodes", "1", "--pretrain-steps", "1",
-                       "--hw", "hlo"])
+                       "--task", "cnn:lenet", "--hw", "hlo"])
 
 
 # =========================================================== checkpoints

@@ -767,7 +767,7 @@ def test_paged_attention_split_kv_matches_plain(sm90, lengths, nb, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G", [1, 16, 128])
-@pytest.mark.parametrize("hd", [64, 96, 120, 128])
+@pytest.mark.parametrize("hd", [16, 64, 96, 120, 128])
 def test_paged_attention_head_dims_and_groups(sm90, hd, G):
     case = _paged_case(sm90, 3, 2, G, hd, 16, 9, [0, 70, 144], torch.bfloat16, seed=hd + G)
     _check_paged(*case)
@@ -827,7 +827,7 @@ def test_paged_attention_quant_split_kv_matches_plain(sm90, lengths, nb, kv_bits
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
 @pytest.mark.parametrize("G", [1, 16, 128])
-@pytest.mark.parametrize("hd", [64, 96, 120, 128])
+@pytest.mark.parametrize("hd", [16, 64, 96, 120, 128])
 def test_paged_attention_quant_head_dims_and_groups(sm90, hd, G, kv_bits):
     # a table of 20 pages: wider than 16, so splits hold 2 pages
     case = _quant_case(sm90, 3, 2, G, hd, 16, 20, [0, 70, 300], kv_bits, seed=hd + G + kv_bits)
@@ -847,11 +847,14 @@ def test_paged_attention_quant_launches_more_ctas_than_rows_times_heads(sm90, kv
 
 
 # ---- the fused decode's split-K projection and split-KV attend launch
-def _fused_case(dev, kv_bits, lengths, nb, bits=(4, 4, 4), B=4, seed=5):
+def _fused_case(dev, kv_bits, lengths, nb, bits=(4, 4, 4), B=4, seed=5,
+                shape=(2, 16, 128, 16, 4096)):
+    """(x, [wq, wk, wv], attend args, H, KV) at ``shape`` = (KV, G, hd, bs,
+    D): glm4-9b's by default."""
     from repro_torch.models.common import rope_cos_sin
     from repro_torch.quant.pack import Packed
 
-    KV, G, hd, bs, D = 2, 16, 128, 16, 4096
+    KV, G, hd, bs, D = shape
     H = KV * G
     gen = torch.Generator(device=dev).manual_seed(seed)
     NB, bt, ln = _tables(B, nb, lengths, dev)
@@ -2053,3 +2056,92 @@ def test_graph_capture_with_another_thread_on_the_card(sm90):
     assert graphed._graph.launches == alone._graph.launches
     assert launched == {"qmm_bitserial": done[0]}
     assert torch.equal(logits, eager)
+
+
+# ---------------------------------------------------------------------------
+# head dim 16: every smoke config's (KV 2, G 2, d_model 64), so that the
+# launchers' default commands run on the card
+# ---------------------------------------------------------------------------
+HD16 = (2, 2, 16, 16, 64)            # KV, G, hd, bs, D
+HD16_LENGTHS = [1, 16, 17, 300]      # a page's first token, its end, the next, 19 pages
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_paged_attention_hd16_matches_plain(sm90, dtype):
+    """Lanes 16-31 hold no P.V dims; 19 shuffled pages in 10 splits."""
+    KV, G, hd, bs, _ = HD16
+    case = _paged_case(sm90, 4, KV, G, hd, bs, 19, HD16_LENGTHS, dtype, seed=16)
+    _check_paged(*case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_paged_attention_quant_hd16_matches_plain(sm90, kv_bits):
+    """16-byte int8 / 8-byte int4 rows staged into padded 32-dim rows."""
+    KV, G, hd, bs, _ = HD16
+    case = _quant_case(sm90, 4, KV, G, hd, bs, 19, HD16_LENGTHS, kv_bits, seed=16 + kv_bits)
+    _check_paged_quant(*case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_fused_decode_hd16_matches_plain(sm90, kv_bits, act):
+    """The whole op at the smoke shape (K 64: half of one 128-row K step)
+    against the plain version within its stated code tolerances; its
+    launch (B) alone bitwise in codes and scales; the whole op equal to
+    its two launches alone, and repeatable."""
+    from repro_torch.kernels.fused_decode import (fused_attend_cuda, fused_project_cuda,
+                                                  fused_qkv_paged_decode_cuda)
+    from repro_torch.quant.pack import kv_unpack_int4
+
+    x, ws, args, H, KV = _fused_case(sm90, kv_bits, HD16_LENGTHS, 19, bits=(4, 3, 8),
+                                     seed=16, shape=HD16)
+    x = x.to(act)
+    B, hd = x.shape[0], HD16[2]
+    got = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+    again = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+    staged = fused_attend_cuda(tref.finish_projection(fused_project_cuda(x, *ws, H, KV), *ws),
+                               act, *args, H)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, staged):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    plain = tref.fused_qkv_paged_decode_ref(x, *ws, *args, H, KV)
+    out, po = got[0].reshape(B, 1, H, hd), plain[0].float()
+    assert (out - po).abs().max().item() <= 2e-2 * po.abs().max().item()
+    for g, p in zip(got[3:], plain[3:]):
+        assert ((g - p).abs() <= 2.0 ** -7 * p.abs()).all()
+    unpack = kv_unpack_int4 if kv_bits == 4 else (lambda c: c)
+    for g, p in zip(got[1:3], plain[1:3]):
+        assert (unpack(g).int() - unpack(p).int()).abs().max().item() <= 1
+    proj = torch.cat([tref.qmm_ref(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    got_b = fused_attend_cuda(proj, act, *args, H)
+    torch.cuda.synchronize()
+    plain_b = tref.fused_decode_attend_ref(proj, *args, H, KV, act)
+    for g, p in zip(got_b[1:], plain_b[1:]):
+        assert torch.equal(g, p)
+    ob, pb = got_b[0].reshape(B, 1, H, hd), plain_b[0].float()
+    assert (ob - pb).abs().max().item() <= 1e-2 * pb.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_op_count_evaluator_allocates_nothing_on_the_card(sm90):
+    """``launch/autotune.py --device cuda --hw hlo``'s evaluator builds and
+    counts every candidate on meta tensors: the card's allocation and its
+    peak do not move."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import autotune
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("glm4-9b", smoke=True))
+    args = autotune.build_parser().parse_args(["--device", "cuda", "--hw", "hlo"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ev = autotune._latency_eval(args, model, None, model.quant_groups(), model.frozen_bits())
+    low, ref = ev({n: ev.frozen.get(n, 2) for n in ev.group_names})
+    assert 0 < low < ref
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert torch.cuda.max_memory_allocated() == before

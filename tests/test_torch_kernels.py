@@ -122,3 +122,22 @@ def test_ops_rejects_inconsistent_shapes():
     with pytest.raises(ValueError):
         ops.qmm(torch.from_numpy(x)[:, :K - 8], torch.from_numpy(planes),
                 torch.from_numpy(scale), bits=4)
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["published", "smoke"])
+def test_every_config_head_dim_has_its_kernels(smoke):
+    """Every config's head dim, published and smoke, is one the paged
+    attention kernels take (both), and one the fused decode takes where
+    the arch can reach it (RoPE positions, no window); the ssm family has
+    no KV blocks."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels.fused_decode import FUSED_HEAD_DIMS
+    from repro_torch.kernels.paged_attention import HEAD_DIMS
+
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=smoke)
+        if cfg.family == "ssm":
+            continue
+        assert cfg.hd in HEAD_DIMS, (arch, cfg.hd)
+        if cfg.rope == "rope" and cfg.sliding_window is None:
+            assert cfg.hd in FUSED_HEAD_DIMS, (arch, cfg.hd)
