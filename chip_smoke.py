@@ -47,8 +47,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1024-token ring tables (lengths {1, 17, 1023, 1024} and four full
    rings; bf16, int8 and int4), and qmm bit-serial at M = 4 and dequant
    at M = 256 at every rwkv6-1.6b and hymba-1.5b (K, N) (RWKV's f32
-   activations where its path feeds them; K 1600, N 320 and hymba's
-   32001-wide lm_head among them).  The moe, vlm and audio families'
+   activations where its path feeds them, on the tensor cores as three
+   bf16 terms, bounded at that work with the f32-FMA-rate bound beside;
+   K 1600, N 320 and hymba's 32001-wide lm_head among them).  The moe, vlm and audio families'
    shapes: qmm bit-serial at M = 32 and dequant at M = 384 at
    moonshot's expert (K 2048, N 1408) and (1408, 2048), at M = 4 and 64
    at its projections and 8-bit lm_head (N 163840), at qwen2-vl's
@@ -349,7 +350,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    matmuls, attention tiles, CE chunks, AdamW, fake-quant forward and
    backward).  Phase 5o: the same decode-step trace on 3o's and 3p's
    served engines (the wkv, scan and shift arithmetic falls in "other
-   torch kernels").  Phase 5t: the same on 3t's served moonshot engine,
+   torch kernels"); for RWKV, every f32 qmm launch of the step on the
+   tensor cores (6 a layer, no SIMT kernel), one eager 256-token prefill
+   chunk timed, and both beside the SIMT route's step and chunk.  Phase 5t: the same on 3t's served moonshot engine,
    the router (f32 matmul, softmax) and the dispatch / undispatch (sorts,
    searches, gathers, scatters) as families of their own; qmm's time
    split by graphs of layer 0's 192 expert launches and of its 4
@@ -491,8 +494,17 @@ def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def qmm_plan(path, M, K, N, bits, f32):
+    """The qmm body's launch plan as the wrapper picks it."""
+    from repro_torch.kernels import qmm
+
+    if path == "bitserial":
+        return qmm.bitserial_plan(M, K, N, bits)
+    return qmm.dequant_plan(M, K, N, bits, f32=f32)
+
+
 def check_qmm(torch, timer, peaks, rows, shapes=GLM4_QMM + EXTRA_BITS, ms=QMM_MS, seed=0):
-    from repro_torch.kernels.qmm import bitserial_plan, dequant_plan, qmm_cuda
+    from repro_torch.kernels.qmm import qmm_cuda
     from repro_torch.kernels.ref import dequant_ref, qmm_ref
     from repro_torch.quant.pack import pack_weight
 
@@ -521,33 +533,47 @@ def check_qmm(torch, timer, peaks, rows, shapes=GLM4_QMM + EXTRA_BITS, ms=QMM_MS
                          f"> {TOL} * {ref_max:.3g}")
                 worst = max(worst, err)
                 nbytes = M * K * x.element_size() + planes.numel() + N * 4 + M * N * 4
-                # f32 products run outside the tensor cores
-                flop_peaks = peaks if xdt == torch.bfloat16 else (peaks[0], f32_peak_of(torch))
-                b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, flop_peaks)
+                f32 = xdt == torch.float32
+                # the function's own work: its bytes (f32 x read once) and
+                # 2MKN products at the bf16 tensor-core rate, whatever the body
+                # does to reach them
+                b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peaks)
                 # the TPU kernel rounds x to bf16 in its body: the same product's
                 # bound with bf16 x on the tensor cores
                 b16_ms = bound_ms(nbytes - M * K * (x.element_size() - 2), 2.0 * M * K * N,
                                   peaks)[0]
-                plan = (dequant_plan if path == "dequant" else bitserial_plan)(M, K, N, bits)
+                plan = qmm_plan(path, M, K, N, bits, f32)
                 row = {"kernel": f"qmm_{path}", "shape": name, "M": M, "K": K,
                        "N": N, "bits": bits, "x_dtype": str(xdt).split(".")[-1],
                        "max_abs_err": err,
-                       "plan": plan._asdict(),
+                       "plan": plan and plan._asdict(),
                        "rel_err": err / ref_max,
                        "ms": timer(lambda: qmm_cuda(x, planes, scale, bits, path)),
                        "plain_ms": timer(lambda: qmm_ref(x, planes, scale, bits), iters=5),
                        "library_ms": timer(lambda: torch.matmul(x, dense)),
-                       "bound_ms": b_ms, "bound_by": b_by, "bound_bf16_ms": b16_ms}
+                       "bound_ms": b_ms, "bound_by": b_by, "bound_bf16_ms": b16_ms,
+                       # the work of this design: f32 x as three bf16 terms,
+                       # 3x the products
+                       "bound_3term_ms": bound_ms(nbytes, 6.0 * M * K * N, peaks)[0]
+                       if f32 else b_ms,
+                       # the bound the SIMT bodies had: f32 x's products at the
+                       # f32 FMA rate
+                       "bound_simt_ms": bound_ms(nbytes, 2.0 * M * K * N,
+                                                 (peaks[0], f32_peak_of(torch)))[0]
+                       if f32 else b_ms}
                 rows.append(row)
+                where = ("" if plan is None else
+                         f" [{plan.ctas} CTAs of {plan.kgroups} warpgroups, {plan.splits} K "
+                         f"splits, bitwise on 2 calls]" if path == "dequant" else
+                         f" [{plan.ctas} CTAs of {plan.warps} warps, {plan.splits} K "
+                         f"splits, bitwise on 2 calls]")
                 print(f"  qmm_{path:9s} {name:8s} M={M:3d} K={K:5d} N={N:6d} "
                       f"b={bits} x={row['x_dtype']} err={err:.2e} (rel {row['rel_err']:.1e}) "
                       f"kernel={row['ms']:.4f} plain={row['plain_ms']:.4f} "
                       f"matmul={row['library_ms']:.4f} bound={b_ms:.4f} ms"
-                      + (f" (bf16 x: {b16_ms:.4f})" if xdt == torch.float32 else "")
-                      + (f" [{plan.ctas} CTAs of {plan.kgroups} warpgroups, "
-                         f"{plan.splits} K splits, bitwise on 2 calls]" if path == "dequant"
-                         else f" [{plan.ctas} CTAs of {plan.warps} warps, {plan.splits} K "
-                              f"splits, bitwise on 2 calls]"))
+                      + (f" (3 bf16 terms: {row['bound_3term_ms']:.4f}; f32 SIMT rate: "
+                         f"{row['bound_simt_ms']:.4f}; bf16 x: {b16_ms:.4f})" if f32 else "")
+                      + where)
                 del got, again, plain
         del planes, scale, dense
         torch.cuda.empty_cache()
@@ -2580,6 +2606,7 @@ def profile_decode(torch, engine, work, timed=4, traced=4, family=None):
     engine.run_until_drained()
     fams: dict[str, float] = {}
     top = []
+    kernels: dict[str, float] = {}         # launches a step by kernel name
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:   # kernels only: CPU ops
             continue                           # would count them twice
@@ -2587,6 +2614,7 @@ def profile_decode(torch, engine, work, timed=4, traced=4, family=None):
         if us <= 0:
             continue
         name = ev.key
+        kernels[name] = kernels.get(name, 0) + ev.count / traced
         fam = (family and family(name)) or (
                "sampler graph" if "ArgMax" in name
                else "qmm" if "qmm_" in name else "fused_project" if "fused_project" in name
@@ -2609,7 +2637,7 @@ def profile_decode(torch, engine, work, timed=4, traced=4, family=None):
     for ms, n, name in sorted(top, reverse=True)[:8]:
         print(f"    top: {ms:8.3f} ms/step  {n:4d} launches/step  {name}")
     return {"step_ms": step_ms, "device_ms": busy, "families_ms": fams,
-            "idle_share": 1 - busy / step_ms, "traced_steps": traced}
+            "idle_share": 1 - busy / step_ms, "traced_steps": traced, "kernels": kernels}
 
 
 # ---- the LM QAT path at glm4-9b's widths (phases 2, 3j, 3k, 4j, 5j) ---------
@@ -3833,6 +3861,88 @@ def admm_resnet20(torch, task):
     return {"bits": vec, "weighted_avg_bits": avg, "wall_s": wall, "counts": counts}
 
 
+# RWKV when its f32 activations took the f32-FMA (SIMT) qmm bodies the
+# tensor-core route replaced, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): phase 5o's graphed 4-row decode step (host ms, device busy
+# ms) and the eager 256-token prefill chunk (host ms).  The host clocks
+# vary from call to call: scripts/kernel_rows.py --rwkv-e2e times both
+# routes in one call
+SIMT_RWKV = {"step_ms": 8.27, "busy_ms": 7.98, "chunk_ms": 139.0}
+RWKV_F32_PER_LAYER = 6     # time-mix r, k, v, g and channel-mix k, r take the f32 mixes
+
+
+def recurrent_chunk_ms(torch, r, reps=3):
+    """One eager prefill chunk (``r``'s engine's chunk width) on a fresh
+    row of its pool: host ms (device synchronized, median of ``reps``
+    after one warm-up), then device busy ms and qmm's share from one
+    profiled chunk."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, model, sparams = r["engine"], r["model"], r["sparams"]
+    pool, C = engine.pool, engine.prefill_chunk
+    seq = pool.alloc_seq()
+    pool.ensure(seq, C + 1)
+    toks = torch.from_numpy((np.arange(C, dtype=np.int32) % 1000 + 1)[None]).cuda()
+
+    def chunk():
+        model.prefill_chunk(sparams, pool.step_cache(), toks, seq, 0, C)
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    pool.free_seq(seq)
+    busy = qmm = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            busy += ev.self_device_time_total / 1e3
+            qmm += ev.self_device_time_total / 1e3 if "qmm_" in ev.key else 0.0
+    return {"chunk": C, "host_ms": statistics.median(times[1:]),
+            "busy_ms": busy or None, "qmm_ms": qmm if busy else None}
+
+
+def rwkv_against_simt(torch, short, long, breakdown):
+    """Phase 5o for RWKV: every f32 qmm launch of the graphed decode step
+    on the tensor cores (the f32 instances of the bit-serial body, 6 a
+    layer), then the decode step and the prefill chunk beside the SIMT
+    route's."""
+    kernels = breakdown.get("kernels")
+    out = {}
+    if kernels is None:
+        print("  [rwkv] the profiler saw no device time: the f32 route not read (not measured)")
+    else:
+        f32 = sum(n for k, n in kernels.items() if "tc_kernel<" in k and ", true>" in k)
+        want = RWKV_F32_PER_LAYER * short["cfg"].num_layers
+        print(f"  [rwkv] f32 qmm launches a decode step on the tensor cores: {f32:g} "
+              f"(want {want}: {RWKV_F32_PER_LAYER} a layer)")
+        # the trace's window may cut a replay at its edges (every kernel of
+        # the step then counts a fraction of a launch short)
+        if not want - 1 <= f32 <= want:
+            fail(f"[rwkv] {f32:g} f32 tensor-core qmm launches a step, want {want}")
+        out["f32_tc_launches_per_step"] = f32
+    c = recurrent_chunk_ms(torch, long)
+    out["prefill_chunk"] = c
+    p50 = short["metrics"]["decode_step_p50_ms"]
+    out["decode_step_p50_ms"] = p50
+    print(f"  [rwkv] {c['chunk']}-token prefill chunk: {c['host_ms']:.2f} ms host"
+          + (f", {c['busy_ms']:.2f} ms busy, qmm {c['qmm_ms']:.2f}" if c["busy_ms"] else ""))
+    print(f"  [rwkv] beside the SIMT route (f32 x on f32 FMAs): 3o decode step p50 "
+          f"{p50:.3f} ms; 5o step {breakdown['step_ms']:.2f} ms host (SIMT "
+          f"{SIMT_RWKV['step_ms']}), "
+          + (f"{breakdown['device_ms']:.2f} ms busy (SIMT {SIMT_RWKV['busy_ms']}); "
+             if breakdown.get("device_ms") else "busy not measured; ")
+          + f"prefill chunk {c['host_ms']:.2f} ms (SIMT ~{SIMT_RWKV['chunk_ms']:g})")
+    return out
+
+
 def recurrent_card_vs_cpu(torch):
     """Phase 4o: narrow models of both families served on the card and on
     the CPU, 6 prompts of 72-100 tokens and 48 greedy tokens: RWKV (2
@@ -4984,6 +5094,8 @@ def main() -> None:
     for cell, label in (("3o", "rwkv"), ("3p", "hymba fp KV")):
         print(f"  [{label}, pipeline]")
         rec_breakdown[label] = profile_decode(torch, rec[cell]["engine"], rec[cell]["work"])
+    rec_breakdown["rwkv vs simt"] = rwkv_against_simt(torch, rec["3o"], rec["3o long"],
+                                                      rec_breakdown["rwkv"])
     for r in rec.values():
         for key in ("engine", "model", "sparams"):
             r.pop(key, None)
@@ -5039,7 +5151,7 @@ def main() -> None:
         return per_step(rows, kernel, lambda r: rec_calls.get(r["shape"], 0)
                         if r["M"] == M and r["shape"].startswith(prefix)
                         and (M == 4 or "lm_head" not in r["shape"]) else 0,
-                        ("bound_bf16_ms",))
+                        ("bound_bf16_ms", "bound_3term_ms", "bound_simt_ms"))
 
     attn64 = per_step(rows, "paged_attention", lambda r: 32 if r["shape"] == "g5 decode" else 0)
     attn64_q = per_step(rows, "paged_attention_quant",
@@ -5214,7 +5326,10 @@ def main() -> None:
                          "(KV 8, G 4, hd 120), launches from phases 3l / 3m; "
                          "qmm_*_rwkv / qmm_*_hymba: one decode step at M=4 (193 / 321 calls, "
                          "lm_head included) and one 256-token prefill chunk (192 / 320 layer "
-                         "calls), launches from phases 3o / 3p; paged_attention_g5_hd64 and "
+                         "calls), launches from phases 3o / 3p (RWKV's f32 calls bounded at "
+                         "2MKN at the bf16 tensor rate, the three-term work in bound_3term_ms; "
+                         "an f32 qmm_dequant launch is a split pass and the body); "
+                         "paged_attention_g5_hd64 and "
                          "paged_attention_quant_g5_hd64 (int8): hymba-1.5b's decode step, 32 "
                          "calls over full 1024-token rings (KV 5, G 5, hd 64), launches from "
                          "phases 3p / 3q; qmm_*_moonshot / qwen2-vl / musicgen: one fp-KV "

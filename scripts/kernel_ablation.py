@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the redesigned kernels goes, on the card.
 
-    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused] [fq]
+    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused] [fq] [f32]
 
-(the sections named, all six by default)
+(the sections named, all seven by default)
 
 0. qmm bit-serial (``bitserial``; bf16 x, M = 4, glm4-9b's decode shapes:
    wq, wk, wg and wd at 4 bits, the lm_head at 8): the kernel as built, and
@@ -59,6 +59,10 @@
    (1 vector a thread), at 2 and 4, empty, and its plain version (per
    layer abs, compare, cast, mul).
    Device times here sum every kernel of a call (10 calls, L2 warm).
+7. qmm on f32 x (``f32``; rwkv6-1.6b's f32 projections at 4 bits, 2048 x
+   2048 and 2048 x 7168): the bit-serial body at M = 4 over warps per
+   CTA x K splits, and the dequant body at M = 256 over warpgroups per
+   CTA x K splits (its split pass included), beside ``torch.matmul``.
 
 Times: CUDA events per call (L2 flushed, ``chip_smoke.Timer``) and the
 kernels' device time from ``torch.profiler``.  The copies are built with
@@ -89,14 +93,13 @@ from repro_torch.quant.pack import kv_pack_int4, kv_quantize, pack_weight  # noq
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablation"
 
 BS_CUTS = {
-    "NOLOAD": ("        if (nx < n)\n            load_step<NT, BITS>(",
-               "        if (false)\n            load_step<NT, BITS>("),
+    "NOLOAD": ("        if (nx < n)\n            load_step<NT, BITS, F32>(",
+               "        if (false)\n            load_step<NT, BITS, F32>("),
     "NOCODE": ("            codes_to_a<BITS>(af, c, s);",
                "            af[0] = af[1] = af[2] = af[3] = 0x3F803F80u + s + h;"),
-    "NOMMA": ("            for (int j = 0; j < NT; ++j) mma_bf16(acc[j], af, x_pair(xb[j][0], s), "
-              "x_pair(xb[j][1], s));",
-              "            for (int j = 0; j < NT; ++j)\n                acc[j][0] += __uint_as_float("
-              "af[0] ^ af[1] ^ af[2] ^ af[3] ^ x_pair(xb[j][0], s) ^ x_pair(xb[j][1], s));"),
+    "NOMMA": ("                    mma_bf16(acc[j], af, x_pair(xb[j][0], s), x_pair(xb[j][1], s));",
+              "                    acc[j][0] += __uint_as_float(af[0] ^ af[1] ^ af[2] ^ af[3] ^ "
+              "x_pair(xb[j][0], s) ^ x_pair(xb[j][1], s));"),
     "NOCOMBINE": ("    if (a.cluster) {\n        // qmm: split 0", "    if (false) {\n        // qmm: split 0"),
     "STAGES6": ("constexpr int STAGES = 4;", "constexpr int STAGES = 6;"),
     "STAGES8": ("constexpr int STAGES = 4;", "constexpr int STAGES = 8;"),
@@ -112,9 +115,9 @@ BS_SHAPES = [("wq", 4096, 4096, 4), ("wk", 4096, 256, 4), ("wg", 4096, 13696, 4)
              ("wd", 13696, 4096, 4), ("lm_head", 4096, 151552, 8)]
 
 QMM_CUTS = {
-    "NOLOAD": ("    if (nx < n) tc_load<NT, BITS>(ring + (nx % TC_STAGES) * S::SLOT, g, c0 + nx * kg, r128);",
-               ""),
-    "NODECODE": ("    for (int kk = 0; kk < 4; ++kk) tc_frag<BITS>(a[kk], slot + S::X_BYTES, kk, col, sh);",
+    "NOLOAD": ("    if (nx < n)\n        tc_load<NT, BITS, TERMS>(ring + (nx % S::STAGES) * S::SLOT, g, "
+               "c0 + nx * kg, r128);", ""),
+    "NODECODE": ("    for (int kk = 0; kk < 4; ++kk) tc_frag<BITS>(a[kk], slot + S::PLANES, kk, col, sh);",
                  "    for (int kk = 0; kk < 4; ++kk)\n        for (int q = 0; q < 4; ++q) "
                  "a[kk][q] = 0x3F803F80u + i;"),
     "NOMMA": ("    for (int kk = 0; kk < 4; ++kk) wg::Wgmma<NT>::run(acc, a[kk], desc + 2 * kk);",
@@ -236,7 +239,7 @@ def device_ms(timer, fn, key: str) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: needs a CUDA card")
-    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused", "fq"}
+    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused", "fq", "f32"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
@@ -280,6 +283,45 @@ def main() -> None:
         fused_section(libs, timer, gen)
     if "fq" in sections:
         fq_section(libs, timer, gen)
+    if "f32" in sections:
+        f32_section(timer, gen)
+
+
+def f32_section(timer, gen) -> None:
+    """The f32 bodies (the package's own build) over launch plans."""
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = build.library("qmm")
+    for name, K, N in (("2048 x 2048", 2048, 2048), ("2048 x 7168", 2048, 7168)):
+        planes, scale = pack_weight(torch.randn((K, N), generator=gen, device="cuda")
+                                    * K ** -0.5, 4)
+        for path, M in (("bitserial", 4), ("dequant", 256)):
+            x = torch.randn((M, K), generator=gen, device="cuda")
+            y = torch.empty((M, N), device="cuda")
+            xs = torch.empty((3, M, K), dtype=torch.bfloat16, device="cuda")
+            dense = torch.randn((K, N), generator=gen, device="cuda")
+            cells = [f"matmul {timer(lambda: torch.matmul(x, dense)):.4f}"]
+            if path == "bitserial":
+                plan = bitserial_plan(M, K, N, 4)
+                grid = [(w, s) for w in (1, 2, 4, 8) for s in (1, 2, 4, 8, 16)
+                        if s <= plan.steps and -(-N // (16 * w)) * s >= 132]
+                mark = (plan.warps, plan.splits)
+            else:
+                plan = dequant_plan(M, K, N, 4, f32=True)
+                grid = [(kg, s) for kg in (1, 2) for s in (1, 2, 3, 4, 6)]
+                mark = (plan.kgroups, plan.splits)
+            for a, sp in grid:
+                ws = torch.empty((sp, M, N), device="cuda")
+
+                def fn(a=a, sp=sp, ws=ws):
+                    err = lib.qmm_launch(x.data_ptr(), 0, planes.data_ptr(), scale.data_ptr(),
+                                         y.data_ptr(), ws.data_ptr(), xs.data_ptr(), M, K, N,
+                                         4, 0 if path == "bitserial" else 1,
+                                         0 if path == "bitserial" else 64, a, sp, stream)
+                    build.check(err, "qmm f32")
+                tag = ("w" if path == "bitserial" else "kg") + f"{a}/s{sp}"
+                cells.append(f"{tag}{'*' if (a, sp) == mark else ''} {timer(fn):.4f}")
+            print(f"qmm {path} f32, M={M}, {name}, 4-bit (events ms; * the plan's): "
+                  + "  ".join(cells), flush=True)
 
 
 def bitserial_section(libs, timer, gen) -> None:
@@ -296,8 +338,8 @@ def bitserial_section(libs, timer, gen) -> None:
     def call(lib, x, planes, scale, K, N, bits, warps, splits):
         y = torch.empty((M, N), device="cuda")
         return lambda: lib.qmm_launch(x.data_ptr(), 1, planes.data_ptr(), scale.data_ptr(),
-                                      y.data_ptr(), None, M, K, N, bits, 0, 0, warps, splits,
-                                      stream)
+                                      y.data_ptr(), None, None, M, K, N, bits, 0, 0, warps,
+                                      splits, stream)
 
     for variant in BS_VARIANTS:
         lib = libs[bs_tag(variant)]
@@ -344,8 +386,8 @@ def qmm_section(libs, timer, gen) -> None:
         y = torch.empty((64, N), device="cuda")
         ws = torch.empty((splits, 64, N), device="cuda")
         return lambda: lib.qmm_launch(x.data_ptr(), 1, planes.data_ptr(), scale.data_ptr(),
-                                      y.data_ptr(), ws.data_ptr(), 64, K, N, 4, 1, 64, kgroups,
-                                      splits, stream)
+                                      y.data_ptr(), ws.data_ptr(), None, 64, K, N, 4, 1, 64,
+                                      kgroups, splits, stream)
 
     for variant in QMM_VARIANTS:
         lib = libs[f"qmm_{variant}"]

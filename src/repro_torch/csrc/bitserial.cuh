@@ -63,7 +63,26 @@
 //   * Column tiles of the matrices follow each other along blockIdx.x, so
 //     the CTAs of all three are in flight at once; ragged N and K/8 are
 //     masked in the kernel (zero-filled pieces).
-// f32 x keeps the SIMT body (simt_kernel): a bf16 x would round it.
+// f32 x (RWKV's token-shift mixes) takes the same body.  Rounding x to
+// bf16 would change the function (the plain version multiplies in f32),
+// so each value is split exactly into three bf16 terms, x = x1 + x2 + x3
+// (split3: 8 + 8 + 8 significand bits, by truncation).  Each term times a
+// code is exact in f32, and the three products go into the one
+// accumulator: only the order of the f32 sum differs, as for bf16 x.
+//   * Staging: the f32 rows are copied raw into the ring (16-byte
+//     cp.async, 512 bytes a row and step) and split once per CTA into
+//     three bf16 tiles laid out as a bf16 x tile, a step ahead: step i + 1
+//     is split while step i's products run, and the barrier of step i + 1
+//     publishes it, so the split takes no barrier of its own (one step
+//     fewer in flight).  The term tiles sit in two buffers beside the ring
+//     (step i's in buffer i % 2), not in every slot: at RWKV's 2048 x 7168
+//     a CTA then takes 49 KB at 4 bits, and the plan's 448 CTAs fit the
+//     card at once (4 a SM).  The warps share the split instead of each
+//     splitting its B fragments.
+//   * Each A fragment -- the codes rebuilt from the planes, the costly
+//     part -- is built once and multiplied by the three B fragments: 3x
+//     the mma work of bf16 x, which at decode's M stays far below the
+//     planes' bytes.  Splits, clusters and the combine are bf16 x's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,11 +103,44 @@ constexpr int STAGES = 4;                // ring slots: 3 steps load while one i
 constexpr int MAX_CLUSTER = 16;          // splits of a qmm tile: one cluster (> 8: non-portable)
 constexpr int ROWS = 32;                 // x rows per CTA (4 n8 tiles); grid z for more
 constexpr int XROW = STEP * 2;           // bytes of one staged x row (bf16)
+constexpr int XRAW = STEP * 4;           // bytes of one staged f32 x row, before the split
 constexpr int PAD = 16;                  // bytes after each staged plane row
 constexpr int MAX_WARPS = 8;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// x = x1 + x2 + x3, each the high half of an f32 pattern (a bf16 value,
+// returned as its 16 bits): x1 is x truncated to bf16, x2 the remainder
+// truncated, x3 what is left.  Truncation never overflows (rounding x1
+// to nearest would turn |x| above bf16's largest finite value into inf).
+// A non-finite x is x1 alone: inf itself, a NaN with its quiet bit set
+// first, so that a payload only in the low half stays a NaN.  The sum is
+// exact for every x that is a multiple of 2^-133 (bf16's least
+// subnormal): every |x| >= 2^-110 and every bf16 value.  Below that, the
+// bits under 2^-133 are dropped: no bf16 value holds them.
+// kernels/ref.py::split_bf16x3 is the plain version.
+__device__ __forceinline__ void split3(float x, uint32_t& h1, uint32_t& h2, uint32_t& h3) {
+    const uint32_t b = __float_as_uint(x);
+    const bool finite = (b & 0x7F800000u) != 0x7F800000u;
+    const bool nan = !finite && (b & 0x007FFFFFu);
+    const uint32_t t1 = (nan ? b | 0x00400000u : b) & 0xFFFF0000u;
+    const float r1 = finite ? x - __uint_as_float(t1) : 0.f;
+    const uint32_t t2 = __float_as_uint(r1) & 0xFFFF0000u;
+    const float r2 = r1 - __uint_as_float(t2);
+    h1 = t1 >> 16;
+    h2 = t2 >> 16;
+    h3 = __float_as_uint(r2) >> 16;
+}
+
+// split3 of four f32 values: t[i] = their i-th terms, 4 bf16 in order
+__device__ __forceinline__ void split4(const float4& v, uint2 (&t)[3]) {
+    uint32_t h[4][3];
+    split3(v.x, h[0][0], h[0][1], h[0][2]);
+    split3(v.y, h[1][0], h[1][1], h[1][2]);
+    split3(v.z, h[2][0], h[2][1], h[2][2]);
+    split3(v.w, h[3][0], h[3][1], h[3][2]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        t[i] = make_uint2(h[0][i] | (h[1][i] << 16), h[2][i] | (h[3][i] << 16));
+}
 
 struct Mat {
     const uint8_t* planes;   // (bits, K/8, N)
@@ -128,14 +180,24 @@ __device__ __forceinline__ Mat this_mat(const Mats& mats) {
     return mat;
 }
 
-// ------------------------------------------------ bf16 x: the tensor cores
-// bytes of one ring slot: nt * 8 x rows, then bmax planes x JR byte rows
-__host__ __device__ constexpr int slot_bytes(int nt, int bmax, int cols) {
-    return nt * 8 * XROW + bmax * JR * (cols + PAD);
+// ------------------------------------------------------ the tensor cores
+// bytes of the x rows of one ring slot: nt * 8 rows, bf16 or raw f32
+__host__ __device__ constexpr int x_bytes(int nt, bool f32) {
+    return nt * 8 * (f32 ? XRAW : XROW);
+}
+// bytes of one ring slot: the x rows, then bmax planes x JR byte rows
+__host__ __device__ constexpr int slot_bytes(int nt, int bmax, int cols, bool f32) {
+    return x_bytes(nt, f32) + bmax * JR * (cols + PAD);
+}
+// bytes of one buffer of f32 x's three bf16 term tiles (nt * 8 rows each)
+__host__ __device__ constexpr int terms_bytes(int nt) { return 3 * nt * 8 * XROW; }
+// a CTA's dynamic shared memory: the ring, and for f32 x two term buffers
+__host__ __device__ constexpr int smem_bytes(int nt, int bmax, int cols, bool f32) {
+    return STAGES * slot_bytes(nt, bmax, cols, f32) + (f32 ? 2 * terms_bytes(nt) : 0);
 }
 
 struct Args {
-    const __nv_bfloat16* x;  // (M, K), 16-byte aligned
+    const uint8_t* x;        // (M, K) bf16 or f32, 16-byte aligned
     Mats mats;
     float* out;              // y (M, ntot) finished, or (cluster == 0, splits > 1) the
                              // raw partials (splits, M, ntot)
@@ -242,19 +304,32 @@ __device__ __forceinline__ void cp_plane16(void* dst, const void* src, bool ok) 
 
 // Stage K step k (x rows m0.. and the plane tile's columns n0..) into a
 // ring slot, every thread of the CTA taking part.  Pieces past K, N and
-// the CTA's rows are zero-filled or not loaded.
-template <int NT, int BITS>
+// the CTA's rows are zero-filled or not loaded.  bf16 x goes to the x
+// tile (pieces swizzled by row parity), f32 x raw to the slot's f32 rows.
+template <int NT, int BITS, bool F32>
 __device__ __forceinline__ void load_step(uint8_t* slot, const Args& a, const Mat& mat, int k,
                                           int m0, int mrows, int n0, int cols, int lg_pieces) {
     const int k0 = k * STEP;
-    for (int i = threadIdx.x; i < mrows * JR; i += blockDim.x) {   // x: JR pieces per row
-        const int r = i >> LG_JR, p = i & (JR - 1);
-        const int gk = k0 + p * 8;
-        const bool ok = gk < a.K;
-        wg::cp_async16(slot + r * XROW + ((p ^ ((r & 1) << 2)) << 4),
-                       ok ? a.x + (size_t)(m0 + r) * a.K + gk : a.x, ok);
+    if constexpr (F32) {
+        const float* x = reinterpret_cast<const float*>(a.x);
+        for (int i = threadIdx.x; i < mrows * (STEP / 4); i += blockDim.x) {   // 4 K a piece
+            const int r = i / (STEP / 4), p = i % (STEP / 4);
+            const int gk = k0 + p * 4;
+            const bool ok = gk < a.K;
+            wg::cp_async16(slot + r * XRAW + p * 16, ok ? x + (size_t)(m0 + r) * a.K + gk : x,
+                           ok);
+        }
+    } else {
+        const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(a.x);
+        for (int i = threadIdx.x; i < mrows * JR; i += blockDim.x) {   // x: JR pieces per row
+            const int r = i >> LG_JR, p = i & (JR - 1);
+            const int gk = k0 + p * 8;
+            const bool ok = gk < a.K;
+            wg::cp_async16(slot + r * XROW + ((p ^ ((r & 1) << 2)) << 4),
+                           ok ? x + (size_t)(m0 + r) * a.K + gk : x, ok);
+        }
     }
-    uint8_t* ps = slot + NT * 8 * XROW;
+    uint8_t* ps = slot + x_bytes(NT, F32);
     const int prow = cols + PAD, K8 = a.K / 8, N = mat.N;
     if (a.vec) {                                                    // N % 16 == 0
         const int pieces = 1 << lg_pieces;                         // per plane row
@@ -277,12 +352,47 @@ __device__ __forceinline__ void load_step(uint8_t* slot, const Args& a, const Ma
     }
 }
 
+// f32 x: split a landed slot's raw rows into a buffer of three bf16 term
+// tiles, each laid out as a bf16 x tile (term u at u * NT * 8 * XROW)
+template <int NT>
+__device__ __forceinline__ void split_step(const uint8_t* raw, uint8_t* terms, int mrows) {
+    for (int i = threadIdx.x; i < mrows * (STEP / 4); i += blockDim.x) {
+        const int r = i / (STEP / 4), q = i % (STEP / 4);      // K 4q .. 4q+3 of row r
+        uint2 t[3];
+        split4(*reinterpret_cast<const float4*>(raw + r * XRAW + q * 16), t);
+        const int at = r * XROW + (((q >> 1) ^ ((r & 1) << 2)) << 4) + (q & 1) * 8;
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+            *reinterpret_cast<uint2*>(terms + u * NT * 8 * XROW + at) = t[u];
+    }
+}
+
+// B fragments of this part: x row 8j + g, byte rows t and t + 4 (8 K
+// positions each) of an x tile
+template <int NT>
+__device__ __forceinline__ void load_b(uint4 (&xb)[NT][2], const uint8_t* xt, int h, int mrows,
+                                       int g, int t) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+        const int r = 8 * j + g, sw = (r & 1) << 2;
+        if (r < mrows) {
+            const uint8_t* xr = xt + r * XROW;
+            xb[j][0] = *reinterpret_cast<const uint4*>(xr + (((8 * h + t) ^ sw) << 4));
+            xb[j][1] = *reinterpret_cast<const uint4*>(xr + (((8 * h + 4 + t) ^ sw) << 4));
+        } else {
+            xb[j][0] = xb[j][1] = make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+}
+
 // The products of one staged K step for this warp's 16 columns: STEP / 64
-// parts of 64 K, 4 k16 steps each.
-template <int NT, int BITS>
-__device__ __forceinline__ void mma_step(float (&acc)[NT][4], const uint8_t* slot, int mrows,
-                                         int cols, int warp, int g, int t) {
-    const uint8_t* ps = slot + NT * 8 * XROW;
+// parts of 64 K, 4 k16 steps each.  xt: the bf16 x tile, or f32 x's three
+// term tiles, each A fragment against their B fragments in term order;
+// ps: the plane tile.
+template <int NT, int BITS, bool F32>
+__device__ __forceinline__ void mma_step(float (&acc)[NT][4], const uint8_t* xt,
+                                         const uint8_t* ps, int mrows, int cols, int warp, int g,
+                                         int t) {
     const int prow = cols + PAD;
     const int col = warp * 16 + 2 * g;       // A rows g, g + 8: columns col, col + 1
 #pragma unroll
@@ -301,34 +411,41 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const uint8_t* slo
             }
         }
         transpose<BITS>(c);
-        // B: x row 8j + g, byte rows t and t + 4 (8 K positions each)
-        uint4 xb[NT][2];
+        if constexpr (F32) {
+            uint32_t af[4][4];
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-            const int r = 8 * j + g, sw = (r & 1) << 2;
-            if (r < mrows) {
-                const uint8_t* xr = slot + r * XROW;
-                xb[j][0] = *reinterpret_cast<const uint4*>(xr + (((8 * h + t) ^ sw) << 4));
-                xb[j][1] = *reinterpret_cast<const uint4*>(xr + (((8 * h + 4 + t) ^ sw) << 4));
-            } else {
-                xb[j][0] = xb[j][1] = make_uint4(0u, 0u, 0u, 0u);
+            for (int s = 0; s < 4; ++s) codes_to_a<BITS>(af[s], c, s);
+#pragma unroll
+            for (int u = 0; u < 3; ++u) {
+                uint4 xb[NT][2];
+                load_b<NT>(xb, xt + u * NT * 8 * XROW, h, mrows, g, t);
+#pragma unroll
+                for (int s = 0; s < 4; ++s)
+#pragma unroll
+                    for (int j = 0; j < NT; ++j)
+                        mma_bf16(acc[j], af[s], x_pair(xb[j][0], s), x_pair(xb[j][1], s));
             }
-        }
+        } else {
+            uint4 xb[NT][2];
+            load_b<NT>(xb, xt, h, mrows, g, t);
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {           // K positions s and s + 4 of each byte row
-            uint32_t af[4];
-            codes_to_a<BITS>(af, c, s);
+            for (int s = 0; s < 4; ++s) {       // K positions s and s + 4 of each byte row
+                uint32_t af[4];
+                codes_to_a<BITS>(af, c, s);
 #pragma unroll
-            for (int j = 0; j < NT; ++j) mma_bf16(acc[j], af, x_pair(xb[j][0], s), x_pair(xb[j][1], s));
+                for (int j = 0; j < NT; ++j)
+                    mma_bf16(acc[j], af, x_pair(xb[j][0], s), x_pair(xb[j][1], s));
+            }
         }
     }
 }
 
-template <int NT, int BITS>
+template <int NT, int BITS, bool F32>
 __device__ __forceinline__ void tc_body(const Args& a, const Mat& mat, uint8_t* smem) {
     const int warps = blockDim.x / 32, cols = 16 * warps;
     const int lg_pieces = __ffs(warps) - 1;  // cols / 16 = warps, a power of two
-    const int slot = slot_bytes(NT, a.bmax, cols);
+    const int slot = slot_bytes(NT, a.bmax, cols, F32);
+    uint8_t* terms = smem + STAGES * slot;   // f32 x: two buffers of term tiles
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     const int n0 = ((int)blockIdx.x - mat.tile0) * cols;
     const int m0 = blockIdx.z * ROWS;
@@ -344,18 +461,36 @@ __device__ __forceinline__ void tc_body(const Args& a, const Mat& mat, uint8_t* 
         for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < n) load_step<NT, BITS>(smem + s * slot, a, mat, s0 + s, m0, mrows, n0, cols, lg_pieces);
+        if (s < n)
+            load_step<NT, BITS, F32>(smem + s * slot, a, mat, s0 + s, m0, mrows, n0, cols,
+                                     lg_pieces);
         wg::cp_async_commit();
     }
+    if constexpr (F32) {                        // split step 0 once it has landed
+        wg::cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        if (n > 0) split_step<NT>(smem, terms, mrows);
+    }
     for (int i = 0; i < n; ++i) {
-        wg::cp_async_wait<STAGES - 2>();        // step i has landed ...
+        // bf16: step i has landed; f32: step i + 1 (split below, while
+        // step i, split in the last iteration, is used)
+        wg::cp_async_wait<F32 ? STAGES - 3 : STAGES - 2>();
         __syncthreads();                        // ... for every thread, and step i - 1's slot is free
         const int nx = i + STAGES - 1;
         if (nx < n)
-            load_step<NT, BITS>(smem + (nx % STAGES) * slot, a, mat, s0 + nx, m0, mrows, n0, cols,
-                                lg_pieces);
+            load_step<NT, BITS, F32>(smem + (nx % STAGES) * slot, a, mat, s0 + nx, m0, mrows, n0,
+                                     cols, lg_pieces);
         wg::cp_async_commit();
-        mma_step<NT, BITS>(acc, smem + (i % STAGES) * slot, mrows, cols, warp, g, t);
+        const uint8_t* cur = smem + (i % STAGES) * slot;
+        if constexpr (F32) {
+            if (i + 1 < n)
+                split_step<NT>(smem + ((i + 1) % STAGES) * slot,
+                               terms + ((i + 1) & 1) * terms_bytes(NT), mrows);
+            mma_step<NT, BITS, F32>(acc, terms + (i & 1) * terms_bytes(NT),
+                                    cur + x_bytes(NT, F32), mrows, cols, warp, g, t);
+        } else {
+            mma_step<NT, BITS, F32>(acc, cur, cur + x_bytes(NT, F32), mrows, cols, warp, g, t);
+        }
     }
     // the K loop is done: a grid launched as this one's programmatic
     // dependent may start its preamble (it waits for this grid's results
@@ -406,26 +541,27 @@ __device__ __forceinline__ void tc_body(const Args& a, const Mat& mat, uint8_t* 
 }
 
 // Tag (an empty struct of the caller's) only names the caller in the
-// kernel's symbol, so a profile tells qmm from the fused projection.
-template <typename Tag, int NT>
+// kernel's symbol, so a profile tells qmm from the fused projection;
+// F32 names the f32-x instances.
+template <typename Tag, int NT, bool F32>
 __global__ void __launch_bounds__(MAX_WARPS * 32) tc_kernel(const Args a) {
     extern __shared__ __align__(16) uint8_t smem[];
     const Mat mat = this_mat(a.mats);
     switch (mat.bits) {
-        case 2: tc_body<NT, 2>(a, mat, smem); break;
-        case 3: tc_body<NT, 3>(a, mat, smem); break;
-        case 4: tc_body<NT, 4>(a, mat, smem); break;
-        case 5: tc_body<NT, 5>(a, mat, smem); break;
-        case 6: tc_body<NT, 6>(a, mat, smem); break;
-        case 7: tc_body<NT, 7>(a, mat, smem); break;
-        default: tc_body<NT, 8>(a, mat, smem); break;
+        case 2: tc_body<NT, 2, F32>(a, mat, smem); break;
+        case 3: tc_body<NT, 3, F32>(a, mat, smem); break;
+        case 4: tc_body<NT, 4, F32>(a, mat, smem); break;
+        case 5: tc_body<NT, 5, F32>(a, mat, smem); break;
+        case 6: tc_body<NT, 6, F32>(a, mat, smem); break;
+        case 7: tc_body<NT, 7, F32>(a, mat, smem); break;
+        default: tc_body<NT, 8, F32>(a, mat, smem); break;
     }
 }
 
-template <typename Tag, int NT>
+template <typename Tag, int NT, bool F32>
 int launch_nt(const Args& a, int warps, cudaStream_t st) {
-    const int smem = STAGES * slot_bytes(NT, a.bmax, 16 * warps);
-    auto kern = tc_kernel<Tag, NT>;
+    const int smem = smem_bytes(NT, a.bmax, 16 * warps, F32);
+    auto kern = tc_kernel<Tag, NT, F32>;
     if (smem > 40 * 1024) {   // near the 48 KB default, static shared memory included
         const cudaError_t e =
             cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -457,14 +593,24 @@ int launch_nt(const Args& a, int warps, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
-// bf16 x (M, K), 16-byte aligned, K % 8 == 0; warps per CTA 1, 2, 4 or 8
-// (16 columns each); splits <= ceil(K / STEP).  out (M, mats.ntot) f32 =
-// x @ [dequant(m_0) | dequant(m_1) | ...], the splits of a tile combined
-// in a cluster (cluster != 0, splits <= MAX_CLUSTER); or, with cluster ==
-// 0 and splits > 1, out (splits, M, mats.ntot) gets split s's raw partial
-// sum x * (u - n) over its steps.
+template <typename Tag, bool F32>
+int launch_rows(const Args& a, int warps, cudaStream_t st) {
+    switch (((a.M < ROWS ? a.M : ROWS) + 7) / 8) {
+        case 1: return launch_nt<Tag, 1, F32>(a, warps, st);
+        case 2: return launch_nt<Tag, 2, F32>(a, warps, st);
+        case 3: return launch_nt<Tag, 3, F32>(a, warps, st);
+        default: return launch_nt<Tag, 4, F32>(a, warps, st);
+    }
+}
+
+// x (M, K): bf16 or (f32 != 0) f32, 16-byte aligned, K % 8 == 0; warps
+// per CTA 1, 2, 4 or 8 (16 columns each); splits <= ceil(K / STEP).  out
+// (M, mats.ntot) f32 = x @ [dequant(m_0) | dequant(m_1) | ...], the
+// splits of a tile combined in a cluster (cluster != 0, splits <=
+// MAX_CLUSTER); or, with cluster == 0 and splits > 1, out (splits, M,
+// mats.ntot) gets split s's raw partial sum x * (u - n) over its steps.
 template <typename Tag>
-int launch(const __nv_bfloat16* x, Mats mats, float* out, int M, int K, int splits, int warps,
+int launch(const void* x, int f32, Mats mats, float* out, int M, int K, int splits, int warps,
            int cluster, cudaStream_t st) {
     const int steps = (K + STEP - 1) / STEP;
     if (M <= 0 || K <= 0 || K % 8 || splits < 1 || splits > steps ||
@@ -477,168 +623,9 @@ int launch(const __nv_bfloat16* x, Mats mats, float* out, int M, int K, int spli
         bmax = mats.m[i].bits > bmax ? mats.m[i].bits : bmax;
         vec = vec && mats.m[i].N % 16 == 0 && reinterpret_cast<uintptr_t>(mats.m[i].planes) % 16 == 0;
     }
-    const Args a{x, mats, out, M, K, splits, steps, bmax, vec, cluster && splits > 1};
-    switch (((M < ROWS ? M : ROWS) + 7) / 8) {
-        case 1: return launch_nt<Tag, 1>(a, warps, st);
-        case 2: return launch_nt<Tag, 2>(a, warps, st);
-        case 3: return launch_nt<Tag, 3>(a, warps, st);
-        default: return launch_nt<Tag, 4>(a, warps, st);
-    }
-}
-
-// ------------------------------------------------------ f32 x: SIMT body
-// A CTA owns SIMT_COLS columns of one matrix and up to MT = 8 rows; its
-// 256 threads split K into 16 interleaved slices (reduced through shared
-// memory in a fixed order).  A thread loads one 32-bit word per plane (4
-// columns), rebuilds the 4 codes of one K row with shift/mask/or and does
-// one f32 FMA per (row, column); the rank-1 offset n * rowsum(x) is
-// applied in the epilogue.  The K splits are those of the bf16 body
-// (whole steps of STEP), so its raw partials (sum x * u - n * rowsum(x))
-// have the same layout.
-constexpr int SIMT_THREADS = 256;
-constexpr int TX = 16;                        // threads along N (4 columns each)
-constexpr int TK = SIMT_THREADS / TX;         // interleaved K slices
-constexpr int SIMT_COLS = TX * 4;             // columns per CTA
-constexpr int KC = 512;                       // K rows of x staged per chunk
-constexpr int SMEM = TK * 8 * SIMT_COLS;      // floats: max(x chunk, reduction)
-
-template <typename Tag, int MT, bool VEC4>
-__global__ void __launch_bounds__(SIMT_THREADS)
-simt_kernel(const float* __restrict__ x, Mats mats, float* __restrict__ y, int M, int K,
-            int splits) {
-    static_assert(MT * KC <= SMEM && TK * MT * SIMT_COLS <= SMEM, "smem");
-    __shared__ __align__(16) float smem[SMEM];
-    __shared__ float rowsum[MT];
-    float* xs = smem;                            // [MT][KC] during the K loop
-
-    const Mat mat = this_mat(mats);
-    const uint8_t* __restrict__ planes = mat.planes;
-    const int N = mat.N, bits = mat.bits;
-    const int tid = threadIdx.x;
-    const int tx = tid % TX;
-    const int tk = tid / TX;
-    const int warp = tid / 32, lane = tid % 32;
-    const int m0 = blockIdx.y * MT;
-    const int tile_col0 = ((int)blockIdx.x - mat.tile0) * SIMT_COLS;
-    const int col0 = tile_col0 + tx * 4;
-    const int K8 = K / 8;
-    // this split's K rows: whole steps of STEP
-    const int split = blockIdx.z;
-    const int steps = (K + STEP - 1) / STEP;
-    const int k_begin = split * steps / splits * STEP;
-    const int k_end = min(K, (split + 1) * steps / splits * STEP);
-
-    if (tid < MT) rowsum[tid] = 0.f;
-    float acc[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[m][v] = 0.f;
-
-    for (int kc0 = k_begin; kc0 < k_end; kc0 += KC) {
-        __syncthreads();
-        for (int i = tid; i < MT * KC; i += SIMT_THREADS) {
-            const int m = i / KC, kk = i % KC;
-            const int gm = m0 + m, gk = kc0 + kk;
-            xs[i] = (gm < M && gk < k_end) ? x[(size_t)gm * K + gk] : 0.f;
-        }
-        __syncthreads();
-        // offset term: rowsum over the split's K, once per row tile
-        if (warp < MT) {
-            float s = 0.f;
-            for (int kk = lane; kk < KC; kk += 32) s += xs[warp * KC + kk];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-            if (lane == 0) rowsum[warp] += s;
-        }
-        if (col0 < N) {
-            const int nk8 = min(KC, k_end - kc0) / 8;
-            for (int r = tk; r < nk8; r += TK) {
-                const int j = kc0 / 8 + r;
-                uint32_t w[8];
-#pragma unroll
-                for (int b = 0; b < 8; ++b) {
-                    w[b] = 0u;
-                    if (b < bits) {
-                        const uint8_t* p = planes + ((size_t)b * K8 + j) * N + col0;
-                        if (VEC4) {
-                            w[b] = __ldg(reinterpret_cast<const uint32_t*>(p));
-                        } else {
-#pragma unroll
-                            for (int v = 0; v < 4; ++v)
-                                if (col0 + v < N) w[b] |= (uint32_t)__ldg(p + v) << (8 * v);
-                        }
-                    }
-                }
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    // unsigned codes of K row 8j+i for 4 columns, one per byte
-                    uint32_t u = 0u;
-#pragma unroll
-                    for (int b = 0; b < 8; ++b)
-                        if (b < bits) u |= ((w[b] >> i) & 0x01010101u) << b;
-                    const float u0 = (float)(u & 0xffu), u1 = (float)((u >> 8) & 0xffu);
-                    const float u2 = (float)((u >> 16) & 0xffu), u3 = (float)(u >> 24);
-#pragma unroll
-                    for (int m = 0; m < MT; ++m) {
-                        const float xv = xs[m * KC + r * 8 + i];
-                        acc[m][0] = fmaf(xv, u0, acc[m][0]);
-                        acc[m][1] = fmaf(xv, u1, acc[m][1]);
-                        acc[m][2] = fmaf(xv, u2, acc[m][2]);
-                        acc[m][3] = fmaf(xv, u3, acc[m][3]);
-                    }
-                }
-            }
-        }
-    }
-    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-    __syncthreads();
-    float* red = smem;                           // [TK][MT][SIMT_COLS]
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) red[(tk * MT + m) * SIMT_COLS + tx * 4 + v] = acc[m][v];
-    __syncthreads();
-    const float nl = bits > 1 ? (float)((1 << (bits - 1)) - 1) : 1.f;
-    for (int i = tid; i < MT * SIMT_COLS; i += SIMT_THREADS) {
-        const int m = i / SIMT_COLS, c = i % SIMT_COLS;
-        const int gm = m0 + m, gn = tile_col0 + c;
-        if (gm >= M || gn >= N) continue;
-        float s = 0.f;
-        for (int t = 0; t < TK; ++t) s += red[(t * MT + m) * SIMT_COLS + c];
-        if (splits == 1)
-            y[(size_t)gm * mats.ntot + mat.col_off + gn] = (s - nl * rowsum[m]) / nl * mat.scale[gn];
-        else     // this split's raw partial
-            y[((size_t)split * M + gm) * mats.ntot + mat.col_off + gn] = s - nl * rowsum[m];
-    }
-}
-
-template <typename Tag, int MT>
-void launch_simt_mt(const float* x, const Mats& mats, float* y, int M, int K, int splits, bool vec4,
-                    cudaStream_t st) {
-    dim3 grid(mats.tiles, (M + MT - 1) / MT, splits);
-    if (vec4)
-        simt_kernel<Tag, MT, true><<<grid, SIMT_THREADS, 0, st>>>(x, mats, y, M, K, splits);
-    else
-        simt_kernel<Tag, MT, false><<<grid, SIMT_THREADS, 0, st>>>(x, mats, y, M, K, splits);
-}
-
-// f32 x (M, K): y as launch's out (no counters: splits > 1 leaves the raw
-// partials sum x * u - n * rowsum(x), equal to sum x * (u - n))
-template <typename Tag>
-int launch_simt(const float* x, Mats mats, float* y, int M, int K, int splits, cudaStream_t st) {
-    if (M <= 0 || K <= 0 || K % 8 || splits < 1 || splits > (K + STEP - 1) / STEP)
-        return (int)cudaErrorInvalidValue;
-    tile(mats, SIMT_COLS);
-    bool vec4 = true;
-    for (int i = 0; i < mats.count; ++i)
-        vec4 = vec4 && mats.m[i].N % 4 == 0 &&
-               reinterpret_cast<uintptr_t>(mats.m[i].planes) % 4 == 0;
-    if (M <= 1) launch_simt_mt<Tag, 1>(x, mats, y, M, K, splits, vec4, st);
-    else if (M <= 2) launch_simt_mt<Tag, 2>(x, mats, y, M, K, splits, vec4, st);
-    else if (M <= 4) launch_simt_mt<Tag, 4>(x, mats, y, M, K, splits, vec4, st);
-    else launch_simt_mt<Tag, 8>(x, mats, y, M, K, splits, vec4, st);
-    return (int)cudaGetLastError();
+    const Args a{static_cast<const uint8_t*>(x), mats, out, M, K, splits, steps, bmax, vec,
+                 cluster && splits > 1};
+    return f32 ? launch_rows<Tag, true>(a, warps, st) : launch_rows<Tag, false>(a, warps, st);
 }
 
 }  // namespace bitserial

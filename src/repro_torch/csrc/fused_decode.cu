@@ -27,8 +27,9 @@
 // across columns and K, while the attention needs a whole head's k/v (the
 // amax over hd).  So one C entry point makes two launches on one stream:
 //   (A) every row of x against every q|k|v column tile: qmm's bit-serial
-//       body (bitserial.cuh, tagged fused_project; the tensor-core body for
-//       bf16 x) over the three matrices at once, with a deterministic
+//       body (bitserial.cuh, tagged fused_project; the tensor-core body,
+//       f32 x split into three bf16 terms) over the three matrices at once,
+//       with a deterministic
 //       split-K: a grid of (72 column tiles at glm4-9b, splits, row tiles)
 //       CTAs, split s walking its own range of 128-row K steps and writing
 //       its raw partial (sum x*(u-n)) to a (splits, B, ntot) f32 workspace
@@ -381,7 +382,7 @@ extern "C" int fused_attend_launch(const void* proj, int act_dtype, const void* 
     return attend(act_dtype, packed4, hd, a, false, static_cast<cudaStream_t>(stream));
 }
 
-// Phase (A) alone: x (B, D) of act_dtype (bf16 16-byte aligned); each
+// Phase (A) alone: x (B, D) of act_dtype, 16-byte aligned; each
 // matrix's planes (bits, D/8, N) uint8 and scale (1, N) f32, N = H*hd for
 // q and KV*hd for k and v.  proj (splits, B, ntot) f32: with splits == 1
 // the finished projections, else split s's raw partial over its K steps
@@ -401,12 +402,8 @@ extern "C" int fused_project_launch(const void* x, int act_dtype, const void* q_
     bitserial::add(mats, q_planes, q_scale, Nq, q_bits);
     bitserial::add(mats, k_planes, k_scale_w, Nkv, k_bits);
     bitserial::add(mats, v_planes, v_scale_w, Nkv, v_bits);
-    float* y = static_cast<float*>(proj);
-    if (act_dtype == 1)
-        return bitserial::launch<fused_project>(static_cast<const __nv_bfloat16*>(x), mats, y,
-                                                B, D, splits, PROJECT_WARPS, 0, st);
-    return bitserial::launch_simt<fused_project>(static_cast<const float*>(x), mats, y, B, D,
-                                                 splits, st);
+    return bitserial::launch<fused_project>(x, act_dtype == 0, mats, static_cast<float*>(proj),
+                                            B, D, splits, PROJECT_WARPS, 0, st);
 }
 
 // The whole fused decode: (A) then (B) on one stream.  proj (splits, B,

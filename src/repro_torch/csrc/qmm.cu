@@ -3,21 +3,25 @@
 // Replaces the Pallas TPU kernel repro/kernels/qmm.py::qmm_pallas, both of
 // its bodies:
 //   _qmm_bitserial_kernel (qmm.py:78)  -> bitserial.cuh, tagged qmm_bitserial
-//   _qmm_dequant_kernel   (qmm.py:57)  -> qmm_dequant_tc_kernel below (bf16 x)
+//   _qmm_dequant_kernel   (qmm.py:57)  -> qmm_dequant_tc_kernel below
 // Both compute the function of kernels/ref.py::qmm_ref:
 //   y[M,N] = x[M,K] @ ((u - n) / n * scale),  u = sum_b 2^b plane_b,
 //   n = 2^(bits-1) - 1,
 // with the planes stored as (bits, K/8, N) uint8: byte [b, j, col] holds
 // bit b of rows 8j..8j+7 (row 8j+i in bit i), N minor-most.  Every
 // product is exact in f32 (bf16 x times an integer code); only the order
-// of the f32 sum differs from the plain version.
+// of the f32 sum differs from the plain version.  f32 x (RWKV's token-shift
+// mixes) keeps that promise on the same tensor cores: each value is split
+// into three bf16 terms whose sum is x (bitserial.cuh::split3), each term
+// times a code is exact, and the three products go into one accumulator.
 //
 // bitserial (M <= 32, decode): GEMV-shaped and bound by the bytes of the
 // planes: csrc/bitserial.cuh with one matrix (the same body computes the
 // fused decode's q|k|v projections).  bf16 x takes its tensor-core body
 // (mma.sync) over the grid of kernels/qmm.py::bitserial_plan: column tiles
 // x K splits, the splits of a tile one cluster that sums them in split
-// order (one launch, bitwise repeatable); f32 x its SIMT body, unsplit.
+// order (one launch, bitwise repeatable); f32 x the same, split into its
+// three bf16 terms as it is staged.
 //
 // dequant, bf16 x (M > 32, every prefill chunk): what bounds it.  A
 // 64-token chunk does 2*64 flops per weight over bits/8 bytes per weight:
@@ -65,10 +69,22 @@
 //     calls give bitwise-equal outputs), then applies / n * scale once.
 //   * Up to 128 rows take 64-token tiles, more rows 256-token tiles (grid
 //     z): two tile widths keep the build to 14 instances of the body.
-// dequant, f32 x: a bf16 x would round each element, so f32 activations
-// keep the f32 SIMT body (qmm_dequant_simt_kernel: 64x128 output tile per
-// block, f32 FMAs).  The C entry point routes by x's dtype; the served
-// path passes bf16.
+// dequant, f32 x (RWKV's prefill chunks): the same body with three x
+// tiles a K step, the bf16 terms of x (TERMS = 3): each K step issues the
+// 4 wgmma of each term tile with the same register-built A into the one
+// accumulator, 3x the tensor-core work of bf16 x and still ~5x the f32
+// FMA rate.  The split is a pass of its own (qmm_split_x3_kernel: x -> a (3,
+// M, K) bf16 copy in the caller's scratch), then the body's own cp.async
+// ring loads the term tiles as it loads a bf16 x.  Chosen over splitting
+// while staging: a 256-token step's x is 64 KB of f32, which would need
+// that much more shared memory per slot or ~128 more registers a thread
+// in a body that holds 214-228; the pass moves 10 bytes per element of x
+// (5.2 MB at M 256, K 2048: 1.6 us at 3.35 TB/s) in one more launch.  Three x tiles per slot
+// do not fit a 256-token ring, so f32 x takes 64-token tiles in a 4-slot
+// ring (102-115 KB a warpgroup) -- 7 more instances of the body.  Its plan
+// (kernels/qmm.py::dequant_plan with f32) runs one warpgroup a CTA, two
+// CTAs an SM: of the plans swept at RWKV's shapes, the fastest that gives
+// every SM a CTA (scripts/kernel_ablation.py f32).
 //
 // Plain C interface (built with nvcc, loaded with ctypes).  Kernels
 // allocate nothing (the wrapper passes the split-K workspace); the entry
@@ -79,111 +95,31 @@
 
 namespace {
 
-using bitserial::to_f32;
-
 struct qmm_bitserial;   // names the bit-serial kernel's instances
 
-// ------------------------------------------------- dequant, f32 x (SIMT)
-constexpr int DQ_THREADS = 256;
-constexpr int DQ_BM = 64, DQ_BN = 128, DQ_BK = 32;  // DQ_BK = 4 packed byte rows
-constexpr int DQ_TM = 8, DQ_TN = 4;                 // per-thread output tile
-constexpr int DQ_PAD = 4;
-
-template <typename T>
-__global__ void __launch_bounds__(DQ_THREADS)
-qmm_dequant_simt_kernel(const T* __restrict__ x, const uint8_t* __restrict__ planes,
-                        const float* __restrict__ scale, float* __restrict__ y,
-                        int M, int K, int N, int bits) {
-    __shared__ __align__(16) float As[DQ_BK][DQ_BM + DQ_PAD];
-    __shared__ __align__(16) float Bs[DQ_BK][DQ_BN];
-
-    const int tid = threadIdx.x;
-    const int tx = tid % (DQ_BN / DQ_TN);   // 0..31: columns tx*4..+3
-    const int ty = tid / (DQ_BN / DQ_TN);   // 0..7:  rows ty*8..+7
-    const int m0 = blockIdx.y * DQ_BM, n0 = blockIdx.x * DQ_BN;
-    const int K8 = K / 8;
-    const int nli = bits > 1 ? (1 << (bits - 1)) - 1 : 1;
-
-    float acc[DQ_TM][DQ_TN];
-#pragma unroll
-    for (int i = 0; i < DQ_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < DQ_TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += DQ_BK) {
-        for (int i = tid; i < DQ_BM * DQ_BK; i += DQ_THREADS) {
-            const int m = i / DQ_BK, kk = i % DQ_BK;
-            const int gm = m0 + m, gk = k0 + kk;
-            As[kk][m] = (gm < M && gk < K) ? to_f32(x[(size_t)gm * K + gk]) : 0.f;
-        }
-        for (int e = tid; e < (DQ_BK / 8) * DQ_BN; e += DQ_THREADS) {
-            const int kr = e / DQ_BN, c = e % DQ_BN;
-            const int j = k0 / 8 + kr, gn = n0 + c;
-            uint32_t u[8];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) u[i] = 0u;
-            const bool ok = j < K8 && gn < N;
-            if (ok) {
-#pragma unroll
-                for (int b = 0; b < 8; ++b) {
-                    if (b < bits) {
-                        const uint32_t byte = __ldg(planes + ((size_t)b * K8 + j) * N + gn);
-#pragma unroll
-                        for (int i = 0; i < 8; ++i) u[i] |= ((byte >> i) & 1u) << b;
-                    }
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-                Bs[kr * 8 + i][c] = ok ? (float)((int)u[i] - nli) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < DQ_BK; ++kk) {
-            const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * DQ_TM]);
-            const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * DQ_TM + 4]);
-            const float4 bq = *reinterpret_cast<const float4*>(&Bs[kk][tx * DQ_TN]);
-            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-            for (int i = 0; i < DQ_TM; ++i)
-#pragma unroll
-                for (int j = 0; j < DQ_TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    const float nl = (float)nli;
-#pragma unroll
-    for (int i = 0; i < DQ_TM; ++i) {
-        const int gm = m0 + ty * DQ_TM + i;
-        if (gm >= M) continue;
-#pragma unroll
-        for (int j = 0; j < DQ_TN; ++j) {
-            const int gn = n0 + tx * DQ_TN + j;
-            if (gn < N) y[(size_t)gm * N + gn] = acc[i][j] / nl * scale[gn];
-        }
-    }
-}
-
-// --------------------------------------------- dequant, bf16 x (wgmma)
+// ---------------------------------------------------- dequant (wgmma)
 constexpr int TC_BN = 64;        // weight columns per CTA: wgmma's M
 constexpr int TC_BK = 64;        // K per stage: one 128-byte swizzle row of bf16
-constexpr int TC_STAGES = 5;     // per warpgroup: 3 K steps loading, 1 decoded, 1 in the tensor cores
 
-// One ring slot: the x tile (NT tokens x 64 K, 128-byte swizzled), then
-// the plane tile [bit][byte row][column], padded so the next slot's x
-// tile stays 1024-byte aligned.  Each warpgroup of a CTA owns a ring.
-template <int NT, int BITS>
+// One ring slot: TERMS x tiles (NT tokens x 64 K, 128-byte swizzled: bf16
+// x, or the three bf16 terms of f32 x), then the plane tile [bit][byte
+// row][column], padded so the next slot's x tiles stay 1024-byte aligned.
+// Each warpgroup of a CTA owns a ring of STAGES slots: STAGES - 2 K steps
+// loading, 1 decoded, 1 in the tensor cores (5 for bf16 x, 4 for f32).
+template <int NT, int BITS, int TERMS>
 struct TcSmem {
-    static constexpr int X_BYTES = NT * TC_BK * 2;                  // multiple of 1024
-    static constexpr int SLOT = X_BYTES + (BITS * (TC_BK / 8) * TC_BN + 1023) / 1024 * 1024;
-    static constexpr int RING = TC_STAGES * SLOT;
+    static constexpr int STAGES = TERMS == 1 ? 5 : 4;
+    static constexpr int X_BYTES = NT * TC_BK * 2;                  // one tile, multiple of 1024
+    static constexpr int PLANES = TERMS * X_BYTES;                  // the plane tile's offset
+    static constexpr int SLOT = PLANES + (BITS * (TC_BK / 8) * TC_BN + 1023) / 1024 * 1024;
+    static constexpr int RING = STAGES * SLOT;
     static constexpr int total(int kg) { return kg * RING + 1024; } // + alignment slack
 };
 
 struct TcArgs {
-    const __nv_bfloat16* x;
+    const __nv_bfloat16* x;  // x (M, K), or the terms (TERMS, M, K)
     const uint8_t* planes;
+    size_t term;             // M * K: elements from one term to the next
     int M, K, N, m0, n0, vec_planes;
 };
 
@@ -191,21 +127,25 @@ __device__ __forceinline__ void wg_sync(int id) {   // named barrier of one warp
     asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
 }
 
-// Stage K step `chunk` (64 K) of the x rows m0.. and plane columns n0..
-// n0+63 into one ring slot, the 128 threads of one warpgroup (index r128)
-// taking part.  Pieces past M, K or N are zero-filled.
-template <int NT, int BITS>
+// Stage K step `chunk` (64 K) of the x rows m0.. (each term's) and plane
+// columns n0..n0+63 into one ring slot, the 128 threads of one warpgroup
+// (index r128) taking part.  Pieces past M, K or N are zero-filled.
+template <int NT, int BITS, int TERMS>
 __device__ __forceinline__ void tc_load(uint8_t* slot, const TcArgs& g, int chunk, int r128) {
+    using S = TcSmem<NT, BITS, TERMS>;
     const int k0 = chunk * TC_BK;
 #pragma unroll
-    for (int i = r128; i < NT * 8; i += 128) {                   // x: 8 pieces per token row
-        const int r = i >> 3, c = i & 7;
-        const int gm = g.m0 + r, gk = k0 + c * 8;
-        const bool ok = gm < g.M && gk < g.K;
-        wg::cp_async16(slot + r * 128 + ((c ^ (r & 7)) << 4),
-                       ok ? g.x + (size_t)gm * g.K + gk : g.x, ok);
+    for (int u = 0; u < TERMS; ++u) {
+#pragma unroll
+        for (int i = r128; i < NT * 8; i += 128) {               // x: 8 pieces per token row
+            const int r = i >> 3, c = i & 7;
+            const int gm = g.m0 + r, gk = k0 + c * 8;
+            const bool ok = gm < g.M && gk < g.K;
+            wg::cp_async16(slot + u * S::X_BYTES + r * 128 + ((c ^ (r & 7)) << 4),
+                           ok ? g.x + u * g.term + (size_t)gm * g.K + gk : g.x, ok);
+        }
     }
-    uint8_t* ps = slot + TcSmem<NT, BITS>::X_BYTES;
+    uint8_t* ps = slot + S::PLANES;
     const int K8 = g.K / 8, j0 = chunk * (TC_BK / 8);
     if (g.vec_planes) {                                          // N % 16 == 0
         for (int i = r128; i < BITS * 8 * 4; i += 128) {
@@ -281,26 +221,30 @@ __device__ __forceinline__ void pin(float (&acc)[R]) {
 // Step i of one warpgroup's K steps (K step c0 + i * kg of the CTA's
 // range): wait for its slot, prefetch step i + STAGES - 2, build the A
 // fragments in a (the set step i - 1's wgmma is not reading), issue its 4
-// wgmma and leave them in flight (step i - 1's are retired).
-template <int NT, int BITS>
+// wgmma per x tile and leave them in flight (step i - 1's are retired).
+template <int NT, int BITS, int TERMS>
 __device__ __forceinline__ void tc_step(int i, int n, int c0, int kg, const TcArgs& g,
                                         uint8_t* ring, int bar, int r128, uint32_t (&a)[4][4],
                                         float (&acc)[NT / 2], int col, int sh) {
-    using S = TcSmem<NT, BITS>;
-    wg::cp_async_wait<TC_STAGES - 3>();      // step i has landed
+    using S = TcSmem<NT, BITS, TERMS>;
+    wg::cp_async_wait<S::STAGES - 3>();      // step i has landed
     wg::fence_proxy_async();
     wg_sync(bar);                            // ... and step i - 2's slot is free
-    const int nx = i + TC_STAGES - 2;
-    if (nx < n) tc_load<NT, BITS>(ring + (nx % TC_STAGES) * S::SLOT, g, c0 + nx * kg, r128);
+    const int nx = i + S::STAGES - 2;
+    if (nx < n)
+        tc_load<NT, BITS, TERMS>(ring + (nx % S::STAGES) * S::SLOT, g, c0 + nx * kg, r128);
     wg::cp_async_commit();
-    const uint8_t* slot = ring + (i % TC_STAGES) * S::SLOT;
+    const uint8_t* slot = ring + (i % S::STAGES) * S::SLOT;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc_frag<BITS>(a[kk], slot + S::X_BYTES, kk, col, sh);
-    const uint64_t desc = wg::desc_sw128(slot);
+    for (int kk = 0; kk < 4; ++kk) tc_frag<BITS>(a[kk], slot + S::PLANES, kk, col, sh);
     pin(acc);
     wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg::Wgmma<NT>::run(acc, a[kk], desc + 2 * kk);
+    for (int u = 0; u < TERMS; ++u) {        // x's terms in order, into the one accumulator
+        const uint64_t desc = wg::desc_sw128(slot + u * S::X_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wg::Wgmma<NT>::run(acc, a[kk], desc + 2 * kk);
+    }
     wg::commit();
     wg::wait<1>();
     pin(acc);
@@ -311,13 +255,16 @@ __device__ __forceinline__ void tc_step(int i, int n, int c0, int kg, const TcAr
 // warpgroups (warpgroup w takes every kg-th step from the w-th), each with
 // its own ring; their sums are added in warpgroup order through shared
 // memory.  splits == 1 writes y with / n * scale applied; otherwise the
-// raw f32 partial goes to ws[split] (M x N) for qmm_splitk_combine.
-template <int NT, int BITS>
-__global__ void __launch_bounds__(NT == 64 ? 512 : 128)
+// raw f32 partial goes to ws[split] (M x N) for qmm_splitk_combine.  x is
+// bf16 (M, K) at TERMS == 1, the three bf16 terms (3, M, K) of an f32 x at
+// TERMS == 3, whose CTAs hold at most two warpgroups (their rings fill
+// the shared memory), so the bound leaves it 255 registers a thread.
+template <int NT, int BITS, int TERMS>
+__global__ void __launch_bounds__(NT == 64 ? (TERMS == 1 ? 512 : 256) : 128)
 qmm_dequant_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ planes,
                       const float* __restrict__ scale, float* __restrict__ out, int M, int K,
                       int N, int splits, int vec_planes) {
-    using S = TcSmem<NT, BITS>;
+    using S = TcSmem<NT, BITS, TERMS>;
     extern __shared__ __align__(1024) uint8_t smem_raw[];
     // 1024-byte aligned for the swizzle; offset from the array itself (not
     // through an integer cast) so the compiler keeps shared-memory loads
@@ -329,7 +276,8 @@ qmm_dequant_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __rest
     const int c0 = (int)((long long)split * chunks / splits) + wgi;
     const int c1 = (int)((long long)(split + 1) * chunks / splits);
     const int n = c1 > c0 ? (c1 - c0 + kg - 1) / kg : 0;     // this warpgroup's steps
-    const TcArgs g{x, planes, M, K, N, (int)blockIdx.z * NT, (int)blockIdx.x * TC_BN, vec_planes};
+    const TcArgs g{x, planes, (size_t)M * K, M, K, N, (int)blockIdx.z * NT,
+                   (int)blockIdx.x * TC_BN, vec_planes};
     uint8_t* ring = smem + wgi * S::RING;
     const int bar = 1 + wgi;
     const int warp = r128 / 32, lane = threadIdx.x % 32;
@@ -341,17 +289,17 @@ qmm_dequant_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __rest
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
 #pragma unroll
-    for (int s = 0; s < TC_STAGES - 2; ++s) {
-        if (s < n) tc_load<NT, BITS>(ring + s * S::SLOT, g, c0 + s * kg, r128);
+    for (int s = 0; s < S::STAGES - 2; ++s) {
+        if (s < n) tc_load<NT, BITS, TERMS>(ring + s * S::SLOT, g, c0 + s * kg, r128);
         wg::cp_async_commit();
     }
     uint32_t a0[4][4], a1[4][4];
     int i = 0;
     for (; i + 1 < n; i += 2) {
-        tc_step<NT, BITS>(i, n, c0, kg, g, ring, bar, r128, a0, acc, col, 2 * t);
-        tc_step<NT, BITS>(i + 1, n, c0, kg, g, ring, bar, r128, a1, acc, col, 2 * t);
+        tc_step<NT, BITS, TERMS>(i, n, c0, kg, g, ring, bar, r128, a0, acc, col, 2 * t);
+        tc_step<NT, BITS, TERMS>(i + 1, n, c0, kg, g, ring, bar, r128, a1, acc, col, 2 * t);
     }
-    if (i < n) tc_step<NT, BITS>(i, n, c0, kg, g, ring, bar, r128, a0, acc, col, 2 * t);
+    if (i < n) tc_step<NT, BITS, TERMS>(i, n, c0, kg, g, ring, bar, r128, a0, acc, col, 2 * t);
     wg::wait<0>();
     pin(acc);
 
@@ -400,11 +348,23 @@ __global__ void qmm_splitk_combine(const float* __restrict__ ws, const float* __
     }
 }
 
-template <int NT, int BITS>
+// f32 x (n4 groups of 4) -> its three bf16 terms, (3, M, K) in xs
+__global__ void qmm_split_x3_kernel(const float4* __restrict__ x, uint2* __restrict__ xs, size_t n4) {
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+         i += (size_t)gridDim.x * blockDim.x) {
+        uint2 t[3];
+        bitserial::split4(x[i], t);
+        xs[i] = t[0];
+        xs[n4 + i] = t[1];
+        xs[2 * n4 + i] = t[2];
+    }
+}
+
+template <int NT, int BITS, int TERMS>
 int launch_tc(const __nv_bfloat16* x, const uint8_t* planes, const float* scale, float* y,
               float* ws, int M, int K, int N, int kg, int splits, cudaStream_t st) {
-    auto kern = qmm_dequant_tc_kernel<NT, BITS>;
-    const int smem = TcSmem<NT, BITS>::total(kg);
+    auto kern = qmm_dequant_tc_kernel<NT, BITS, TERMS>;
+    const int smem = TcSmem<NT, BITS, TERMS>::total(kg);
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     const int vec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(planes) % 16 == 0);
@@ -419,36 +379,37 @@ int launch_tc(const __nv_bfloat16* x, const uint8_t* planes, const float* scale,
     return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <int NT, int TERMS>
 int launch_tc_bits(int bits, const __nv_bfloat16* x, const uint8_t* planes, const float* scale,
                    float* y, float* ws, int M, int K, int N, int kg, int splits,
                    cudaStream_t st) {
     switch (bits) {
-        case 2: return launch_tc<NT, 2>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
-        case 3: return launch_tc<NT, 3>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
-        case 4: return launch_tc<NT, 4>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
-        case 5: return launch_tc<NT, 5>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
-        case 6: return launch_tc<NT, 6>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
-        case 7: return launch_tc<NT, 7>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
-        default: return launch_tc<NT, 8>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        case 2: return launch_tc<NT, 2, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        case 3: return launch_tc<NT, 3, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        case 4: return launch_tc<NT, 4, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        case 5: return launch_tc<NT, 5, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        case 6: return launch_tc<NT, 6, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        case 7: return launch_tc<NT, 7, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
+        default: return launch_tc<NT, 8, TERMS>(x, planes, scale, y, ws, M, K, N, kg, splits, st);
     }
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16.  path: 0 = bitserial, 1 = dequant.
-// The plan (kernels/qmm.py) for bf16 x: dequant, token_tile (64 or 256),
-// groups (warpgroups per CTA sharing its K steps) and splits
-// (dequant_plan), ws its (splits, M, N) f32 workspace when splits > 1;
-// bitserial, groups (warps per CTA, 16 columns each) and splits <= 16
-// (bitserial_plan; token_tile and ws unused).  f32 x ignores the plan:
-// the SIMT bodies, unsplit.
+// x_dtype: 0 = float32, 1 = bfloat16; x 16-byte aligned.  path: 0 =
+// bitserial, 1 = dequant.  The plan (kernels/qmm.py): dequant,
+// token_tile (64 or 256; f32 x 64), groups (warpgroups per CTA sharing
+// its K steps) and splits (dequant_plan), ws its (splits, M, N) f32
+// workspace when splits > 1, and for f32 x xs, a (3, M, K) bf16 scratch
+// for x's terms; bitserial, groups (warps per CTA, 16 columns each) and
+// splits <= 16 (bitserial_plan; token_tile, ws and xs unused).
 extern "C" int qmm_launch(const void* x, int x_dtype, const void* planes,
-                          const void* scale, void* y, void* ws, int M, int K, int N,
+                          const void* scale, void* y, void* ws, void* xs, int M, int K, int N,
                           int bits, int path, int token_tile, int groups, int splits,
                           void* stream) {
     if (M <= 0 || N <= 0 || K <= 0 || K % 8 || bits < 2 || bits > 8 ||
-        (path != 0 && path != 1) || (x_dtype != 0 && x_dtype != 1))
+        (path != 0 && path != 1) || (x_dtype != 0 && x_dtype != 1) ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const uint8_t* p = static_cast<const uint8_t*>(planes);
@@ -457,27 +418,30 @@ extern "C" int qmm_launch(const void* x, int x_dtype, const void* planes,
     if (path == 0) {
         bitserial::Mats mats{};
         bitserial::add(mats, p, s, N, bits);
-        if (x_dtype == 0)
-            return bitserial::launch_simt<qmm_bitserial>(static_cast<const float*>(x), mats, out,
-                                                         M, K, 1, st);
-        return bitserial::launch<qmm_bitserial>(static_cast<const __nv_bfloat16*>(x), mats, out,
-                                                M, K, splits, groups, 1, st);
-    }
-    if (x_dtype == 0) {   // f32 activations: the f32 SIMT body
-        dim3 grid((N + DQ_BN - 1) / DQ_BN, (M + DQ_BM - 1) / DQ_BM);
-        qmm_dequant_simt_kernel<float><<<grid, DQ_THREADS, 0, st>>>(
-            static_cast<const float*>(x), p, s, out, M, K, N, bits);
-        return (int)cudaGetLastError();
+        return bitserial::launch<qmm_bitserial>(x, x_dtype == 0, mats, out, M, K, splits, groups,
+                                                1, st);
     }
     const int chunks = (K + TC_BK - 1) / TC_BK;
+    const bool f32 = x_dtype == 0;
     if (splits < 1 || splits > chunks || (splits > 1 && ws == nullptr) || groups < 1 ||
-        groups > (token_tile == 64 ? 4 : 1) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+        groups > (token_tile == 64 ? (f32 ? 2 : 4) : 1) ||
+        (f32 && (xs == nullptr || token_tile != 64)))
         return (int)cudaErrorInvalidValue;
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
     float* w = static_cast<float*>(ws);
+    if (f32) {
+        const size_t n4 = (size_t)M * K / 4;
+        const size_t want = (n4 + 255) / 256;
+        qmm_split_x3_kernel<<<(unsigned)(want < 1056 ? want : 1056), 256, 0, st>>>(
+            static_cast<const float4*>(x), static_cast<uint2*>(xs), n4);
+        return launch_tc_bits<64, 3>(bits, static_cast<const __nv_bfloat16*>(xs), p, s, out, w, M,
+                                     K, N, groups, splits, st);
+    }
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
     switch (token_tile) {
-        case 64: return launch_tc_bits<64>(bits, xb, p, s, out, w, M, K, N, groups, splits, st);
-        case 256: return launch_tc_bits<256>(bits, xb, p, s, out, w, M, K, N, groups, splits, st);
+        case 64:
+            return launch_tc_bits<64, 1>(bits, xb, p, s, out, w, M, K, N, groups, splits, st);
+        case 256:
+            return launch_tc_bits<256, 1>(bits, xb, p, s, out, w, M, K, N, groups, splits, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

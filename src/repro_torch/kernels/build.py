@@ -21,8 +21,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# --split-compile=0: nvcc runs a source's optimization passes on every
+# core (the five sources, qmm.cu's 77 instances of the tensor-core bodies
+# among them, build in about half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+              "--split-compile=0")
 SOURCES = ("qmm", "paged_attention", "paged_attention_quant", "fused_decode",
            "fake_quant")
 
@@ -98,9 +102,9 @@ def library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "qmm":
-        # x, x_dtype, planes, scale, y, ws, M, K, N, bits, path, token_tile,
-        # groups, splits, stream
-        lib.qmm_launch.argtypes = [P, I, P, P, P, P] + [I] * 8 + [P]
+        # x, x_dtype, planes, scale, y, ws, xs, M, K, N, bits, path,
+        # token_tile, groups, splits, stream
+        lib.qmm_launch.argtypes = [P, I, P, P, P, P, P] + [I] * 8 + [P]
         lib.qmm_launch.restype = I
     elif name == "paged_attention":
         # q, k_pool, v_pool, block_tables, lengths, out, ws, arrived, dtype,

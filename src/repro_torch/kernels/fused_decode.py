@@ -187,9 +187,9 @@ def _weight_checks(x: torch.Tensor, wq, wk, wv, H: int, KV: int):
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x itself, or a copy where (A)'s cp.async of 16-byte pieces of a bf16
-    x needs one."""
-    return x.clone() if x.dtype == torch.bfloat16 and x.data_ptr() % 16 else x
+    """x itself, or a copy where (A)'s cp.async of 16-byte pieces of x
+    needs one."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _weight_args(wq, wk, wv):

@@ -86,6 +86,30 @@ def qmm_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     return x.float() @ dequant_ref(packed, scale, bits)
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 x -> three bf16 terms x1, x2, x3 with x1 + x2 + x3 == x, as the
+    qmm kernels split f32 activations for the tensor cores
+    (``csrc/bitserial.cuh::split3``): x1 is x truncated to bf16 (its low
+    16 bits cleared), x2 the remainder truncated, x3 what is left.  A
+    non-finite x is x1 alone (a NaN gets its quiet bit first, so a payload
+    only in the low 16 bits stays a NaN).  Exact wherever x is a multiple
+    of 2^-133, bf16's least subnormal: every |x| >= 2^-110 and every bf16
+    value; below, the sum is x with its bits under 2^-133 dropped (toward
+    zero), which no bf16 value can hold."""
+    x = x.float()
+    b = x.view(torch.int32)
+    high = -65536                                    # 0xFFFF0000
+    finite = (b & 0x7F800000) != 0x7F800000
+    nan = ~finite & ((b & 0x007FFFFF) != 0)
+    t1 = torch.where(nan, b | 0x00400000, b) & high
+    r1 = torch.where(finite, x - t1.view(torch.float32), torch.zeros_like(x))
+    t2 = r1.view(torch.int32) & high
+    r2 = r1 - t2.view(torch.float32)
+    t3 = r2.view(torch.int32) & high
+    # each term is the high half of its pattern, bit for bit (NaNs too)
+    return tuple((t >> 16).to(torch.int16).view(torch.bfloat16) for t in (t1, t2, t3))
+
+
 def paged_attention_ref(
     q: torch.Tensor,             # (B, 1, H, hd) — one new token per sequence
     k_pool: torch.Tensor,        # (NB, bs, KV, hd) — one layer's paged blocks

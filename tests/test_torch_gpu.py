@@ -4,9 +4,10 @@ only the port.  Run there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: both versions sum exact f32 products (bf16 activations times
-integer codes, or bf16 scores) in different orders over up to K = 13696
-terms, so 1e-4 * max|plain| — the bound chip_smoke.py states.  The fused
+Tolerance: both versions sum exact f32 products (bf16 activations, or
+the three bf16 terms of an f32 activation, times integer codes, or bf16
+scores) in different orders over up to K = 13696 terms, so 1e-4 *
+max|plain| — the bound chip_smoke.py states.  The fused
 decode's projections sum in another order than the plain version's
 dequant-form matmul, so its new-token codes may move by one step where a
 value sits on a rounding edge: scales within 2^-7 relative, codes within
@@ -595,8 +596,8 @@ def test_moe_and_hybrid_qat_step_card_vs_cpu(sm90, arch):
         assert r["drops"] > 0
 
 
-# ---- the bit-serial body: tensor cores (bf16 x), split-K with an in-launch
-# combine, its f32 SIMT route
+# ---- the bit-serial body: tensor cores (bf16 x, and f32 x as three bf16
+# terms), split-K with an in-launch combine
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("M", [1, 5, 8, 9, 20, 32])
@@ -652,7 +653,7 @@ def test_qmm_bitserial_unaligned_planes(sm90, K, N, x_offset):
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 4, 9, 32])
 @pytest.mark.parametrize("K,N", [(4096, 256), (136, 13)])
-def test_qmm_bitserial_f32_activations_take_the_simt_body(sm90, K, N, M):
+def test_qmm_bitserial_f32_activations_take_the_tensor_cores(sm90, K, N, M):
     from repro_torch.kernels.qmm import qmm_cuda
 
     x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M)
@@ -679,7 +680,7 @@ def test_qmm_bitserial_is_bitwise_repeatable_at_glm4(sm90, K, N, bits, M):
     assert (first - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
 
 
-# ---- the wgmma dequant body (bf16 x), its f32 SIMT route and split-K
+# ---- the wgmma dequant body (bf16 x, and f32 x as three bf16 terms), split-K
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("M", [33, 64, 65, 256, 300])
@@ -697,7 +698,7 @@ def test_qmm_dequant_tensor_cores_match_plain(sm90, K, N, M, bits):
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [33, 64, 130])
 @pytest.mark.parametrize("K,N", [(4096, 256), (136, 13)])
-def test_qmm_dequant_f32_activations_take_the_simt_body(sm90, K, N, M):
+def test_qmm_dequant_f32_activations_take_the_tensor_cores(sm90, K, N, M):
     from repro_torch.kernels.qmm import qmm_cuda
 
     x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M)
@@ -719,6 +720,174 @@ def test_qmm_dequant_is_bitwise_repeatable(sm90, M, K, N):
     second = qmm_cuda(x, planes, scale, 4, "dequant")
     torch.cuda.synchronize()
     assert torch.equal(first, second), dequant_plan(M, K, N)
+
+
+# ---- f32 x on the tensor cores: the three-term split at its edges
+F32_MAX, BF16_MAX_ABOVE = 0x7F7FFFFF, 0xFF7F8000   # f32 max; -(a value above bf16's max)
+NAN_QUIET, NAN_LOW_PAYLOAD = 0x7FC00000, 0x7F800001
+
+
+def _f32_of(bits: int) -> float:
+    return float(torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(torch.float32))
+
+
+def _f32_edge_case(kind, M, K, N, dev, seed):
+    """x (M, K) f32 that bf16 cannot hold, with ``kind``'s values in rows 0
+    and M - 1, and packed weights; -> (x, planes, scale, bits, x the
+    kernel multiplies: its split summed back)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = 2 if kind == "near-max" else 4
+    # near-max: at 2 bits the codes u - n lie in {-1, 0, 1}, and a small
+    # scale keeps the plain version's x * (code / n * scale) finite too
+    w = torch.randn((K, N), generator=gen, device=dev) * (1e-3 if kind == "near-max" else 1.0)
+    planes, scale = pack_weight(w, bits)
+    x = torch.randn((M, K), generator=gen, device=dev) * (1 + 1e-3)
+    k0, k1 = 3, K - 5
+    if kind == "nan":
+        x[0, k0], x[M - 1, k1] = _f32_of(NAN_QUIET), _f32_of(NAN_LOW_PAYLOAD)
+    elif kind == "inf":
+        x[0, k0], x[M - 1, k1] = float("inf"), float("-inf")
+    elif kind == "near-max":
+        x[0, k0], x[M - 1, k1] = _f32_of(F32_MAX), _f32_of(BF16_MAX_ABOVE)
+    elif kind == "subnormal-bf16":      # whole rows of bf16 subnormals: k * 2^-133
+        for r in (0, M - 1):
+            k = torch.randint(-127, 128, (K,), generator=gen, device=dev).float()
+            x[r] = k * 2.0 ** -133
+    elif kind == "subnormal-f32":       # whole rows of f32 subnormals, any bits
+        for r in (0, M - 1):
+            raw = torch.randint(-(2 ** 23) + 1, 2 ** 23, (K,), generator=gen, device=dev)
+            x[r] = raw.abs().to(torch.int32).view(torch.float32) * raw.sign().float()
+    split = sum(t.float() for t in tref.split_bf16x3(x.cpu())).to(dev)
+    return x, planes, scale, bits, split
+
+
+def _plain_f64(x, planes, scale, bits):
+    """The plain version's function, x @ dequant(planes), summed in f64 on
+    the CPU and rounded once: cuBLAS's f32 sums of subnormal products are
+    no yardstick for a row of subnormals."""
+    w = tref.dequant_ref(planes.cpu(), scale.cpu(), bits).double()
+    return (x.cpu().double() @ w).float().to(x.device)
+
+
+def _assert_rows_match(got, plain):
+    """NaN where the plain version has NaN, the same infinities, and each
+    row's finite values within 1e-4 of that row's max|plain|."""
+    assert torch.equal(got.isnan(), plain.isnan())
+    inf = plain.isinf()
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], plain[inf])
+    fin = plain.isfinite()
+    err = torch.where(fin, (got - plain).abs(), torch.zeros_like(got)).amax(dim=1)
+    ref = torch.where(fin, plain.abs(), torch.zeros_like(plain)).amax(dim=1)
+    assert bool((err <= 1e-4 * ref).all()), (err / ref.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["nan", "inf", "near-max", "subnormal-bf16", "subnormal-f32"])
+@pytest.mark.parametrize("path,M", [("bitserial", 1), ("bitserial", 4), ("bitserial", 20),
+                                    ("dequant", 64), ("dequant", 256)])
+def test_qmm_f32_edge_values_match_plain(sm90, path, M, kind):
+    """NaN (a quiet one, and one whose payload lies only in the low 16
+    bits), +-inf, values above bf16's largest finite (f32 max), and rows
+    of subnormals through the split and the tensor cores, against the
+    plain version's function summed in f64.  A row of bf16 subnormals shows the tensor cores keep
+    subnormal terms.  An f32 subnormal's bits below 2^-133 are beyond any
+    bf16 term: those rows are held against the plain version of the x the
+    split keeps (each element's bits from 2^-133 up)."""
+    from repro_torch.kernels.qmm import qmm_cuda
+
+    K, N = 2048, 320
+    x, planes, scale, bits, split = _f32_edge_case(kind, max(M, 2), K, N, sm90, seed=M)
+    x, split = x[:M], split[:M]
+    got = qmm_cuda(x, planes, scale, bits, path)
+    again = qmm_cuda(x, planes, scale, bits, path)
+    torch.cuda.synchronize()
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    assert torch.equal(got.isnan(), again.isnan())
+    plain = _plain_f64(split if kind == "subnormal-f32" else x, planes, scale, bits)
+    if kind == "subnormal-bf16":
+        assert torch.equal(split, x) and bool((plain[0] != 0).any())
+    _assert_rows_match(got, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,M", [("bitserial", 1), ("bitserial", 4), ("bitserial", 9),
+                                    ("bitserial", 20), ("bitserial", 32), ("dequant", 33),
+                                    ("dequant", 64), ("dequant", 256), ("dequant", 600)])
+@pytest.mark.parametrize("K,N,bits", [(2048, 2048, 4), (2048, 7168, 4), (2048, 13696, 2),
+                                      (7168, 2048, 8), (1600, 32001, 3)])
+def test_qmm_f32_is_bitwise_repeatable_at_every_plan(sm90, K, N, bits, path, M):
+    """f32 x at each plan its shapes give: bit-serial 1-4 warps, 1-16 K
+    splits in a cluster, 1-4 row tiles of n8; dequant 64-token tiles of
+    one warpgroup, split or not (the combine in split order)."""
+    from repro_torch.kernels.qmm import bitserial_plan, dequant_plan, qmm_cuda
+
+    x, planes, scale = _qmm_inputs(M, K, N, bits, sm90, seed=M + bits)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=sm90)
+    plan = (bitserial_plan(M, K, N, bits) if path == "bitserial"
+            else dequant_plan(M, K, N, bits, f32=True))
+    first = qmm_cuda(x, planes, scale, bits, path)
+    second = qmm_cuda(x, planes, scale, bits, path)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), plan
+    plain = tref.qmm_ref(x, planes, scale, bits)
+    assert (first - plain).abs().max().item() <= 1e-4 * plain.abs().max().item(), plan
+
+
+def test_qmm_f32_repeatability_cases_cover_the_dequant_plans():
+    """The cases above reach every kind of f32 dequant plan (CPU only)."""
+    from repro_torch.kernels.qmm import dequant_plan
+
+    seen = {(p.kgroups, p.splits > 1) for p in
+            (dequant_plan(M, K, N, b, f32=True) for M in (33, 64, 256, 600)
+             for K, N, b in [(2048, 2048, 4), (2048, 7168, 4), (2048, 13696, 2),
+                             (7168, 2048, 8), (1600, 32001, 3)])}
+    assert {(1, False), (1, True)} <= seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["plain", "nan", "inf", "subnormal-bf16"])
+@pytest.mark.parametrize("B", [1, 4, 20])
+def test_fused_projection_f32_takes_the_tensor_cores(sm90, B, kind):
+    """Launch (A) at act_dtype f32 (x split into three bf16 terms), at
+    glm4-9b's q|k|v shapes and three bit widths: finished partials against
+    the plain projections row by row, edge values included, and bitwise
+    repeatable."""
+    from repro_torch.kernels.fused_decode import fused_project_cuda
+
+    x, ws, _, H, KV = _fused_case(sm90, 4, [0] * B, 1, bits=(4, 3, 8), B=B, seed=B)
+    D = x.shape[1]
+    edge = _f32_edge_case(kind, max(B, 2), D, 8, sm90, seed=B)[0][:B]
+    x = edge if kind != "plain" else x.float() + 1e-3 * torch.randn(x.shape, device=sm90)
+    partials = fused_project_cuda(x, *ws, H, KV)
+    again = fused_project_cuda(x, *ws, H, KV)
+    torch.cuda.synchronize()
+    assert torch.equal(partials.nan_to_num(), again.nan_to_num())
+    got = tref.finish_projection(partials, *ws)
+    plain = torch.cat([_plain_f64(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    _assert_rows_match(got, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4], ids=["int8", "int4"])
+def test_fused_decode_f32_matches_its_launches_alone(sm90, kv_bits):
+    """The whole fused decode at f32 activations: (A) on the tensor cores,
+    its split partials finished in (B)'s prologue, equal bit for bit to
+    (A) alone finished by the plain twin and fed to (B) at f32."""
+    from repro_torch.kernels.fused_decode import (fused_attend_cuda, fused_project_cuda,
+                                                  fused_qkv_paged_decode_cuda, project_plan)
+
+    B = 4
+    x, ws, args, H, KV = _fused_case(sm90, kv_bits, [41, 58, 73, 96], 7, B=B, seed=3)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=sm90)
+    assert project_plan(B, x.shape[1], [w.scale.numel() for w in ws]).splits > 1
+    whole = fused_qkv_paged_decode_cuda(x, *ws, *args, H)
+    proj = tref.finish_projection(fused_project_cuda(x, *ws, H, KV), *ws)
+    staged = fused_attend_cuda(proj, torch.float32, *args, H)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, staged):      # out, codes and scales
+        assert torch.equal(a, b)
+    plain = torch.cat([tref.qmm_ref(x, w.planes, w.scale, w.bits) for w in ws], dim=1)
+    assert (proj - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
 
 
 # ---- split-KV fp paged attention
@@ -889,7 +1058,7 @@ def test_fused_decode_is_bitwise_repeatable(sm90, kv_bits):
 def test_fused_projection_split_k_matches_plain(sm90, B, splits, act):
     """Launch (A)'s raw partials (dequant form, one set per K split),
     finished by the plain twin of (B)'s prologue, against the plain
-    projections; bf16 x takes the tensor-core body, f32 x the SIMT one."""
+    projections; bf16 x and f32 x (three bf16 terms) take the tensor cores."""
     from repro_torch.kernels.fused_decode import fused_project_cuda
 
     x, ws, _, H, KV = _fused_case(sm90, 4, [0] * B, 1, bits=(4, 3, 8), B=B)
@@ -1573,8 +1742,9 @@ def test_qmm_recurrent_family_shapes_match_plain(sm90, K, N, path, M, dtype):
                                     ("dequant", 64), ("dequant", 130)])
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 7168)])
 def test_qmm_f32_activations_match_plain(sm90, K, N, path, M):
-    """The SIMT bodies that take RWKV's f32 activations at every row count
-    its served path gives them (decode 1-4, verify 20, prefill chunks)."""
+    """The tensor-core bodies at RWKV's f32 activations (three bf16 terms)
+    at every row count its served path gives them (decode 1-4, verify 20,
+    prefill chunks)."""
     from repro_torch.kernels.qmm import qmm_cuda
 
     x, planes, scale = _qmm_inputs(M, K, N, 4, sm90, seed=M + N)

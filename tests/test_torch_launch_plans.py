@@ -40,9 +40,9 @@ from repro_torch.kernels.paged_attention import MAX_SPLITS, split_plan, split_wo
 from repro_torch.models.common import rope_cos_sin, rope_rotate
 from repro_torch.quant.pack import (Packed, kv_dequantize, kv_pack_int4, kv_quantize,
                                     pack_weight, unpack_bitplanes)
-from repro_torch.kernels.qmm import (BS_MAX_SPLITS, BS_MIN_STEPS, BS_STEP, SMEM_MAX, SMS, TILE_K,
-                                     bitserial_plan, bitserial_smem, bitserial_splits,
-                                     dequant_plan, dequant_smem)
+from repro_torch.kernels.qmm import (BS_MAX_SPLITS, BS_MIN_STEPS, BS_ROWS, BS_STEP, SM_SMEM,
+                                     SMEM_MAX, SMS, TILE_K, bitserial_plan, bitserial_smem,
+                                     bitserial_splits, dequant_plan, dequant_smem)
 
 GLM4_QMM = [  # (K, N, bits) of every packed matrix of glm4-9b at the served policy
     (4096, 4096, 4), (4096, 256, 4), (4096, 13696, 4), (13696, 4096, 4),
@@ -136,6 +136,72 @@ def test_bitserial_plan_workspace_and_shared_memory_fit(M, bits):
         assert 32 * plan.warps * -(-M // 8) * 4 * 4 <= smem
     # three CTAs per SM fit their shared memory at every decode width
     assert 3 * bitserial_smem(M, bits) <= 228 * 1024
+
+
+# ---- f32 x (RWKV's token-shift mixes): both bodies on the tensor cores,
+# x split into three bf16 terms (kernels/ref.py::split_bf16x3)
+RWKV_F32 = [(2048, 2048), (2048, 7168)]   # (K, N) of rwkv6-1.6b's f32 projections
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 4, 20, 64, 256])
+@pytest.mark.parametrize("K,N", RWKV_F32)
+def test_f32_plans_fit_shared_memory_and_fill_the_card(K, N, M, bits):
+    """At RWKV's shapes, every row count its served path gives the f32
+    projections (decode 1-4, the spec verify 20, prefill chunks): the
+    bit-serial plan (M <= 32) and the dequant plan keep at least one CTA
+    per SM within a CTA's shared memory."""
+    if M <= BS_ROWS:
+        bplan = bitserial_plan(M, K, N, bits)
+        assert bplan.ctas >= SMS
+        smem = bitserial_smem(M, bits, bplan.warps, f32=True)
+        assert smem <= SMEM_MAX
+        if M <= 8 and bits <= 4:    # decode's grid fits the card at once
+            assert bplan.ctas <= SMS * (SM_SMEM // (smem + 1024))
+    dplan = dequant_plan(M, K, N, bits, f32=True)
+    assert dplan.token_tile == 64 and dplan.kgroups in (1, 2)
+    assert dequant_smem(64, bits, dplan.kgroups, f32=True) <= SMEM_MAX
+    assert dplan.ctas >= SMS
+    ranges = dplan.k_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == dplan.chunks * TILE_K
+    assert all(lo < hi for lo, hi in ranges)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+def test_f32_rings_fit_at_every_row_count(bits):
+    """The bit-serial f32 slot (the raw rows and their three bf16 term
+    tiles) at every row count a CTA takes, at the 4 warps of qmm's plan and
+    of the fused projection, and the dequant f32 ring at one and two
+    warpgroups; two bit-serial CTAs share an SM at decode's M = 4."""
+    for M in range(1, BS_ROWS + 1):
+        assert bitserial_smem(M, bits, 4, f32=True) <= SMEM_MAX
+    assert 2 * bitserial_smem(4, bits, f32=True) <= SM_SMEM - 2 * 1024
+    for kg in (1, 2):
+        assert dequant_smem(64, bits, kg, f32=True) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("M,K,N,bits", [(1, 2048, 64, 4), (4, 1000, 96, 2),
+                                        (20, 2048, 32, 8), (40, 512, 16, 4)])
+def test_f32_bitserial_model_matches_plain(M, K, N, bits):
+    """The f32 body's sum as a torch model: per split of the plan, each
+    bf16 term's partial over the split's K range, the terms and then the
+    splits added in order, finished once; against qmm_ref in f32."""
+    rng = np.random.default_rng(M + K + bits)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) * K ** -0.5
+    planes, scale = pack_weight(w, bits)
+    plan = bitserial_plan(M, K, N, bits)
+    codes = unpack_bitplanes(planes, bits).float()
+    terms = [t.float() for t in tref.split_bf16x3(x)]
+    s = None
+    for lo, hi in plan.k_ranges(K):
+        part = terms[0][:, lo:hi] @ codes[lo:hi]
+        for t in terms[1:]:
+            part = part + t[:, lo:hi] @ codes[lo:hi]
+        s = part if s is None else s + part
+    got = s / float(2 ** (bits - 1) - 1) * scale
+    plain = tref.qmm_ref(x, planes, scale, bits)
+    assert (got - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
 
 
 @pytest.mark.parametrize("B", [1, 4, 32, 40])
