@@ -1042,7 +1042,29 @@ def check_fake_quant(torch, timer, peaks, rows):
                   f"fake_quantize_per_tensor_affine={row['library_ms']:.4f} "
                   f"bound={b_ms:.6f} ms")
             del w
+    fwd = per_step(rows, "fake_quant", lambda r: r["calls_per_forward"])
+    floor = empty_launch_floor(torch, timer, sum(calls.values()))
+    rows.append(floor)
+    print(f"  {'fake_quant per ResNet-20 forward (20 launches)':46s} kernel={fwd['ms']:.4f} "
+          f"library={fwd['library_ms']:.4f} bound={fwd['bound_ms']:.6f} ms; empty-kernel "
+          f"floor: one launch {floor['one_ms']:.4f} x 20 = {20 * floor['one_ms']:.4f}, "
+          f"20 back to back {floor['ms']:.4f} ms")
     return worst
+
+
+def empty_launch_floor(torch, timer, launches: int):
+    """The launch-latency floor of row 5': an empty kernel of 36 CTAs of
+    256 threads (the flat kernel's grid at ResNet-20's largest layer, f32),
+    one launch and ``launches`` back to back, timed as a call (L2 flushed
+    before it) -> a row."""
+    from repro_torch.kernels import build
+
+    fn = build.library("fake_quant").fake_quant_empty_launch
+    stream = torch.cuda.current_stream().cuda_stream
+    return {"kernel": "empty_launch", "shape": f"{launches} back to back", "dims": [36, 256],
+            "dtype": "-", "launches": launches,
+            "ms": timer(lambda: fn(launches, 36, 256, stream)),
+            "one_ms": timer(lambda: fn(1, 36, 256, stream))}
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2775,6 +2797,14 @@ def library_col(torch, ws, bits_host):
         return run, f32, "float32 copies (the library refuses bf16)"
 
 
+def col_tiles(plan) -> str:
+    """A per-column plan's tiles: 512-byte strips over row blocks."""
+    from repro_torch.kernels.fake_quant import COL_ROWS
+
+    return (f"strips of {plan.tile_cols} columns over {COL_ROWS}-row blocks, K split into "
+            f"{list(plan.splits)}, a max pass then the QDQ")
+
+
 def check_fake_quant_col(torch, timer, peaks, rows):
     """Phase 2, the per-column grouped fake-quant of the LM QAT path:
     forward and STE backward bit pattern for bit pattern against the plain
@@ -2809,7 +2839,7 @@ def check_fake_quant_col(torch, timer, peaks, rows):
         check_col_bitwise(torch, f"fake_quant_col glm4-9b 4L {str(dtype)[6:]}", ws, gs,
                           col_bits(torch, glm, 0))
         print(f"  {'fake_quant_col glm4-9b 4L ' + str(dtype)[6:]:46s} forward and backward "
-              f"bitwise (9 leaves, {plan.ctas[0]} CTAs, K split over {plan.split})")
+              f"bitwise (9 leaves, {plan.ctas[0]} CTAs: {col_tiles(plan)})")
         del ws, gs
         torch.cuda.empty_cache()
     # timing: one QAT forward and backward of the cell, bf16, phase 3j's mixed policy
@@ -3088,7 +3118,7 @@ def profile_lm_step(torch, run, state, traced=2, cell="glm4-9b 4L"):
     against the host clock, and the runtime calls per step that can block
     the host."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.models import common, moe
     from repro_torch.optim import adamw
@@ -3112,28 +3142,40 @@ def profile_lm_step(torch, run, state, traced=2, cell="glm4-9b 4L"):
             state, m = step_fn(state, data.next(), bm)
             float(m["loss"])
         step_ms = (time.perf_counter() - t0) / traced * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one warm-up step opens the trace and its records are dropped: a
+        # trace's first kernels went missing when they were traced cold
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=traced, repeat=1)) as prof:
+            state, m = step_fn(state, data.next(), bm)
+            float(m["loss"])
+            prof.step()
             t0 = time.perf_counter()
-            for _ in range(traced):
+            for i in range(traced):
                 state, m = step_fn(state, data.next(), bm)
                 float(m["loss"])
+                if i < traced - 1:
+                    prof.step()
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) / traced * 1e3
+            prof.step()
     finally:
         (common._Flash.forward, common._Flash.backward, common._ce_chunk,
          adamw.AdamW.update) = (staticmethod(saved[0]), staticmethod(saved[1]), saved[2],
                                 saved[3])
         moe._route, moe._dispatch, moe._undispatch = saved[4:]
-    busy = 0.0
+    busy, col_seen = 0.0, 0
     by_name: dict[str, float] = {}
     host = {"cudaStreamSynchronize": 0.0, "cudaDeviceSynchronize": 0.0, "cudaMemcpyAsync": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA and ev.key in host:
             host[ev.key] += ev.count / traced
-        # the ranges also show on the device timeline (spanning their
-        # kernels): only kernels, copies and sets count as busy
+        if ev.device_type == DeviceType.CUDA and "fake_quant_col" in ev.key:
+            col_seen += ev.count
+        # the ranges and the profiler's steps also show on the device
+        # timeline (spanning their kernels): only kernels, copies and sets
+        # count as busy
         if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                and not ev.key.startswith("lm:")):
+                and not ev.key.startswith(("lm:", "ProfilerStep"))):
             busy += ev.self_device_time_total / traced / 1e3
             by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / traced / 1e3
     if busy <= 0:
@@ -3144,8 +3186,8 @@ def profile_lm_step(torch, run, state, traced=2, cell="glm4-9b 4L"):
         low = name.lower()
         return any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas"))
 
-    fams = {"fake-quant forward": sum(v for k, v in by_name.items()
-                                      if "fake_quant_col_kernel" in k),
+    fams = {"fake-quant forward": sum(v for k, v in by_name.items()      # max pass + QDQ
+                                      if "fake_quant_col_" in k and "bwd" not in k),
             "fake-quant backward": sum(v for k, v in by_name.items()
                                        if "fake_quant_col_bwd_kernel" in k)}
     linked = 0.0
@@ -3169,17 +3211,80 @@ def profile_lm_step(torch, run, state, traced=2, cell="glm4-9b 4L"):
     except AttributeError as e:
         print(f"  the profiler's events carry no kernel links ({e}): ranges not measured")
     fams["not linked to an op"] = max(busy - sum(fams.values()), 0.0)
+    # the per-column pair launches 3 kernels a step (max pass, QDQ, STE): a
+    # trace holding another count, or more busy time than wall time, lost
+    # or misplaced device records, and its device times are not a reading
+    complete = col_seen == 3 * traced and busy <= traced_ms
     out = {"step_ms": step_ms, "traced_step_ms": traced_ms, "device_ms": busy,
            "idle_share": 1 - busy / traced_ms, "families_ms": fams,
-           "host_calls_per_step": host,
+           "fake_quant_col_kernels_seen": col_seen, "fake_quant_col_kernels_made": 3 * traced,
+           "trace_complete": complete, "host_calls_per_step": host,
            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])}
     print(f"  {cell} QAT step (batch 2 x 4096, remat full, mixed bits; host clock) = "
           f"{step_ms:.1f} ms untraced, {traced_ms:.1f} ms traced; device busy {busy:.1f} "
           f"ms/step -> idle share {out['idle_share']:.3f} of the traced step")
+    if not complete:
+        print(f"    TRACE INCOMPLETE: the profiler saw {col_seen} of the {3 * traced} per-column "
+              f"fake-quant kernels launched, busy {busy:.1f} against {traced_ms:.1f} ms of wall "
+              f"time: the device times below are not a reading")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"    {fam:24s} {ms:9.2f} ms/step ({ms / busy:.3f} of device time)")
     print("    host runtime calls per step: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
     return state, out
+
+
+def col_at_step(torch, run, state):
+    """Phase 5j: kernel 5'' at the leaves and bits of a real 3j step (the
+    trainer's params after 5j, its mixed-policy bits map): the forward and
+    STE timed as phase 2 times them (CUDA events, L2 flushed), beside
+    phase 2's random bf16 leaves; then 3 calls of each under the profiler
+    after a warm-up call (as 5j traces), once tracing the device alone and
+    once the host too, each with the count of kernels it saw of the 9
+    launched: a device time is kept only from a trace that saw all 9."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels.fake_quant import (fake_quant_group_col_bwd_cuda,
+                                                fake_quant_group_col_cuda)
+    from repro_torch.quant.qat import _paths_index, get_by_path
+
+    bm = run["trainer"].bits_map
+    idx = _paths_index(run["model"].quant_groups())
+    leaves = [get_by_path(state["params"], idx[k]) for k in bm]
+    bits = list(bm.values())
+    outs, scales, _ = fake_quant_group_col_cuda(leaves, bits)
+    del outs
+    gs = [torch.ones_like(w) for w in leaves]
+    timer = Timer(torch)
+    out = {"dtype": str(leaves[0].dtype)[6:], "leaves": len(leaves),
+           "bits": [b.reshape(-1).tolist() for b in bits],
+           "ms": timer(lambda: fake_quant_group_col_cuda(leaves, bits), iters=7),
+           "bwd_ms": timer(lambda: fake_quant_group_col_bwd_cuda(leaves, gs, scales), iters=7)}
+    print(f"  5'' at 3j's leaves and bits ({out['leaves']} leaves, {out['dtype']}): forward "
+          f"{out['ms']:.4f} ms, STE {out['bwd_ms']:.4f} ms (events, L2 flushed)")
+    for name, acts in (("device", [ProfilerActivity.CUDA]),
+                       ("host+device", [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
+        with profile(activities=acts,
+                     schedule=schedule(wait=0, warmup=1, active=3, repeat=1)) as prof:
+            for _ in range(4):
+                fake_quant_group_col_cuda(leaves, bits)
+                fake_quant_group_col_bwd_cuda(leaves, gs, scales)
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "fake_quant_col" in e.key]
+        seen = sum(e.count for e in evs)
+        fwd = sum(e.self_device_time_total for e in evs if "bwd" not in e.key) / 3 / 1e3
+        bwd = sum(e.self_device_time_total for e in evs if "bwd" in e.key) / 3 / 1e3
+        out[f"profiler_{name}"] = {"kernels_seen": seen, "kernels_made": 9,
+                                   "device_ms": fwd if seen == 9 else None,
+                                   "bwd_device_ms": bwd if seen == 9 else None}
+        print(f"    profiler tracing the {name}: saw {seen} of 9 kernels; "
+              + (f"forward {fwd:.4f}, STE {bwd:.4f} ms device (L2 warm)" if seen == 9 else
+                 "device time not measured"))
+    del timer, scales, gs
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---- the asynchronous autotune service at glm4-9b's widths (phase 3z) ------
@@ -4372,7 +4477,8 @@ def check_fake_quant_col_banks(torch, timer, peaks, rows):
         check_col_bitwise(torch, "fake_quant_col moonshot banks bf16", ws, gs, bits)
     plan = fake_quant_col_plan([w.shape for w in ws], torch.bfloat16)
     print(f"  {'fake_quant_col moonshot banks bf16':46s} forward and backward bitwise at 2 "
-          f"bits offsets (3 banks with (L,) bits + 3 edge leaves, {plan.ctas[0]} CTAs)")
+          f"bits offsets (3 banks with (L,) bits + 3 edge leaves, {plan.ctas[0]} CTAs; "
+          f"{col_tiles(plan)})")
     ws, gs = ws[:n_banks], gs[:n_banks]
     bits = bank_bits(torch, BANK_SHAPES, 0)
     bits_host = [[int(b) for b in v.tolist() for _ in range(s[1])]
@@ -5044,6 +5150,7 @@ def main() -> None:
     lm_run, lm_state, lm = lm_train(torch)
     phase("phase 5j: LM QAT step breakdown")
     lm_state, lm["breakdown"] = profile_lm_step(torch, lm_run, lm_state)
+    lm["col_at_step"] = col_at_step(torch, lm_run, lm_state)
     lm_model, lm_params = lm_run["model"], lm_state["params"]
     del lm_run, lm_state
     torch.cuda.empty_cache()
@@ -5265,7 +5372,8 @@ def main() -> None:
                 for key in ("ms", "library_ms", "bound_ms")]))),
         {"name": "fake_quant", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:33",
-         "launches": resnet["counts"]["fake_quant"], "max_abs_err": fq_err, **fq},
+         "launches": baselines["admm"]["counts"]["fake_quant"], "max_abs_err": fq_err, **fq,
+         "launch_floor_ms": next(r["ms"] for r in rows if r["kernel"] == "empty_launch")},
         {"name": "fake_quant_group", "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:33",
          "launches": resnet["counts"]["fake_quant_group"], "max_abs_err": fqg_err, **fqg},
@@ -5315,7 +5423,9 @@ def main() -> None:
                          "project_* and attend_* keys time launch (A) and launch (B) "
                          "alone against matmul and SDPA; "
                          "fake_quant: one ResNet-20 QAT forward (20 calls, f32, the flat "
-                         "kernel at given scales; no longer on the QAT path); "
+                         "kernel at given scales; off the QAT path), launches from phase 3s's "
+                         "ADMM (7 bitwidths x 20 layers), launch_floor_ms 20 empty launches "
+                         "back to back; "
                          "fake_quant_group / fake_quant_group_bwd: one ResNet-20 QAT forward / "
                          "backward (one launch each, f32, bits QAT_BITS); the backward's library "
                          "call is the autograd backward of fake_quantize_per_tensor_affine; "

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the redesigned kernels goes, on the card.
 
-    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused] [fq] [f32]
+    python3 scripts/kernel_ablation.py [bitserial] [qmm] [pa] [paq] [fused] [fq] [f32] [col]
 
-(the sections named, all seven by default)
+(the sections named, all eight by default)
 
 0. qmm bit-serial (``bitserial``; bf16 x, M = 4, glm4-9b's decode shapes:
    wq, wk, wg and wd at 4 bits, the lm_head at 8): the kernel as built, and
@@ -63,6 +63,20 @@
    2048 and 2048 x 7168): the bit-serial body at M = 4 over warps per
    CTA x K splits, and the dequant body at M = 256 over warpgroups per
    CTA x K splits (its split pass included), beside ``torch.matmul``.
+8. The per-column fake-quant pair and the flat kernel (``col``; the
+   4-layer glm4-9b cell's nine bf16 leaves at chip_smoke's mixed policy,
+   and moonshot's three expert banks with (L,) bits): the forward as
+   built (row blocks of ``COL_ROWS`` = 256 rows), with the max pass's
+   device time beside; copies with row blocks of 64, 128 and 512 rows,
+   with 4 rows in each thread's cp.async ring, with no ring (16-byte
+   loads into registers, 2 or 4 rows in flight), with registers capped
+   for 3 or 5 CTAs an SM, with a multiply for the division (``nodiv``)
+   and with write-back stores for the QDQ pass's streaming ones; each
+   leaf alone; the STE as built (2 vectors a thread in flight), at 1 and
+   4 and with streaming stores; the flat kernel per ResNet-20 forward
+   (20 launches at given scales, one call) as built, on 64-thread
+   blocks, without its q / n table and with w loaded after bits and
+   scale, beside 20 empty launches.
 
 Times: CUDA events per call (L2 flushed, ``chip_smoke.Timer``) and the
 kernels' device time from ``torch.profiler``.  The copies are built with
@@ -188,6 +202,43 @@ FQ_VARIANTS = {"full": (), "noexchange": ("NOARRIVE", "NOEXCHANGE"),
                "512 threads": ("T512", "V4"), "empty": ("EMPTY", "BWD_EMPTY"),
                "bwd 2 vectors": ("BV2",), "bwd 4 vectors": ("BV4",)}
 FQ_FWD_VARIANTS = ("full", "noexchange", "notable", "nodiv", "noqdq", "512 threads", "empty")
+COL_CUTS = {
+    **{f"ROWS{r}": ("constexpr int COL_ROWS = 256;", f"constexpr int COL_ROWS = {r};")
+       for r in (64, 128, 512)},
+    "RING4": ("constexpr int COL_RING = 8;", "constexpr int COL_RING = 4;"),
+    "NORING": ("    if (aligned) ring_rows(", "    if (false) ring_rows("),
+    "VECLOADS": ("            if (r < rows) load_cols(w + r * N, col, N, v[u]);",
+                 "            if (r < rows && col < N) v[u] = *reinterpret_cast<const Vec<T>*>("
+                 "w + r * N + col);"),
+    "UNROLL1": ("constexpr int COL_UNROLL = 4;", "constexpr int COL_UNROLL = 1;"),
+    "UNROLL2": ("constexpr int COL_UNROLL = 4;", "constexpr int COL_UNROLL = 2;"),
+    "CTAS3": ("constexpr int COL_MIN_CTAS = 4;", "constexpr int COL_MIN_CTAS = 3;"),
+    "CTAS5": ("constexpr int COL_MIN_CTAS = 4;", "constexpr int COL_MIN_CTAS = 5;"),
+    "NODIV": FQ_CUTS["NODIV"],
+    "STWB": ("        __stcs(reinterpret_cast<int4*>(row + c), *reinterpret_cast<const int4*>(&r));",
+             "        *reinterpret_cast<Vec<T>*>(row + c) = r;"),
+    "STCS_STE": ("            reinterpret_cast<Vec<T>*>(grad)[v] = gr[u];",
+                 "            __stcs(reinterpret_cast<int4*>(grad) + v, "
+                 "*reinterpret_cast<const int4*>(&gr[u]));"),
+    "STE1": ("constexpr int STE_VECS = 2;", "constexpr int STE_VECS = 1;"),
+    "STE4": ("constexpr int STE_VECS = 2;", "constexpr int STE_VECS = 4;"),
+    "FLAT64": ("    const int64_t per_block = (int64_t)THREADS * (vectorized ? Vec<T>::N : 1);",
+               "    const int64_t per_block = (int64_t)64 * (vectorized ? Vec<T>::N : 1);"),
+    "FLAT64B": ("    fake_quant_kernel<T><<<(unsigned)blocks, THREADS, 0, st>>>(",
+                "    fake_quant_kernel<T><<<(unsigned)blocks, 64, 0, st>>>("),
+    "NOTABLE": ("    const bool tabled = n <= TABLE_N && !p.fp;",
+                "    const bool tabled = false && !p.fp;"),
+    "LATELOAD": ("    if (tid < nvec) r = wv[tid];", "    if (false) r = wv[tid];"),
+    "LATELOAD2": ("        if (i != tid) r = wv[i];", "        r = wv[i];"),
+}
+COL_VARIANTS = {"full": (), "rows 64": ("ROWS64",), "rows 128": ("ROWS128",),
+                "rows 512": ("ROWS512",), "ring 4": ("RING4",),
+                "registers, 2 rows": ("NORING", "VECLOADS", "UNROLL2"),
+                "registers, 4 rows": ("NORING", "VECLOADS"),
+                "3 CTAs an SM": ("CTAS3",), "5 CTAs an SM": ("CTAS5",), "nodiv": ("NODIV",),
+                "write-back stores": ("STWB",), "ste streaming stores": ("STCS_STE",),
+                "ste 1": ("STE1",), "ste 4": ("STE4",), "flat 64 threads": ("FLAT64", "FLAT64B"),
+                "flat notable": ("NOTABLE",), "flat lateload": ("LATELOAD", "LATELOAD2")}
 
 
 def bs_tag(variant: str) -> str:
@@ -217,12 +268,15 @@ def patched(source: str, cuts: dict, names, tag: str) -> Path:
 
 def build_all(jobs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {tag: subprocess.Popen([build._nvcc(), *flags, "-o", str(OUT / f"lib{tag}.so"), str(src)])
+
+    def lib(tag):                  # nvcc splits its arguments at commas
+        return OUT / f"lib{re.sub(r'[^A-Za-z0-9_]+', '_', tag)}.so"
+    procs = {tag: subprocess.Popen([build._nvcc(), *flags, "-o", str(lib(tag)), str(src)])
              for tag, src in jobs.items()}
     for tag, proc in procs.items():
         if proc.wait() != 0:
             sys.exit(f"kernel_ablation: nvcc failed for {tag}")
-    return {tag: ctypes.CDLL(str(OUT / f"lib{tag}.so")) for tag in jobs}
+    return {tag: ctypes.CDLL(str(lib(tag))) for tag in jobs}
 
 
 def device_ms(timer, fn, key: str) -> float:
@@ -239,7 +293,8 @@ def device_ms(timer, fn, key: str) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ablation: needs a CUDA card")
-    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused", "fq", "f32"}
+    sections = set(sys.argv[1:]) or {"bitserial", "qmm", "pa", "paq", "fused", "fq", "f32",
+                                     "col"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
@@ -268,6 +323,10 @@ def main() -> None:
         jobs.update({f"fq_{v}": patched("fake_quant.cu", FQ_CUTS, cuts,
                                         f"fq_{v.replace(' ', '_')}")
                      for v, cuts in FQ_VARIANTS.items()})
+    if "col" in sections:
+        jobs.update({f"col_{v}": patched("fake_quant.cu", COL_CUTS, cuts,
+                                         "col_" + re.sub(r"[^A-Za-z0-9]+", "_", v))
+                     for v, cuts in COL_VARIANTS.items()})
     libs = build_all(jobs)
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -285,6 +344,8 @@ def main() -> None:
         fq_section(libs, timer, gen)
     if "f32" in sections:
         f32_section(timer, gen)
+    if "col" in sections:
+        col_section(libs, timer, gen)
 
 
 def f32_section(timer, gen) -> None:
@@ -678,6 +739,99 @@ def fq_section(libs, timer, gen) -> None:
         cells.append(f"plain (abs, <=, to, mul per layer) {timer(plain):.4f} / "
                      f"{all_device_ms(plain):.4f}")
         print("  " + "   ".join(cells), flush=True)
+
+
+
+def col_section(libs, timer, gen) -> None:
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import bits_assignment, bits_to_device
+    from repro_torch.quant.wrpn import tensor_scale
+
+    stream = torch.cuda.current_stream().cuda_stream
+    model = build_model(cs.lm_cell())
+    bmap = bits_assignment(model.quant_groups(), cs.lm_mixed_policy(model))
+    cells = [("glm4-9b 4L", [s for _, s in cs.lm_leaves()],
+              list(bits_to_device(bmap, "cuda").values())),
+             ("moonshot banks", cs.BANK_SHAPES, cs.bank_bits(torch, cs.BANK_SHAPES, 0))]
+    for cell, shapes, bits in cells:
+        ws = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+        gs = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+        outs = [torch.empty_like(w) for w in ws]
+        scales = fq.col_scales(ws, torch.bfloat16, ws[0].device)
+        grads = [torch.empty_like(g) for g in gs]
+        cbits, runs = fq._col_bits(bits, [fq.col_dims(s) for s in shapes], ws[0].device)
+        eps = fq._eps(torch.bfloat16)
+        print(f"per-column forward, {cell} (bf16, {len(ws)} leaves): events ms / device ms per "
+              f"QAT forward [the max pass alone, device ms]", flush=True)
+        # a variant's grid follows its own COL_ROWS (the C entry plans the
+        # row blocks); the plan gives the launches' leaf ranges alone
+        plan = fq.fake_quant_col_plan(shapes, torch.bfloat16)
+        for variant in ("full", "rows 64", "rows 128", "rows 512", "ring 4",
+                        "registers, 2 rows", "registers, 4 rows", "3 CTAs an SM",
+                        "5 CTAs an SM", "nodiv", "write-back stores"):
+            lib = libs[f"col_{variant}"]
+            build._declare("fake_quant", lib)
+
+            def fn(lib=lib):
+                for sc in scales:
+                    sc.fill_(eps)
+                fq.col_launches(lib, plan, ws, outs, scales, cbits, runs, stream)
+            print(f"  {variant:18s} {timer(fn, iters=5):.4f} / "
+                  f"{device_ms(timer, fn, 'fake_quant_col'):.4f} "
+                  f"[{device_ms(timer, fn, 'fake_quant_col_max'):.4f}]", flush=True)
+        lib = libs["col_full"]
+        build._declare("fake_quant", lib)
+        out = []
+        for i, shape in enumerate(shapes):
+            plan = fq.fake_quant_col_plan([shape], torch.bfloat16)
+
+            def fn(plan=plan, i=i):
+                scales[i].fill_(eps)
+                fq.col_launches(lib, plan, ws[i:i + 1], outs[i:i + 1], scales[i:i + 1],
+                                cbits[i:i + 1], runs[i:i + 1], stream)
+            ms = timer(fn, iters=5)
+            out.append(f"{tuple(shape)} {ms:.4f} ({ws[i].numel() * 6 / ms / 1e6:.0f})")
+        print("  each leaf alone, ms (GB/s of two reads and a write): " + "  ".join(out),
+              flush=True)
+        for sc in scales:
+            sc.fill_(eps)
+        plan = fq.fake_quant_col_plan(shapes, torch.bfloat16)
+        fq.col_launches(lib, plan, ws, outs, scales, cbits, runs, stream)
+        out = []
+        for variant in ("full", "ste 1", "ste 4", "ste streaming stores"):
+            lib = libs[f"col_{variant}"]
+            build._declare("fake_quant", lib)
+
+            def fn(lib=lib):
+                for a, b in plan.launches:
+                    lib.fake_quant_col_bwd_launch(
+                        fq._pointers(ws[a:b]), fq._pointers(gs[a:b]), fq._pointers(grads[a:b]),
+                        fq._pointers(scales[a:b]), fq._dims(plan.dims[a:b]), b - a, 1, stream)
+            out.append(f"{variant} {timer(fn, iters=5):.4f} / "
+                       f"{device_ms(timer, fn, 'fake_quant_col_bwd_kernel'):.4f}")
+        print("  STE per QAT backward: " + "   ".join(out), flush=True)
+        del ws, gs, outs, scales, grads
+        torch.cuda.empty_cache()
+    ws = [torch.randn(s, generator=gen, device="cuda") for _, s in cs.weight_shapes("resnet20")]
+    given = [tensor_scale(w) for w in ws]
+    bits = torch.tensor([cs.QAT_BITS[i % len(cs.QAT_BITS)] for i in range(len(ws))],
+                        dtype=torch.int32, device="cuda")
+    outs = [torch.empty_like(w) for w in ws]
+    out = []
+    for variant in ("full", "flat 64 threads", "flat notable", "flat lateload"):
+        lib = libs[f"col_{variant}"]
+        build._declare("fake_quant", lib)
+
+        def fn(lib=lib):
+            for i, w in enumerate(ws):
+                lib.fake_quant_launch(w.data_ptr(), outs[i].data_ptr(), bits[i:].data_ptr(),
+                                      given[i].data_ptr(), w.numel(), 0, 1, stream)
+        out.append(f"{variant} {timer(fn):.4f} / {device_ms(timer, fn, 'fake_quant_kernel'):.4f}")
+    empty = libs["col_full"].fake_quant_empty_launch
+    out.append(f"20 empty launches {timer(lambda: empty(20, 36, 256, stream)):.4f}")
+    print("flat kernel per ResNet-20 forward (f32, 20 launches at given scales, one call): "
+          "events ms / device ms: " + "   ".join(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Phase 2's rows of the paged kernels (rows 2, 3 and 4 of ``PERF.md``
-§6) and of qmm at rwkv6-1.6b's shapes (rows 1 and 1' rwkv) for the port
-found under ``--src``, so that one call can time two checkouts of the
-port on one card with the same measuring code:
+§6), of qmm at rwkv6-1.6b's shapes (rows 1 and 1' rwkv) and of the
+fake-quant kernels (rows 5', 5'' and 5'' banks) for the port found under
+``--src``, so that one call can time two checkouts of the port on one
+card with the same measuring code:
 
     python3 scripts/kernel_rows.py [--src DIR] [--label NAME] [--hd16] [--rwkv-qmm]
-                                   [--no-paged] [--rwkv-e2e]
+                                   [--no-paged] [--rwkv-e2e] [--fq]
     python3 scripts/kernel_rows.py --compare NAME=FILE NAME=FILE ...
 
 The rows are ``chip_smoke.py``'s (this checkout's): the fp and quantized
@@ -14,7 +15,12 @@ paged attention at glm4-9b's shape (KV 2, G 16, hd 128), at hd 120 and G
 moonshot's shapes; ``--hd16`` adds the head-dim-16 rows (a port that has
 them); ``--rwkv-qmm`` adds both qmm bodies at every rwkv6-1.6b shape
 (decode M 4, a 256-token chunk; f32 activations where RWKV feeds them),
-and ``--no-paged`` leaves the paged rows out.  Each kernel is checked
+and ``--no-paged`` leaves the paged rows out; ``--fq`` adds the flat
+fake-quant at every ResNet-20 / LeNet shape (row 5': its sum over one
+ResNet-20 forward, beside the empty-kernel launch floor where the port
+has one) and the per-column pair at the 4-layer glm4-9b cell and at
+moonshot's three expert banks (rows 5'' and 5'' banks, forward and
+STE).  Each kernel is checked
 against its plain version as phase 2 checks it.  ``--rwkv-e2e`` adds
 RWKV end to end as ``chip_smoke.py`` reads it: phase 3o's two mixes
 (after one warm-up serve of the first), phase 5o's graphed decode step
@@ -39,7 +45,29 @@ ROOT = Path(__file__).resolve().parents[1]
 def key(row: dict) -> str:
     if "M" in row:                                  # a qmm row
         return f"{row['kernel']} {row['x_dtype']} {row['shape']} M={row['M']}"
+    if "dims" in row:                               # a flat fake-quant row
+        return f"{row['kernel']} {row['dtype']} {row['shape']} {tuple(row['dims'])}"
     return f"{row['kernel']} {row.get('container', 'bf16')} {row['shape']}"
+
+
+def fq_rows(cs, rows) -> dict:
+    """Rows 5', 5'' and 5'' banks as PERF.md gives them: 5' summed over
+    one ResNet-20 forward (its 20 f32 layers), the per-column pair per QAT
+    forward and backward."""
+    out = {}
+    flat = cs.per_step(rows, "fake_quant", lambda r: r["calls_per_forward"])
+    for k in ("ms", "library_ms", "bound_ms"):
+        out[f"5' per forward {k}"] = flat[k]
+    for r in rows:
+        if r["kernel"] == "empty_launch":
+            out["5' empty floor, 20 back to back ms"] = r["ms"]
+            out["5' empty floor, one launch ms"] = r["one_ms"]
+        if r["kernel"].startswith("fake_quant_group_col"):
+            tag = ("5'' banks" if "moonshot" in r["shape"] else "5''") + (
+                " STE" if r["kernel"].endswith("bwd") else " forward")
+            for k in ("ms", "library_ms", "bound_ms"):
+                out[f"{tag} {k}"] = r[k]
+    return out
 
 
 def compare(pairs: list[str]) -> None:
@@ -64,12 +92,25 @@ def compare(pairs: list[str]) -> None:
 
 
 def compat_plans(cs) -> None:
-    """A port from before f32 dequant plans (f32 x on its SIMT body, no
-    plan) is timed with the same rows: its plan is read without ``f32``."""
+    """A port from before this checkout's plans is timed with the same
+    rows: a port from before f32 dequant plans (f32 x on its SIMT body, no
+    plan) has its plan read without ``f32``; one from before the
+    per-column row blocks has its plan described as a K split over a
+    cluster, read twice, and one with no empty kernel its launch floor
+    written as not measured (NaN)."""
     import inspect
 
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fake_quant as fq
     from repro_torch.kernels import qmm
 
+    if "splits" not in fq.ColPlan._fields:
+        cs.col_tiles = lambda plan: f"K split over a cluster of {plan.split}, read twice"
+    if not hasattr(build.library("fake_quant"), "fake_quant_empty_launch"):
+        nan = float("nan")
+        cs.empty_launch_floor = lambda torch, timer, launches: {
+            "kernel": "empty_launch", "shape": f"{launches} back to back", "dims": [36, 256],
+            "dtype": "-", "launches": launches, "ms": nan, "one_ms": nan}
     if "f32" in inspect.signature(qmm.dequant_plan).parameters:
         return
 
@@ -118,6 +159,7 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--rwkv-qmm", action="store_true")
     ap.add_argument("--no-paged", action="store_true")
     ap.add_argument("--rwkv-e2e", action="store_true")
+    ap.add_argument("--fq", action="store_true")
     ap.add_argument("--compare", nargs="+", metavar="NAME=FILE")
     args = ap.parse_args(argv)
     if args.compare:
@@ -135,7 +177,10 @@ def main(argv=None) -> dict | None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}; port from {args.src}")
-    build.build_all()
+    if args.no_paged and not (args.hd16 or args.rwkv_qmm or args.rwkv_e2e):
+        build.library("fake_quant")              # the fake-quant rows alone
+    else:
+        build.build_all()
     compat_plans(cs)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
     timer = cs.Timer(torch)
@@ -157,13 +202,19 @@ def main(argv=None) -> dict | None:
         cs.check_hd16_kernels(torch, timer, peaks, rows)
     if args.rwkv_qmm:
         cs.check_qmm(torch, timer, peaks, rows, cs.RWKV_QMM, cs.RECURRENT_MS, seed=4)
+    if args.fq:
+        cs.check_fake_quant(torch, timer, peaks, rows)
+        cs.check_fake_quant_col(torch, timer, peaks, rows)
+        cs.check_fake_quant_col_banks(torch, timer, peaks, rows)
     out = {"card": smi, "src": args.src, "label": args.label,
-           "rows": [{k: r[k] for k in ("kernel", "shape", "M", "x_dtype", "ms", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_3term_ms",
+           "rows": [{k: r[k] for k in ("kernel", "shape", "M", "x_dtype", "dims", "dtype", "ms",
+                                       "plain_ms", "library_ms", "bound_ms", "bound_3term_ms",
                                        "bound_simt_ms", "max_abs_err") if k in r}
-                    | {"container": r.get("container", "bf16")} for r in rows]}
+                    | {"container": r.get("container", "bf16")} for r in rows], "e2e": {}}
+    if args.fq:
+        out["e2e"] |= fq_rows(cs, rows)
     if args.rwkv_e2e:
-        out["e2e"] = rwkv_e2e(torch, cs)
+        out["e2e"] |= rwkv_e2e(torch, cs)
     cs.OUT_DIR.mkdir(exist_ok=True)
     (cs.OUT_DIR / f"kernel_rows_{args.label}.json").write_text(json.dumps(out, indent=1))
     print(json.dumps(out))

@@ -16,7 +16,8 @@ the selection policy.
 
 Each squared error is the WRPN QDQ at a per-tensor max|w| scale through
 ``kernels.ops.fake_quant`` (the flat fake-quant kernel on a CUDA tensor,
-bitwise ``quant.wrpn.fake_quant``), summed in f32 on the weights' device;
+bitwise ``quant.wrpn.fake_quant``; the scale ``tensor_scale`` takes once
+per layer for its 7 bitwidths), summed in f32 on the weights' device;
 the errors come to the host in one copy.  The λ search is the reference's,
 step for step.
 """
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.quant.wrpn import tensor_scale
 
 
 def layer_quant_errors(weights_by_name: dict, bitset=(2, 3, 4, 5, 6, 7, 8)):
@@ -33,8 +35,9 @@ def layer_quant_errors(weights_by_name: dict, bitset=(2, 3, 4, 5, 6, 7, 8)):
     sums = []
     for name in names:
         w = weights_by_name[name].float()
+        scale = tensor_scale(w)           # fake_quant's own scale, taken once per layer
         for b in bitset:
-            sums.append(torch.sum(torch.square(w - kops.fake_quant(w, b))))
+            sums.append(torch.sum(torch.square(w - kops.fake_quant(w, b, scale))))
     host = torch.stack(sums).cpu().tolist() if sums else []
     n = len(bitset)
     return {name: {b: host[i * n + j] for j, b in enumerate(bitset)}

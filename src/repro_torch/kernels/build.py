@@ -148,14 +148,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fake_quant_group_limits.argtypes = [P]
         lib.fake_quant_group_limits.restype = None
         # ws, outs, scales, bits, dims, bits_runs (host arrays), count,
-        # eps, dtype, split, stream
-        lib.fake_quant_col_launch.argtypes = [P] * 6 + [I, F, I, I, P]
+        # dtype, stream
+        lib.fake_quant_col_launch.argtypes = [P] * 6 + [I, I, P]
         lib.fake_quant_col_launch.restype = I
-        # ws, gs, grads, scales, dims (host arrays), count, dtype, split, stream
-        lib.fake_quant_col_bwd_launch.argtypes = [P] * 5 + [I, I, I, P]
+        # ws, gs, grads, scales, dims (host arrays), count, dtype, stream
+        lib.fake_quant_col_bwd_launch.argtypes = [P] * 5 + [I, I, P]
         lib.fake_quant_col_bwd_launch.restype = I
         lib.fake_quant_col_limits.argtypes = [P]
         lib.fake_quant_col_limits.restype = None
+        # launches, blocks, threads, stream
+        lib.fake_quant_empty_launch.argtypes = [I, I, I, P]
+        lib.fake_quant_empty_launch.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -17,9 +17,10 @@ bodies:
 The LM QAT path's per-column grouped pair takes every stacked ``(L, K,
 N)`` leaf of a forward at the scale ``max(max_k |w[l, :, n]|, eps)`` of
 each column, with per-layer bits: :func:`fake_quant_group_col_cuda` (one
-launch, K split over a thread-block cluster planned by
-:func:`fake_quant_col_plan`) and :func:`fake_quant_group_col_bwd_cuda`
-(its STE, one more launch).
+call of two launches: a max pass and a QDQ pass over 512-byte column
+strips of 256-row blocks, planned by :func:`fake_quant_col_plan`) and
+:func:`fake_quant_group_col_bwd_cuda` (its STE, a flat map, one more
+launch).
 
 The source note in ``csrc/fake_quant.cu`` says what bounds them and how
 the design answers that.  The wrappers check device, types, shapes and
@@ -227,29 +228,40 @@ def fake_quant_cuda(w: torch.Tensor, bits: torch.Tensor,
 
 
 # csrc/fake_quant.cu's per-column constants (fake_quant_col_limits reports them)
-COL_TX = 8             # threads across a column tile, one 16-byte vector each
-COL_MAX = 56           # leaves per launch: the descriptors fill 4 KB
-COL_ROWS = 1024        # rows of a tile one CTA takes before the plan splits K
-COL_PARAM_BYTES = (16, 72)    # (header, per leaf) of both per-column kernels' parameters
+COL_TX = 32            # threads across a strip: 512 bytes of a row
+COL_TY = THREADS // COL_TX   # rows a CTA takes at a time
+COL_ROWS = 256         # rows of a row block: a tile is a strip of one
+COL_RING = 8           # rows a thread has in flight through its cp.async ring
+COL_UNROLL = 4         # rows a thread has in flight in registers (unaligned leaves)
+STE_VECS = 2           # 16-byte vectors of w and of g a backward thread has in flight
+COL_MAX = 56           # leaves per launch
+COL_PARAM_BYTES = (16, 64)    # (header, per leaf) of both per-column kernels' parameters
 
 
 class ColPlan(NamedTuple):
     """How a group of leaves is launched by the per-column pair.
 
-    Leaf i is ``dims[i] = (L, K, N)``; a tile is ``tile_cols`` adjacent
-    columns of one layer (``COL_TX`` 16-byte vectors), ``tiles[i]`` of
-    them; each tile's K range is split over ``split`` CTAs (a cluster in
-    the forward, plain CTAs in the backward).  ``launches`` are the [start,
-    stop) leaf ranges (at most ``COL_MAX`` each), with ``ctas`` and
-    ``param_bytes`` per launch.  The forward reads every element twice
-    (once for the max, once for the QDQ)."""
+    Leaf i is ``dims[i] = (L, K, N)``; a tile is a strip of ``tile_cols``
+    adjacent columns (512 bytes of a row) over a block of ``COL_ROWS`` rows
+    of one layer.  ``tiles[i]`` counts the strips over every layer and
+    ``splits[i]`` the row blocks a layer's K is split into; a forward CTA
+    takes one tile in each of its two passes (a max pass, then the QDQ).
+    ``launches`` are the [start, stop) leaf ranges (at most ``COL_MAX``
+    each), with ``ctas`` of either forward pass, ``bwd_ctas`` of the flat
+    STE and ``param_bytes`` of kernel parameters per launch."""
     dims: tuple
     tile_cols: int
-    split: int
     tiles: tuple
+    splits: tuple
     launches: tuple
     ctas: tuple
+    bwd_ctas: tuple
     param_bytes: tuple
+
+    @property
+    def split(self) -> int:
+        """The most row blocks any leaf's K is split into."""
+        return max(self.splits)
 
 
 def col_dims(shape) -> tuple:
@@ -263,22 +275,24 @@ def col_dims(shape) -> tuple:
 
 def fake_quant_col_plan(shapes, dtype: torch.dtype) -> ColPlan:
     """The launch plan of the per-column pair over leaves of ``shapes``,
-    all of ``dtype``.  The split is the smallest of 1, 2, 4 and 8 CTAs that
-    leaves each CTA at most ``COL_ROWS`` rows of the longest K, and 8
-    beyond that (glm4-9b: embed's 151,552 rows, 18,944 a CTA)."""
+    all of ``dtype``: each leaf in strips of 512 bytes of a row over blocks
+    of ``COL_ROWS`` rows."""
     dims = tuple(col_dims(s) for s in shapes)
     if not dims or min(math.prod(d) for d in dims) <= 0:
         raise ValueError(f"a group needs one or more non-empty leaves, got {shapes}")
-    tile_cols = COL_TX * _per_vector(dtype)
-    split = next((c for c in (1, 2, 4, 8) if max(d[1] for d in dims) <= c * COL_ROWS),
-                 MAX_CLUSTER)
+    per = _per_vector(dtype)
+    tile_cols = COL_TX * per
     tiles = tuple(L * -(-N // tile_cols) for L, _, N in dims)
+    splits = tuple(-(-K // COL_ROWS) for _, K, _ in dims)
     launches = tuple((s, min(s + COL_MAX, len(dims))) for s in range(0, len(dims), COL_MAX))
-    return ColPlan(dims=dims, tile_cols=tile_cols, split=split, tiles=tiles,
-                   launches=launches,
-                   ctas=tuple(split * sum(tiles[a:b]) for a, b in launches),
-                   param_bytes=tuple(COL_PARAM_BYTES[0] + COL_PARAM_BYTES[1] * (b - a)
-                                     for a, b in launches))
+    return ColPlan(
+        dims=dims, tile_cols=tile_cols, tiles=tiles, splits=splits,
+        launches=launches,
+        ctas=tuple(sum(tiles[i] * splits[i] for i in range(a, b)) for a, b in launches),
+        bwd_ctas=tuple(sum(-(-math.prod(dims[i]) // (THREADS * STE_VECS * per))
+                           for i in range(a, b)) for a, b in launches),
+        param_bytes=tuple(COL_PARAM_BYTES[0] + COL_PARAM_BYTES[1] * (b - a)
+                          for a, b in launches))
 
 
 def _col_bits(bits, dims, dev):
@@ -302,6 +316,27 @@ def _dims(dims):
     return (ctypes.c_int64 * (3 * len(dims)))(*(x for d in dims for x in d))
 
 
+def col_launches(lib, plan: ColPlan, ws, outs, scales, bits, runs, stream) -> None:
+    """The forward's launches of ``plan`` over ``scales`` filled with eps
+    (:func:`col_scales`).  No checks: the callers make them."""
+    dtype = ws[0].dtype
+    for a, b in plan.launches:
+        err = lib.fake_quant_col_launch(
+            _pointers(ws[a:b]), _pointers(outs[a:b]), _pointers(scales[a:b]),
+            _pointers(bits[a:b]), _dims(plan.dims[a:b]), (ctypes.c_int * (b - a))(*runs[a:b]),
+            b - a, _DTYPES[dtype], stream)
+        build.check(err, f"fake_quant_col ({b - a} leaves, {dtype})")
+
+
+def col_scales(ws, dtype, dev):
+    """The per-column scales' storage, ``(..., 1, N)`` f32 views of one
+    buffer filled with eps in the leaves' dtype (the max pass raises
+    them)."""
+    sizes = [math.prod(w.shape[:-2]) * w.shape[-1] for w in ws]
+    flat = torch.full((sum(sizes),), _eps(dtype), dtype=torch.float32, device=dev)
+    return [v.view(*w.shape[:-2], 1, w.shape[-1]) for v, w in zip(flat.split(sizes), ws)]
+
+
 def fake_quant_group_col_cuda(ws, bits):
     """``ws``: contiguous leaves of one dtype (f32 or bf16) on one card, of
     2 or more dims; ``bits``: per leaf an int32 tensor on that card, one
@@ -317,17 +352,9 @@ def fake_quant_group_col_cuda(ws, bits):
     plan = fake_quant_col_plan([w.shape for w in ws], dtype)
     bits, runs = _col_bits(bits, plan.dims, dev)
     outs = [torch.empty_like(w) for w in ws]
-    scales = [torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32, device=dev)
-              for w in ws]
-    lib = build.library("fake_quant")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for a, b in plan.launches:
-        err = lib.fake_quant_col_launch(
-            _pointers(ws[a:b]), _pointers(outs[a:b]), _pointers(scales[a:b]),
-            _pointers(bits[a:b]), _dims(plan.dims[a:b]),
-            (ctypes.c_int * (b - a))(*runs[a:b]), b - a, _eps(dtype), _DTYPES[dtype],
-            plan.split, stream)
-        build.check(err, f"fake_quant_col ({b - a} leaves, {dtype}, split {plan.split})")
+    scales = col_scales(ws, dtype, dev)
+    col_launches(build.library("fake_quant"), plan, ws, outs, scales, bits, runs,
+                 torch.cuda.current_stream(dev).cuda_stream)
     return outs, scales, len(plan.launches)
 
 
@@ -352,7 +379,6 @@ def fake_quant_group_col_bwd_cuda(ws, gs, scales):
     for a, b in plan.launches:
         err = lib.fake_quant_col_bwd_launch(
             _pointers(ws[a:b]), _pointers(gs[a:b]), _pointers(grads[a:b]),
-            _pointers(scales[a:b]), _dims(plan.dims[a:b]), b - a, _DTYPES[dtype], plan.split,
-            stream)
+            _pointers(scales[a:b]), _dims(plan.dims[a:b]), b - a, _DTYPES[dtype], stream)
         build.check(err, f"fake_quant_col_bwd ({b - a} leaves, {dtype})")
     return grads, len(plan.launches)

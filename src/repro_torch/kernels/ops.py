@@ -219,8 +219,8 @@ def fake_quant_group_col(ws, bits):
     tensor on the leaves' device: one value per layer of the leading dims,
     one per stacked layer of an expert bank ``(L, E, K, N)``, or one;
     ``kernels.ref.col_bits_view``).  Returns (the QDQ leaves, the f32 scales as ``(..., 1, N)``).
-    On CUDA: one grouped launch (more only past ``COL_MAX`` leaves),
-    counted per launch."""
+    On CUDA: one grouped call of two kernels, a max pass and the QDQ (more
+    only past ``COL_MAX`` leaves), counted once a call."""
     route = _route(ws[0])
     if route == "cuda":
         from repro_torch.kernels.fake_quant import fake_quant_group_col_cuda

@@ -477,12 +477,13 @@ def test_fake_quant_col_matches_plain_bitwise(sm90, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fake_quant_col_split_over_a_cluster(sm90, dtype):
-    """K past 4 CTAs' rows: the plan splits every tile over 8 CTAs, whose
-    maxima combine through the cluster's shared memory."""
+    """K past many CTAs' rows (the name is from the cluster design this
+    test first held): the plan splits the leaf's K into 36 row blocks of
+    COL_ROWS, whose maxima merge into the scales by an atomic max."""
     from repro_torch.kernels.fake_quant import fake_quant_col_plan
 
     ws = _col_leaves(dtype, sm90, 5, extra=[(2, 9000, 136)])
-    assert fake_quant_col_plan([w.shape for w in ws], dtype).split == 8
+    assert fake_quant_col_plan([w.shape for w in ws], dtype).split == 36
     assert _col_check(ws, sm90, 5) == (1, 1)
 
 
@@ -509,10 +510,11 @@ def test_fake_quant_col_constants_match_the_library(sm90):
     from repro_torch.kernels import build
     from repro_torch.kernels import fake_quant as fq
 
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 10)()
     build.library("fake_quant").fake_quant_col_limits(out)
-    assert list(out) == [fq.THREADS, fq.COL_TX, fq.COL_MAX, fq.MAX_CLUSTER,
-                         fq.COL_PARAM_BYTES[0] + fq.COL_PARAM_BYTES[1] * fq.COL_MAX]
+    descriptors = fq.COL_PARAM_BYTES[0] + fq.COL_PARAM_BYTES[1] * fq.COL_MAX
+    assert list(out) == [fq.THREADS, fq.COL_TX, fq.COL_TY, fq.COL_ROWS, fq.COL_RING,
+                         fq.COL_UNROLL, fq.STE_VECS, fq.COL_MAX, descriptors, descriptors]
 
 
 @pytest.mark.gpu
@@ -579,6 +581,125 @@ def test_fake_quant_col_expert_banks_with_layer_bits_bitwise(sm90, dtype):
     with pytest.raises(ValueError, match="divisor"):
         ops.fake_quant_group_col([ws[2]], [torch.tensor([2, 3], dtype=torch.int32,
                                                         device=sm90)])
+
+
+# the boundaries of the per-column forward's tiles (256-row blocks, strips of
+# 512 bytes of a row): one block exactly, one row and one column more (N 257
+# is no multiple of the vector: the element-by-element walk), an embed-length
+# K, one bf16 strip exactly, a ragged leaf of three blocks
+COL_ROUTE_SHAPES = [(2, 256, 256), (2, 257, 257), (151552, 72), (3, 512, 128), (513, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_col_route_boundaries_bitwise(sm90, dtype):
+    """Forward, scales and STE bit for bit the plain versions at each tile
+    boundary, bits cycling through 1-8, 16 and 32 over the layers from
+    three offsets, with a bank of (L,) bits in the same call."""
+    from repro_torch.kernels.fake_quant import fake_quant_col_plan
+
+    gen = torch.Generator(device=sm90).manual_seed(41)
+    ws = [torch.randn(s, generator=gen, device=sm90).to(dtype) for s in COL_ROUTE_SHAPES]
+    plan = fake_quant_col_plan([w.shape for w in ws], dtype)
+    assert plan.splits == (1, 2, 592, 2, 3)
+    for seed in range(3):
+        assert _col_check(ws, sm90, seed) == (1, 1)
+    bank = torch.randn((3, 4, 1408, 72), generator=gen, device=sm90).to(dtype)
+    leaves = ws + [bank]
+    for offset in range(2):
+        bits = _col_bits(ws, sm90, offset) + [
+            torch.tensor([FQ_GROUP_BITS[(offset + l) % 10] for l in range(3)],
+                         dtype=torch.int32, device=sm90)]
+        outs, scales = ops.fake_quant_group_col(leaves, bits)
+        torch.cuda.synchronize()
+        want, want_s = tref.fake_quant_group_col_ref(leaves, bits)
+        for i in range(len(leaves)):
+            assert _same_bits(scales[i], want_s[i]) and _same_bits(outs[i], want[i]), i
+
+
+def _nan_column_leaves(dtype, dev):
+    """Leaves of K 4096 and 4097 (16 and 17 row blocks) whose column 5
+    holds NaNs of one payload in four row blocks, and whose column 9 holds
+    NaNs of three payloads in three."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    ws = [torch.randn((2, K, 72), generator=gen, device=dev).to(dtype) for K in (4096, 4097)]
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    same = 0x7FC1 if dtype == torch.bfloat16 else 0x7FC00011
+    payloads = ([0x7F85, 0xFFC3 - 0x10000, 0x7FA0] if dtype == torch.bfloat16 else
+                [0x7F800005, 0xFFC0000D - 0x100000000, 0x7FA00000])   # the second signed
+    for w in ws:
+        bits = w.view(view)                   # written as integers: the payloads kept
+        for k in (3, 1100, 2600, 4000):
+            bits[1, k, 5] = same
+        for k, b in zip((10, 1500, 3900), payloads):
+            bits[0, k, 9] = b
+    return ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_col_nan_payloads_in_several_partial_maxima(sm90, dtype):
+    """NaNs of one payload in several parts of a column, and of several
+    payloads (one with its sign set) in others: the partial maxima meet as
+    integer maxima of |w|'s bits, and a NaN scale is written as the plain
+    version's abs writes it on the card (f32 0x7fffffff, bf16 0x7fff), so
+    forward, scales and STE are bit for bit the plain versions and three
+    runs give the same bits.  The grouped forward of the CNN path (row 5)
+    writes its NaN scales by the same rule."""
+    ws = _nan_column_leaves(dtype, sm90)
+    bits = [torch.tensor([4, 8], dtype=torch.int32, device=sm90)] * 2
+    gen = torch.Generator(device=sm90).manual_seed(44)
+    gs = [torch.randn(w.shape, generator=gen, device=sm90).to(dtype) for w in ws]
+    runs = []
+    for _ in range(3):
+        outs, scales = ops.fake_quant_group_col(ws, bits)
+        grads = ops.fake_quant_group_col_bwd(ws, gs, scales)
+        torch.cuda.synchronize()
+        runs.append((outs, scales, grads))
+    for outs, scales, grads in runs[1:]:
+        for a, b in zip(outs + scales + grads, runs[0][0] + runs[0][1] + runs[0][2]):
+            assert _same_bits(a, b)
+    outs, scales, grads = runs[0]
+    want, want_s = tref.fake_quant_group_col_ref(ws, bits)
+    nan = 0x7FFF0000 if dtype == torch.bfloat16 else 0x7FFFFFFF
+    for i in range(2):
+        s = scales[i].reshape(2, 72)
+        assert int(s[0, 9].view(torch.int32)) == int(s[1, 5].view(torch.int32)) == nan
+        assert _same_bits(scales[i], want_s[i]), i
+        assert _same_bits(outs[i], want[i]), i
+        (g,) = tref.fake_quant_group_col_bwd_ref([ws[i]], [gs[i]], [want_s[i]])
+        assert _same_bits(grads[i], g), i
+    flat = ws[1][0, 1400:1600].contiguous()              # holds column 9's second NaN
+    _, scale = ops.fake_quant_group([flat], torch.tensor([4], dtype=torch.int32, device=sm90))
+    _, want_scale = tref.fake_quant_group_ref([flat], [4])
+    assert _same_bits(scale, want_scale) and int(scale[0].view(torch.int32)) == nan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fake_quant_kernel_at_every_resnet20_shape(sm90, dtype):
+    """The flat kernel (256-thread blocks, one 16-byte vector a thread) at
+    every ResNet-20 weight shape (and 4 bytes past an aligned base: the scalar path), bits 1-8, 16
+    and 32, bitwise; at bits 32 a NaN keeps its payload."""
+    from repro_torch.cnn.models import build_cnn
+    from repro_torch.kernels.fake_quant import fake_quant_cuda
+    from repro_torch.quant.wrpn import tensor_scale
+
+    shapes = {tuple(p["w"].shape) for p in build_cnn("resnet20").init(0, device="cpu").values()}
+    gen = torch.Generator(device=sm90).manual_seed(45)
+    bits_vec = torch.tensor(FQ_GROUP_BITS, dtype=torch.int32, device=sm90)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for shape in sorted(shapes):
+        w = torch.randn(shape, generator=gen, device=sm90).to(dtype)
+        w.view(view).view(-1)[5] = 0x7F85 if dtype == torch.bfloat16 else 0x7F800005
+        w.view(-1)[:2] = torch.tensor([-0.0, 0.0], device=sm90).to(dtype)
+        scale = tensor_scale(w[torch.isfinite(w)])
+        for x in (w, w.reshape(-1)[2:]):
+            for i in range(bits_vec.numel()):
+                got = fake_quant_cuda(x, bits_vec[i], scale)
+                torch.cuda.synchronize()
+                assert _same_bits(got, tref.fake_quant_ref(x, bits_vec[i], scale)), (shape, i)
+        assert _same_bits(fake_quant_cuda(w, bits_vec[-1], scale), w)
 
 
 @pytest.mark.gpu

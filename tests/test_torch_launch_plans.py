@@ -38,6 +38,7 @@ from repro_torch.kernels.fused_decode import (CHUNK, COLS, PROJECT_CTAS, attend_
                                               project_plan)
 from repro_torch.kernels.paged_attention import MAX_SPLITS, split_plan, split_workspace_numel
 from repro_torch.models.common import rope_cos_sin, rope_rotate
+from repro_torch.quant import wrpn as twrpn
 from repro_torch.quant.pack import (Packed, kv_dequantize, kv_pack_int4, kv_quantize,
                                     pack_weight, unpack_bitplanes)
 from repro_torch.kernels.qmm import (BS_MAX_SPLITS, BS_MIN_STEPS, BS_ROWS, BS_STEP, SM_SMEM,
@@ -508,32 +509,40 @@ GLM4_4L = [(151552, 4096), (4, 4096, 4096), (4, 4096, 256), (4, 4096, 256),
            (4096, 151552)]   # embed, wq, wk, wv, wo, wg, wu, wd, lm_head at 4 layers
 
 
-@pytest.mark.parametrize("dtype,cols", [(torch.bfloat16, 64), (torch.float32, 32)],
+@pytest.mark.parametrize("dtype,cols", [(torch.bfloat16, 256), (torch.float32, 128)],
                          ids=["bf16", "f32"])
 def test_col_plan_at_the_glm4_cell(dtype, cols):
     """One launch for the nine leaves of the 4-layer glm4-9b cell: every
-    tile 8 16-byte vectors wide, embed's 151,552 rows split over 8 CTAs,
-    the descriptors inside 4 KB of kernel parameters."""
+    tile a strip of 512 bytes of a row over a block of 256 rows, each leaf's
+    K split into its own row blocks (embed's 151,552 rows into 592), the
+    descriptors inside 4 KB of kernel parameters."""
     from repro_torch.kernels import fake_quant as fq
 
     plan = fq.fake_quant_col_plan(GLM4_4L, dtype)
     assert plan.tile_cols == cols == fq.COL_TX * 16 // torch.empty((), dtype=dtype).element_size()
-    assert plan.split == 8 and plan.launches == ((0, 9),)
+    assert fq.COL_ROWS == 256 and plan.launches == ((0, 9),)
+    assert plan.splits == (592, 16, 16, 16, 16, 16, 16, 54, 16) and plan.split == 592
     assert plan.dims[0] == (1, 151552, 4096) and plan.dims[1] == (4, 4096, 4096)
     assert plan.tiles == tuple(L * -(-N // cols) for L, _, N in plan.dims)
-    assert plan.ctas == (8 * sum(plan.tiles),)
+    assert plan.ctas == (sum(t * s for t, s in zip(plan.tiles, plan.splits)),)
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    assert plan.bwd_ctas == (sum(-(-L * K * N // (256 * fq.STE_VECS * per))
+                                 for L, K, N in plan.dims),)
     assert plan.param_bytes == (fq.COL_PARAM_BYTES[0] + 9 * fq.COL_PARAM_BYTES[1],)
     assert fq.COL_PARAM_BYTES[0] + fq.COL_MAX * fq.COL_PARAM_BYTES[1] <= 4096
 
 
-@pytest.mark.parametrize("K,split", [(7, 1), (1024, 1), (1025, 2), (4096, 4), (8192, 8),
-                                     (151552, 8)])
+@pytest.mark.parametrize("K,split", [(7, 1), (256, 1), (257, 2), (4096, 16), (13696, 54),
+                                     (151552, 592)])
 def test_col_plan_split_follows_the_longest_k(K, split):
+    """Each leaf's K is split into its own 256-row blocks, whatever the
+    other leaves' K; the plan's split is the longest leaf's."""
     from repro_torch.kernels import fake_quant as fq
 
     plan = fq.fake_quant_col_plan([(3, 7, 300), (K, 16)], torch.float32)
-    assert plan.split == split
-    assert -(-K // plan.split) <= fq.COL_ROWS or split == fq.MAX_CLUSTER
+    assert plan.splits == (1, split) and plan.split == split
+    assert (split - 1) * fq.COL_ROWS < K <= split * fq.COL_ROWS
+    assert plan.ctas == (3 * 3 + split,)
 
 
 def test_col_plan_splits_at_the_parameter_cap_and_refuses_bad_leaves():
@@ -552,3 +561,190 @@ def test_col_plan_splits_at_the_parameter_cap_and_refuses_bad_leaves():
         fq.fake_quant_group_col_cuda([w], [torch.tensor([4, 4], dtype=torch.int32)])
     with pytest.raises(ValueError, match="CUDA"):
         fq.fake_quant_group_col_bwd_cuda([w], [w], [torch.ones(2, 1, 4)])
+
+
+# ---- a model of the per-column kernels' CTAs, held on the CPU ---------------
+MOONSHOT_BANKS = [(4, 64, 2048, 1408), (4, 64, 1408, 2048), (4, 64, 2048, 1408)]
+SMALL_LEAVES = [(20, 1, 5, 5), (50, 20, 5, 5), (800, 500), (500, 10), (3, 7, 300)]
+STATIC_SMEM_MAX = 48 * 1024      # a kernel's static shared memory
+
+
+def _col_ctas(plan, launch):
+    """The forward's CTAs of ``plan``'s launch ``launch`` as
+    ``csrc/fake_quant.cu::col_cta`` maps them: each leaf's CTAs from its
+    first, strips fastest, then row blocks, then layers -> a list of (leaf,
+    layer, col0, k0, rows)."""
+    a, b = plan.launches[launch]
+    from repro_torch.kernels.fake_quant import COL_ROWS
+
+    first, ctas = [], 0
+    for i in range(a, b):
+        first.append(ctas)
+        ctas += plan.tiles[i] * plan.splits[i]
+    assert ctas == plan.ctas[launch]
+    out = []
+    for c in range(ctas):
+        j = max(j for j, f in enumerate(first) if f <= c)
+        i = a + j
+        _, K, N = plan.dims[i]
+        strips = -(-N // plan.tile_cols)
+        local = c - first[j]
+        strip, local = local % strips, local // strips
+        block, layer = local % plan.splits[i], local // plan.splits[i]
+        k0 = block * COL_ROWS
+        out.append((i, layer, strip * plan.tile_cols, k0, min(COL_ROWS, K - k0)))
+    return out
+
+
+@pytest.mark.parametrize("shapes,dtype", [
+    (GLM4_4L, torch.bfloat16), (GLM4_4L, torch.float32), (MOONSHOT_BANKS, torch.bfloat16),
+    (SMALL_LEAVES, torch.float32), (SMALL_LEAVES, torch.bfloat16)],
+    ids=["glm4-bf16", "glm4-f32", "moonshot-banks", "lenet-ragged-f32", "lenet-ragged-bf16"])
+def test_col_plan_covers_every_element_once(shapes, dtype):
+    """Every (layer, row, column) of every leaf falls in exactly one CTA's
+    tile; each tile is at most COL_ROWS rows of one layer; the kernels'
+    cp.async rings and reduction arrays fit their static shared memory;
+    descriptors fit 4 KB."""
+    from repro_torch.kernels import fake_quant as fq
+
+    plan = fq.fake_quant_col_plan(shapes, dtype)
+    seen = {}
+    for launch in range(len(plan.launches)):
+        assert plan.param_bytes[launch] <= 4096
+        for i, layer, col0, k0, rows in _col_ctas(plan, launch):
+            assert 0 < rows <= fq.COL_ROWS and k0 % fq.COL_ROWS == 0
+            seen.setdefault((i, layer, col0), []).append((k0, rows))
+    assert len(seen) == sum(plan.tiles)
+    for i, (L, K, N) in enumerate(plan.dims):
+        cols = sorted(c for (j, l, c) in seen if j == i and l == 0)
+        assert cols == list(range(0, N, plan.tile_cols))        # columns tiled once
+        for layer in range(L):
+            for col0 in cols:
+                got = sorted(seen[(i, layer, col0)])
+                assert got[0][0] == 0 and sum(r for _, r in got) == K   # rows once, in order
+                assert all(k + r == k2 for (k, r), (k2, _) in zip(got, got[1:]))
+    ring = fq.COL_RING * fq.THREADS * 16
+    assert ring + fq.COL_TY * plan.tile_cols * 4 <= STATIC_SMEM_MAX     # the max pass
+    assert ring + 255 * 4 <= STATIC_SMEM_MAX                            # the QDQ pass
+
+
+def _keys(x: torch.Tensor) -> torch.Tensor:
+    """|x|'s bit patterns as non-negative int64 keys (bf16: its 16 bits)."""
+    if x.dtype == torch.bfloat16:
+        return (x.view(torch.int16).to(torch.int64) & 0x7FFF)
+    return x.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+
+
+def _col_forward_model(ws, bits):
+    """A torch model of the per-column forward over ``ws`` (one dtype) at
+    row blocks of ``COL_ROWS``: each CTA's tile keys (the max of |w|'s bits
+    over its rows), merged into scale bits that start at eps's with an
+    unsigned max, CTAs taken in an arbitrary (here reversed) order, a NaN
+    written as the card writes it; then the QDQ with q / n from the table
+    -> (outs, scales)."""
+    from repro_torch.kernels import fake_quant as fq
+
+    dtype = ws[0].dtype
+    plan = fq.fake_quant_col_plan([w.shape for w in ws], dtype)
+    eps = torch.tensor(float(torch.tensor(twrpn.EPS, dtype=dtype))).view(torch.int32)
+    scale_bits = [torch.full((L, N), int(eps), dtype=torch.int64) for L, _, N in plan.dims]
+    nan = 0x7FFF0000 if dtype == torch.bfloat16 else 0x7FFFFFFF
+    ctas = [c for launch in range(len(plan.launches)) for c in _col_ctas(plan, launch)]
+    for i, layer, col0, k0, rows_ in reversed(ctas):
+        L, K, N = plan.dims[i]
+        tile = ws[i].reshape(L, K, N)[layer, k0:k0 + rows_, col0:col0 + plan.tile_cols]
+        keys = _keys(tile).amax(dim=0)
+        top = 0x7F80 if dtype == torch.bfloat16 else 0x7F800000
+        widened = torch.where(keys > top, torch.tensor(nan),
+                              keys << 16 if dtype == torch.bfloat16 else keys)
+        dst = scale_bits[i][layer, col0:col0 + keys.numel()]
+        torch.maximum(dst, widened, out=dst)
+    outs, scales = [], []
+    for i, (w, b) in enumerate(zip(ws, bits)):
+        N = plan.dims[i][2]
+        s = scale_bits[i].to(torch.int32).view(torch.float32).reshape(*w.shape[:-2], 1, N)
+        bl = tref.col_bits_view(w, b)
+        n = twrpn._levels(bl)
+        q = torch.round(torch.clamp(w.float() / s, -1.0, 1.0) * n)
+        d = torch.where((q == 0) | torch.isnan(q), q, q / n)   # the table: a zero code or a
+        out = torch.where(bl >= twrpn.FP_BITS, w, (d * s).to(dtype))   # NaN as it is
+        outs.append(out)
+        scales.append(s)
+    return outs, scales
+
+
+def _nan_or_same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit patterns where either is not NaN, NaN where either is."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    an, bn = torch.isnan(a.float()), torch.isnan(b.float())
+    return bool(torch.equal(an, bn) and torch.equal(a.view(view)[~an], b.view(view)[~bn]))
+
+
+def _col_edge_leaves(dtype, seed):
+    """Narrow leaves (K <= 512) with a zero column, NaNs in several parts
+    of one column, values near the eps floor, -0.0 and a ragged N."""
+    rng = np.random.default_rng(seed)
+    shapes = [(2, 96, 40), (3, 40, 24), (300, 17), (2, 512, 64), (1, 33, 7)]
+    ws = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    ws[0][1, :, 5] = 0.0                                  # a zero column
+    ws[0][0, 3, 11], ws[0][0, 70, 11] = float("nan"), float("nan")
+    ws[2][250, 3] = float("nan")
+    near = 1.0005e-8 if dtype == torch.float32 else 9.95e-9
+    ws[1] = torch.linspace(-1, 1, ws[1].numel()).reshape(ws[1].shape) * near
+    ws[3][0, :, 7] = -0.0
+    return [w.to(dtype) for w in ws]
+
+
+@pytest.mark.parametrize("K", [256, 257, 1100], ids=["k256", "k257", "k1100"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_col_forward_model_matches_plain_bitwise(dtype, K):
+    """The kernel's tiling and order-free integer max merge over the edge
+    leaves (1 or 2 row blocks) and a (2, K, 40) leaf of 1, 2 or 5 blocks,
+    NaNs in several of its blocks and its largest |w| in the last, against
+    kernels.ref.fake_quant_group_col_ref bit for bit (a NaN held as a NaN:
+    the card writes torch's NaN as 0x7fffffff / 0x7fff, the CPU 0x7fc0)."""
+    from repro_torch.kernels.fake_quant import COL_ROWS
+
+    ws = _col_edge_leaves(dtype, 3)
+    rng = np.random.default_rng(K)
+    w = torch.from_numpy(rng.standard_normal((2, K, 40)).astype(np.float32))
+    for r in range(3, K, COL_ROWS):
+        w[0, r, 9] = float("nan")                        # one NaN in each block of column 9
+    w[1, K - 1, 20] = 50.0                               # column 20's max in the last block
+    ws.append(w.to(dtype))
+    bits = [torch.tensor(b, dtype=torch.int32)
+            for b in ([2, 8], [1, 16, 32], 5, [3, 7], 4, [6, 3])]
+    outs, scales = _col_forward_model(ws, bits)
+    want, want_s = tref.fake_quant_group_col_ref(ws, bits)
+    for i in range(len(ws)):
+        assert _nan_or_same(scales[i], want_s[i]), i
+        assert _nan_or_same(outs[i], want[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_col_ste_model_gathers_each_elements_scale(dtype):
+    """The flat STE's map: 16-byte vector v of a leaf (THREADS * STE_VECS
+    a block) holds elements v * NV ..; element e's scale is scale[l * N +
+    n] with row = e // N, l = row // K, n = e - row * N; grad = g * (|w| <=
+    s) against fake_quant_group_col_bwd_ref, bit for bit."""
+    from repro_torch.kernels import fake_quant as fq
+
+    ws = _col_edge_leaves(dtype, 4)
+    gs = [torch.from_numpy(np.random.default_rng(i).standard_normal(w.shape).astype(np.float32))
+          .to(dtype) for i, w in enumerate(ws)]
+    gs[0].view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -3.0, float("-inf")])
+    _, scales = tref.fake_quant_group_col_ref(ws, [torch.tensor(4, dtype=torch.int32)] * 5)
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    plan = fq.fake_quant_col_plan([w.shape for w in ws], dtype)
+    for i, (w, g, s) in enumerate(zip(ws, gs, scales)):
+        L, K, N = plan.dims[i]
+        numel = L * K * N
+        blocks = -(-numel // (fq.THREADS * fq.STE_VECS * per))
+        e = torch.arange(blocks * fq.THREADS * fq.STE_VECS * per)
+        e = e[e < numel]
+        row = e // N
+        sidx = row // K * N + (e - row * N)
+        inside = (w.reshape(-1)[e].abs().float() <= s.reshape(-1)[sidx]).to(dtype)
+        got = (g.reshape(-1)[e] * inside).reshape(w.shape)
+        (want,) = tref.fake_quant_group_col_bwd_ref([w], [g], [s])
+        assert _nan_or_same(got, want), i
