@@ -1691,6 +1691,10 @@ def served_prefix_spec_card_vs_cpu(torch, sm, params):
 
 
 STREAM_GEN = 36          # greedy tokens per request: past two 16-token block edges
+# greedy tokens per request after the 72-100-token prompts of phases 4l, 4o and
+# 4t: past two 16-token block edges beyond each prompt (48 until PR 29, cut to
+# keep the script inside its time with phase 3dp added)
+LONG_STREAM_GEN = 32
 
 
 def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 24, 16),
@@ -2528,13 +2532,21 @@ def spec_witness(torch, r):
             "counts": counts, "wall_s": wall_s, "rejections": witness.rejections}
 
 
+# 3i's depth: glm4-9b's published widths at 10 of its 40 layers (cut at PR 29
+# to keep the script inside its time with phase 3dp added)
+SPEC_CEILING_LAYERS = 10
+
+
 def spec_ceiling(torch, need):
-    """Phase 3i: spec decoding's mechanical ceiling at full width: params
-    snapped to the 2-bit grid, served at 4 bits with and without a 2-bit
-    draft (k = 4) on the cell's workload (8 requests on 4 rows)."""
-    built = snapped_build(torch)
-    spec = serve_path(torch, "snapped, spec", ["--bits", "4", *SPEC], need, built)
-    plain = serve_path(torch, "snapped, no spec", ["--bits", "4"], need, built)
+    """Phase 3i: spec decoding's mechanical ceiling at full width and
+    SPEC_CEILING_LAYERS layers: params snapped to the 2-bit grid, served at
+    4 bits with and without a 2-bit draft (k = 4) on the cell's workload (8
+    requests on 4 rows)."""
+    built = snapped_build(torch, layers=SPEC_CEILING_LAYERS)
+    spec = serve_path(torch, "snapped, spec", ["--bits", "4", *SPEC], need, built,
+                      layers=SPEC_CEILING_LAYERS)
+    plain = serve_path(torch, "snapped, no spec", ["--bits", "4"], need, built,
+                       layers=SPEC_CEILING_LAYERS)
     for label, r in (("spec", spec), ("no spec", plain)):
         m = r["metrics"]
         acc = m["spec"]["acceptance_rate"] if "spec" in m else None
@@ -2916,10 +2928,11 @@ def run_qat_steps(torch, run, uniform: int, mixed: int, label: str, log_every: i
     trainer.log_every = log_every
     ops.reset_counts()
     t0 = time.perf_counter()
-    state = trainer.run(run["state"], uniform)
-    trainer.bits_map = bits_to_device(bits_assignment(model.quant_groups(),
-                                                      lm_mixed_policy(model)), "cuda")
-    state = trainer.run(state, uniform + mixed, start_step=uniform)
+    state = trainer.run(run.pop("state"), uniform)    # the first state dies with its step
+    if mixed:
+        trainer.bits_map = bits_to_device(bits_assignment(model.quant_groups(),
+                                                          lm_mixed_policy(model)), "cuda")
+        state = trainer.run(state, uniform + mixed, start_step=uniform)
     torch.cuda.synchronize()
     rec = {"losses": [h["loss"] for h in trainer.history],
            "step_s": [h["dt"] for h in trainer.history], "wall_s": time.perf_counter() - t0,
@@ -3026,6 +3039,184 @@ def lm_search_phase(torch, model, params, episodes=LM_EPISODES, label="[lm searc
     print(f"{label} {episodes} episodes in {wall:.1f} s; acc proxies "
           f"{[round(a, 4) for a in accs]}; best reward {res.best_reward:.4f}, avg bits "
           f"{out['avg_bits']:.2f}; memo {stats}; launch counts {counts}")
+    return out
+
+
+DP_EXACT_STEPS, DP_COMP_STEPS, DP_SAVE_AT = 3, 5, 2
+
+
+class ReduceTimer:
+    """Wraps ``dist.collectives.compressed_allreduce_tree`` (the DP step
+    reaches it through its module): CUDA-event time of every call; on the
+    call marked ``exact_next`` also an exact NCCL ``all_reduce`` of the same
+    gradients, timed alike; and the bytes each form hands the wire."""
+
+    def __init__(self, torch, collectives):
+        self.torch, self.col, self.real = torch, collectives, collectives.compressed_allreduce_tree
+        self.ms, self.exact_ms, self.exact_next = [], [], False
+        self.wire_bytes = self.exact_bytes = 0
+
+    def __enter__(self):
+        self.col.compressed_allreduce_tree = self
+        return self
+
+    def __exit__(self, *exc):
+        self.col.compressed_allreduce_tree = self.real
+
+    def __call__(self, grads, group, **kw):
+        import torch.distributed as dist
+
+        torch = self.torch
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        out = self.real(grads, group, **kw)
+        ev[1].record()
+        n, planes = dist.get_world_size(group), kw["planes"]
+        # bytes handed to NCCL: the two-phase form's all-to-all of planes·n·c
+        # code bytes, its all-gather of planes·c and two of planes f32
+        # scales; the exact form's gradients.  Between ranks cross (n-1)/n of
+        # the all-to-all and (n-1) times each all-gather's input: 0 at n = 1
+        self.wire_bytes = sum(planes * (n + 1) * -(-g.numel() // n) + 8 * planes
+                              for g in grads)
+        self.exact_bytes = sum(g.numel() * g.element_size() for g in grads)
+        if self.exact_next:
+            ev[2].record()
+            for g in grads:     # the step is done with them
+                dist.all_reduce(g, group=group)
+            ev[3].record()
+        torch.cuda.synchronize()
+        self.ms.append(ev[0].elapsed_time(ev[1]))
+        if self.exact_next:
+            self.exact_ms.append(ev[2].elapsed_time(ev[3]))
+            self.exact_next = False
+        return out
+
+
+def dp_train(torch, lm):
+    """Phase 3dp: the data-parallel QAT step at 3j's cell on a world-size-1
+    NCCL group (``launch/mesh.py``).  Fails unless (1) three steps of
+    ``launch/train.py --mesh 1,1`` (``make_dp_train_step(planes=0)``: a
+    mean over one rank) with 3j's flags give losses bitwise 3j's first
+    three (the plain step from the same seed), one per-column launch each
+    way a step as there; (2) five steps at
+    ``planes=2`` (the fp8 two-phase all-reduce with error feedback) give
+    finite losses and a nonzero ``ef``; (3) the checkpoint that run saved
+    at step 2, reloaded through ``Trainer(mesh=)``
+    (``dist.elastic.restore_elastic``), gives step 3's loss bitwise the
+    uninterrupted run's; (4) the group is destroyed at the end.  Prints
+    step p50 beside 3j's, the compressed all-reduce's device time a step
+    beside an exact NCCL ``all_reduce`` of the same gradients, the bytes
+    handed to NCCL a step and peak memory (each run's peak less what was
+    allocated when it started, after a collection)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.train_step import add_error_feedback, make_dp_train_step
+
+    out = {}
+
+    def launcher(steps, mesh):
+        argv = LM_TRAIN + ["--steps", str(steps)] + (["--mesh", "1,1"] if mesh else [])
+        return train.setup(train.parse_args(argv), lm_cell())
+
+    def fresh_peak():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_gib(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    tmp = tempfile.mkdtemp(prefix="dp_ckpt_")
+    try:
+        # (1) planes 0 through the launcher against 3j's plain steps
+        run = launcher(LM_UNIFORM_STEPS, True)
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if run["mesh"] is None or dist.get_backend() != backend:
+            fail(f"[dp] --mesh 1,1 built {run['mesh']} on {dist.get_backend()}, not {backend}")
+        base = fresh_peak()
+        state, rec = run_qat_steps(torch, run, DP_EXACT_STEPS, 0, "[dp mesh 1,1]")
+        out["mesh 1,1"] = {"losses": rec["losses"], "step_s": rec["step_s"],
+                           "peak_gib": peak_gib(base)}
+        del run, state, rec
+        a, b = out["mesh 1,1"]["losses"], lm["losses"][:DP_EXACT_STEPS]
+        if a != b:
+            fail(f"[dp] --mesh 1,1 losses {a} are not bitwise the plain step's (3j) {b}")
+        print(f"[dp] --mesh 1,1 (planes 0) losses bitwise the plain step's (3j): {a}")
+
+        # (2) planes 2 for 5 steps, saved at step 2; the all-reduce timed, and an
+        # exact one of the same gradients at the last step
+        run = launcher(DP_COMP_STEPS, True)
+        run["state"] = add_error_feedback(run["state"], run["mesh"])
+        trainer = run["trainer"]
+        inner = make_dp_train_step(run["model"], run["opt"], run["mesh"], planes=2,
+                                   remat="full")
+        trainer.ckpt_dir, trainer.ckpt_interval = tmp, DP_SAVE_AT
+        base = fresh_peak()
+        with ReduceTimer(torch, collectives) as rt:
+            def step_fn(state, batch, bits_map):
+                if len(rt.ms) == DP_SAVE_AT:        # step 2 saved: no more saves
+                    trainer.ckpt_dir = None
+                rt.exact_next = len(rt.ms) == DP_COMP_STEPS - 1
+                return inner(state, batch, bits_map)
+
+            trainer.step_fn = step_fn
+            t0 = time.perf_counter()
+            state, rec = run_qat_steps(torch, run, DP_COMP_STEPS, 0, "[dp planes 2]")
+            save_s = time.perf_counter() - t0 - sum(rec["step_s"])
+        losses = rec["losses"]
+        ef_max = max(float(e.to_local().abs().max()) for e in tree_leaves(state["ef"]))
+        if not (all(map(math.isfinite, losses)) and ef_max > 0):
+            fail(f"[dp planes 2] losses {losses}, max |ef| {ef_max}")
+        comp = {"losses": losses, "step_s": rec["step_s"], "ef_max": ef_max,
+                "step_p50_ms": statistics.median(rec["step_s"][1:DP_COMP_STEPS - 1]) * 1e3,
+                "peak_gib": peak_gib(base),
+                "allreduce_ms": rt.ms, "allreduce_p50_ms": statistics.median(rt.ms[1:]),
+                "exact_allreduce_ms": rt.exact_ms[0], "nccl_bytes": rt.wire_bytes,
+                "exact_nccl_bytes": rt.exact_bytes}
+        out["planes 2"] = comp
+
+        # (3) the step-2 checkpoint reloaded through Trainer(mesh=), then step 3
+        trainer.ckpt_dir, trainer.history = tmp, []
+        t0 = time.perf_counter()
+        restored, at = trainer.try_restore(state)     # every leaf read back from disk
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del state
+        trainer.ckpt_dir = None
+        trainer.run(restored, DP_SAVE_AT + 1, start_step=at)
+        resumed = [h["loss"] for h in trainer.history]
+        del restored, run, trainer, inner, rec
+        if at != DP_SAVE_AT or resumed != [losses[DP_SAVE_AT]]:
+            fail(f"[dp reload] restored step {at}, then losses {resumed}; uninterrupted "
+                 f"{losses}")
+        out["reload"] = {"step": at, "loss": resumed[0], "save_s": save_s, "load_s": load_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if dist.is_initialized():
+        fail("[dp] the process group outlived the phase")
+    p50 = statistics.median(out["mesh 1,1"]["step_s"][1:]) * 1e3
+    print(f"[dp planes 2] losses {[round(x, 4) for x in losses]}, max |ef| {ef_max:.3g}; step "
+          f"p50 {comp['step_p50_ms']:.1f} ms (3j's plain step {lm['step_p50_ms']:.1f}; planes 0 "
+          f"{p50:.1f}); compressed all-reduce "
+          f"{comp['allreduce_p50_ms']:.2f} ms a step (device, CUDA events) against an exact "
+          f"NCCL all_reduce of the same gradients {comp['exact_allreduce_ms']:.3f} ms; handed "
+          f"to NCCL {comp['nccl_bytes'] / 1e9:.3f} GB a step against "
+          f"{comp['exact_nccl_bytes'] / 1e9:.3f} GB exact (none crosses at one rank); peak "
+          f"memory over the run's start {comp['peak_gib']:.2f} GiB (planes 0 "
+          f"{out['mesh 1,1']['peak_gib']:.2f})")
+    print(f"[dp reload] saved at step {DP_SAVE_AT} ({save_s:.1f} s), reloaded through "
+          f"Trainer(mesh=) ({load_s:.1f} s): step 3 loss {resumed[0]!r} bitwise the "
+          f"uninterrupted run's; process group destroyed")
     return out
 
 
@@ -3664,7 +3855,7 @@ def ring_card_vs_cpu(torch):
     """Phase 4l: a narrow windowed model of h2o-danube's head dim (2
     layers, d_model 480, 4 heads over 2 KV heads of 120, window 64, d_ff
     1280, vocab 32000), prompts of 72-100 tokens (past the ring in
-    prefill), 48 greedy tokens: served on the card (kernels) and on the
+    prefill), LONG_STREAM_GEN greedy tokens: served on the card (kernels) and on the
     CPU (plain versions) with fp and int8 ring blocks, streams equal up to
     flagged ties."""
     from repro_torch.configs import get_config
@@ -3680,7 +3871,8 @@ def ring_card_vs_cpu(torch):
     for kv_bits, kernel, other in ((None, "paged_attention", "paged_attention_quant"),
                                    (8, "paged_attention_quant", "paged_attention")):
         out[f"kv_bits={kv_bits}"] = served_streams_card_vs_cpu(
-            torch, sm, params, kv_bits, lens=lens, gen=48, need=("qmm_bitserial", kernel),
+            torch, sm, params, kv_bits, lens=lens, gen=LONG_STREAM_GEN,
+            need=("qmm_bitserial", kernel),
             forbid=("fused_qkv_paged_decode", other))
     return out
 
@@ -4050,7 +4242,7 @@ def rwkv_against_simt(torch, short, long, breakdown):
 
 def recurrent_card_vs_cpu(torch):
     """Phase 4o: narrow models of both families served on the card and on
-    the CPU, 6 prompts of 72-100 tokens and 48 greedy tokens: RWKV (2
+    the CPU, 6 prompts of 72-100 tokens and LONG_STREAM_GEN greedy tokens: RWKV (2
     layers, d_model 256, 4 heads of 64, d_ff 896, vocab 65536) and hymba
     (2 layers, d_model 320, 5 heads over 1 KV head of 64, window 64, Di
     640, d_ff 1088, vocab 32001; fp and int8 ring blocks)."""
@@ -4070,8 +4262,8 @@ def recurrent_card_vs_cpu(torch):
             ("hymba int8", hymba, 8, ("qmm_bitserial", "paged_attention_quant"),
              ("paged_attention", "fused_qkv_paged_decode"))):
         params = sm.init(seed=11, device="cpu")
-        out[name] = served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=lens, gen=48,
-                                               need=need, forbid=forbid)
+        out[name] = served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=lens,
+                                               gen=LONG_STREAM_GEN, need=need, forbid=forbid)
     return out
 
 
@@ -4394,7 +4586,7 @@ def moe_graphed_witness(torch, sm, params):
 
 def mva_card_vs_cpu(torch):
     """Phase 4t: narrow models of the three families served on the card and
-    on the CPU, 6 prompts of 72-100 tokens and 48 greedy tokens: moonshot
+    on the CPU, 6 prompts of 72-100 tokens and LONG_STREAM_GEN greedy tokens: moonshot
     (2 layers, d_model 256, 2 heads over 2 KV of 128, 16 experts top-6 of
     d_ff 128; fp and int4 KV), qwen2-vl (7 heads over 1 KV of 128: G 7,
     M-RoPE sections (16, 24, 24); fp and int8) and musicgen (4 heads over
@@ -4424,8 +4616,8 @@ def mva_card_vs_cpu(torch):
              ("paged_attention", "fused_qkv_paged_decode")),
             ("musicgen fp", mg, None, ("qmm_bitserial", "paged_attention"), PAGED[1:])):
         params = sm.init(seed=13, device="cpu")
-        out[name] = served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=lens, gen=48,
-                                               need=need, forbid=forbid)
+        out[name] = served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=lens,
+                                               gen=LONG_STREAM_GEN, need=need, forbid=forbid)
     out["moe graphed"] = moe_graphed_witness(torch, moe, moe.init(seed=13, device="cpu"))
     return out
 
@@ -4959,8 +5151,13 @@ def smoke_launchers(torch):
 T_START = time.perf_counter()
 
 
+PHASES: list = []     # (title, seconds since start) of every phase, for the record
+
+
 def phase(title: str) -> None:
-    print(f"{title} [{time.perf_counter() - T_START:.1f} s]")
+    at = time.perf_counter() - T_START
+    PHASES.append((title, at))
+    print(f"{title} [{at:.1f} s]")
 
 
 def main() -> None:
@@ -5118,7 +5315,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- spec decoding's ceiling: params snapped to the draft's 2-bit grid
-    phase("phase 3i: speculative decoding on params snapped to the 2-bit grid, spec and not")
+    phase(f"phase 3i: speculative decoding on params snapped to the 2-bit grid, spec and not "
+          f"({SPEC_CEILING_LAYERS} of 40 layers)")
     spec["3i"] = spec_ceiling(torch, fp_need)
     torch.cuda.empty_cache()
 
@@ -5170,6 +5368,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase("phase 4j: one LM QAT step, card against CPU")
     lm["card_vs_cpu"] = lm_step_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    phase("phase 3dp: the data-parallel QAT step at 3j's cell on a world-size-1 NCCL group "
+          "(--mesh 1,1 against the plain step, fp8 planes 2, an elastic reload)")
+    lm["dp"] = dp_train(torch, lm)
     torch.cuda.empty_cache()
 
     # ---- h2o-danube-3-4b: sliding-window ring pools at head dim 120
@@ -5475,6 +5677,7 @@ def main() -> None:
                           "streams_4t": mva_streams},
         "families_train": {"3w": fam, "3x": fam_search, "4w": fam_steps, "3y": fam_ckpt},
         "smoke_launchers_3sm": smoke,
+        "phase_starts_s": PHASES,
         "total_s": time.perf_counter() - T_START}, indent=1, default=str))
     print(f"total {time.perf_counter() - T_START:.1f} s")
     print(smi_line)

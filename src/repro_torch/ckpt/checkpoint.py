@@ -83,6 +83,14 @@ def _flatten(tree, leaves: list):
     return {"leaf": len(leaves) - 1}
 
 
+def _rank_and_size() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _to_numpy(t) -> tuple[np.ndarray, str]:
     if not isinstance(t, torch.Tensor):
         a = np.asarray(t)
@@ -96,11 +104,31 @@ def _to_numpy(t) -> tuple[np.ndarray, str]:
 
 
 def save(directory: str, step: int, tree, meta: dict | None = None, keep: int = 3) -> str:
-    """Atomically write a checkpoint; prune to the newest ``keep``."""
+    """Atomically write a checkpoint; prune to the newest ``keep``.
+
+    Under a process group of more than one rank every rank calls: sharded
+    ``DTensor`` leaves are gathered whole, rank 0 alone writes, and a
+    barrier on each side keeps ranks from racing on the directory."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.elastic import whole
+
     leaves: list = []
     node = _flatten(tree, leaves)
-    arrays = [_to_numpy(x) for x in leaves]
     final = os.path.join(directory, f"step_{step:08d}")
+    leaves = [whole(x) for x in leaves]
+    rank, size = _rank_and_size()
+    if size > 1:
+        dist.barrier()
+    if rank == 0:
+        _write(directory, final, step, node, leaves, meta, keep)
+    if size > 1:
+        dist.barrier()
+    return final
+
+
+def _write(directory, final, step, node, leaves, meta, keep):
+    arrays = [_to_numpy(x) for x in leaves]
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "leaves.npz"),
@@ -118,14 +146,56 @@ def save(directory: str, step: int, tree, meta: dict | None = None, keep: int = 
     os.rename(tmp, final)
     for _, old in _step_dirs(directory)[:-keep]:
         shutil.rmtree(old, ignore_errors=True)
-    return final
+
+
+def _read_leaves(path: str, ids) -> dict:
+    """{i: array} of the ``leaf_<i>`` members of a ``leaves.npz`` that
+    :func:`save` wrote (stored, not compressed): each member read once,
+    straight into a new array, and checked against the CRC in the zip's
+    directory.  ``np.load`` reads a member through zipfile's stream in
+    chunks and copies it twice more; this is one copy."""
+    import struct
+    import zipfile
+    import zlib
+
+    from numpy.lib import format as npf
+
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for i in ids:
+            info = zf.getinfo(f"leaf_{i}.npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: leaf_{i} is compressed; save stores its members")
+            f.seek(info.header_offset)
+            local = f.read(30)
+            if local[:4] != b"PK\x03\x04":
+                raise ValueError(f"{path}: no local header for leaf_{i}")
+            name_len, extra_len = struct.unpack("<HH", local[26:30])
+            start = info.header_offset + 30 + name_len + extra_len
+            f.seek(start)
+            version = npf.read_magic(f)
+            read_header = (npf.read_array_header_1_0 if version == (1, 0)
+                           else npf.read_array_header_2_0)
+            shape, fortran, dtype = read_header(f)
+            head_len = f.tell() - start
+            f.seek(start)
+            crc = zlib.crc32(f.read(head_len))
+            a = np.empty(shape, dtype, order="F" if fortran else "C")
+            buf = memoryview(a.reshape(-1, order="A")).cast("B")
+            if f.readinto(buf) != a.nbytes or head_len + a.nbytes != info.file_size:
+                raise ValueError(f"{path}: leaf_{i} is truncated")
+            if zlib.crc32(buf, crc) != info.CRC:
+                raise ValueError(f"{path}: leaf_{i} fails its CRC")
+            out[i] = a
+    return out
 
 
 def _from_numpy(a: np.ndarray, dtype: str, device) -> torch.Tensor:
+    """A freshly read array (owned, writable) as a tensor on ``device``."""
     if dtype in _FROM_NAME:
         dt, view = _FROM_NAME[dtype]
         return torch.from_numpy(np.ascontiguousarray(a)).view(view).view(dt).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _unflatten(node, leaves):
@@ -166,7 +236,7 @@ def restore(directory: str, step: int | None = None, device=None, subtree: str |
     else:
         node = node["dict"][subtree]
         ids = _leaf_ids(node)
-    data = np.load(os.path.join(path, "leaves.npz"))
-    leaves = iter([_from_numpy(data[f"leaf_{i}"], manifest["leaves"][i]["dtype"], device)
+    data = _read_leaves(os.path.join(path, "leaves.npz"), ids)
+    leaves = iter([_from_numpy(data.pop(i), manifest["leaves"][i]["dtype"], device)
                    for i in ids])
     return _unflatten(node, leaves), manifest["meta"], step

@@ -11,10 +11,21 @@ config, ``--no-smoke`` the published widths.  ``--ckpt-dir`` saves the
 state every 50 steps and at the end; ``launch/serve.py --ckpt-dir``
 serves its params.  Runs on ``--device cuda``
 (default) and fails without a card; ``--device cpu`` takes the kernels'
-plain versions.  ``--mesh`` (sharded training, elastic restore) is not
-ported (ROADMAP.md queue 1, item 11).
+plain versions.
+
+``--mesh DATA[,MODEL]`` trains data-parallel over a ``DeviceMesh``
+(``launch/mesh.py``: the ranks ``torchrun`` started, or one): the state is
+placed with ``dist.elastic.place``, the step is
+``train_step.make_dp_train_step(planes=0)`` (the reference's GSPMD step at
+a model axis of 1: a mean over the global batch, each rank taking its rows
+of it) and the ``Trainer`` restores elastically onto the mesh.  ``MODEL >
+1`` (tensor-parallel execution) is not ported, nor ``DATA > 1`` for the moe
+family, whose capacity and aux loss the rank-local step would compute over
+the local tokens (ROADMAP.md queue 1, item 11b-ii).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --device cpu --steps 3 --mesh 2,1
 """
 from __future__ import annotations
 
@@ -23,12 +34,14 @@ import argparse
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMData
+from repro_torch.dist import elastic
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
-from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.train.train_step import init_state, make_dp_train_step, make_train_step
 from repro_torch.train.trainer import Trainer
 
 
@@ -49,12 +62,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="not ported (ROADMAP.md queue 1, item 11)")
+                    help="mesh shape over the ranks, e.g. '2,1': data-parallel training "
+                         "and elastic checkpoint restore")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh:
-        raise not_ported("--mesh (sharded training, elastic restore)", "slice D, item 11")
+        args.mesh = tuple(int(x) for x in args.mesh.split(","))
+        if len(args.mesh) > 1 and args.mesh[1] > 1:
+            raise not_ported("--mesh DATA,MODEL with MODEL > 1 (tensor-parallel execution)",
+                             "item 11b-ii")
     return args
+
+
+def make_mesh(args, cfg, device):
+    """``--mesh``'s ``DeviceMesh`` (None without the flag)."""
+    if not args.mesh:
+        return None
+    if args.mesh[0] > 1 and cfg.family == "moe":
+        raise not_ported(f"--mesh {args.mesh[0]},... for the moe family ({cfg.name}: capacity "
+                         f"and aux loss over the global batch)", "item 11b-ii")
+    return make_host_mesh(args.mesh, ("data", "model")[:len(args.mesh)], device)
 
 
 def setup(args: argparse.Namespace, cfg=None) -> dict:
@@ -74,12 +101,17 @@ def setup(args: argparse.Namespace, cfg=None) -> dict:
     bits_map = bits_to_device(bits_assignment(groups, policy), device)
     data = SyntheticLMData(seed=args.seed, global_batch=args.global_batch,
                            seq_len=args.seq_len, vocab=cfg.vocab_size)
+    mesh = make_mesh(args, cfg, device)
     state = init_state(model, opt, seed=args.seed, device=device)
-    step_fn = make_train_step(model, opt, remat=args.remat)
+    if mesh is None:
+        step_fn = make_train_step(model, opt, remat=args.remat)
+    else:
+        state = elastic.place(state, mesh)
+        step_fn = make_dp_train_step(model, opt, mesh, planes=0, remat=args.remat)
     trainer = Trainer(model=model, optimizer=opt, data=data, step_fn=step_fn,
-                      bits_map=bits_map, ckpt_dir=args.ckpt_dir)
+                      bits_map=bits_map, ckpt_dir=args.ckpt_dir, mesh=mesh)
     return {"cfg": cfg, "model": model, "opt": opt, "policy": policy, "data": data,
-            "state": state, "step_fn": step_fn, "trainer": trainer}
+            "state": state, "step_fn": step_fn, "trainer": trainer, "mesh": mesh}
 
 
 def main(argv=None) -> dict:
@@ -89,11 +121,18 @@ def main(argv=None) -> dict:
     run = setup(args)
     n = sum(x.numel() for x in tree_leaves(run["state"]["params"]))
     print(f"training {args.arch} ({n/1e6:.1f}M params, QAT "
-          f"avg {run['policy'].average_bits():.1f} bits) for {args.steps} steps")
+          f"avg {run['policy'].average_bits():.1f} bits) for {args.steps} steps"
+          + (f" on mesh {args.mesh}" if run["mesh"] is not None else ""))
     run["state"] = run["trainer"].run(run["state"], args.steps)
     run["history"] = run["trainer"].history
     return run
 
 
 if __name__ == "__main__":
-    main()
+    import torch.distributed as dist
+
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -25,7 +25,10 @@ class QuantGroup:
 def cache_batch_axis(key: str) -> int:
     """Axis of the batch/slot dimension in a decode-cache leaf: per-layer
     state is ``(L, B, ...)``, per-sequence bookkeeping (``"length"``) is
-    ``(B,)``."""
+    ``(B,)``.  The paged pool's ``kv_qmax`` (``(L,)``, the per-layer KV
+    code ceiling) has no per-sequence axis: -1."""
+    if key == "kv_qmax":
+        return -1
     return 0 if key == "length" else 1
 
 

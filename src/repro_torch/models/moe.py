@@ -32,8 +32,8 @@ What differs from the reference, and why:
   chunk's), the same function ``x @ dequant(bank)``.  A dense bank stays
   ``torch.einsum``, as the reference leaves it to XLA.
 
-The reference's expert-parallel ``_moe_ep`` needs a mesh and comes with
-ROADMAP.md queue 1, item 11; nothing on one card takes it.
+The reference's expert-parallel ``_moe_ep`` needs a mesh over several
+cards (ROADMAP.md queue 1, item 11d); nothing on one card takes it.
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ experts of its layer, as the reference's ``_qdq`` broadcasts them.
 :func:`quantize_params` quantizes every leaf of the bits map at its
 per-output-column scale in ONE grouped launch
 (``quant.wrpn.fake_quant_ste_group_col``), and its backward is one more.
-The reference's mesh branch (sharding annotations) has no counterpart on
-one card (ROADMAP queue 1, item 11).
+The reference's mesh branch (sharding annotations inside a GSPMD step)
+comes with tensor-parallel execution (ROADMAP queue 1, item 11b-ii); the
+data-parallel step (``train.train_step.make_dp_train_step``) replicates
+the params and needs none.
 """
 from __future__ import annotations
 

@@ -92,7 +92,8 @@ state it leaves is the one the emitted tokens give).  The fix-up has its
 own ``spec.fixup`` span and counts in ``spec.fixups``.  The copies go
 back into the pool's own tensors, so a captured step stays bound to them.
 
-Not ported yet: mesh placement.
+Not ported yet: the pools' mesh placement behind ``ServeEngine(mesh=)``
+(ROADMAP.md queue 1, item 11b-ii).
 """
 from __future__ import annotations
 

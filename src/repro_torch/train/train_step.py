@@ -22,8 +22,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch import not_ported
+from repro_torch.dist import collectives
+from repro_torch.dist.elastic import local_slice, mesh_device, place, whole
+from repro_torch.dist.sharding import P, map_tree, placements_of
 from repro_torch.optim.adamw import AdamW, global_norm, tree_leaves, tree_unflatten
 from repro_torch.quant.qat import quantize_params
 
@@ -65,14 +68,142 @@ def make_train_step(model, optimizer: AdamW, *, remat: str = "none"):
     return step
 
 
-def make_dp_train_step(*args, **kwargs):
-    """Data parallelism with a compressed gradient all-reduce needs the
-    port's ``dist`` (ROADMAP queue 1, item 11)."""
-    raise not_ported("make_dp_train_step (data-parallel QAT)", "slice D, item 11")
+def _from_local(local, like):
+    """``local`` (this rank's piece) placed as the DTensor ``like`` is;
+    ``local`` itself when ``like`` is a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(like, DTensor):
+        return local
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
 
 
-def init_dp_state(*args, **kwargs):
-    raise not_ported("init_dp_state (data-parallel QAT)", "slice D, item 11")
+def _placed_like(full, like):
+    """The whole tensor ``full`` placed as ``like`` is: this rank's slice."""
+    if hasattr(like, "device_mesh"):
+        full = local_slice(full, like.device_mesh, like.placements).contiguous()
+    return _from_local(full, like)
+
+
+def _map_state(fn, tree, *like):
+    """``fn(leaf, *like_leaves)`` over the tensor leaves of a params or
+    optimizer tree (``QTensor`` fields included); host ints pass."""
+    return map_tree(lambda _, x, *y: fn(x, *y) if isinstance(x, torch.Tensor) else x,
+                    tree, *like)
+
+
+def local_rows(batch: dict, rank: int, n: int) -> dict:
+    """Rows ``[rank·B/n, (rank+1)·B/n)`` of every leaf of a global batch (the
+    batch dim: dim 1 of a 3-D ``positions``, dim 0 elsewhere)."""
+    out = {}
+    for k, v in batch.items():
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        bdim = 1 if k == "positions" and v.ndim == 3 else 0
+        B = v.shape[bdim]
+        if B % n:
+            raise ValueError(f"batch {k!r} has {B} rows, not divisible over {n} ranks")
+        out[k] = v.narrow(bdim, rank * (B // n), B // n)
+    return out
+
+
+def make_dp_train_step(model, optimizer: AdamW, mesh, *, axis: str = "data",
+                       planes: int = 2, remat: str = "none"):
+    """Pure data-parallel QAT train step with a *compressed* gradient
+    all-reduce (``dist.collectives.compressed_allreduce_tree``, the
+    two-phase construction: fp8 planes + error feedback) in place of the
+    exact mean.
+
+    Every rank of ``mesh``'s ``axis`` runs the step: params and moments are
+    replicated (a leaf placed sharded is gathered whole for the step and
+    its new value placed as the old one was, as the reference's
+    ``shard_map(in_specs=P())`` does), each rank takes rows
+    ``[r·B/n, (r+1)·B/n)`` of the global batch, runs the local loss and
+    backward through ``quantize_params``, then the gradients cross the wire
+    as ``planes`` fp8 payloads an element.  What the last plane could not represent is carried per rank
+    in ``state["ef"]`` (a DTensor with a leading axis of the rank count,
+    each rank holding its row) and folded into the next step.  Loss and
+    metrics are averaged over the group, then AdamW runs.  ``planes=0`` is
+    the exact mean (``all_reduce`` / n, the wire-byte baseline); its state
+    may carry no ``ef`` (``launch/train.py --mesh``'s), else zeros.
+
+    Params and moments are DTensors (``dist.elastic.place``) or plain
+    tensors, ``ef`` DTensors (:func:`init_dp_state`); the new state is
+    placed as the old one was.  The step signature matches
+    :func:`make_train_step`'s."""
+    groups = model.quant_groups()
+    group = mesh.get_group(axis)
+    n = mesh.size(list(mesh.mesh_dim_names).index(axis))
+    rank = dist.get_rank(group)
+
+    def step(state, batch, bits_map):
+        params = _map_state(whole, state["params"])
+        opt = _map_state(whole, state["opt"])
+        dev = _device_of(params)
+        batch = batch_to(local_rows(batch, rank, n), dev)
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            qp = quantize_params(tree_unflatten(params, leaves), bits_map, groups)
+            loss, metrics = model.loss(qp, batch, remat=remat)
+            grads = list(torch.autograd.grad(loss, leaves))
+        del qp, leaves
+        ef_like = state.get("ef")
+        if planes:
+            if ef_like is None:
+                raise ValueError("a compressed step (planes > 0) needs state['ef'] "
+                                 "(init_dp_state)")
+            ef = [e.to_local()[0] for e in tree_leaves(ef_like)]
+            grads, ef = collectives.compressed_allreduce_tree(
+                grads, group, residuals=ef, planes=planes, axis_size=n)
+            new_ef = tree_unflatten(ef_like, [
+                _from_local(f.unsqueeze(0), e) for f, e in zip(ef, tree_leaves(ef_like))])
+        else:   # the exact mean
+            for g in grads:
+                dist.all_reduce(g, group=group)
+                g.div_(n)
+            new_ef = ef_like
+        means = {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        for v in means.values():
+            dist.all_reduce(v, group=group)
+            v.div_(n)
+        grads = tree_unflatten(params, grads)
+        new_params, new_opt = optimizer.update(params, grads, opt)
+        out = {"loss": means.pop("loss"), "grad_norm": global_norm(tree_leaves(grads)), **means}
+        new_state = {"params": _map_state(_placed_like, new_params, state["params"]),
+                     "opt": _map_state(_placed_like, new_opt, state["opt"])}
+        if new_ef is not None:
+            new_state["ef"] = new_ef
+        return new_state, out
+
+    return step
+
+
+def init_dp_state(model, optimizer: AdamW, seed: int, mesh, axis: str = "data") -> dict:
+    """Train state for :func:`make_dp_train_step`, placed on ``mesh``'s
+    device: params and moments under ``dist.sharding.state_specs``, plus the
+    error-feedback tree (:func:`add_error_feedback`)."""
+    state = init_state(model, optimizer, seed, device=mesh_device(mesh))
+    return add_error_feedback(place(state, mesh), mesh, axis)
+
+
+def add_error_feedback(state: dict, mesh, axis: str = "data") -> dict:
+    """``state`` with the per-rank error-feedback tree ``ef`` added: f32
+    zeros in the params' layout behind a leading axis of the rank count,
+    sharded over ``axis`` (each rank holds its row)."""
+    from torch.distributed.tensor import DTensor
+
+    dev = mesh_device(mesh)
+    n = mesh.size(list(mesh.mesh_dim_names).index(axis))
+    pl = placements_of(P(axis), mesh)
+
+    def zeros(p):
+        shape = (n,) + tuple(p.shape)
+        local = torch.zeros((1,) + tuple(p.shape), dtype=torch.float32, device=dev)
+        return DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    params = state["params"]
+    return {**state, "ef": tree_unflatten(params, [zeros(p) for p in tree_leaves(params)])}
 
 
 def make_eval_step(model):

@@ -12,9 +12,16 @@
   optimizer has already written that step's gradients into its moments in
   place (``optim.adamw``), so the state cannot be carried on.
 
-Elastic restore onto a mesh (``mesh=``) needs the port's ``dist``
-(ROADMAP queue 1, item 11).  Each step reads its loss on the host: that
-is the loop's one sync a step, as in the reference.
+- **elastic scaling**: with ``mesh=`` (a ``DeviceMesh``) the restart
+  reload and the NaN-quarantine reload go through
+  ``dist.elastic.restore_elastic``: a checkpoint written under any rank
+  count is placed under the current mesh's specs, each leaf as the given
+  state's leaf is placed (a quarantine reload comes back under the same
+  placements).  Every rank runs the loop; ``ckpt.save`` gathers sharded
+  leaves and writes from rank 0 alone.
+
+Each step reads its loss on the host: that is the loop's one sync a
+step, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch import ckpt as ckpt_lib
-from repro_torch import not_ported
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 
@@ -48,11 +54,6 @@ class Trainer:
     _ema: float | None = None
     _warmup: int = 0
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise not_ported("Trainer(mesh=...) (elastic restore onto a mesh)",
-                             "slice D, item 11")
-
     def save(self, state, step: int):
         if self.ckpt_dir is None:
             return
@@ -64,7 +65,12 @@ class Trainer:
 
     def _reload(self, state):
         """-> (restored state, meta, step), each leaf in the dtype of the
-        given state's leaf, on its device."""
+        given state's leaf, on its device; placed on the mesh when the
+        Trainer has one."""
+        if self.mesh is not None:
+            from repro_torch.dist.elastic import restore_elastic
+
+            return restore_elastic(self.ckpt_dir, state, self.mesh)
         dev = next(x for x in tree_leaves(state) if isinstance(x, torch.Tensor)).device
         tree, meta, step = ckpt_lib.restore(self.ckpt_dir, device=dev)
         restored = tree_unflatten(state, [

@@ -83,3 +83,19 @@ def test_launcher_refuses_unported_flags():
     assert launcher.parse_args(["--device", "cpu", "--ckpt-dir", "ck"]).ckpt_dir == "ck"
     for flags in (["--cache", "slot"], ["--mode", "static"]):
         launcher.parse_args(["--device", "cpu", *flags])
+
+
+def test_dist_and_mesh_modules_are_covered():
+    """``repro_torch.dist`` and ``launch/mesh.py`` are among the sources the
+    checks above walk, and import on torch alone."""
+    paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    for mod in ("dist/__init__.py", "dist/sharding.py", "dist/collectives.py",
+                "dist/elastic.py", "launch/mesh.py"):
+        assert mod in paths, mod
+    code = ("import sys, repro_torch.dist, repro_torch.launch.mesh, repro_torch.launch.train\n"
+            "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -2436,3 +2436,153 @@ def test_op_count_evaluator_allocates_nothing_on_the_card(sm90):
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
     assert torch.cuda.max_memory_allocated() == before
+
+
+# ---- repro_torch.dist on NCCL at world size 1 -----------------------------------------
+@pytest.fixture
+def nccl_mesh(sm90):
+    """A world-size-1 NCCL group and its (1, 1) mesh, destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert not dist.is_initialized()
+    mesh = make_host_mesh((1, 1), device="cuda")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis_size", [None, 1], ids=["all_gather", "two_phase"])
+def test_compressed_allreduce_nccl_codes_match_the_cpu(nccl_mesh, axis_size):
+    """Both constructions over NCCL: the uint8 codes handed to the wire,
+    the output and ``fb`` bit for bit the CPU's ``_fp8_planes`` and its
+    dequantized sum, on f32 and bf16 leaves (1 element to 2^20)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as col
+
+    gen = torch.Generator().manual_seed(3)
+    leaves = [torch.randn((1 << 20,), generator=gen) * 3, torch.randn((1,), generator=gen),
+              torch.zeros((7,)), torch.randn((37, 5), generator=gen).to(torch.bfloat16)]
+    sent, real = [], dist.all_gather_into_tensor
+
+    def gather(out, x, group=None):
+        if x.dtype == torch.uint8:
+            sent.append(x.cpu().clone())
+        return real(out, x, group=group)
+
+    col.dist.all_gather_into_tensor = gather
+    try:
+        for x in leaves:
+            sent.clear()
+            out, fb = col.compressed_allreduce(x.cuda(), (nccl_mesh, "data"), planes=2,
+                                               axis_size=axis_size)
+            torch.cuda.synchronize()
+            q, s, r = col._fp8_planes(x.float().reshape(1, -1) if axis_size else x.float(), 2)
+            if axis_size:   # one chunk: phase 2 re-compresses the dequantized sum
+                assert len(sent) == 1
+                mine = col._dequant_sum(q, s.reshape(-1, 1))
+                q2, s2, r2 = col._fp8_planes(mine.reshape(-1), 2)
+                assert torch.equal(sent[0].reshape(q2.shape), q2)
+                want_o = col._dequant_sum(q2.unsqueeze(0), s2.unsqueeze(0)).reshape(x.shape)
+                want_fb = (r.reshape(-1) + r2).reshape(x.shape)
+            else:
+                assert torch.equal(sent[0].reshape(q.shape), q)
+                want_o = col._dequant_sum(q.unsqueeze(0), s.unsqueeze(0))
+                want_fb = r
+            assert torch.equal(out.cpu(), want_o.to(x.dtype))
+            assert torch.equal(fb.cpu(), want_fb.to(x.dtype))
+    finally:
+        col.dist.all_gather_into_tensor = real
+
+
+def _narrow_lm():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    return build_model(dataclasses.replace(get_config("glm4-9b", smoke=True), d_model=256,
+                                           num_heads=4, head_dim=64, d_ff=512))
+
+
+@pytest.mark.gpu
+def test_dp_step_planes0_bitwise_the_plain_step_on_the_card(nccl_mesh):
+    """A narrow model's data-parallel step at planes 0 over NCCL (a mean
+    over one rank) against the plain step, 3 steps from one seed: losses,
+    grad norms and every new param bitwise; kernel 5'' launched once each
+    way a step on both."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist.elastic import whole
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import (init_dp_state, init_state, make_dp_train_step,
+                                              make_train_step)
+
+    model = _narrow_lm()
+    opt = AdamW(lr=1e-3)
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 4)), "cuda")
+    runs = {}
+    for kind in ("plain", "dp"):
+        data = SyntheticLMData(seed=0, global_batch=2, seq_len=128, vocab=model.cfg.vocab_size)
+        if kind == "plain":
+            state, step = init_state(model, opt, 0, "cuda"), make_train_step(model, opt)
+        else:
+            state = init_dp_state(model, opt, 0, nccl_mesh)
+            step = make_dp_train_step(model, opt, nccl_mesh, planes=0)
+        out = []
+        for _ in range(3):
+            ops.reset_counts()
+            state, m = step(state, data.next(), bm)
+            torch.cuda.synchronize()
+            assert ops.counts["fake_quant_group_col"] == 1
+            assert ops.counts["fake_quant_group_col_bwd"] == 1 and ops.counts["plain"] == 0
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[kind] = (out, [whole(p) for p in tree_leaves(state["params"])])
+    assert runs["dp"][0] == runs["plain"][0]
+    for a, b in zip(runs["dp"][1], runs["plain"][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_elastic_save_and_restore_on_the_card(nccl_mesh, tmp_path):
+    """A DP state after a compressed step (bf16 ``ef``), saved and restored
+    through ``Trainer(mesh=)`` onto another state of its shapes on the
+    card: every leaf bitwise, placed as before, on the card; the next
+    step's loss equal to the uninterrupted one's."""
+    from repro_torch import ckpt as ckpt_lib
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist.elastic import whole
+    from repro_torch.dist.sharding import named_leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import init_dp_state, make_dp_train_step
+    from repro_torch.train.trainer import Trainer
+
+    model = _narrow_lm()
+    opt = AdamW(lr=1e-3)
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cuda")
+    step = make_dp_train_step(model, opt, nccl_mesh, planes=2)
+    data = SyntheticLMData(seed=0, global_batch=2, seq_len=128, vocab=model.cfg.vocab_size)
+    state, _ = step(init_dp_state(model, opt, 0, nccl_mesh), data.next(), bm)
+    ckpt_lib.save(str(tmp_path), 1, state, meta={"data": data.state_dict()})
+    tr = Trainer(model=model, optimizer=opt, data=data, step_fn=step, bits_map=bm,
+                 ckpt_dir=str(tmp_path), mesh=nccl_mesh)
+    # a template that has stepped too: its ef already in the gradients' dtype
+    template, _ = step(init_dp_state(model, opt, 1, nccl_mesh), data.eval_batch(2), bm)
+    restored, _, at = tr._reload(template)
+    assert at == 1
+    for (names, a), (_, b) in zip(named_leaves(restored), named_leaves(state)):
+        if not isinstance(b, torch.Tensor):
+            assert a == b
+            continue
+        assert a.placements == b.placements and a.to_local().is_cuda, names
+        assert a.dtype == b.dtype and torch.equal(whole(a), whole(b)), names
+    batch = data.next()
+    _, m1 = step(restored, batch, bm)
+    _, m2 = step(state, batch, bm)
+    assert m1["loss"].item() == m2["loss"].item()

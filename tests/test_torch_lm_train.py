@@ -23,6 +23,7 @@ Tolerances, each with its reason:
   by: lr * eps * noise / (|g| + eps)^2, at most 2 lr.  Elements that
   differ by more than 1e-6 are counted and must be fewer than 1 in 1,000.
 """
+import math
 import os
 
 import jax
@@ -323,11 +324,47 @@ def test_train_step_matches_reference(f32, moments):
         assert any(isinstance(x, tint8.QTensor) for x in tree_leaves(ts["opt"]["m"]))
 
 
-def test_unported_train_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_dp_train_step(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(model=None, optimizer=None, data=None, step_fn=None, bits_map={}, mesh=object())
+def test_unported_train_paths_raise(tmp_path):
+    """The data-parallel step and ``Trainer(mesh=)`` run on the CPU at world
+    size 1: at planes 0 the step's loss is bitwise the plain step's (a mean
+    over one rank), at planes 2 its ``ef`` takes the gradients' dtype, and
+    a checkpoint's ``ef`` keeps its leading rank axis.  A compressed step
+    with no ``ef`` in its state raises."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.train_step import init_dp_state, init_state
+
+    _, model = models()
+    opt = AdamW(lr=1e-3)
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
+    batch = SyntheticLMData(seed=0, global_batch=2, seq_len=16,
+                            vocab=model.cfg.vocab_size).next()
+    try:
+        mesh = make_host_mesh((1, 1), device="cpu")
+        _, plain = make_train_step(model, opt)(init_state(model, opt, 0, "cpu"), batch, bm)
+        state = init_dp_state(model, opt, 0, mesh)
+        _, exact = make_dp_train_step(model, opt, mesh, planes=0)(state, batch, bm)
+        assert exact["loss"].item() == plain["loss"].item()
+        state = init_dp_state(model, opt, 0, mesh)
+        new, m = make_dp_train_step(model, opt, mesh, planes=2)(state, batch, bm)
+        assert math.isfinite(m["loss"].item())
+        ef = tree_leaves(new["ef"])
+        # each residual takes its gradient's dtype: bf16 weights, f32 norm gains
+        assert [e.dtype for e in ef] == [p.dtype for p in tree_leaves(new["params"])]
+        assert torch.bfloat16 in {e.dtype for e in ef}
+        assert all(e.shape[0] == 1 for e in ef) and any(e.to_local().any() for e in ef)
+        tr = Trainer(model=model, optimizer=opt, data=None, step_fn=None, bits_map=bm,
+                     ckpt_dir=str(tmp_path), mesh=mesh)
+        ckpt_lib.save(str(tmp_path), 1, new)
+        restored, _, step = tr._reload(new)
+        assert step == 1 and tuple(tree_leaves(restored["ef"])[0].shape) == tuple(ef[0].shape)
+        with pytest.raises(ValueError, match="ef"):
+            make_dp_train_step(model, opt, mesh, planes=2)(
+                {k: state[k] for k in ("params", "opt")}, batch, bm)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---- checkpoints and the Trainer --------------------------------------------------
@@ -355,6 +392,42 @@ class TestCheckpoint:
         assert step == 4
         with pytest.raises(FileNotFoundError):
             ckpt_lib.restore(str(tmp_path), step=1, device="cpu")  # pruned
+
+    def test_restore_reads_what_np_load_reads_and_checks_each_crc(self, tmp_path):
+        """``restore`` reads each member straight from the stored zip: the
+        arrays ``np.load`` gives (0-d, empty, bf16 and fp8 as their bits),
+        and a flipped byte fails the member's CRC."""
+        tree = {"z": torch.tensor(3.5), "e": torch.zeros((0, 4)),
+                "b": torch.randn(7, 5).to(torch.bfloat16),
+                "f8": torch.randn(33).to(torch.float8_e4m3fn), "i": torch.arange(6, dtype=torch.int32)}
+        path = ckpt_lib.save(str(tmp_path), 1, tree)
+        back, _, _ = ckpt_lib.restore(str(tmp_path), device="cpu")
+        with np.load(os.path.join(path, "leaves.npz")) as ref:
+            for i, key in enumerate(sorted(tree)):
+                got = back[key]
+                if got.dtype == torch.float8_e4m3fn:
+                    got = got.view(torch.uint8).numpy()
+                elif got.dtype == torch.bfloat16:
+                    got = got.view(torch.int16).numpy().view(np.uint16)
+                else:
+                    got = got.numpy()
+                np.testing.assert_array_equal(got, ref[f"leaf_{i}"])
+                assert back[key].dtype == tree[key].dtype and back[key].shape == tree[key].shape
+        import zipfile
+
+        npz = os.path.join(path, "leaves.npz")
+        with zipfile.ZipFile(npz) as zf:        # the last data byte of leaf_0 (b)
+            info = zf.getinfo("leaf_0.npy")
+        with open(npz, "r+b") as f:
+            f.seek(info.header_offset + 26)
+            name_len, extra_len = np.frombuffer(f.read(4), "<u2")
+            at = info.header_offset + 30 + int(name_len) + int(extra_len) + info.file_size - 1
+            f.seek(at)
+            byte = f.read(1)
+            f.seek(at)
+            f.write(bytes([byte[0] ^ 1]))
+        with pytest.raises(ValueError, match="leaf_0 fails its CRC"):
+            ckpt_lib.restore(str(tmp_path), device="cpu")
 
     def test_incomplete_tmp_ignored(self, tmp_path):
         ckpt_lib.save(str(tmp_path), 1, {"x": torch.tensor(1)})
@@ -506,5 +579,10 @@ def test_train_launcher_refuses_without_a_card_and_mesh():
         pytest.skip("the default device exists here")
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b-ii"):
         train.main(["--device", "cpu", "--mesh", "2,4"])
+    # the rank-local step would compute MoE capacity over the local tokens
+    args = train.parse_args(["--device", "cpu", "--mesh", "2,1",
+                             "--arch", "moonshot-v1-16b-a3b"])
+    with pytest.raises(NotImplementedError, match="moe family.*item 11b-ii"):
+        train.setup(args)

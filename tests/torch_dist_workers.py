@@ -1,0 +1,310 @@
+"""Rank bodies for the port's ``torch.distributed`` tests
+(``tests/test_torch_dist_*.py``).
+
+:func:`spawn` starts ``world`` processes on gloo over a file store (no
+TCP port), runs one body in each and returns what each returned.  This
+module imports neither JAX nor the JAX package, so the children start on
+torch alone.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+
+
+def spawn(body: str, world: int, workdir: str, **kw) -> list:
+    """Run ``BODIES[body](rank, world, workdir, **kw)`` on ``world`` gloo
+    ranks; -> the ranks' results, in rank order."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_entry, args=(body, world, str(workdir), kw), nprocs=world,
+                       start_method="spawn", join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{body}_{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(rank, body, world, workdir, kw):
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/{body}.store",
+                            rank=rank, world_size=world)
+    try:
+        out = BODIES[body](rank, world, workdir, **kw)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"{body}_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().float().numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().cpu().numpy()
+
+
+# ---- the compressed all-reduce --------------------------------------------------
+class _Wire:
+    """Records the uint8 payloads the collectives receive."""
+
+    def __init__(self):
+        self.received = []
+        self._gather, self._a2a = dist.all_gather_into_tensor, dist.all_to_all_single
+
+    def __enter__(self):
+        from repro_torch.dist import collectives
+
+        def gather(out, x, group=None):
+            self._gather(out, x, group=group)
+            if out.dtype == torch.uint8:
+                n = out.numel() // x.numel()
+                self.received.append(("all_gather", out.clone().numpy().reshape(n, -1)))
+
+        def a2a(out, x, group=None):
+            self._a2a(out, x, group=group)
+            self.received.append(("all_to_all", out.clone().numpy()))
+
+        collectives.dist.all_gather_into_tensor = gather
+        collectives.dist.all_to_all_single = a2a
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import collectives
+
+        collectives.dist.all_gather_into_tensor = self._gather
+        collectives.dist.all_to_all_single = self._a2a
+
+
+def collectives(rank, world, workdir, inputs):
+    """Both constructions over a group of 2 (ranks 0 and 1) and of every
+    rank, on each leaf of ``inputs`` (npz: ``n{n}_{leaf}`` of shape
+    ``(n, ...)``, row r for rank r); the exact mean beside them; the
+    error-feedback loop of ``repro``'s own test (1 plane, 8 calls)."""
+    from repro_torch.dist.collectives import compressed_allreduce
+
+    data = np.load(inputs)
+    groups = {2: dist.new_group([0, 1]), world: dist.new_group(list(range(world)))}
+    out = {}
+    for n, group in groups.items():
+        if rank >= n:
+            continue
+        for key in data.files:
+            if not key.startswith(f"n{n}_") or key.endswith("_ef"):
+                continue
+            leaf = key[len(f"n{n}_"):]
+            x = torch.from_numpy(data[key][rank].copy())
+            if leaf.endswith("bf16"):
+                x = x.to(torch.bfloat16)
+            exact = x.float().clone()
+            dist.all_reduce(exact, group=group)
+            out[(n, leaf, "exact")] = _np(exact / n)
+            for form, size in (("ag", None), ("rs", n)):
+                with _Wire() as wire:
+                    o, fb = compressed_allreduce(x, group, planes=2, axis_size=size)
+                out[(n, leaf, form)] = (_np(o), _np(fb), str(o.dtype), wire.received)
+        # error feedback: the time average of repeated 1-plane reductions
+        x = torch.from_numpy(data[f"n{n}_ef"][rank].copy())
+        for form, size in (("ag", None), ("rs", n)):
+            fb, outs = torch.zeros_like(x), []
+            for _ in range(8):
+                o, fb = compressed_allreduce(x, group, residual=fb, planes=1, axis_size=size)
+                outs.append(_np(o))
+            out[(n, "ef", form)] = outs
+    return out
+
+
+# ---- the data-parallel QAT step, the launcher, elastic restore ---------------------
+DP_BATCH, DP_SEQ, DP_STEPS, DP_LR = 8, 16, 4, 1e-3
+
+
+def f32_smoke(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+
+
+def dp_state(params, opt, mesh) -> dict:
+    """``init_dp_state``'s state from given params (the reference's)."""
+    from repro_torch.dist.elastic import place
+    from repro_torch.train.train_step import add_error_feedback
+
+    return add_error_feedback(place({"params": params, "opt": opt.init(params)}, mesh), mesh)
+
+
+def dp_losses(arch: str, params_np, planes: int, mesh):
+    """``DP_STEPS`` steps of ``make_dp_train_step`` from the given params at
+    8 bits -> (losses, grad norms, max |ef| on this rank, ef dtypes)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import make_dp_train_step
+
+    cfg = f32_smoke(arch)
+    model = build_model(cfg)
+    opt = AdamW(lr=DP_LR)
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
+    state = dp_state(params_from_numpy(params_np, "cpu"), opt, mesh)
+    step = make_dp_train_step(model, opt, mesh, planes=planes)
+    data = SyntheticLMData(seed=0, global_batch=DP_BATCH, seq_len=DP_SEQ, vocab=cfg.vocab_size)
+    losses, norms = [], []
+    for _ in range(DP_STEPS):
+        state, m = step(state, data.next(), bm)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    ef = [e.to_local() for e in tree_leaves(state["ef"])]
+    return (losses, norms, max(float(e.abs().max()) for e in ef),
+            sorted({str(e.dtype) for e in ef}))
+
+
+def launcher_run(argv, cfg, steps):
+    """``launch/train.py``'s ``setup`` on ``argv`` at config ``cfg``, run
+    ``steps`` steps -> (losses, the run's parts)."""
+    from repro_torch.launch import train
+
+    run = train.setup(train.parse_args(argv), cfg)
+    run["state"] = run["trainer"].run(run["state"], steps)
+    return [h["loss"] for h in run["trainer"].history], run
+
+
+def forced_steps(arch: str, states, planes: int, mesh):
+    """Each of ``DP_STEPS`` steps from the reference's state before it (its
+    params, moments and this rank's ``ef`` row) -> (losses, grad norms,
+    max |ef| after the last)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist.elastic import local_slice
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import make_dp_train_step
+
+    cfg = f32_smoke(arch)
+    model = build_model(cfg)
+    opt = AdamW(lr=DP_LR)
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
+    step = make_dp_train_step(model, opt, mesh, planes=planes)
+    data = SyntheticLMData(seed=0, global_batch=DP_BATCH, seq_len=DP_SEQ, vocab=cfg.vocab_size)
+    rank = dist.get_rank()
+    losses, norms = [], []
+    for ref in states:
+        state = dp_state(params_from_numpy(ref["params"], "cpu"), opt, mesh)
+        for key in ("m", "v"):
+            for got, want in zip(tree_leaves(state["opt"][key]), tree_leaves(ref["opt"][key])):
+                got.to_local().copy_(local_slice(torch.from_numpy(np.asarray(want)), mesh,
+                                                 got.placements))
+        state["opt"]["step"] = int(ref["opt"]["step"])
+        for got, want in zip(tree_leaves(state["ef"]), tree_leaves(ref["ef"])):
+            got.to_local().copy_(torch.from_numpy(np.asarray(want)[rank:rank + 1]))
+        state, m = step(state, data.next(), bm)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, max(float(e.to_local().abs().max()) for e in tree_leaves(state["ef"]))
+
+
+def _wait_for(path: str, timeout: float = 600.0):
+    import time
+
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(path)
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def dp(rank, world, workdir, params, refs):
+    """At 2 ranks: ``launch/train.py --mesh 2,1 --ckpt-dir`` for 3 steps,
+    its checkpoint kept for :func:`elastic`; the DP step from the
+    reference's params (glm4-9b at planes 2 and 0, moonshot at planes 2)
+    for ``DP_STEPS`` steps; then each step again from the reference's state
+    before it, once the reference's run (``refs``) has written it."""
+    out = {}
+    out["launcher"], run = launcher_run(
+        ["--device", "cpu", "--arch", "glm4-9b", "--steps", "3", "--mesh", f"{world},1",
+         "--ckpt-dir", os.path.join(workdir, "ckpt")], f32_smoke("glm4-9b"), 3)
+    mesh = run["mesh"]
+    with open(params, "rb") as f:
+        trees = pickle.load(f)
+    for case in refs:
+        out[case] = dp_losses(case[0], trees[case[0]], case[1], mesh)
+    for case, path in refs.items():
+        out[("forced",) + case] = forced_steps(case[0], _wait_for(path)["states"], case[1], mesh)
+    return out
+
+
+def elastic(rank, world, workdir):
+    """At 4 ranks: restore the 2-rank checkpoint onto meshes (4, 1) and
+    (2, 2), each local shard against the saved leaf's slice, bit for bit;
+    then the launcher at ``--mesh 4,1`` resumes it through ``Trainer(mesh=)``
+    for 2 more steps."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import ckpt as ckpt_lib
+    from repro_torch.dist import elastic as el
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    directory = os.path.join(workdir, "ckpt")
+    saved, _, saved_step = ckpt_lib.restore(directory, device="cpu")
+    argv = ["--device", "cpu", "--arch", "glm4-9b", "--steps", "5", "--mesh", f"{world},1",
+            "--ckpt-dir", directory]
+    from repro_torch.launch import train
+
+    run = train.setup(train.parse_args(argv), f32_smoke("glm4-9b"))
+    out = {"step": saved_step}
+    for shape in ((world, 1), (2, world // 2)):
+        if shape == (world, 1):     # the template's own placements
+            mesh, like = run["mesh"], run["state"]
+        else:                       # placements from the rule table
+            mesh, like = make_host_mesh(shape, device="cpu"), _plain(run["state"])
+        restored, _, step = el.restore_elastic(directory, like, mesh)
+        bad, sharded, n = [], 0, 0
+        for (names, got), (_, want) in zip(shd.named_leaves(restored), shd.named_leaves(saved)):
+            if not isinstance(got, DTensor):
+                if got != want:
+                    bad.append("/".join(names))
+                continue
+            n += 1
+            local = got.to_local()
+            expect = el.local_slice(want, mesh, got.placements)
+            sharded += local.numel() < want.numel()
+            if not _same_bits(local, expect):
+                bad.append("/".join(names))
+        out[shape] = {"step": step, "bad": bad, "leaves": n, "sharded": sharded}
+    losses, run = launcher_run(argv, f32_smoke("glm4-9b"), 5)
+    out["resumed"] = losses
+    return out
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(view), b.contiguous().view(view)))
+
+
+def _plain(state):
+    """A placed state's leaves as whole plain tensors (a template that
+    carries no placements of its own)."""
+    from repro_torch.dist import elastic as el
+    from repro_torch.dist import sharding as shd
+
+    return shd.map_tree(lambda _, x: el.whole(x), state)
+
+
+BODIES = {"collectives": collectives, "dp": dp, "elastic": elastic}
