@@ -82,6 +82,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    moonshot's three expert banks of phase 3w (4 x 64 x 2048 x 1408, bf16)
    with one bitwidth a stacked layer shared by its 64 experts, beside the
    edge leaves, bitwise from two bits offsets and timed the same way.
+   5'' split into its two entry points, the max pass and the QDQ pass, at
+   one rank's row-parallel shards of 3j's cell at --mesh 1,2 (wo, wd, the
+   vocab-parallel embed; bf16): scales, outputs and the STE at those
+   scales bitwise the plain versions and the one-call forward, each pass
+   timed beside the one-call forward.
    The three paged kernels at head dim 16, every smoke config's (KV 2, G
    2, bs 16: lanes 16-31 idle in P.V): fp (bf16), int8 and packed int4
    over a 19-page ring table at lengths {1, 16, 17, 300} and over the
@@ -92,6 +97,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    times, L2 flushed before each launch, the start event held behind a
    device spin that covers the wrapper's host work) and the bound from
    bytes and operations.
+3tp. The tensor- and expert-parallel QAT step (``launch/train.py --mesh
+   1,2``: ``make_tp_train_step``) on two ranks spawned as ``torchrun``
+   starts them, sharing the one card over a gloo group of CUDA tensors:
+   glm4-9b at phase 3j's cell, 3 steps, each loss within 2e-2 of 3j's
+   plain one-rank step (checked once 3j has run), one one-call per-column
+   forward, one max pass, one QDQ pass and one STE launch a step; moonshot
+   at its published widths and 2 layers (32 experts a rank) on one batch,
+   finite and falling, every expert fed through the dispatch exchange.
+   Step p50, peak memory a rank, each collective's bytes, calls and time.
 3sm. The launchers' default commands on the card: for every arch whose
    smoke config the CPU tests serve (head dim 16), ``python -m
    repro_torch.launch.serve`` with no flags, then ``--kv-bits 4`` and
@@ -270,7 +284,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    w. QAT through ``launch/train.py``'s path (``--remat full --lr 3e-4``)
       at the published widths of moonshot-v1-16b-a3b, qwen2-vl-7b,
       musicgen-large, hymba-1.5b and rwkv6-1.6b, depth cut to 4 layers,
-      batch 2 x 4096: 2 steps at 8 bits, then 2 at the mixed policy;
+      batch 2 x 4096 (hymba 2 x 1024): 2 steps at 8 bits, then 2 at the
+      mixed policy;
       fails unless every loss is finite and every step made one
       per-column forward and one backward launch (moonshot's expert banks
       among the leaves, at one bitwidth a stacked layer) and no plain
@@ -369,6 +384,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1692,9 +1708,9 @@ def served_prefix_spec_card_vs_cpu(torch, sm, params):
 
 STREAM_GEN = 36          # greedy tokens per request: past two 16-token block edges
 # greedy tokens per request after the 72-100-token prompts of phases 4l, 4o and
-# 4t: past two 16-token block edges beyond each prompt (48 until PR 29, cut to
-# keep the script inside its time with phase 3dp added)
-LONG_STREAM_GEN = 32
+# 4t: past a 16-token block edge beyond each prompt (48 until PR 29, 32 until
+# PR 30, cut to keep the script inside its time with phases 3dp and 3tp added)
+LONG_STREAM_GEN = 16
 
 
 def served_streams_card_vs_cpu(torch, sm, params, kv_bits, lens=(9, 40, 17, 31, 24, 16),
@@ -2905,6 +2921,107 @@ def check_fake_quant_col(torch, timer, peaks, rows):
     return 0.0
 
 
+# one rank's row-parallel shards of the 4-layer glm4-9b cell at --mesh 1,2 (phase 3tp):
+# wo (H·hd / 2 rows), wd (d_ff / 2 rows) and the vocab-parallel embed (V / 2 rows)
+TP_SPLIT_SHAPES = (("wo", (4, 2048, 4096)), ("wd", (4, 6848, 4096)), ("embed", (75776, 4096)))
+
+
+def check_fake_quant_col_split(torch, timer, peaks, rows):
+    """Phase 2, kernel 5'' split into its two passes, as phase 3tp runs it
+    on a row-parallel leaf (its K split across ranks, the scales' max taken
+    between the passes): at one rank's shards of 3j's cell at --mesh 1,2
+    (bf16), the max pass's scales and the QDQ pass's outputs bit pattern
+    for bit pattern against their plain versions and against the one-call
+    forward's, and the STE at those scales against its plain version; then
+    each pass timed beside the one-call forward at the same leaves, the
+    plain versions, the library (``torch.linalg.vector_norm(ord=inf)`` over
+    dim -2 per leaf; ``fake_quantize_per_channel_affine`` per layer at the
+    given scales) and the bound."""
+    from repro_torch.kernels.fake_quant import (fake_quant_group_col_bwd_cuda,
+                                                fake_quant_group_col_cuda,
+                                                fake_quant_group_col_max_cuda,
+                                                fake_quant_group_col_qdq_cuda)
+    from repro_torch.kernels.ref import (fake_quant_group_col_bwd_ref,
+                                         fake_quant_group_col_max_ref,
+                                         fake_quant_group_col_qdq_ref)
+
+    f32_peak = f32_peak_of(torch)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    shapes = [shape for _, shape in TP_SPLIT_SHAPES]
+    ws, gs = col_inputs(torch, shapes, torch.bfloat16, gen)
+    bits = col_bits(torch, shapes, 1)
+    scales, n_max = fake_quant_group_col_max_cuda(ws)
+    outs, n_qdq = fake_quant_group_col_qdq_cuda(ws, bits, scales)
+    one, one_scales, _ = fake_quant_group_col_cuda(ws, bits)
+    grads, _ = fake_quant_group_col_bwd_cuda(ws, gs, scales)
+    torch.cuda.synchronize()
+    want_s = fake_quant_group_col_max_ref(ws)
+    for i, (name, shape) in enumerate(TP_SPLIT_SHAPES):
+        if not (same_bits(torch, scales[i], want_s[i])
+                and same_bits(torch, scales[i], one_scales[i])):
+            fail(f"fake_quant_col split {name} {shape}: the max pass's scales differ")
+        (want,) = fake_quant_group_col_qdq_ref([ws[i]], [bits[i]], [want_s[i]])
+        if not (same_bits(torch, outs[i], want) and same_bits(torch, outs[i], one[i])):
+            fail(f"fake_quant_col split {name} {shape}: the QDQ pass differs from the plain "
+                 f"version or the one-call forward")
+        (want,) = fake_quant_group_col_bwd_ref([ws[i]], [gs[i]], [scales[i]])
+        if not same_bits(torch, grads[i], want):
+            fail(f"fake_quant_col split {name} {shape}: the STE at the pass's scales differs")
+        del want
+    if (n_max, n_qdq) != (1, 1):
+        fail(f"fake_quant_col split: {n_max} max and {n_qdq} QDQ launches, not 1 and 1")
+    del outs, one, one_scales, grads
+    numel = sum(w.numel() for w in ws)
+    n_scales = sum(math.prod(w.shape[:-2]) * w.shape[-1] for w in ws)
+    bits_host = [[int(b) for b in v.reshape(-1)] for v in bits]
+    zps = [torch.zeros(w.shape[-1], dtype=torch.int32, device="cuda") for w in ws]
+
+    def library_qdq():
+        out = []
+        for w, s, bl, zp in zip(ws, scales, bits_host, zps):
+            w3, s3 = w.float().reshape(-1, *w.shape[-2:]), s.reshape(-1, w.shape[-1])
+            for l in range(w3.shape[0]):
+                b = bl[l] if len(bl) > 1 else bl[0]
+                n = 1 if b < 2 else min((1 << (b - 1)) - 1, 1 << 15)
+                out.append(torch.fake_quantize_per_channel_affine(w3[l], s3[l] / n, zp, 1, -n, n))
+        return out
+
+    base = {"shape": "glm4-9b 4L row-parallel shards at --mesh 1,2 (wo, wd, embed)",
+            "dtype": "bfloat16", "leaves": len(ws), "numel": numel, "max_abs_err": 0.0}
+    mb, mby = bound_ms(numel * 2 + 4 * n_scales, numel, (peaks[0], f32_peak))
+    qb, qby = bound_ms(2 * numel * 2 + 4 * n_scales, FQ_OPS * numel, (peaks[0], f32_peak))
+    ob, oby = bound_ms(2 * numel * 2 + 4 * n_scales, (FQ_OPS + 2) * numel, (peaks[0], f32_peak))
+    out = [
+        {"kernel": "fake_quant_group_col_max", **base,
+         "ms": timer(lambda: fake_quant_group_col_max_cuda(ws), iters=7),
+         "plain_ms": timer(lambda: fake_quant_group_col_max_ref(ws), iters=3, warmup=1),
+         "library_ms": timer(lambda: [torch.linalg.vector_norm(w, float("inf"), dim=-2)
+                                      for w in ws], iters=5, warmup=1),
+         "library": "torch.linalg.vector_norm(ord=inf, dim=-2), one call a leaf",
+         "bound_ms": mb, "bound_by": mby},
+        {"kernel": "fake_quant_group_col_qdq", **base,
+         "ms": timer(lambda: fake_quant_group_col_qdq_cuda(ws, bits, scales), iters=7),
+         "plain_ms": timer(lambda: fake_quant_group_col_qdq_ref(ws, bits, scales), iters=3,
+                           warmup=1),
+         "library_ms": timer(library_qdq, iters=3, warmup=1),
+         "library": "fake_quantize_per_channel_affine per layer at the given scales, on f32 "
+                    "copies made in the call",
+         "bound_ms": qb, "bound_by": qby},
+        {"kernel": "fake_quant_group_col_onecall", **base,
+         "ms": timer(lambda: fake_quant_group_col_cuda(ws, bits), iters=7),
+         "bound_ms": ob, "bound_by": oby},
+    ]
+    rows += out
+    print(f"  {'fake_quant_col split, 3tp shards (wo, wd, embed)':46s} bitwise: max pass "
+          f"{out[0]['ms']:.4f} + QDQ pass {out[1]['ms']:.4f} ms against the one-call forward "
+          f"{out[2]['ms']:.4f} ms; plain {out[0]['plain_ms']:.4f} + {out[1]['plain_ms']:.4f}; "
+          f"library {out[0]['library_ms']:.4f} + {out[1]['library_ms']:.4f}; bound "
+          f"{mb:.4f} ({mby}) + {qb:.4f} ({qby})")
+    del ws, gs, scales
+    torch.cuda.empty_cache()
+    return 0.0
+
+
 def run_qat_steps(torch, run, uniform: int, mixed: int, label: str, log_every: int = 0):
     """Runs a ``launch/train.py`` ``setup``'s trainer ``uniform`` steps at
     its bits, then ``mixed`` at the mixed policy, each step's launches
@@ -3043,6 +3160,9 @@ def lm_search_phase(torch, model, params, episodes=LM_EPISODES, label="[lm searc
 
 
 DP_EXACT_STEPS, DP_COMP_STEPS, DP_SAVE_AT = 3, 5, 2
+# the planes-2 run and its checkpoint reload at 2 of 3j's 4 layers (4 until PR 30,
+# cut with phase 3tp added: the save and reload of the 4-layer state took ~70 s)
+DP_COMP_LAYERS = 2
 
 
 class ReduceTimer:
@@ -3099,7 +3219,8 @@ def dp_train(torch, lm):
     mean over one rank) with 3j's flags give losses bitwise 3j's first
     three (the plain step from the same seed), one per-column launch each
     way a step as there; (2) five steps at
-    ``planes=2`` (the fp8 two-phase all-reduce with error feedback) give
+    ``planes=2`` (the fp8 two-phase all-reduce with error feedback), at
+    DP_COMP_LAYERS of the cell's layers, give
     finite losses and a nonzero ``ef``; (3) the checkpoint that run saved
     at step 2, reloaded through ``Trainer(mesh=)``
     (``dist.elastic.restore_elastic``), gives step 3's loss bitwise the
@@ -3121,9 +3242,10 @@ def dp_train(torch, lm):
 
     out = {}
 
-    def launcher(steps, mesh):
+    def launcher(steps, mesh, layers=LM_LAYERS):
         argv = LM_TRAIN + ["--steps", str(steps)] + (["--mesh", "1,1"] if mesh else [])
-        return train.setup(train.parse_args(argv), lm_cell())
+        return train.setup(train.parse_args(argv),
+                           dataclasses.replace(lm_cell(), num_layers=layers))
 
     def fresh_peak():
         gc.collect()
@@ -3151,9 +3273,10 @@ def dp_train(torch, lm):
             fail(f"[dp] --mesh 1,1 losses {a} are not bitwise the plain step's (3j) {b}")
         print(f"[dp] --mesh 1,1 (planes 0) losses bitwise the plain step's (3j): {a}")
 
-        # (2) planes 2 for 5 steps, saved at step 2; the all-reduce timed, and an
+        # (2) planes 2 for 5 steps at DP_COMP_LAYERS layers, saved at step 2; the
+        # all-reduce timed, and an
         # exact one of the same gradients at the last step
-        run = launcher(DP_COMP_STEPS, True)
+        run = launcher(DP_COMP_STEPS, True, DP_COMP_LAYERS)
         run["state"] = add_error_feedback(run["state"], run["mesh"])
         trainer = run["trainer"]
         inner = make_dp_train_step(run["model"], run["opt"], run["mesh"], planes=2,
@@ -3206,7 +3329,8 @@ def dp_train(torch, lm):
         fail("[dp] the process group outlived the phase")
     p50 = statistics.median(out["mesh 1,1"]["step_s"][1:]) * 1e3
     print(f"[dp planes 2] losses {[round(x, 4) for x in losses]}, max |ef| {ef_max:.3g}; step "
-          f"p50 {comp['step_p50_ms']:.1f} ms (3j's plain step {lm['step_p50_ms']:.1f}; planes 0 "
+          f"p50 {comp['step_p50_ms']:.1f} ms at {DP_COMP_LAYERS} layers (3j's plain step at "
+          f"{LM_LAYERS} {lm['step_p50_ms']:.1f}; planes 0 "
           f"{p50:.1f}); compressed all-reduce "
           f"{comp['allreduce_p50_ms']:.2f} ms a step (device, CUDA events) against an exact "
           f"NCCL all_reduce of the same gradients {comp['exact_allreduce_ms']:.3f} ms; handed "
@@ -3218,6 +3342,241 @@ def dp_train(torch, lm):
           f"Trainer(mesh=) ({load_s:.1f} s): step 3 loss {resumed[0]!r} bitwise the "
           f"uninterrupted run's; process group destroyed")
     return out
+
+
+# ---- phase 3tp: the tensor- and expert-parallel step, two ranks on the one card ----------
+TP_STEPS = 3
+TP_TIMEOUT_S = 480
+TP_REL_TOL = 2e-2    # bf16 losses against 3j's one-rank steps: other reduction orders
+MOE_TP_TRAIN = ["--arch", "moonshot-v1-16b-a3b", "--no-smoke", "--global-batch", "2", "--seq-len",
+                "4096", "--remat", "full", "--bits", "8", "--lr", "3e-4", "--device", "cuda"]
+
+
+def tp_cell(torch, argv, cfg, label: str, fixed_batch: bool = False, experts: bool = False):
+    """One rank of a phase 3tp cell: ``launch/train.py``'s ``setup`` on
+    ``argv`` (``--mesh 1,2``: the tensor-parallel step over a gloo group of
+    CUDA tensors) at ``cfg``, TP_STEPS steps, each step's kernel launches,
+    collective bytes and calls (``dist.tp.stats``) and collective time
+    (CUDA events on the step's stream, and the host's clock) recorded;
+    ``fixed_batch`` trains on the first batch every step; ``experts``
+    counts, at every dispatch exchange of the first step's forward, the
+    tokens each of this rank's experts received."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import tp as tpm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args = train.parse_args(argv + ["--steps", str(TP_STEPS), "--mesh", "1,2"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.setup(args, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, trainer = run["step_fn"], run["trainer"]
+    if not hasattr(step_fn, "tp") or dist.get_backend() != "gloo":
+        raise RuntimeError(f"{label}: --mesh 1,2 built {type(step_fn)} on {dist.get_backend()}")
+    if fixed_batch:
+        first = trainer.data.next()
+        trainer.data.next = lambda: first
+    received = []
+    exchange = tpm.all_to_all_model
+
+    def watched(x, tp):
+        out = exchange(x, tp)
+        if experts and len(received) < 2 * cfg.num_layers and torch.is_grad_enabled():
+            if len(received) % 2 == 0:      # (dispatch, combine) pairs: the dispatch
+                received.append((out != 0).any(dim=-1).sum(dim=(0, 2)).tolist())
+            else:
+                received.append(None)
+        return out
+
+    per = []
+
+    def counted(state, batch, bits_map):
+        before = dict(ops.counts)
+        tpm.stats.reset()
+        tpm.stats.timing = True
+        t = time.perf_counter()
+        out = step_fn(state, batch, bits_map)
+        torch.cuda.synchronize()
+        per.append({"launches": {k: v - before[k] for k, v in ops.counts.items()
+                                 if v != before[k]},
+                    "bytes": dict(tpm.stats.bytes), "calls": dict(tpm.stats.calls),
+                    "collective_device_ms": tpm.stats.device_ms(),
+                    "collective_host_ms": dict(tpm.stats.host_ms),
+                    "step_ms": (time.perf_counter() - t) * 1e3})
+        tpm.stats.timing = False
+        return out
+
+    trainer.step_fn, trainer.log_every = counted, 0
+    tpm.all_to_all_model = watched
+    ops.reset_counts()
+    try:
+        state = trainer.run(run.pop("state"), TP_STEPS)
+    finally:
+        tpm.all_to_all_model = exchange
+    torch.cuda.synchronize()
+    out = {"losses": [h["loss"] for h in trainer.history],
+           "step_s": [h["dt"] for h in trainer.history], "setup_s": setup_s,
+           "setup_peak_gib": setup_peak,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "per_step": per,
+           "counts": dict(ops.counts), "experts_received": [r for r in received if r],
+           "heads": step_fn.tp.heads, "kv": step_fn.tp.kv, "ff": step_fn.tp.ff,
+           "vocab": step_fn.tp.vocab}
+    del state, run, trainer, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_main(rank: int, port: str, out_path: str) -> None:
+    """A phase 3tp rank (``python3 chip_smoke.py --tp-rank RANK PORT OUT``):
+    two ranks of ``torchrun``'s environment on the one card, glm4-9b at 3j's
+    cell and moonshot at its published widths (2 layers) through
+    ``launch/train.py --mesh 1,2``; writes its records to ``OUT`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="localhost", MASTER_PORT=port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        moe = dataclasses.replace(family_cell(MOONSHOT_ARCH), num_layers=2)
+        out = {"glm4": tp_cell(torch, LM_TRAIN, lm_cell(), "[tp glm4]"),
+               "moonshot": tp_cell(torch, MOE_TP_TRAIN, moe, "[tp moonshot]",
+                                   fixed_batch=True, experts=True),
+               "backend": dist.get_backend(), "world": dist.get_world_size()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def tp_train(torch):
+    """Phase 3tp: the tensor- and expert-parallel QAT step
+    (``train_step.make_tp_train_step``) on two ranks that share the one
+    card over a gloo group of CUDA tensors (``launch/mesh.py`` picks gloo
+    when ranks outnumber cards), spawned here as ``torchrun`` would start
+    them, right after phase 2 while this process holds little of the
+    card's memory.  Fails unless both ranks end within TP_TIMEOUT_S and:
+    glm4-9b at 3j's cell (published widths, 4 layers, batch 2 x 4096,
+    remat full, lr 3e-4) at --mesh 1,2 gives TP_STEPS finite losses, equal
+    on both ranks (held against 3j's steps when 3j has run:
+    :func:`tp_against_3j`), and each step made one one-call per-column
+    forward (the leaves whose K is whole), one max pass and one QDQ pass
+    (wo, wd and the vocab-parallel embed: their scales' max over the ranks
+    between them) and one STE launch; moonshot at its published widths
+    and 2 layers (32 experts a rank, top-6, capacity 1.25) on one batch
+    gives finite losses that fall, and every expert of both ranks received
+    tokens through the dispatch exchange at every layer.  Prints step p50,
+    peak memory a rank, the bytes each collective moved a step and their
+    time."""
+    import gc
+    import socket
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB of the "
+          f"card ({torch.cuda.memory_reserved() / 2**30:.2f} reserved) while the ranks run")
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    tmp = tempfile.mkdtemp(prefix="tp_")
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(r),
+                               port, paths[r]]) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=max(1.0, TP_TIMEOUT_S - (time.perf_counter() - t0)))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        fail(f"[tp] the two ranks ended with {rcs} after {wall_s:.0f} s (None: killed at "
+             f"{TP_TIMEOUT_S} s)")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if any(r["backend"] != "gloo" or r["world"] != 2 for r in ranks):
+        fail(f"[tp] ranks ran on {[(r['backend'], r['world']) for r in ranks]}")
+    glm, moe = [r["glm4"] for r in ranks], [r["moonshot"] for r in ranks]
+    got = glm[0]["losses"]
+    if glm[1]["losses"] != got or len(got) != TP_STEPS or not all(map(math.isfinite, got)):
+        fail(f"[tp glm4] losses {[g['losses'] for g in glm]}")
+    split = {"fake_quant_group_col": 1, "fake_quant_group_col_max": 1,
+             "fake_quant_group_col_qdq": 1, "fake_quant_group_col_bwd": 1}
+    for r, g in enumerate(glm):
+        bad = [p["launches"] for p in g["per_step"] if p["launches"] != split]
+        if bad or g["counts"]["plain"] or not (g["heads"] and g["kv"] and g["ff"] and g["vocab"]):
+            fail(f"[tp glm4] rank {r} launched {bad or g['counts']}, not {split} a step")
+    mloss = moe[0]["losses"]
+    if (moe[1]["losses"] != mloss or not all(map(math.isfinite, mloss))
+            or not mloss[-1] < mloss[0]):
+        fail(f"[tp moonshot] losses {[m['losses'] for m in moe]}: not finite and falling")
+    for r, m in enumerate(moe):
+        rec = m["experts_received"]
+        if len(rec) != 2 or any(min(x) == 0 for x in rec) or len(rec[0]) != 32:
+            fail(f"[tp moonshot] rank {r}: tokens each local expert received at each layer's "
+                 f"dispatch exchange {rec}")
+
+    def summary(runs):
+        p = runs[0]["per_step"][-1]
+        return {"losses": runs[0]["losses"], "step_s": [r["step_s"] for r in runs],
+                "step_p50_ms": statistics.median(runs[0]["step_s"][1:]) * 1e3,
+                "peak_mem_gib": [r["peak_mem_gib"] for r in runs],
+                "setup_peak_gib": [r["setup_peak_gib"] for r in runs],
+                "setup_s": [r["setup_s"] for r in runs],
+                "collective_bytes_per_step": p["bytes"], "collective_calls_per_step": p["calls"],
+                "collective_device_ms_per_step": p["collective_device_ms"],
+                "collective_host_ms_per_step": p["collective_host_ms"],
+                "counts": {k: sum(r["counts"][k] for r in runs) for k in runs[0]["counts"]},
+                "launches_per_step": p["launches"]}
+
+    out = {"glm4": summary(glm), "moonshot": summary(moe), "wall_s": wall_s,
+           "moonshot_experts_min_tokens": [[min(x) for x in m["experts_received"]] for m in moe]}
+    for key, label in (("glm4", "glm4-9b 4L, 3j's flags"),
+                       ("moonshot", "moonshot 2L, 32 experts a rank, one batch")):
+        o = out[key]
+        mib = {k: round(v / 2**20, 1) for k, v in o["collective_bytes_per_step"].items()}
+        print(f"[tp {key}] --mesh 1,2, two gloo ranks on one card ({label}): losses "
+              f"{[round(x, 4) for x in o['losses']]}; step p50 {o['step_p50_ms']:.1f} ms, peak "
+              f"memory a rank {[round(x, 2) for x in o['peak_mem_gib']]} GiB in the steps "
+              f"({[round(x, 2) for x in o['setup_peak_gib']]} in setup's whole-state init); "
+              f"collectives a step "
+              f"(rank 0) {mib} MiB in {o['collective_calls_per_step']} calls, "
+              f"{ {k: round(v, 1) for k, v in o['collective_device_ms_per_step'].items()} } ms on "
+              f"the step's stream, { {k: round(v, 1) for k, v in o['collective_host_ms_per_step'].items()} } "
+              f"ms host; launches a step {o['launches_per_step']}")
+    print(f"[tp moonshot] fewest tokens an expert received per layer "
+          f"{out['moonshot_experts_min_tokens']}; two ranks {wall_s:.1f} s in all")
+    return out
+
+
+def tp_against_3j(tp, lm):
+    """3tp's glm4 losses each within TP_REL_TOL of 3j's first TP_STEPS (the
+    plain one-rank step from the same seed, data and schedule)."""
+    want, got = lm["losses"][:TP_STEPS], tp["glm4"]["losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(errs) != TP_STEPS or max(errs) > TP_REL_TOL:
+        fail(f"[tp glm4] losses {got} against 3j's {want}: relative errors {errs}")
+    tp["glm4_rel_err_vs_3j"] = errs
+    print(f"[tp glm4] losses {got} within {max(errs):.2e} of 3j's plain one-rank steps {want} "
+          f"(tolerance {TP_REL_TOL})")
+    return tp
 
 
 def lm_step_card_vs_cpu(torch):
@@ -4627,7 +4986,9 @@ def mva_card_vs_cpu(torch):
 # 48 layers need ~35 B params' f32 moments), global batch 2 x FAM_SEQ
 FAM_ARCHS = (MOONSHOT_ARCH, QWEN_ARCH, MUSICGEN_ARCH, HYMBA_ARCH, RWKV_ARCH)
 FAM_LAYERS = 4
-FAM_SEQ = {MOONSHOT_ARCH: 4096, QWEN_ARCH: 4096, MUSICGEN_ARCH: 4096, HYMBA_ARCH: 4096,
+# hymba's eager Mamba scan at 1024 tokens (4096 until PR 30: 7.3 s a step, cut
+# to keep the script inside its time with phase 3tp added)
+FAM_SEQ = {MOONSHOT_ARCH: 4096, QWEN_ARCH: 4096, MUSICGEN_ARCH: 4096, HYMBA_ARCH: 1024,
            RWKV_ARCH: 4096}
 FAM_UNIFORM_STEPS, FAM_MIXED_STEPS = 2, 2
 FAM_EPISODES = 3
@@ -5224,10 +5585,16 @@ def main() -> None:
     fqc_err = check_fake_quant_col(torch, timer, peaks, rows)
     print("  moonshot-v1-16b-a3b's expert banks at the 3w cell, (L,) bits")
     fqc_err = max(fqc_err, check_fake_quant_col_banks(torch, timer, peaks, rows))
+    fqc_err = max(fqc_err, check_fake_quant_col_split(torch, timer, peaks, rows))
     print(f"timer: {timer.retaken} samples retaken behind a longer spin, "
           f"{timer.uncovered} timed with host work inside")
     del timer
     torch.cuda.empty_cache()
+
+    # ---- the tensor- and expert-parallel step: two ranks on the card, while it is free
+    phase("phase 3tp: the tensor- and expert-parallel step at --mesh 1,2, two gloo ranks on "
+          "the one card (glm4-9b at 3j's cell, held against 3j after it; moonshot at 2 layers)")
+    tp = tp_train(torch)
 
     # ---- the launchers' default commands: every smoke config at head dim 16
     phase("phase 3sm: launch/serve.py with its defaults (--smoke, head dim 16), --kv-bits 4 "
@@ -5346,6 +5713,7 @@ def main() -> None:
     phase(f"phase 3j: LM QAT training, glm4-9b widths at {LM_LAYERS} layers, batch 2 x 4096 "
           f"({LM_UNIFORM_STEPS} steps at 8 bits, {LM_MIXED_STEPS} mixed)")
     lm_run, lm_state, lm = lm_train(torch)
+    lm["tp"] = tp_against_3j(tp, lm)
     phase("phase 5j: LM QAT step breakdown")
     lm_state, lm["breakdown"] = profile_lm_step(torch, lm_run, lm_state)
     lm["col_at_step"] = col_at_step(torch, lm_run, lm_state)
@@ -5593,6 +5961,11 @@ def main() -> None:
          "replaces": "src/repro/quant/wrpn.py:78",
          "launches": lm["counts"]["fake_quant_group_col_bwd"], "max_abs_err": fqc_err,
          **fqc_bwd},
+        *({"name": kernel, "route": "cuda", "source": "src/repro_torch/csrc/fake_quant.cu",
+           "replaces": "src/repro/kernels/fake_quant.py:33",
+           "launches": lm["tp"]["glm4"]["counts"][kernel], "max_abs_err": fqc_err,
+           **next({k: r[k] for k in keys} for r in rows if r["kernel"] == kernel)}
+          for kernel in ("fake_quant_group_col_max", "fake_quant_group_col_qdq")),
         {"name": "fake_quant_group_col_moonshot", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:33",
@@ -5652,6 +6025,10 @@ def main() -> None:
                          "and paged_attention_quant_g7_hd128 (int8): 48 / 28 / 48 calls at "
                          "the served lengths 41-96; fused_qkv_paged_decode_g1 (int4): "
                          "moonshot's 48 calls, launches from phase 3t's int4 turn; "
+                         "fake_quant_group_col_max / _qdq: kernel 5''s two passes apart at one "
+                         "rank's row-parallel shards of the glm4-9b cell at --mesh 1,2 (wo, wd, "
+                         "the vocab-parallel embed; bf16), launches summed over phase 3tp's two "
+                         "glm4 ranks; "
                          "fake_quant_group_col_moonshot / _bwd: one QAT forward / backward of "
                          "the 3w moonshot cell's three expert banks (L 4, 64 experts, bf16, "
                          "(L,) bits), launches from phase 3w's moonshot run (every leaf of a "
@@ -5687,4 +6064,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -109,6 +109,13 @@
 //   place of the ring (no faster there; scripts/kernel_ablation.py col
 //   times them).
 //
+// The two passes are also entry points of their own
+// (fake_quant_col_max_launch, fake_quant_col_qdq_launch): under tensor
+// parallelism a row-parallel leaf's K is split across ranks, and its scales
+// are the max over those ranks, an all_reduce MAX between the passes
+// (dist/tp.py).  A max is exact, so each rank's QDQ is bitwise its shard of
+// the whole leaf's.
+//
 // The STE backward reduces nothing: a flat map over each leaf's memory
 // (fake_quant_col_bwd_kernel), STE_VECS vectors of w and g a thread in
 // flight, each element's scale gathered.  Every leaf of a QAT forward goes
@@ -810,11 +817,15 @@ fake_quant_col_kernel(const __grid_constant__ ColArgs a) {
     else unaligned_rows(w, N, col, ty, c.rows, put);
 }
 
+// The forward's passes over the same CTAs: the max pass (max_pass), the QDQ
+// pass (qdq_pass), or both in turn.
 template <typename T>
-int launch_col(const ColArgs& a, int64_t ctas, cudaStream_t st) {
-    fake_quant_col_max_kernel<T><<<(unsigned)ctas, THREADS, 0, st>>>(a);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+int launch_col(const ColArgs& a, int64_t ctas, cudaStream_t st, bool max_pass, bool qdq_pass) {
+    if (max_pass) {
+        fake_quant_col_max_kernel<T><<<(unsigned)ctas, THREADS, 0, st>>>(a);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess || !qdq_pass) return (int)e;
+    }
     fake_quant_col_kernel<T><<<(unsigned)ctas, THREADS, 0, st>>>(a);
     return (int)cudaGetLastError();
 }
@@ -1012,35 +1023,77 @@ extern "C" void fake_quant_col_limits(int* out) {
 // (0 = float32, 1 = bfloat16); bits[i]: int32, one per run of
 // bits_runs[i] layers (an expert bank's (L,) bits over L·E layers: run E;
 // one per layer: run 1) or one for the leaf (run 0); scales[i]: L x N
-// float32 holding eps (the floor in the dtype), raised to the scales.
-// count <= COL_MAX.  Two
-// launches, the max pass and the QDQ pass; writes outs[i][l, k, n] =
-// qdq(ws[i][l, k, n], bits[i][l / run], s) with s = scales[i][l, n] =
-// max(max_k |ws[i][l, k, n]|, eps).
-extern "C" int fake_quant_col_launch(const void* const* ws, void* const* outs,
-                                     void* const* scales, const void* const* bits,
-                                     const int64_t* dims, const int* bits_runs, int count,
-                                     int dtype, void* stream) {
+// float32.  count <= COL_MAX.
+//
+// fake_quant_col_launch: the max pass, then the QDQ pass, on scales that
+// hold eps (the floor in the dtype): writes scales[i][l, n] = max(max_k
+// |ws[i][l, k, n]|, eps) and outs[i][l, k, n] = qdq(ws[i][l, k, n],
+// bits[i][l / run], scales[i][l, n]).
+// fake_quant_col_max_launch: the max pass alone (outs and bits unused): a
+// leaf sharded on K across ranks takes its scales' max over the ranks
+// (an all_reduce MAX outside), then
+// fake_quant_col_qdq_launch: the QDQ pass alone, at the given scales.
+namespace {
+
+int col_args(const void* const* ws, void* const* outs, void* const* scales,
+             const void* const* bits, const int64_t* dims, const int* bits_runs, int count,
+             int dtype, ColArgs* a, int64_t* ctas_out) {
     if (count < 1 || count > COL_MAX || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     const int sw = COL_TX * (dtype == 1 ? 8 : 4);
-    ColArgs a = {};
-    a.count = count;
+    *a = {};
+    a->count = count;
     int64_t ctas = 0;
     for (int i = 0; i < count; ++i) {
         const int64_t Lc = dims[3 * i], K = dims[3 * i + 1], N = dims[3 * i + 2];
         if (Lc < 1 || K < 1 || N < 1 || N > 0x7fffffff) return (int)cudaErrorInvalidValue;
         const int64_t strips = (N + sw - 1) / sw, blocks = (K + COL_ROWS - 1) / COL_ROWS;
         if (strips * blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-        a.t[i] = {ws[i], outs[i], static_cast<float*>(scales[i]),
-                  static_cast<const int*>(bits[i]), K, ctas, (int)N, (int)strips, (int)blocks,
-                  bits_runs[i]};
+        a->t[i] = {ws[i], outs ? outs[i] : nullptr, static_cast<float*>(scales[i]),
+                   bits ? static_cast<const int*>(bits[i]) : nullptr, K, ctas, (int)N,
+                   (int)strips, (int)blocks, bits_runs ? bits_runs[i] : 0};
         ctas += Lc * strips * blocks;
     }
     if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    *ctas_out = ctas;
+    return 0;
+}
+
+int col_forward(const void* const* ws, void* const* outs, void* const* scales,
+                const void* const* bits, const int64_t* dims, const int* bits_runs, int count,
+                int dtype, void* stream, bool max_pass, bool qdq_pass) {
+    ColArgs a;
+    int64_t ctas = 0;
+    const int err = col_args(ws, outs, scales, bits, dims, bits_runs, count, dtype, &a, &ctas);
+    if (err) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) return launch_col<__nv_bfloat16>(a, ctas, st);
-    return launch_col<float>(a, ctas, st);
+    if (dtype == 1) return launch_col<__nv_bfloat16>(a, ctas, st, max_pass, qdq_pass);
+    return launch_col<float>(a, ctas, st, max_pass, qdq_pass);
+}
+
+}  // namespace
+
+extern "C" int fake_quant_col_launch(const void* const* ws, void* const* outs,
+                                     void* const* scales, const void* const* bits,
+                                     const int64_t* dims, const int* bits_runs, int count,
+                                     int dtype, void* stream) {
+    return col_forward(ws, outs, scales, bits, dims, bits_runs, count, dtype, stream, true,
+                       true);
+}
+
+extern "C" int fake_quant_col_max_launch(const void* const* ws, void* const* scales,
+                                         const int64_t* dims, int count, int dtype,
+                                         void* stream) {
+    return col_forward(ws, nullptr, scales, nullptr, dims, nullptr, count, dtype, stream, true,
+                       false);
+}
+
+extern "C" int fake_quant_col_qdq_launch(const void* const* ws, void* const* outs,
+                                         void* const* scales, const void* const* bits,
+                                         const int64_t* dims, const int* bits_runs, int count,
+                                         int dtype, void* stream) {
+    return col_forward(ws, outs, scales, bits, dims, bits_runs, count, dtype, stream, false,
+                       true);
 }
 
 // Per-column grouped STE backward over the same leaves (dims as above,

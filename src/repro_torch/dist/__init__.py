@@ -10,8 +10,12 @@ specs, collectives, elasticity (torch port of ``repro.dist``).
   wire format is fp8 planes (uint8 on the wire) with error feedback.
 - ``elastic.py``     restore a checkpoint written under any rank count onto
   the current mesh (``place``, ``restore_elastic``).
+- ``tp.py``          tensor- and expert-parallel execution: Megatron's two
+  operators on ``all_reduce``, each leaf's compute shard, the
+  vocab-parallel embed and cross-entropy, the gradients' reductions.
 
-Consumers: ``train.train_step.make_dp_train_step`` / ``init_dp_state``,
+Consumers: ``train.train_step.make_dp_train_step`` / ``init_dp_state`` /
+``make_tp_train_step``, the models (``dist.tp.current``),
 ``train.trainer.Trainer(mesh=)`` and ``launch/train.py --mesh``.
 """
 from repro_torch.dist.collectives import compressed_allreduce, compressed_allreduce_tree

@@ -151,6 +151,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # dtype, stream
         lib.fake_quant_col_launch.argtypes = [P] * 6 + [I, I, P]
         lib.fake_quant_col_launch.restype = I
+        # its two passes alone: ws, scales, dims, count, dtype, stream; and
+        # the same arguments as fake_quant_col_launch
+        lib.fake_quant_col_max_launch.argtypes = [P, P, P, I, I, P]
+        lib.fake_quant_col_max_launch.restype = I
+        lib.fake_quant_col_qdq_launch.argtypes = [P] * 6 + [I, I, P]
+        lib.fake_quant_col_qdq_launch.restype = I
         # ws, gs, grads, scales, dims (host arrays), count, dtype, stream
         lib.fake_quant_col_bwd_launch.argtypes = [P] * 5 + [I, I, P]
         lib.fake_quant_col_bwd_launch.restype = I

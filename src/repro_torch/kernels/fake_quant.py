@@ -20,7 +20,11 @@ each column, with per-layer bits: :func:`fake_quant_group_col_cuda` (one
 call of two launches: a max pass and a QDQ pass over 512-byte column
 strips of 256-row blocks, planned by :func:`fake_quant_col_plan`) and
 :func:`fake_quant_group_col_bwd_cuda` (its STE, a flat map, one more
-launch).
+launch).  The forward's two passes are also entry points of their own,
+:func:`fake_quant_group_col_max_cuda` and
+:func:`fake_quant_group_col_qdq_cuda`: a leaf whose K is split across
+tensor-parallel ranks takes the max of its scales over them in between
+(``dist/tp.py``).
 
 The source note in ``csrc/fake_quant.cu`` says what bounds them and how
 the design answers that.  The wrappers check device, types, shapes and
@@ -358,6 +362,58 @@ def fake_quant_group_col_cuda(ws, bits):
     return outs, scales, len(plan.launches)
 
 
+def _check_col_scales(what: str, ws, scales, dev) -> None:
+    if len(scales) != len(ws) or any(
+            s.device != dev or s.dtype != torch.float32 or not s.is_contiguous()
+            or s.shape != (*w.shape[:-2], 1, w.shape[-1]) for s, w in zip(scales, ws)):
+        raise ValueError(f"{what}: scales must be contiguous f32 (..., 1, N) tensors on {dev}, "
+                         "one a leaf")
+
+
+def fake_quant_group_col_max_cuda(ws):
+    """The forward's max pass alone (:func:`fake_quant_group_col_cuda`'s
+    first kernel): ``ws`` as there -> (each leaf's f32 scales ``max(max_k
+    |w[..., k, n]|, eps)`` as ``(..., 1, N)``, launches made).  A leaf whose
+    K is split across ranks takes the max of these over the ranks before
+    :func:`fake_quant_group_col_qdq_cuda`."""
+    dtype = _check("fake_quant_group_col_max_cuda", ws)
+    dev = ws[0].device
+    build.require_sm90(dev)
+    plan = fake_quant_col_plan([w.shape for w in ws], dtype)
+    scales = col_scales(ws, dtype, dev)
+    lib = build.library("fake_quant")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in plan.launches:
+        err = lib.fake_quant_col_max_launch(_pointers(ws[a:b]), _pointers(scales[a:b]),
+                                            _dims(plan.dims[a:b]), b - a, _DTYPES[dtype], stream)
+        build.check(err, f"fake_quant_col_max ({b - a} leaves, {dtype})")
+    return scales, len(plan.launches)
+
+
+def fake_quant_group_col_qdq_cuda(ws, bits, scales):
+    """The forward's QDQ pass alone, at given scales: ``ws`` and ``bits`` as
+    for :func:`fake_quant_group_col_cuda`, ``scales`` contiguous f32 ``(...,
+    1, N)`` on the card -> (the QDQ leaves, launches made)."""
+    dtype = _check("fake_quant_group_col_qdq_cuda", ws)
+    dev = ws[0].device
+    if len(bits) != len(ws):
+        raise ValueError(f"{len(ws)} leaves and {len(bits)} bits tensors")
+    _check_col_scales("fake_quant_group_col_qdq_cuda", ws, scales, dev)
+    build.require_sm90(dev)
+    plan = fake_quant_col_plan([w.shape for w in ws], dtype)
+    bits, runs = _col_bits(bits, plan.dims, dev)
+    outs = [torch.empty_like(w) for w in ws]
+    lib = build.library("fake_quant")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a, b in plan.launches:
+        err = lib.fake_quant_col_qdq_launch(
+            _pointers(ws[a:b]), _pointers(outs[a:b]), _pointers(scales[a:b]),
+            _pointers(bits[a:b]), _dims(plan.dims[a:b]), (ctypes.c_int * (b - a))(*runs[a:b]),
+            b - a, _DTYPES[dtype], stream)
+        build.check(err, f"fake_quant_col_qdq ({b - a} leaves, {dtype})")
+    return outs, len(plan.launches)
+
+
 def fake_quant_group_col_bwd_cuda(ws, gs, scales):
     """The per-column STE of a group: ``gs[i] * (|ws[i]| <= scales[i])`` as
     an f32 product rounded to the dtype, for the forward's leaves, their
@@ -367,10 +423,7 @@ def fake_quant_group_col_bwd_cuda(ws, gs, scales):
     dev = ws[0].device
     if len(gs) != len(ws) or any(g.shape != w.shape for g, w in zip(gs, ws)):
         raise ValueError("fake_quant_group_col_bwd_cuda needs one gradient of each leaf's shape")
-    if len(scales) != len(ws) or any(
-            s.device != dev or s.dtype != torch.float32 or not s.is_contiguous()
-            or s.shape != (*w.shape[:-2], 1, w.shape[-1]) for s, w in zip(scales, ws)):
-        raise ValueError("scales must be the forward's contiguous f32 (..., 1, N) tensors")
+    _check_col_scales("fake_quant_group_col_bwd_cuda", ws, scales, dev)
     build.require_sm90(dev)
     plan = fake_quant_col_plan([w.shape for w in ws], dtype)
     grads = [torch.empty_like(g) for g in gs]

@@ -26,7 +26,9 @@ kernels, so nothing is padded here.
 one launch each per QAT forward and backward.  ``fake_quant_group_col``
 and ``fake_quant_group_col_bwd`` are the same pair at per-column scales
 over stacked ``(L, K, N)`` leaves with per-layer bits: the LM QAT path's
-(``quant.qat.quantize_params``).  ``fake_quant`` is the flat kernel, for a
+(``quant.qat.quantize_params``); ``fake_quant_group_col_max`` and
+``fake_quant_group_col_qdq`` are its forward's two passes apart, for leaves
+whose scales are reduced across tensor-parallel ranks in between.  ``fake_quant`` is the flat kernel, for a
 scale the caller gives.
 
 Meta tensors (shapes with no storage: ``launch.specs`` builds a model's
@@ -59,6 +61,7 @@ from repro_torch.kernels import ref as kref
 counts = {"qmm_bitserial": 0, "qmm_dequant": 0, "paged_attention": 0,
           "paged_attention_quant": 0, "fused_qkv_paged_decode": 0, "fake_quant": 0,
           "fake_quant_group": 0, "fake_quant_group_bwd": 0, "fake_quant_group_col": 0,
+          "fake_quant_group_col_max": 0, "fake_quant_group_col_qdq": 0,
           "fake_quant_group_col_bwd": 0, "plain": 0}
 
 
@@ -237,6 +240,46 @@ def fake_quant_group_col(ws, bits):
         return made[:len(ws)], made[len(ws):]
     _bump("plain")
     return kref.fake_quant_group_col_ref(ws, bits)
+
+
+def fake_quant_group_col_max(ws) -> list:
+    """The per-column scales of every leaf of ``ws`` alone,
+    ``fake_quant_group_col``'s max pass: f32 ``(..., 1, N)``.  On CUDA: one
+    launch (more only past ``COL_MAX`` leaves)."""
+    route = _route(ws[0])
+    if route == "cuda":
+        from repro_torch.kernels.fake_quant import fake_quant_group_col_max_cuda
+
+        scales, launches = fake_quant_group_col_max_cuda([w.contiguous() for w in ws])
+        _bump("fake_quant_group_col_max", launches)
+        return scales
+    if route == "meta":
+        col = [(*w.shape[:-2], 1, w.shape[-1]) for w in ws]
+        return _stand_in("fake_quant_group_col_max", 0,
+                         _nbytes(*ws) + 4 * sum(math.prod(c) for c in col),
+                         *((c, torch.float32) for c in col))
+    _bump("plain")
+    return kref.fake_quant_group_col_max_ref(ws)
+
+
+def fake_quant_group_col_qdq(ws, bits, scales) -> list:
+    """``fake_quant_group_col``'s QDQ pass alone, at given f32 ``(..., 1,
+    N)`` scales (a row-parallel leaf's, reduced across ranks).  On CUDA: one
+    launch."""
+    route = _route(ws[0])
+    if route == "cuda":
+        from repro_torch.kernels.fake_quant import fake_quant_group_col_qdq_cuda
+
+        outs, launches = fake_quant_group_col_qdq_cuda([w.contiguous() for w in ws], bits,
+                                                       scales)
+        _bump("fake_quant_group_col_qdq", launches)
+        return outs
+    if route == "meta":
+        return _stand_in("fake_quant_group_col_qdq", 0,
+                         2 * _nbytes(*ws) + _nbytes(*scales) + _nbytes(*bits),
+                         *((w.shape, w.dtype) for w in ws))
+    _bump("plain")
+    return kref.fake_quant_group_col_qdq_ref(ws, bits, scales)
 
 
 def fake_quant_group_col_bwd(ws, gs, scales) -> list:

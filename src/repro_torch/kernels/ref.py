@@ -56,17 +56,24 @@ def col_bits_view(w: torch.Tensor, b) -> torch.Tensor:
     return b[:, None].expand(n, Lf // n).reshape(lead + (1, 1))
 
 
+def fake_quant_group_col_max_ref(ws) -> list:
+    """Each leaf's per-column scale: ``tensor_scale`` over dim ``ndim - 2``,
+    kept as ``(..., 1, N)`` f32."""
+    return [tensor_scale(w, axis=w.ndim - 2) for w in ws]
+
+
+def fake_quant_group_col_qdq_ref(ws, bits, scales) -> list:
+    """Each leaf's QDQ at its bits (:func:`col_bits_view`) and given
+    per-column scales."""
+    return [_fake_quant(w, col_bits_view(w, b), scale=s) for w, b, s in zip(ws, bits, scales)]
+
+
 def fake_quant_group_col_ref(ws, bits):
-    """Each leaf's per-column scale (``tensor_scale`` over dim ``ndim - 2``,
-    kept as ``(..., 1, N)``) and its QDQ at its bits (:func:`col_bits_view`),
-    leaf by leaf: ``repro.quant.qat._qdq``'s forward -> (the QDQ leaves,
-    the f32 scales)."""
-    outs, scales = [], []
-    for w, b in zip(ws, bits):
-        s = tensor_scale(w, axis=w.ndim - 2)
-        outs.append(_fake_quant(w, col_bits_view(w, b), scale=s))
-        scales.append(s)
-    return outs, scales
+    """Each leaf's per-column scale and its QDQ at its bits, leaf by leaf:
+    ``repro.quant.qat._qdq``'s forward -> (the QDQ leaves, the f32
+    scales)."""
+    scales = fake_quant_group_col_max_ref(ws)
+    return fake_quant_group_col_qdq_ref(ws, bits, scales), scales
 
 
 def fake_quant_group_col_bwd_ref(ws, gs, scales) -> list:

@@ -4,10 +4,15 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the default
 process group.  :func:`make_host_mesh` starts that group when none exists:
 from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``/``MASTER_PORT``) when it is set, else as a group of one
-over an in-process store, with no TCP port.  gloo serves ``cpu``, NCCL
-``cuda``.  The production meshes (256 and 512 chips) are not here.
+over an in-process store, with no TCP port.  gloo serves ``cpu``; on
+``cuda`` NCCL serves one rank a card, and gloo ranks that outnumber the
+cards (NCCL refuses two ranks on one device), each card shared by
+``ceil(ranks / cards)`` of them, by ``LOCAL_RANK`` modulo the card count.
+The choice follows that rule, never a failure, and is printed on the
+group's log line.  The production meshes (256 and 512 chips) are not here.
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu --mesh 2,1
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 1,2   # one card: gloo
 """
 from __future__ import annotations
 
@@ -20,23 +25,31 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 
-def _backend(device: torch.device) -> str:
-    return "nccl" if device.type == "cuda" else "gloo"
+def backend_for(device: torch.device, ranks: int, cards: int) -> str:
+    """gloo on the CPU, and on cards that ``ranks`` outnumber; else NCCL."""
+    return "nccl" if device.type == "cuda" and ranks <= cards else "gloo"
 
 
 def init_process_group(device) -> None:
-    """Start the default process group on ``device``'s backend, unless one
-    exists: from ``torchrun``'s environment, or a group of one."""
+    """Start the default process group on the backend :func:`backend_for`
+    picks, unless one exists: from ``torchrun``'s environment, or a group
+    of one.  Prints the choice (rank 0)."""
     device = resolve_device(device)
     if dist.is_initialized():
         return
+    env = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    ranks = int(os.environ["WORLD_SIZE"]) if env else 1
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
     if device.type == "cuda" and "LOCAL_RANK" in os.environ:
-        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(_backend(device))
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % cards)
+    backend = backend_for(device, ranks, cards)
+    if env:
+        dist.init_process_group(backend)
     else:
-        dist.init_process_group(_backend(device), store=dist.HashStore(), rank=0,
-                                world_size=1)
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    if dist.get_rank() == 0:
+        print(f"process group: {ranks} rank(s) on {device.type}"
+              + (f" over {cards} card(s)" if cards else "") + f": {backend}")
 
 
 def make_host_mesh(shape=None, axes=("data", "model"), device=None):

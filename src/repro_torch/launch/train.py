@@ -1,11 +1,11 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``;
 the torch twin of ``repro.launch.train``.
 
-Runs the fault-tolerant QAT training loop (``train/trainer.py``) on one
-card: every step QDQs every quantizable weight group at its policy bits
-(one grouped per-column fake-quant launch forward, one backward; an
-expert bank's bits one per stacked layer), then forward + backward +
-AdamW.  ``--arch`` takes every family the port serves (dense, moe, vlm,
+Runs the fault-tolerant QAT training loop (``train/trainer.py``) on the
+card, or over ranks (``--mesh``): every step QDQs every quantizable weight
+group at its policy bits (one grouped per-column fake-quant launch
+forward, one backward; an expert bank's bits one per stacked layer), then
+forward + backward + AdamW.  ``--arch`` takes every family the port serves (dense, moe, vlm,
 audio, hybrid, ssm); ``--smoke`` (the default) drives the reduced
 config, ``--no-smoke`` the published widths.  ``--ckpt-dir`` saves the
 state every 50 steps and at the end; ``launch/serve.py --ckpt-dir``
@@ -13,35 +13,47 @@ serves its params.  Runs on ``--device cuda``
 (default) and fails without a card; ``--device cpu`` takes the kernels'
 plain versions.
 
-``--mesh DATA[,MODEL]`` trains data-parallel over a ``DeviceMesh``
-(``launch/mesh.py``: the ranks ``torchrun`` started, or one): the state is
-placed with ``dist.elastic.place``, the step is
-``train_step.make_dp_train_step(planes=0)`` (the reference's GSPMD step at
-a model axis of 1: a mean over the global batch, each rank taking its rows
-of it) and the ``Trainer`` restores elastically onto the mesh.  ``MODEL >
-1`` (tensor-parallel execution) is not ported, nor ``DATA > 1`` for the moe
-family, whose capacity and aux loss the rank-local step would compute over
-the local tokens (ROADMAP.md queue 1, item 11b-ii).
+``--mesh DATA[,MODEL]`` trains over a ``DeviceMesh`` (``launch/mesh.py``:
+the ranks ``torchrun`` started, or one), the state placed with
+``dist.elastic.place`` under the rule table's specs, and the ``Trainer``
+restores elastically onto the mesh.  At ``MODEL > 1``, and for the moe
+family at any mesh, the step is ``train_step.make_tp_train_step`` (the
+reference's GSPMD step with the ``tp`` profile: tensor-parallel attention
+and MLP, vocab-parallel embed and readout, expert-parallel MoE layers whose
+capacity and aux loss come from each rank's tokens, as the reference's
+``_moe_ep`` computes them on any mesh with a "model" axis); for the other
+families at ``MODEL = 1`` it is ``make_dp_train_step(planes=0)`` (the same
+step at a model axis of 1: a mean over the global batch, each rank taking
+its rows of it).  Not ported (ROADMAP.md queue 1, item 11b-iv): ``MODEL >
+1`` for the vlm, audio, hybrid and ssm families, the ``tp_sp`` and
+``fsdp`` profiles at ``MODEL > 1``, and ``--opt8`` under the
+tensor-parallel step across ranks.  On the card, ranks that outnumber the
+cards share them over gloo (``launch/mesh.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --device cpu --steps 3 --mesh 2,1
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --steps 3 --mesh 2,2
 """
 from __future__ import annotations
 
 import argparse
+import math
 
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.dist import elastic
+from repro_torch.dist.sharding import shard_profile
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
-from repro_torch.train.train_step import init_state, make_dp_train_step, make_train_step
+from repro_torch.train.train_step import (init_state, make_dp_train_step, make_tp_train_step,
+                                          make_train_step)
 from repro_torch.train.trainer import Trainer
 
 
@@ -62,25 +74,37 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="mesh shape over the ranks, e.g. '2,1': data-parallel training "
+                    help="mesh shape over the ranks, e.g. '2,2': sharded training "
                          "and elastic checkpoint restore")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh:
         args.mesh = tuple(int(x) for x in args.mesh.split(","))
-        if len(args.mesh) > 1 and args.mesh[1] > 1:
-            raise not_ported("--mesh DATA,MODEL with MODEL > 1 (tensor-parallel execution)",
-                             "item 11b-ii")
     return args
 
 
+def tensor_parallel(args, cfg) -> bool:
+    """``--mesh`` takes the tensor-parallel step: at MODEL > 1, and for the
+    moe family at any mesh."""
+    return bool(args.mesh) and (len(args.mesh) > 1 and args.mesh[1] > 1 or cfg.family == "moe")
+
+
 def make_mesh(args, cfg, device):
-    """``--mesh``'s ``DeviceMesh`` (None without the flag)."""
+    """``--mesh``'s ``DeviceMesh`` (None without the flag); refuses what the
+    tensor-parallel step does not take before any process group starts."""
     if not args.mesh:
         return None
-    if args.mesh[0] > 1 and cfg.family == "moe":
-        raise not_ported(f"--mesh {args.mesh[0]},... for the moe family ({cfg.name}: capacity "
-                         f"and aux loss over the global batch)", "item 11b-ii")
+    if tensor_parallel(args, cfg):
+        model = args.mesh[1] if len(args.mesh) > 1 else 1
+        if model > 1 and cfg.family not in ("dense", "moe"):
+            raise not_ported(f"--mesh {args.mesh[0]},{model} for the {cfg.family} family "
+                             f"({cfg.name})", "item 11b-iv")
+        if model > 1 and shard_profile() != "tp":
+            raise not_ported(f"the {shard_profile()} profile at --mesh ...,{model}",
+                             "item 11b-iv")
+        if args.opt8 and math.prod(args.mesh) > 1:
+            raise not_ported(f"--opt8 under the tensor-parallel step at --mesh "
+                             f"{','.join(map(str, args.mesh))}", "item 11b-iv")
     return make_host_mesh(args.mesh, ("data", "model")[:len(args.mesh)], device)
 
 
@@ -107,7 +131,9 @@ def setup(args: argparse.Namespace, cfg=None) -> dict:
         step_fn = make_train_step(model, opt, remat=args.remat)
     else:
         state = elastic.place(state, mesh)
-        step_fn = make_dp_train_step(model, opt, mesh, planes=0, remat=args.remat)
+        step_fn = (make_tp_train_step(model, opt, mesh, remat=args.remat)
+                   if tensor_parallel(args, cfg)
+                   else make_dp_train_step(model, opt, mesh, planes=0, remat=args.remat))
     trainer = Trainer(model=model, optimizer=opt, data=data, step_fn=step_fn,
                       bits_map=bits_map, ckpt_dir=args.ckpt_dir, mesh=mesh)
     return {"cfg": cfg, "model": model, "opt": opt, "policy": policy, "data": data,

@@ -6,9 +6,11 @@ decode attention, and the initializers.
 Plain functions over tensors, each repeating the reference's dtype
 discipline (f32 inside norms, RoPE and softmax; results cast back to the
 activation dtype), so the port and the reference agree to rounding.
-The sharding helpers (``constrain`` and friends) have no counterpart on
-one card and are dropped.  The large plain products here stay
-``torch.matmul``/``einsum``, as the reference left them to XLA: every
+The sharding helpers (``constrain`` and friends) have no counterpart:
+under tensor parallelism the model reads the active ``dist.tp`` context
+instead (the vocab-parallel cross-entropy in :func:`chunked_ce`).  The
+large plain products here stay ``torch.matmul``/``einsum``, as the
+reference left them to XLA: every
 Pallas kernel of the reference is a hand-written CUDA kernel behind
 ``kernels.ops``.
 """
@@ -208,7 +210,13 @@ def decode_attention(
 
 
 def _ce_chunk(readout_fn, hc, lc, vc):
+    from repro_torch.dist import tp as tpm
+
     logits = readout_fn(hc)
+    tp = tpm.split("vocab")
+    if tp is not None:                  # this rank's vocab columns
+        logz, tgt = tpm.vocab_ce(logits, lc, tp)
+        return torch.sum((logz - tgt) * vc), torch.sum(torch.square(logz) * vc)
     logz = torch.logsumexp(logits, dim=-1)
     # the label's logit: a gather, equal to the reference's masked sum over
     # the vocab (one term, the rest zeros)

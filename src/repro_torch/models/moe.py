@@ -32,8 +32,11 @@ What differs from the reference, and why:
   chunk's), the same function ``x @ dequant(bank)``.  A dense bank stays
   ``torch.einsum``, as the reference leaves it to XLA.
 
-The reference's expert-parallel ``_moe_ep`` needs a mesh over several
-cards (ROADMAP.md queue 1, item 11d); nothing on one card takes it.
+Under an active ``dist.tp`` context (the tensor-parallel train step, at
+any mesh, ``(D, 1)`` included) :func:`moe_ffn` takes :func:`moe_ep`, the
+reference's expert-parallel ``_moe_ep``: a rank's tokens are routed
+flattened, with capacity from their count, and its aux loss is averaged
+over the ranks, which the meshless per-sequence path does not compute.
 """
 from __future__ import annotations
 
@@ -155,7 +158,13 @@ def capacity(S: int, k: int, E: int, capacity_factor: float, no_drop: bool = Fal
 def moe_ffn(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float = 1.25,
             no_drop: bool = False):
     """x (B, S, D) -> (output (B, S, D) in x's dtype, aux loss f32 0-d),
-    each sequence's choices past :func:`capacity` dropped."""
+    each sequence's choices past :func:`capacity` dropped; under an active
+    ``dist.tp`` context, :func:`moe_ep`."""
+    from repro_torch.dist import tp as tpm
+
+    tp = tpm.current()
+    if tp is not None:
+        return moe_ep(x, p, k=k, capacity_factor=capacity_factor, no_drop=no_drop, tp=tp)
     B, S, D = x.shape
     E = p["router"].shape[1]
     gates, gate_k, idx_k = _route(x, p["router"], k)
@@ -165,6 +174,47 @@ def moe_ffn(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float = 1.25,
     y_e = _expert_ffn(bufe, p, x.dtype)
     y = _undispatch(y_e, gate_k, meta, S, k)
     return y.to(x.dtype), aux
+
+
+def moe_ep(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float, no_drop: bool, tp):
+    """Expert parallelism over "model" (``repro.models.moe._moe_ep``): x (B,
+    S, D) is this data rank's rows, whole on every model rank; ``p`` holds
+    the whole router and this rank's ``E / m`` experts of each bank.
+
+    Each rank takes its ``S / m`` slice of the sequence, routes its ``T =
+    B·S/m`` tokens flattened (capacity from ``T``, :func:`capacity`),
+    dispatches them into an (E, C, D) buffer, and sends expert block j to
+    rank j (all_to_all: ``(m, E/m, C, D) -> (E/m, m·C, D)``); it runs its
+    experts, sends the outputs back, combines them, and the slices are
+    gathered back into the sequence.  The aux loss is averaged over "model"
+    (and over "data" by the step's mean).  At m = 1 it is the rank-local
+    flattened routing of the reference's ``(D, 1)`` mesh.  -> (y (B, S, D)
+    in x's dtype, aux)."""
+    from repro_torch import not_ported
+    from repro_torch.dist import tp as tpm
+
+    B, S, D = x.shape
+    E, m = p["router"].shape[1], tp.m
+    if E % m:
+        raise ValueError(f"experts {E} must divide model axis {m}")
+    if S % m:
+        # the reference keeps the tokens whole over "model" there (its
+        # decode fallback), with no training path of its own
+        raise not_ported(f"expert parallelism over a sequence of {S} tokens that model axis "
+                         f"{m} does not divide", "item 11b-iv")
+    xs = tpm.scatter_to_model(x, tp, 1)
+    T = B * (S // m)
+    x2 = xs.reshape(1, T, D)
+    gates, gate_k, idx_k = _route(x2, p["router"], k)
+    aux = tpm.reduce_from_model(_aux_loss(gates, idx_k, E, k), tp) / m
+    C = capacity(T, k, E, capacity_factor, no_drop)
+    buf, meta = _dispatch(x2, idx_k, E, C, k)                      # (1, E, C, D)
+    recv = tpm.all_to_all_model(buf.reshape(m, E // m, C, D), tp)   # (m, E/m, C, D) by source
+    xe = recv.permute(1, 0, 2, 3).reshape(1, E // m, m * C, D)
+    ye = _expert_ffn(xe, p, x.dtype).reshape(E // m, m, C, D).permute(1, 0, 2, 3)
+    back = tpm.all_to_all_model(ye, tp)                              # (m, E/m, C, D) by owner
+    y = _undispatch(back.reshape(1, E, C, D), gate_k, meta, T, k)
+    return tpm.gather_from_model(y.reshape(B, S // m, D).to(x.dtype), tp, 1), aux
 
 
 class RouteLog:

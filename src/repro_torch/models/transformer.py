@@ -71,6 +71,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp as tpm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import gather_dequant
 from repro_torch.models import mamba as mamba_mod
@@ -265,6 +266,9 @@ class TransformerLM:
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
         if cache is None:           # the training forward: the full sequence
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            tp = tpm.split("heads")
+            if tp is not None:
+                return x + self._attn_split(h, p["attn"], positions, tp)
             q = self._rotate(apply_linear(h, p["attn"]["wq"]).reshape(B, S, H, hd), positions)
             k = self._rotate(apply_linear(h, p["attn"]["wk"]).reshape(B, S, KV, hd), positions)
             v = apply_linear(h, p["attn"]["wv"]).reshape(B, S, KV, hd)
@@ -326,6 +330,24 @@ class TransformerLM:
         out = apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         return x + out
 
+    def _attn_split(self, h, pa, positions, tp):
+        """The training attention with its heads split over "model"
+        (``dist.tp``): this rank's ``H / m`` q heads from its wq columns, the
+        K/V heads they read (local, or computed whole and picked by global
+        head index), and its wo rows' partial output summed over the ranks.
+        -> the sublayer's output (B, S, D), whole on every rank."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        n, hd = cfg.num_heads // tp.m, cfg.hd
+        h = tpm.copy_to_model(h, tp)
+        q = self._rotate(apply_linear(h, pa["wq"]).reshape(B, S, n, hd), positions)
+        k, v = (tp.kv_for_heads(apply_linear(h, pa[m]).reshape(B, S, -1, hd), cfg.num_heads)
+                for m in ("wk", "wv"))
+        out = blocked_attention(q, self._rotate(k, positions), v, causal=True,
+                                window=cfg.sliding_window, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+        return tpm.reduce_from_model(apply_linear(out.reshape(B, S, n * hd), pa["wo"]), tp)
+
     def _ffn(self, x, p, exact: bool = False):
         """Residual FFN sublayer -> (x + y, aux loss f32, or None for a
         dense sub).  A MoE sub routes over its experts (``exact``:
@@ -342,12 +364,18 @@ class TransformerLM:
         return x + y, aux
 
     def _dense_mlp(self, h, p):
+        """The dense MLP; column- then row-parallel over "model" under an
+        active ``dist.tp`` context whose d_ff splits."""
+        tp = tpm.split("ff")
+        if tp is not None:
+            h = tpm.copy_to_model(h, tp)
         g = apply_linear(h, p["wg"])
         if self.cfg.act == "swiglu":
             z = swiglu(g, apply_linear(h, p["wu"]))
         else:
             z = F.gelu(g.float(), approximate="tanh").to(h.dtype)
-        return apply_linear(z, p["wd"])
+        y = apply_linear(z, p["wd"])
+        return y if tp is None else tpm.reduce_from_model(y, tp)
 
     def _ssm_branch(self, x, p, cache=None, layer=None):
         """The hybrid SSM branch on ``ln1(x)``: the whole sequence
@@ -387,6 +415,9 @@ class TransformerLM:
         emb = params["embed"]
         if isinstance(emb, QDQ):  # serving embed: the quantize-dequantized table
             emb = emb.value
+        tp = tpm.split("vocab")
+        if tp is not None:
+            return tpm.vocab_embed(tokens, emb, tp)
         return F.embedding(tokens.long(), emb)
 
     def _add_abs_sin(self, h, positions):
@@ -408,10 +439,15 @@ class TransformerLM:
         return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
     def _readout(self, params, h):
+        """f32 logits; under an active ``dist.tp`` context whose vocab splits,
+        this rank's ``V / m`` columns of them (``chunked_ce`` reduces)."""
         w = params.get("lm_head")
         if w is None:
             emb = params["embed"]
             w = (emb.value if isinstance(emb, QDQ) else emb).T
+        tp = tpm.split("vocab")
+        if tp is not None:
+            h = tpm.copy_to_model(h, tp)
         return apply_linear(h, w).float()
 
     # ------------------------------------------------------------- forwards

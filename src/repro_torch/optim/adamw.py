@@ -136,13 +136,16 @@ class AdamW:
         return {"m": zeros(quantize_state), "v": zeros(quantize_state_sq), "step": 0}
 
     @torch.no_grad()
-    def update(self, params, grads, opt):
+    def update(self, params, grads, opt, norm=None):
+        """``norm``: the global gradient norm to clip by, when ``grads`` are
+        one rank's shards of it (the tensor-parallel step); else taken over
+        ``grads``."""
         step = opt["step"] + 1
         lr = self._lr(step)
         g_leaves = tree_leaves(grads)
         scale = None
         if self.clip_norm is not None:
-            gn = global_norm(g_leaves)
+            gn = global_norm(g_leaves) if norm is None else norm
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
         int8 = self.moments == "int8"
         c1 = 1 - _f32_pow(self.b1, step)

@@ -10,10 +10,15 @@ experts of its layer, as the reference's ``_qdq`` broadcasts them.
 :func:`quantize_params` quantizes every leaf of the bits map at its
 per-output-column scale in ONE grouped launch
 (``quant.wrpn.fake_quant_ste_group_col``), and its backward is one more.
-The reference's mesh branch (sharding annotations inside a GSPMD step)
-comes with tensor-parallel execution (ROADMAP queue 1, item 11b-ii); the
-data-parallel step (``train.train_step.make_dp_train_step``) replicates
-the params and needs none.
+
+The reference's mesh branch annotates each leaf's QDQ with its rule-table
+spec inside a GSPMD step, which computes it on the stored shards.  Here
+the tensor-parallel step (``train.train_step.make_tp_train_step``) hands
+each rank's compute shards in, and names in ``split`` the leaves whose
+contraction dim is split across ranks (a row-parallel ``wo``/``wd``, a
+vocab-parallel ``embed``): their scales are the max over those ranks
+(``reduce_max``), so each rank's QDQ is bitwise its shard of the whole
+leaf's.  The data-parallel step replicates the params and needs none.
 """
 from __future__ import annotations
 
@@ -80,19 +85,23 @@ def _paths_index(groups):
     return {path_key(g.path): g.path for g in groups}
 
 
-def quantize_params(params, bits_map: dict, groups):
+def quantize_params(params, bits_map: dict, groups, split=(), reduce_max=None):
     """Return params with every group's leaf QDQ'd at its bitwidth and
     per-output-column scale (max|w| over dim ``ndim - 2``, the matrix
     contraction dim, under any stacking of layer axes: the codes the
     bitplane serving path packs), all the leaves of ``bits_map`` in one
     grouped forward launch.  ``bits_map`` values: int32 tensors on the
-    params' device (:func:`bits_to_device`), or host ints/arrays."""
+    params' device (:func:`bits_to_device`), or host ints/arrays.  The
+    leaves keyed in ``split`` hold a shard of their contraction dim: their
+    scales are ``reduce_max`` of the shard's (the max over the ranks that
+    hold the others) before their QDQ."""
     idx = _paths_index(groups)
     keys = list(bits_map)
     leaves = [get_by_path(params, idx[k]) for k in keys]
     if not leaves:
         return params
-    qdq = fake_quant_ste_group_col(leaves, [bits_map[k] for k in keys])
+    qdq = fake_quant_ste_group_col(leaves, [bits_map[k] for k in keys],
+                                   [k in split for k in keys], reduce_max)
     new = params
     for k, q in zip(keys, qdq):
         new = set_by_path(new, idx[k], q)

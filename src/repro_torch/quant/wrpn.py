@@ -22,6 +22,9 @@ is one more launch (``kernels.ops.fake_quant_group_bwd``).
 ``(L, K, N)`` leaf at its per-column scales (max|w| over dim ``ndim - 2``)
 and per-layer bits, forward and STE each one launch
 (``kernels.ops.fake_quant_group_col`` and ``..._bwd``).
+Under tensor parallelism a leaf that holds a shard of its K takes the
+max of its scales across ranks between the kernel's two passes
+(``kernels.ops.fake_quant_group_col_max`` and ``..._qdq``).
 :func:`fake_quant_ste` is a group of one of either.
 """
 from __future__ import annotations
@@ -110,17 +113,31 @@ def fake_quant_ste_group(ws, bits) -> list:
 
 class _FakeQuantSTEColGroup(torch.autograd.Function):
     """Forward: every leaf's per-column scales and QDQ in one grouped
-    launch (plain versions on CPU tensors).  Backward: the clipped STE of
-    every leaf in one launch, at the forward's f32 scales held constant
-    (``repro.quant.wrpn._fq_bwd`` under ``repro.quant.qat._qdq``'s
-    stop_gradient)."""
+    launch (plain versions on CPU tensors); the leaves marked ``split``
+    instead take the max pass, ``reduce_max`` of their scales (in place:
+    the max over the ranks that share their K, ``dist.tp``), then the QDQ
+    pass.  Backward: the clipped STE of every leaf in one launch, at the
+    forward's f32 scales held constant (``repro.quant.wrpn._fq_bwd`` under
+    ``repro.quant.qat._qdq``'s stop_gradient)."""
 
     @staticmethod
-    def forward(ctx, n, *args):
+    def forward(ctx, n, split, reduce_max, *args):
         from repro_torch.kernels import ops
 
         bits, ws = args[:n], args[n:]
-        outs, scales = ops.fake_quant_group_col(ws, bits)
+        outs, scales = [None] * n, [None] * n
+        whole = [i for i in range(n) if not split[i]]
+        parts = [i for i in range(n) if split[i]]
+        if whole:
+            o, s = ops.fake_quant_group_col([ws[i] for i in whole], [bits[i] for i in whole])
+            for i, oi, si in zip(whole, o, s):
+                outs[i], scales[i] = oi, si
+        if parts:
+            s = ops.fake_quant_group_col_max([ws[i] for i in parts])
+            reduce_max(s)
+            o = ops.fake_quant_group_col_qdq([ws[i] for i in parts], [bits[i] for i in parts], s)
+            for i, oi, si in zip(parts, o, s):
+                outs[i], scales[i] = oi, si
         ctx.n = n
         ctx.save_for_backward(*scales, *ws)
         return tuple(outs)
@@ -132,23 +149,29 @@ class _FakeQuantSTEColGroup(torch.autograd.Function):
         n = ctx.n
         saved = ctx.saved_tensors
         scales, ws = saved[:n], saved[n:]
-        return (None, *([None] * n), *ops.fake_quant_group_col_bwd(ws, gs, scales))
+        return (None, None, None, *([None] * n), *ops.fake_quant_group_col_bwd(ws, gs, scales))
 
 
-def fake_quant_ste_group_col(ws, bits) -> list:
+def fake_quant_ste_group_col(ws, bits, split=None, reduce_max=None) -> list:
     """fake_quant with a straight-through estimator for every leaf of
     ``ws`` (2 or more dims) at its per-column max|w| scales (reduced over
     dim ``ndim - 2``), leaf i at ``bits[i]``: an int or an int32 tensor on
     the leaves' device, one value per layer of the leading dims, one per
     stacked layer of an expert bank ``(L, E, K, N)`` (the reference's
-    ``(L,)`` bits), or one.  Returns the QDQ leaves."""
+    ``(L,)`` bits), or one.  ``split[i]`` marks a leaf that holds a shard
+    of its K: its scales are ``reduce_max(scales)`` of this shard's (a
+    list of f32 ``(..., 1, N)`` tensors, reduced in place) before its
+    QDQ.  Returns the QDQ leaves."""
     if not ws:
         raise ValueError("fake_quant_ste_group_col needs one or more leaves")
     if len(bits) != len(ws):
         raise ValueError(f"{len(ws)} leaves and {len(bits)} bits")
+    split = tuple(bool(x) for x in (split or [False] * len(ws)))
+    if len(split) != len(ws) or (any(split) and reduce_max is None):
+        raise ValueError("split needs one flag a leaf, and reduce_max when any is set")
     bits = [torch.as_tensor(b, dtype=torch.int32, device=w.device).reshape(-1)
             for w, b in zip(ws, bits)]
-    return list(_FakeQuantSTEColGroup.apply(len(ws), *bits, *ws))
+    return list(_FakeQuantSTEColGroup.apply(len(ws), split, reduce_max, *bits, *ws))
 
 
 def fake_quant_ste(w: torch.Tensor, bits, axis=None) -> torch.Tensor:

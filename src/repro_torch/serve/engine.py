@@ -93,7 +93,7 @@ own ``spec.fixup`` span and counts in ``spec.fixups``.  The copies go
 back into the pool's own tensors, so a captured step stays bound to them.
 
 Not ported yet: the pools' mesh placement behind ``ServeEngine(mesh=)``
-(ROADMAP.md queue 1, item 11b-ii).
+(ROADMAP.md queue 1, item 11b-iii).
 """
 from __future__ import annotations
 

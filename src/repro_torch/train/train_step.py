@@ -28,7 +28,7 @@ from repro_torch.dist import collectives
 from repro_torch.dist.elastic import local_slice, mesh_device, place, whole
 from repro_torch.dist.sharding import P, map_tree, placements_of
 from repro_torch.optim.adamw import AdamW, global_norm, tree_leaves, tree_unflatten
-from repro_torch.quant.qat import quantize_params
+from repro_torch.quant.qat import get_by_path, quantize_params
 
 
 def init_state(model, optimizer: AdamW, seed: int = 0, device=None) -> dict:
@@ -175,6 +175,80 @@ def make_dp_train_step(model, optimizer: AdamW, mesh, *, axis: str = "data",
             new_state["ef"] = new_ef
         return new_state, out
 
+    return step
+
+
+def make_tp_train_step(model, optimizer: AdamW, mesh, *, remat: str = "none"):
+    """The QAT train step sharded over a ``("data", "model")`` mesh, the
+    reference's GSPMD step under ``jax.set_mesh`` with the ``tp`` profile
+    (``dist.tp``): tensor-parallel attention and MLP, vocab-parallel embed
+    and readout, expert-parallel MoE layers (``models.moe.moe_ep``, at any
+    mesh: a ``(D, 1)`` mesh routes each rank's tokens flattened, as the
+    reference's does).
+
+    ``state`` is placed on ``mesh`` under ``dist.sharding.state_specs``
+    (``dist.elastic.place``).  Each rank takes its "data" rows of the batch
+    (:func:`local_rows`), builds its compute shard of every leaf
+    (``TensorParallel.compute_leaf``), QDQs them (the per-column scales of a
+    leaf whose contraction dim is split taken as the max over "model"), runs
+    the loss and its backward under the active context, reduces each
+    leaf's gradient over exactly the ranks that computed a partial of it
+    and averages it over "data" (``stored_grads``), clips by the global
+    norm (each distinct shard counted once) and updates its stored shards
+    with AdamW.  Loss and metrics are the mean over "data" (equal on the
+    ranks of "model").  8-bit moments are refused across ranks: a
+    column-parallel shard cuts their 256-wide blocks (ROADMAP item 11b-iv).
+    The step signature matches :func:`make_train_step`'s; ``step.grads(params,
+    batch, bits_map)`` returns (metrics, the stored shards' gradients in
+    leaf order, the global norm) without the update, and ``step.tp`` is the
+    ``TensorParallel``."""
+    from repro_torch import not_ported
+    from repro_torch.dist import tp as tpm
+    from repro_torch.dist.sharding import named_leaves
+    from repro_torch.quant.qat import _paths_index
+
+    tp = tpm.TensorParallel(model.cfg, mesh)
+    if optimizer.moments == "int8" and tp.m * tp.d > 1:
+        raise not_ported("8-bit moments (--opt8) under the tensor-parallel step on more than "
+                         "one rank", "item 11b-iv")
+    groups = model.quant_groups()
+    paths = _paths_index(groups)
+
+    def grads(params, batch, bits_map):
+        """-> (metrics, this rank's stored-shard gradients in leaf order,
+        the global norm) for placed ``params``."""
+        from torch.distributed.tensor import DTensor
+
+        named = named_leaves(params)
+        if not all(isinstance(t, DTensor) for _, t in named):
+            raise ValueError("make_tp_train_step takes a state placed on its mesh "
+                             "(dist.elastic.place)")
+        leaves = [tp.compute_leaf(names, t).detach().requires_grad_(True) for names, t in named]
+        comp = tree_unflatten(params, leaves)
+        split = {k for k in bits_map
+                 if tp.splits_contraction(paths[k], get_by_path(comp, paths[k]).ndim)}
+        batch = batch_to(local_rows(batch, tp.drank, tp.d), leaves[0].device)
+        with tpm.active(tp), torch.enable_grad():
+            qp = quantize_params(comp, bits_map, groups, split, tp.max_over_model)
+            loss, metrics = model.loss(qp, batch, remat=remat)
+            g = torch.autograd.grad(loss, leaves)
+        del qp, comp, leaves
+        g = tp.stored_grads(named, g)
+        means = {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        return {k: tp.mean_over_data(v) for k, v in means.items()}, g, tp.global_norm(named, g)
+
+    def step(state, batch, bits_map):
+        means, g, norm = grads(state["params"], batch, bits_map)
+        local = _map_state(lambda t: t.to_local(), state["params"])
+        new_params, new_opt = optimizer.update(
+            local, tree_unflatten(local, g), _map_state(lambda t: t.to_local(), state["opt"]),
+            norm=norm)
+        out = {"loss": means.pop("loss"), "grad_norm": norm, **means}
+        return {"params": _map_state(_from_local, new_params, state["params"]),
+                "opt": _map_state(_from_local, new_opt, state["opt"])}, out
+
+    step.grads = grads
+    step.tp = tp
     return step
 
 

@@ -90,9 +90,10 @@ def test_dist_and_mesh_modules_are_covered():
     checks above walk, and import on torch alone."""
     paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     for mod in ("dist/__init__.py", "dist/sharding.py", "dist/collectives.py",
-                "dist/elastic.py", "launch/mesh.py"):
+                "dist/elastic.py", "dist/tp.py", "launch/mesh.py"):
         assert mod in paths, mod
-    code = ("import sys, repro_torch.dist, repro_torch.launch.mesh, repro_torch.launch.train\n"
+    code = ("import sys, repro_torch.dist, repro_torch.dist.tp, repro_torch.launch.mesh, "
+            "repro_torch.launch.train\n"
             "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -99,7 +99,8 @@ def test_ops_counts_kernel_launches_on_the_card(sm90):
                           "paged_attention": 0, "paged_attention_quant": 0,
                           "fused_qkv_paged_decode": 0, "fake_quant": 0,
                           "fake_quant_group": 0, "fake_quant_group_bwd": 0,
-                          "fake_quant_group_col": 0, "fake_quant_group_col_bwd": 0, "plain": 0}
+                          "fake_quant_group_col": 0, "fake_quant_group_col_max": 0,
+                          "fake_quant_group_col_qdq": 0, "fake_quant_group_col_bwd": 0, "plain": 0}
 
 
 def _quant_pool(NB, bs, KV, hd, kv_bits, gen, dev):
@@ -2586,3 +2587,52 @@ def test_elastic_save_and_restore_on_the_card(nccl_mesh, tmp_path):
     _, m1 = step(restored, batch, bm)
     _, m2 = step(state, batch, bm)
     assert m1["loss"].item() == m2["loss"].item()
+
+
+# ---- kernel 5'' split into its passes, as the tensor-parallel step runs it ----------------
+# 3j's nine leaves (glm4-9b, 4 layers) and moonshot's three banks (2 layers) with its wo
+COL_SPLIT_CELLS = {
+    "glm4": [(151552, 4096), (4, 4096, 4096), (4, 4096, 256), (4, 4096, 256),
+             (4, 4096, 4096), (4, 4096, 13696), (4, 4096, 13696), (4, 13696, 4096),
+             (4096, 151552)],
+    "moonshot": [(2, 64, 2048, 1408), (2, 64, 2048, 1408), (2, 64, 1408, 2048),
+                 (2, 2048, 2048)],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", list(COL_SPLIT_CELLS))
+def test_fake_quant_col_split_passes_with_allreduce_bitwise_one_call(nccl_mesh, cell):
+    """The max pass, an all_reduce MAX of its scales over a world-size-1
+    NCCL group (as ``dist.tp`` reduces a row-parallel leaf's), then the QDQ
+    pass: scales and outputs bitwise the one-call forward's, and the STE
+    at the reduced scales bitwise the STE at the one-call scales (bf16,
+    bits cycling over the layers); one launch of each pass."""
+    from repro_torch.dist import tp as tpm
+
+    shapes = COL_SPLIT_CELLS[cell]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    ws = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+    bits = [torch.tensor([(2, 3, 4, 5, 6, 8, 32)[(i + l) % 7] for l in range(s[0])]
+                         if len(s) > 2 else 8, dtype=torch.int32, device="cuda")
+            for i, s in enumerate(shapes)]
+    ops.reset_counts()
+    scales = ops.fake_quant_group_col_max(ws)
+    for s in scales:
+        tpm.all_reduce(s, nccl_mesh.get_group("model"), torch.distributed.ReduceOp.MAX)
+    outs = ops.fake_quant_group_col_qdq(ws, bits, scales)
+    one, one_scales = ops.fake_quant_group_col(ws, bits)
+    torch.cuda.synchronize()
+    for i in range(len(ws)):
+        assert _same_bits(scales[i], one_scales[i]), (cell, i)
+        assert _same_bits(outs[i], one[i]), (cell, i)
+    del outs, one
+    gs = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+    got = ops.fake_quant_group_col_bwd(ws, gs, scales)
+    want = ops.fake_quant_group_col_bwd(ws, gs, one_scales)
+    torch.cuda.synchronize()
+    for i in range(len(ws)):
+        assert _same_bits(got[i], want[i]), (cell, i)
+    assert {k: v for k, v in ops.counts.items() if v} == {
+        "fake_quant_group_col_max": 1, "fake_quant_group_col_qdq": 1,
+        "fake_quant_group_col": 1, "fake_quant_group_col_bwd": 2}

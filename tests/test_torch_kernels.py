@@ -109,7 +109,8 @@ def test_ops_cpu_tensors_take_the_plain_version():
                           "paged_attention": 0, "paged_attention_quant": 0,
                           "fused_qkv_paged_decode": 0, "fake_quant": 0,
                           "fake_quant_group": 0, "fake_quant_group_bwd": 0,
-                          "fake_quant_group_col": 0, "fake_quant_group_col_bwd": 0, "plain": 2}
+                          "fake_quant_group_col": 0, "fake_quant_group_col_max": 0,
+                          "fake_quant_group_col_qdq": 0, "fake_quant_group_col_bwd": 0, "plain": 2}
     ops.reset_counts()
     assert not any(ops.counts.values())
 

@@ -188,7 +188,8 @@ def test_ops_quantized_dispatch_on_cpu_counts_plain():
                           "paged_attention_quant": 0, "fused_qkv_paged_decode": 0,
                           "fake_quant": 0, "fake_quant_group": 0,
                           "fake_quant_group_bwd": 0,
-                          "fake_quant_group_col": 0, "fake_quant_group_col_bwd": 0, "plain": 2}
+                          "fake_quant_group_col": 0, "fake_quant_group_col_max": 0,
+                          "fake_quant_group_col_qdq": 0, "fake_quant_group_col_bwd": 0, "plain": 2}
 
 
 # ----------------------------------------------------------------- pool layout

@@ -579,10 +579,13 @@ def test_train_launcher_refuses_without_a_card_and_mesh():
         pytest.skip("the default device exists here")
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 11b-ii"):
-        train.main(["--device", "cpu", "--mesh", "2,4"])
-    # the rank-local step would compute MoE capacity over the local tokens
-    args = train.parse_args(["--device", "cpu", "--mesh", "2,1",
+    # what the tensor-parallel step does not take is refused before a
+    # process group starts: MODEL > 1 for the hybrid family, 8-bit moments
+    # under the tensor-parallel step across ranks (the moe family's at any mesh)
+    with pytest.raises(NotImplementedError, match="hybrid family.*item 11b-iv"):
+        train.main(["--device", "cpu", "--mesh", "2,4", "--arch", "hymba-1.5b"])
+    args = train.parse_args(["--device", "cpu", "--mesh", "2,1", "--opt8",
                              "--arch", "moonshot-v1-16b-a3b"])
-    with pytest.raises(NotImplementedError, match="moe family.*item 11b-ii"):
+    with pytest.raises(NotImplementedError, match="--opt8.*item 11b-iv"):
         train.setup(args)
+    assert not torch.distributed.is_initialized()

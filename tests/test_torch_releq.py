@@ -148,9 +148,10 @@ def test_fake_quant_ste_values_and_grads_bitwise(bits, dtype):
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """The data-parallel step and ``Trainer(mesh=)`` build on the CPU at
-    world size 1; tensor-parallel ``--mesh`` still refuses, naming its
-    item."""
+    """The data- and tensor-parallel steps and ``Trainer(mesh=)`` build on
+    the CPU at world size 1; tensor-parallel ``--mesh`` parses for every
+    family and refuses those it does not take (rwkv6's ssm family), naming
+    their item."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -158,20 +159,23 @@ def test_unported_paths_raise_with_their_roadmap_item():
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW
-    from repro_torch.train.train_step import make_dp_train_step
+    from repro_torch.train.train_step import make_dp_train_step, make_tp_train_step
     from repro_torch.train.trainer import Trainer
 
     model = build_model(get_config("glm4-9b", smoke=True))
     try:
         mesh = make_host_mesh((1,), ("data",), device="cpu")
         assert callable(make_dp_train_step(model, AdamW(), mesh))
+        assert callable(make_tp_train_step(model, AdamW(), mesh))
         tr = Trainer(model=model, optimizer=AdamW(), data=None, step_fn=None, bits_map={},
                      mesh=mesh)
         assert tr.mesh is mesh
     finally:
         dist.destroy_process_group()
-    with pytest.raises(NotImplementedError, match="item 11b-ii"):
-        train.parse_args(["--device", "cpu", "--mesh", "1,2"])
+    args = train.parse_args(["--device", "cpu", "--mesh", "1,2", "--arch", "rwkv6-1.6b"])
+    assert args.mesh == (1, 2)
+    with pytest.raises(NotImplementedError, match="item 11b-iv"):
+        train.make_mesh(args, get_config("rwkv6-1.6b", smoke=True), "cpu")
     assert not lm_search.parse_args(["--device", "cpu"]).lockstep   # async by default
 
 

@@ -8,6 +8,7 @@ torch alone.
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import sys
@@ -307,4 +308,276 @@ def _plain(state):
     return shd.map_tree(lambda _, x: el.whole(x), state)
 
 
-BODIES = {"collectives": collectives, "dp": dp, "elastic": elastic}
+# ---- the tensor- and expert-parallel step ----------------------------------------------
+def tp_config(case: dict):
+    """A case's smoke config: ``arch`` at ``dtype``, with ``vocab`` and
+    ``cf`` (capacity factor) replaced where given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    kw = {"dtype": case["dtype"]}
+    if case.get("vocab"):
+        kw["vocab_size"] = case["vocab"]
+    if case.get("cf"):
+        kw["capacity_factor"] = case["cf"]
+    return dataclasses.replace(get_config(case["arch"], smoke=True), **kw)
+
+
+def from_reference(model, tree):
+    """The reference's params (numpy, every leaf f32) as the port's, each
+    leaf in the dtype the port's own init gives it."""
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    template = model.init(0, device="cpu")
+    flat = tree_leaves(tree)
+    return tree_unflatten(template, [torch.from_numpy(np.array(a)).to(t.dtype)
+                                     for t, a in zip(tree_leaves(template), flat)])
+
+
+_MESHES: dict = {}
+
+
+def tp_mesh(shape, world: int):
+    """A mesh of ``shape`` in a world of ``world`` ranks: the world's own
+    ``("data", "model")`` mesh, or a (1, 2) or (2, 1) case as a "model" or
+    "data" row of the world's (world / 2, 2) mesh (every row runs the same
+    case).  Made once a shape."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    shape = tuple(shape)
+    if math.prod(shape) == world:
+        key = shape
+    else:
+        key = (world // 2, 2)
+    if key not in _MESHES:
+        _MESHES[key] = make_host_mesh(key, device="cpu")
+    mesh = _MESHES[key]
+    if key == shape:
+        return mesh
+    return mesh["model"] if shape == (1, 2) else mesh["data"]
+
+
+def shard_slices(mesh, placements, ndim: int) -> list:
+    """The [start, stop) of each dim that this rank's shard covers."""
+    from torch.distributed.tensor import Shard
+
+    out = [None] * ndim
+    for md, pl in enumerate(placements):
+        if isinstance(pl, Shard) and mesh.size(md) > 1:
+            n, c = mesh.size(md), mesh.get_local_rank(md)
+            out[pl.dim] = (n, c) if out[pl.dim] is None else (out[pl.dim][0] * n,
+                                                              out[pl.dim][1] * n + c)
+    return out
+
+
+def tp_case(case: dict, tree, batch, world: int) -> dict:
+    """One step's loss, metrics, global norm and this rank's stored-shard
+    gradients (with the part of the whole leaf each covers) of
+    ``make_tp_train_step`` from the reference's params."""
+    from repro_torch.dist.elastic import place
+    from repro_torch.dist.sharding import named_leaves
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import make_tp_train_step
+
+    model = build_model(tp_config(case))
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
+    mesh = tp_mesh(case["shape"], world)
+    params = place(from_reference(model, tree), mesh)
+    step = make_tp_train_step(model, AdamW(lr=DP_LR), mesh, remat=case["remat"])
+    means, grads, norm = step.grads(params, batch, bm)
+    out = {k: float(v) for k, v in means.items()}
+    out["norm"] = float(norm)
+    out["grads"] = [("/".join(names), shard_slices(mesh, t.placements, t.ndim), _np(g))
+                    for (names, t), g in zip(named_leaves(params), grads)]
+    return out
+
+
+def tp_four(rank, world, workdir, params, cases, launch_steps):
+    """At 4 ranks: every case of ``cases`` (a (1, 2) case on the world's
+    two model rows, a (2, 1) case on its data columns); then
+    ``launch/train.py`` at ``--mesh 2,2`` for glm4-9b (``--ckpt-dir``) and
+    moonshot, and at ``--mesh 4,1`` for moonshot; the glm4 checkpoint
+    restored onto (4, 1) through ``Trainer(mesh=)`` (:func:`elastic`'s
+    check)."""
+    with open(params, "rb") as f:
+        data = pickle.load(f)
+    out = {c["name"]: tp_case(c, data["params"][c["params"]], data["batch"][c.get("vocab") or 0],
+                              world) for c in cases}
+    ck = os.path.join(workdir, "tp_ckpt")
+    runs = {"glm4 2,2": ("glm4-9b", "2,2", ["--ckpt-dir", ck]),
+            "moonshot 2,2": ("moonshot-v1-16b-a3b", "2,2", []),
+            "moonshot 4,1": ("moonshot-v1-16b-a3b", "4,1", [])}
+    for key, (arch, mesh, extra) in runs.items():
+        argv = ["--device", "cpu", "--arch", arch, "--steps", str(launch_steps), "--mesh", mesh,
+                "--global-batch", "4", "--seq-len", "16", *extra]
+        losses, run = launcher_run(argv, f32_smoke(arch), launch_steps)
+        out[key] = {"losses": losses, "tp": hasattr(run["step_fn"], "tp")}
+    out["restored"] = restore_check(ck, "glm4-9b", (world, 1))
+    return out
+
+
+def restore_check(directory: str, arch: str, shape) -> dict:
+    """The newest checkpoint in ``directory`` restored onto a ``shape``
+    mesh through ``Trainer(mesh=)``: which leaves differ from the saved
+    slice, bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import ckpt as ckpt_lib
+    from repro_torch.dist import elastic as el
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import train
+
+    saved, _, saved_step = ckpt_lib.restore(directory, device="cpu")
+    argv = ["--device", "cpu", "--arch", arch, "--steps", str(saved_step), "--mesh",
+            ",".join(map(str, shape)), "--global-batch", "4", "--seq-len", "16",
+            "--ckpt-dir", directory]
+    run = train.setup(train.parse_args(argv), f32_smoke(arch))
+    restored, step = run["trainer"].try_restore(run["state"])
+    bad, n = [], 0
+    for (names, got), (_, want) in zip(shd.named_leaves(restored), shd.named_leaves(saved)):
+        if isinstance(got, DTensor):
+            n += 1
+            if not _same_bits(got.to_local(),
+                              el.local_slice(want, run["mesh"], got.placements)):
+                bad.append("/".join(names))
+        elif got != want:
+            bad.append("/".join(names))
+    return {"step": step, "saved_step": saved_step, "bad": bad, "leaves": n}
+
+
+def tp_eight(rank, world, workdir, params, moe_inputs, steps):
+    """At 8 ranks on a (2, 4) mesh: moonshot smoke (bf16) trained ``steps``
+    steps on one batch by ``make_tp_train_step`` from the reference's
+    params (the twin of the reference's small-mesh train step); the
+    expert-parallel MoE layer against the meshless one
+    (``moe_inputs``); and the split per-column QDQ of every quant-group
+    leaf of glm4-9b and moonshot smoke (and a vocab-256 embed) on its
+    stored shard, against the whole leaf's."""
+    from repro_torch.dist.elastic import place
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import make_tp_train_step
+
+    with open(params, "rb") as f:
+        data = pickle.load(f)
+    mesh = make_host_mesh((2, 4), device="cpu")
+    out = {}
+    case = {"arch": "moonshot-v1-16b-a3b", "dtype": "bfloat16"}
+    model = build_model(tp_config(case))
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
+    opt = AdamW(lr=1e-3)
+    params_t = from_reference(model, data["params"]["moonshot-v1-16b-a3b"])
+    state = place({"params": params_t, "opt": opt.init(params_t)}, mesh)
+    step = make_tp_train_step(model, opt, mesh, remat="full")
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, data["batch"][0], bm)
+        losses.append(float(m["loss"]))
+    out["losses"] = losses
+    out["moe_ep"] = moe_ep_case(mesh, np.load(moe_inputs))
+    out["qdq"] = {arch: split_qdq_case(mesh, arch, vocab)
+                  for arch, vocab in (("glm4-9b", 256), ("moonshot-v1-16b-a3b", None))}
+    return out
+
+
+def moe_ep_case(mesh, inp) -> dict:
+    """``models.moe.moe_ep`` (no drops) on this data rank's rows and this
+    model rank's experts against the meshless ``moe_ffn`` on the whole
+    batch: the largest difference on the rank's rows."""
+    from repro_torch.dist import tp as tpm
+    from repro_torch.models import moe
+
+    x = torch.from_numpy(inp["x"])
+    p = {k: torch.from_numpy(inp[k]) for k in ("router", "wg", "wu", "wd")}
+    y_ref, _ = moe.moe_ffn(x, p, k=int(inp["k"]), no_drop=True)
+    cfg = f32_smoke("moonshot-v1-16b-a3b")
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, num_experts=p["wg"].shape[0], d_ff=p["wg"].shape[2],
+                              d_model=p["wg"].shape[1])
+    tp = tpm.TensorParallel(cfg, mesh)
+    rows = slice(tp.drank * x.shape[0] // tp.d, (tp.drank + 1) * x.shape[0] // tp.d)
+    E_loc = p["wg"].shape[0] // tp.m
+    local = {k: (v if k == "router" else v[tp.mrank * E_loc:(tp.mrank + 1) * E_loc])
+             for k, v in p.items()}
+    with tpm.active(tp):
+        y, aux = moe.moe_ffn(x[rows], local, k=int(inp["k"]), no_drop=True)
+    return {"err": float((y - y_ref[rows]).abs().max()), "aux": float(aux)}
+
+
+def split_qdq_case(mesh, arch: str, vocab) -> dict:
+    """Every quant-group leaf (bf16, bits 2-8 cycling over the groups) on
+    its stored shard under the rule table's specs: leaves whose stored
+    spec shards the contraction dim take the split QDQ (max pass, max over
+    "model", QDQ pass), the rest the one call; forward and STE gradient
+    against the whole leaf's, sliced, bit for bit."""
+    import dataclasses
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import tp as tpm
+    from repro_torch.dist.elastic import local_slice, place
+    from repro_torch.models import build_model
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.quant.qat import (_paths_index, bits_assignment, bits_to_device,
+                                       get_by_path, quantize_params)
+
+    cfg = get_config(arch, smoke=True)
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    model = build_model(cfg)
+    groups = model.quant_groups()
+    policy = QuantPolicy.from_array(tuple(g.name for g in groups),
+                                    [2 + i % 7 for i in range(len(groups))])
+    bm = bits_to_device(bits_assignment(groups, policy), "cpu")
+    whole = model.init(3, device="cpu")
+    placed = place(whole, mesh)
+    paths = _paths_index(groups)
+    model_md = list(mesh.mesh_dim_names).index("model")
+    split = set()
+    for key in bm:
+        t = get_by_path(placed, paths[key])
+        pl = t.placements[model_md]
+        if isinstance(pl, Shard) and pl.dim == t.ndim - 2:
+            split.add(key)
+    local = {key: get_by_path(placed, paths[key]).to_local().detach().requires_grad_(True)
+             for key in bm}
+    tp = tpm.TensorParallel(cfg, mesh)
+    from repro_torch.quant.qat import set_by_path
+
+    tree = whole
+    for key, t in local.items():
+        tree = set_by_path(tree, paths[key], t)
+    got = quantize_params(tree, bm, groups, split, tp.max_over_model)
+    gen = torch.Generator().manual_seed(7)
+    bad, n_split = [], 0
+    wleaves = {key: get_by_path(whole, paths[key]).detach().requires_grad_(True) for key in bm}
+    wtree = whole
+    for key, t in wleaves.items():
+        wtree = set_by_path(wtree, paths[key], t)
+    want = quantize_params(wtree, bm, groups)
+    keys = list(bm)
+    placements = {key: get_by_path(placed, paths[key]).placements for key in keys}
+    g_whole = {key: torch.randn(wleaves[key].shape, generator=gen).to(wleaves[key].dtype)
+               for key in keys}
+    q = [get_by_path(got, paths[key]) for key in keys]
+    qw = [get_by_path(want, paths[key]) for key in keys]
+    gl = torch.autograd.grad(q, [local[key] for key in keys],
+                             [local_slice(g_whole[key], mesh, placements[key]) for key in keys])
+    gw = torch.autograd.grad(qw, [wleaves[key] for key in keys], [g_whole[key] for key in keys])
+    for key, a, aw, g, g_w in zip(keys, q, qw, gl, gw):
+        n_split += key in split
+        if not (_same_bits(a.detach(), local_slice(aw.detach(), mesh, placements[key]))
+                and _same_bits(g, local_slice(g_w, mesh, placements[key]))):
+            bad.append(key)
+    return {"bad": bad, "split": sorted(split), "leaves": len(bm), "n_split": n_split}
+
+
+BODIES = {"collectives": collectives, "dp": dp, "elastic": elastic, "tp_four": tp_four,
+          "tp_eight": tp_eight}
