@@ -375,6 +375,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Phase 5w: the same as 5j on a 3w moonshot step, the router and the
    dispatch / undispatch forwards as families of their own.
 
+3dr. The dry run (``launch/dryrun.py``) in processes on the host's CPU
+   with no card visible, started before the build and waited for before
+   phase 2 (no timed phase shares the host with them), read last:
+   ``--dp-collectives`` (its record must be the reference's committed
+   one), glm4-9b ``train_4k --profile tp``, ``prefill_32k`` and
+   ``decode_32k`` and moonshot ``decode_32k`` at the 256-rank pod mesh
+   (each a record; every record line printed); the param and moment bytes
+   it places on rank 0 of 3tp's cell must equal those 3tp's rank 0 held
+   on the card; its peak for 3j's cell at (1, 1) printed beside 3j's
+   ``max_memory_allocated`` (and for 3tp's cell beside 3tp's), not a gate.
+
 The last lines are the card's nvidia-smi line, one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  Per-shape
 details go to ``chiprun_out/chip_smoke.json``.
@@ -3366,6 +3377,7 @@ def tp_cell(torch, argv, cfg, label: str, fixed_batch: bool = False, experts: bo
     from repro_torch.dist import tp as tpm
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.launch.op_costs import _bytes as held
 
     args = train.parse_args(argv + ["--steps", str(TP_STEPS), "--mesh", "1,2"])
     torch.cuda.reset_peak_memory_stats()
@@ -3376,6 +3388,7 @@ def tp_cell(torch, argv, cfg, label: str, fixed_batch: bool = False, experts: bo
     setup_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     step_fn, trainer = run["step_fn"], run["trainer"]
+    state_bytes = {part: held(run["state"][part]) for part in ("params", "opt")}
     if not hasattr(step_fn, "tp") or dist.get_backend() != "gloo":
         raise RuntimeError(f"{label}: --mesh 1,2 built {type(step_fn)} on {dist.get_backend()}")
     if fixed_batch:
@@ -3424,6 +3437,7 @@ def tp_cell(torch, argv, cfg, label: str, fixed_batch: bool = False, experts: bo
            "setup_peak_gib": setup_peak,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "per_step": per,
            "counts": dict(ops.counts), "experts_received": [r for r in received if r],
+           "state_bytes": state_bytes,
            "heads": step_fn.tp.heads, "kv": step_fn.tp.kv, "ff": step_fn.tp.ff,
            "vocab": step_fn.tp.vocab}
     del state, run, trainer, step_fn
@@ -3547,6 +3561,7 @@ def tp_train(torch):
                 "launches_per_step": p["launches"]}
 
     out = {"glm4": summary(glm), "moonshot": summary(moe), "wall_s": wall_s,
+           "glm4_state_bytes": [g["state_bytes"] for g in glm],
            "moonshot_experts_min_tokens": [[min(x) for x in m["experts_received"]] for m in moe]}
     for key, label in (("glm4", "glm4-9b 4L, 3j's flags"),
                        ("moonshot", "moonshot 2L, 32 experts a rank, one batch")):
@@ -3564,6 +3579,169 @@ def tp_train(torch):
     print(f"[tp moonshot] fewest tokens an expert received per layer "
           f"{out['moonshot_experts_min_tokens']}; two ranks {wall_s:.1f} s in all")
     return out
+
+
+# ---- phase 3dr: the dry run, its counts held against the card's own runs ---------------
+DR_TIMEOUT_S = 600
+DR_CELLS = [("glm4-9b", "train_4k", ["--profile", "tp"]), ("glm4-9b", "prefill_32k", []),
+            ("glm4-9b", "decode_32k", []), ("moonshot-v1-16b-a3b", "decode_32k", [])]
+# the reference's committed record, benchmarks/results/dryrun/dp_collectives_glm4-9b.json
+DR_DP = {"grad_elements": 93888, "send_reduction_x": 1.992,
+         "exact": {"all-reduce": 375564}, "exact_send": 657237,
+         "compressed": {"all-reduce": 12, "all-to-all": 187776, "all-gather": 189312},
+         "compressed_send": 329973}
+_DR_PROCS: list = []
+
+
+def _stop_dryrun() -> None:
+    for p in _DR_PROCS:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_start() -> dict:
+    """Start phase 3dr's processes together, each on the CPU alone (no card
+    visible): ``python -m repro_torch.launch.dryrun --dp-collectives``, the
+    DR_CELLS at the 256-rank pod mesh, and this script's ``--dr-cells``
+    (:func:`dryrun_cells_main`); meta tensors and a fake process group, a
+    core each for up to ~1.5 minutes.  Every one is killed at exit if
+    still running."""
+    import atexit
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    mod = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    cmds = {"dp-collectives": mod + ["--dp-collectives", "--out", tmp]}
+    for arch, shape, extra in DR_CELLS:
+        cmds[f"{arch} {shape}"] = mod + ["--arch", arch, "--shape", shape, "--mesh", "pod",
+                                         *extra]
+    cells = os.path.join(tmp, "cells.json")
+    cmds["3tp / 3j cells"] = [sys.executable, str(ROOT / "chip_smoke.py"), "--dr-cells", cells]
+    atexit.register(_stop_dryrun)
+    procs = {}
+    for label, cmd in cmds.items():
+        log = os.path.join(tmp, label.replace(" ", "_").replace("/", "") + ".log")
+        with open(log, "w") as f:
+            p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        _DR_PROCS.append(p)
+        procs[label] = (p, log)
+    return {"t0": time.perf_counter(), "procs": procs, "cells": cells}
+
+
+def dryrun_wait(started: dict) -> None:
+    """Wait for :func:`dryrun_start`'s processes, each to end with 0 within
+    DR_TIMEOUT_S of its start; records their wall time in ``started``."""
+    t_wait = time.perf_counter()
+    for label, (p, log) in started["procs"].items():
+        try:
+            rc = p.wait(timeout=max(1.0, DR_TIMEOUT_S - (time.perf_counter() - started["t0"])))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            with open(log) as f:
+                tail = f.read()[-3000:]
+            fail(f"[dryrun] {label} ended with {rc} (None: still running at {DR_TIMEOUT_S} s):"
+                 f"\n{tail}")
+    started["wall_s"] = time.perf_counter() - started["t0"]
+    started["waited_s"] = time.perf_counter() - t_wait
+    print(f"[dryrun] {len(started['procs'])} processes beside the build, all done "
+          f"{started['wall_s']:.1f} s after their start (waited {started['waited_s']:.1f} s "
+          f"after the build)")
+
+
+def dryrun_cells_main(out_path: str) -> None:
+    """``python3 chip_smoke.py --dr-cells OUT``: the dry run's inner function
+    (``launch.dryrun.count_cell``) at phase 3tp's cell (glm4-9b at 3j's
+    widths and depth, mesh (1, 2), the tp profile, global batch 2 x 4096)
+    as rank 0 of a fake group of 2, with the bytes of the param and moment
+    shards it places; and at 3j's cell, mesh (1, 1).  Writes JSON to OUT."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group
+
+    cfg, shape = lm_cell(), ShapeConfig("3j", "train", 4096, 2)
+    out = {}
+    for key, dims in (("3tp", (1, 2)), ("3j", (1, 1))):
+        with fake_process_group(dims[0] * dims[1]):
+            mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+            rec, _ = dryrun.count_cell(mesh, cfg, shape, profile="tp", label=f"{key} cell")
+            out[key] = {"record": rec, **rec["state_bytes"]}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _record(log: str, prefix: str) -> dict:
+    with open(log) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.startswith(prefix)]
+    if len(lines) != 1:
+        fail(f"[dryrun] {log}: {len(lines)} lines starting {prefix!r}")
+    return json.loads(lines[0][len(prefix):])
+
+
+def dryrun_phase(torch, started: dict, tp: dict, lm: dict) -> dict:
+    """Phase 3dr: reads what :func:`dryrun_start`'s processes wrote (they
+    ran beside the build and were waited for before phase 2, so that their
+    load on the host's CPU shares no timed phase) and prints each record
+    line.
+    Fails unless the --dp-collectives record is the reference's committed
+    one, figure for figure; each DR_CELLS cell is a record (``status:
+    ok``); and the param and moment bytes the dry run places on rank 0 of
+    3tp's cell equal the bytes of the leaves 3tp's rank 0 held on the card.
+    Prints the dry run's peak for 3j's cell at (1, 1) beside 3j's
+    ``max_memory_allocated``, and for 3tp's cell beside 3tp's rank 0, and
+    the card's ``total_memory`` beside the ``H100_HBM_BYTES`` that
+    ``fits_hbm`` compares against (not gates)."""
+    from repro_torch.core.costmodel import H100_HBM_BYTES
+
+    procs = started["procs"]
+    dp = _record(procs["dp-collectives"][1], "[dp-collectives] record ")
+    print(f"[dryrun] dp-collectives record {json.dumps(dp)}")
+    got = {"grad_elements": dp["grad_elements"], "send_reduction_x": dp["send_reduction_x"],
+           "exact": dp["wire"]["exact"]["by_kind"],
+           "exact_send": dp["wire"]["exact"]["send_bytes"],
+           "compressed": dp["wire"]["compressed"]["by_kind"],
+           "compressed_send": dp["wire"]["compressed"]["send_bytes"]}
+    if got != DR_DP:
+        fail(f"[dryrun] --dp-collectives gave {got}, the reference's record {DR_DP}")
+    records = {}
+    for arch, shape, _ in DR_CELLS:
+        rec = _record(procs[f"{arch} {shape}"][1], "[dryrun] record ")
+        print(f"[dryrun] record {json.dumps(rec)}")
+        if rec.get("status") != "ok":
+            fail(f"[dryrun] {arch} {shape}: {rec}")
+        records[f"{arch} {shape}"] = rec
+    with open(started["cells"]) as f:
+        cells = json.load(f)
+    want = tp["glm4_state_bytes"][0]
+    got = {k: cells["3tp"][k] for k in ("params", "opt")}
+    if got != want:
+        fail(f"[dryrun] 3tp's cell: the dry run places {got} bytes of params and moments on "
+             f"rank 0, 3tp's rank 0 held {want}")
+    print(f"[dryrun] 3tp's cell (glm4-9b 4L, (1, 2), tp, 2 x 4096): rank 0's params "
+          f"{got['params']:,} B and moments {got['opt']:,} B, equal to the leaves 3tp's rank 0 "
+          f"held on the card")
+    peaks = {}
+    for key, measured_gib in (("3j", lm["peak_mem_gib"]), ("3tp", tp["glm4"]["peak_mem_gib"][0])):
+        counted = cells[key]["record"]["memory"]["peak_bytes"]
+        measured = measured_gib * 2**30
+        peaks[key] = {"counted_bytes": counted, "measured_bytes": measured,
+                      "difference_bytes": measured - counted}
+        print(f"[dryrun] {key}'s cell: the dry run's peak {counted / 2**30:.2f} GiB "
+              f"({counted:,} B), the card's max_memory_allocated {measured_gib:.2f} GiB, "
+              f"difference {(measured - counted) / 2**30:+.2f} GiB "
+              f"(memory {json.dumps(cells[key]['record']['memory'])})")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] the card's total_memory {total:,} B; fits_hbm compares against "
+          f"core/costmodel.H100_HBM_BYTES {H100_HBM_BYTES:,} B "
+          f"({'equal' if total == H100_HBM_BYTES else 'different'})")
+    print(f"[dryrun] counting took { {k: r['count_s'] for k, r in records.items()} } s")
+    return {"dp_collectives": dp, "records": records, "cells": cells, "peaks": peaks,
+            "total_memory": total, "wall_s": started["wall_s"], "waited_s": started["waited_s"]}
 
 
 def tp_against_3j(tp, lm):
@@ -5547,6 +5725,8 @@ def main() -> None:
           f"bounds use the {card} peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16")
     build.require_sm90(torch.device("cuda"))
+    # phase 3dr's dry runs count on the CPU beside the build (its printed time shares it)
+    dryrun_started = dryrun_start()
     t0 = time.perf_counter()
     build.build_all()
     for src in build.SOURCES:
@@ -5558,6 +5738,7 @@ def main() -> None:
                 print(f"  ptxas {src}: {line.strip()}")
     if tensor_core_count(build) == 0:
         fail("the qmm library has no HGMMA instruction")
+    dryrun_wait(dryrun_started)    # no dry run shares the host with a timed phase
 
     # ---- phase 2: kernels against their plain versions
     timer = Timer(torch)
@@ -5803,6 +5984,10 @@ def main() -> None:
     fam_steps = families_step_card_vs_cpu(torch)
     phase("phase 3y: train with --ckpt-dir, then serve from it")
     fam_ckpt = train_then_serve(torch)
+    phase("phase 3dr: the dry run (launch/dryrun.py): --dp-collectives, glm4-9b train_4k (tp), "
+          "prefill_32k, decode_32k and moonshot decode_32k at the 256-rank pod mesh; 3tp's "
+          "and 3j's cells against the card")
+    lm["dryrun"] = dryrun_phase(torch, dryrun_started, tp, lm)
 
     calls = {name: n for name, _, _, _, n in GLM4_QMM}
     decode = per_step(rows, "qmm_bitserial",
@@ -6066,5 +6251,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         tp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--dr-cells"]:
+        dryrun_cells_main(sys.argv[2])
     else:
         main()

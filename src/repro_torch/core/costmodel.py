@@ -29,6 +29,9 @@ E_MEM_OVER_E_MAC = 120.0
 # NVIDIA H100 80GB SXM, 700 W (data sheet, dense rates)
 H100_PEAK_FLOPS = 989e12      # bf16 tensor cores
 H100_HBM_BW = 3.35e12         # bytes/s
+# The card's memory as torch.cuda.get_device_properties(0).total_memory
+# reports it on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
+H100_HBM_BYTES = 85_017_493_504
 
 
 def _weights(groups):

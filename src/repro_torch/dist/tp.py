@@ -5,7 +5,9 @@ with the ``tp`` profile (``repro.models.common``'s sharding helpers, the
 inserts for them, and ``repro.models.moe._moe_ep``'s ``shard_map``).
 
 A :class:`TensorParallel` is made from the model's config and a ``("data",
-"model")`` ``DeviceMesh`` (``launch/mesh.py``); the train step
+"model")`` or ``("pod", "data", "model")`` ``DeviceMesh`` (``launch/mesh.py``;
+the batch runs over "pod" and "data" together, as the reference's
+``batch_axes()`` puts it); the train step
 (``train.train_step.make_tp_train_step``) makes it the active one
 (:func:`active`) around its forward and backward, and the model reads it
 (:func:`current`) where the reference constrains.  With ``m`` ranks on
@@ -15,7 +17,15 @@ A :class:`TensorParallel` is made from the model's config and a ``("data",
   wo row-parallel).  K and V are local when ``KV % m == 0``; otherwise each
   rank computes them whole and its q heads read their KV heads by global
   head index (:meth:`TensorParallel.kv_for_heads`: glm4's 2 KV heads at
-  m = 4).  When ``H % m`` the whole sublayer runs replicated.
+  m = 4).  When ``KV % m`` but ``m`` divides ``KV · hd``, the stored
+  column shards of wk and wv compute their columns of K and V, which are
+  gathered over "model" (a reduce-scatter in the backward), as GSPMD
+  computes a column-sharded projection whose output it needs whole.  When
+  ``H % m`` the whole sublayer runs replicated.  The one-token decode step
+  splits the same way over a contiguous cache laid out as
+  ``dist.sharding.cache_specs`` lays it out (rows over the data axes,
+  every KV head on every model rank): each rank writes the new token's
+  K/V of every KV head and attends its q heads' ones.
 - the dense MLP (and a MoE's shared one): wg/wu column-, wd row-parallel
   when ``d_ff % m == 0``, else replicated.
 - embed and readout: vocab-parallel when ``V % m == 0`` (a masked lookup and
@@ -25,7 +35,11 @@ A :class:`TensorParallel` is made from the model's config and a ``("data",
 - a MoE layer: expert parallelism, ``E / m`` experts a rank
   (``models.moe.moe_ep``): the tokens split over "model" along the
   sequence, capacity from the rank's tokens, an all_to_all out to the
-  experts' ranks and one back.
+  experts' ranks and one back; a sequence that ``m`` does not divide (a
+  decode step's one token) stays whole on every model rank.
+- a prefill batch that arrives sequence-sharded over "model"
+  (``seq_shard``, the reference's ``batch_specs(seq_shard=True)``): the
+  forward gathers its tokens whole, where the replicated residual starts.
 
 Megatron's two operators carry the activations with ``all_reduce`` alone:
 :func:`copy_to_model` (identity forward, all_reduce backward) where a
@@ -47,11 +61,12 @@ a partial of it (K/V computed whole for split heads, the router on the
 rank's tokens), and sliced back to the stored shard
 (:meth:`TensorParallel.stored_grads`).
 
-Collectives: ``all_reduce`` (sum and max), ``all_gather_into_tensor`` and
-``all_to_all_single``, which a gloo group takes on CUDA tensors as well
-(checked on the H100 by ``scripts/gloo_cuda_probe.py``; ``all_to_all`` of
-lists it refuses).  :data:`stats` counts the bytes each kind moves, and
-times them with CUDA events while ``stats.timing`` is on.
+Collectives: ``all_reduce`` (sum and max), ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``all_to_all_single``, which a gloo group
+takes on CUDA tensors as well (checked on the H100 by
+``scripts/gloo_cuda_probe.py``; ``all_to_all`` of lists it refuses).
+:data:`stats` counts the bytes each kind moves, and times them with CUDA
+events while ``stats.timing`` is on.
 """
 from __future__ import annotations
 
@@ -63,7 +78,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import not_ported
-from repro_torch.dist.sharding import mesh_sizes, shard_profile
+from repro_torch.dist.sharding import _CONTAINER_ATTRS, mesh_sizes, shard_profile
+
+_AXES = ("pod", "data", "model")
 
 _ACTIVE = None
 
@@ -156,6 +173,16 @@ def all_gather(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     return torch.cat(out.view(n, *t.shape).unbind(0), dim=dim)
 
 
+def reduce_scatter(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum over the ``n`` ranks of ``t``, this rank's ``1/n`` slice of
+    ``dim``."""
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=t.dtype, device=t.device)
+    with stats.record("reduce_scatter", out):
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` (n, ...): row j goes to rank j; row i of the result came from
     rank i."""
@@ -222,6 +249,22 @@ class _GatherFromModel(torch.autograd.Function):
         return _slice(g, ctx.dim, tp.m, tp.mrank), None, None
 
 
+class _GatherColumns(torch.autograd.Function):
+    """The ranks' slices concatenated along ``dim``; backward: the sum over
+    the ranks of the gradient, this rank's slice (each rank's gradient of
+    the whole tensor is a partial: its heads' share)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return all_gather(x, tp.model_group, tp.m, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        return reduce_scatter(g, tp.model_group, tp.m, ctx.dim), None, None
+
+
 class _AllToAllModel(torch.autograd.Function):
     """(m, ...) rows exchanged over "model"; the backward exchanges back."""
 
@@ -251,6 +294,10 @@ def scatter_to_model(x, tp, dim: int):
 
 def gather_from_model(x, tp, dim: int):
     return x if tp.m == 1 else _GatherFromModel.apply(x, tp, dim)
+
+
+def gather_columns(x, tp, dim: int):
+    return x if tp.m == 1 else _GatherColumns.apply(x, tp, dim)
 
 
 def all_to_all_model(x, tp):
@@ -286,63 +333,92 @@ def vocab_ce(logits: torch.Tensor, labels: torch.Tensor, tp):
 
 
 # ---- the plan ---------------------------------------------------------------------------
-def _names(names) -> tuple[str, str]:
-    """(parent, matrix) of a leaf's path names."""
-    core = [str(n) for n in names if not str(n).isdigit()]
-    return (core[-2] if len(core) > 1 else ""), (core[-1] if core else "")
+def _names(names) -> tuple[str, str, str]:
+    """(parent, matrix, container field or "") of a leaf's path names."""
+    names = [str(n) for n in names]
+    field = names[-1] if names and names[-1] in _CONTAINER_ATTRS else ""
+    core = [n for n in names if not n.isdigit() and n not in _CONTAINER_ATTRS]
+    return (core[-2] if len(core) > 1 else ""), (core[-1] if core else ""), field
+
+
+def refusal(cfg, sizes: dict, profile: str | None = None):
+    """The error :class:`TensorParallel` raises for ``cfg`` on a mesh of
+    ``sizes`` (``{axis: size}``) under ``profile`` (the environment's by
+    default), or None: a family other than dense and moe, or another
+    profile than ``tp``, at m > 1 (ROADMAP item 11b-iv)."""
+    if set(sizes) - set(_AXES):
+        return ValueError(f"a tensor-parallel mesh has axes {_AXES}, got {sizes}")
+    profile = profile or shard_profile()
+    if sizes.get("model", 1) > 1:
+        if cfg.family not in ("dense", "moe"):
+            return not_ported(f"tensor parallelism (MODEL > 1) for the {cfg.family} family",
+                              "item 11b-iv")
+        if profile != "tp":
+            return not_ported(f"the {profile} profile at MODEL > 1", "item 11b-iv")
+    return None
 
 
 class TensorParallel:
-    """One rank's view of a ``("data", "model")`` mesh for a model config:
-    its groups and coordinates, which sublayers split over "model", and the
-    compute layout of every leaf.  Raises where the port has no
-    tensor-parallel path: a family other than dense and moe, or another
-    profile than ``tp``, at m > 1 (ROADMAP item 11b-iv); and, as the
-    reference, experts that ``m`` does not divide."""
+    """One rank's view of a ``("data", "model")`` or ``("pod", "data",
+    "model")`` mesh for a model config: its groups and coordinates (the
+    batch's data-parallel rank runs over "pod" and "data" together, one
+    flattened group), which sublayers split over "model", and the compute
+    layout of every leaf.  ``seq_shard``: the forward's batch arrives with
+    its sequence split over "model".  Raises where the port has no
+    tensor-parallel path (:func:`refusal`, ROADMAP item 11b-iv) and, as the
+    reference, for experts that ``m`` does not divide."""
 
-    def __init__(self, cfg, mesh):
+    def __init__(self, cfg, mesh, *, seq_shard: bool = False):
         sizes = mesh_sizes(mesh)
-        if set(sizes) - {"data", "model"}:
-            raise ValueError(f"a tensor-parallel mesh has axes data and model, got {sizes}")
-        self.cfg, self.mesh = cfg, mesh
-        self.m, self.d = sizes.get("model", 1), sizes.get("data", 1)
+        err = refusal(cfg, sizes)
+        if err is not None:
+            raise err
+        self.cfg, self.mesh, self.seq_shard = cfg, mesh, seq_shard
+        daxes = [a for a in ("pod", "data") if a in sizes]
+        self.m, self.d = sizes.get("model", 1), math.prod(sizes[a] for a in daxes)
         self.model_group = mesh.get_group("model") if "model" in sizes else None
-        self.data_group = mesh.get_group("data") if "data" in sizes else None
         self.mrank = mesh.get_local_rank("model") if "model" in sizes else 0
-        self.drank = mesh.get_local_rank("data") if "data" in sizes else 0
+        self.drank = 0
+        for a in daxes:
+            self.drank = self.drank * sizes[a] + mesh.get_local_rank(a)
+        if len(daxes) == 2:
+            self.data_group = mesh[tuple(daxes)]._flatten().get_group()
+        else:
+            self.data_group = mesh.get_group(daxes[0]) if daxes else None
         m = self.m
-        if m > 1 and cfg.family not in ("dense", "moe"):
-            raise not_ported(f"tensor parallelism (MODEL > 1) for the {cfg.family} family",
-                             "item 11b-iv")
-        if m > 1 and shard_profile() != "tp":
-            raise not_ported(f"the {shard_profile()} profile at MODEL > 1", "item 11b-iv")
         if cfg.num_experts and cfg.num_experts % m:
             raise ValueError(f"experts {cfg.num_experts} must divide model axis {m}")
         # which parts split over "model" (none at m = 1)
         self.heads = m > 1 and cfg.num_heads % m == 0
         self.kv = self.heads and cfg.num_kv_heads % m == 0
+        self.kv_cols = self.heads and not self.kv and (cfg.num_kv_heads * cfg.hd) % m == 0
         self.ff = m > 1 and cfg.d_ff % m == 0
         self.vocab = m > 1 and cfg.vocab_size % m == 0
 
     # -- layout
     def split_dim(self, names, ndim: int):
         """The dim of a leaf this rank holds ``1/m`` of in the compute
-        layout, or None (the leaf whole)."""
+        layout, or None (the leaf whole).  A serving leaf (``Packed``
+        planes ``(bits, K/8, N)`` and scale ``(1, N)``, a ``QDQ``'s table)
+        splits as its matrix does, except a row-parallel scale, which is
+        per output column and whole; a packed bank splits its experts, dim
+        0."""
         if self.m == 1:
             return None
-        parent, mat = _names(names)
+        parent, mat, field = _names(names)
+        row = None if field == "scale" else ndim - 2
         if parent == "attn":
-            if mat == "wq" and self.heads or mat in ("wk", "wv") and self.kv:
+            if mat == "wq" and self.heads or mat in ("wk", "wv") and (self.kv or self.kv_cols):
                 return ndim - 1
             if mat == "wo" and self.heads:
-                return ndim - 2
+                return row
         elif parent in ("mlp", "shared") and self.ff:
             if mat in ("wg", "wu"):
                 return ndim - 1
             if mat == "wd":
-                return ndim - 2
+                return row
         elif parent == "moe" and mat in ("wg", "wu", "wd"):
-            return ndim - 3
+            return 0 if field else ndim - 3
         elif mat == "embed" and self.vocab:
             return ndim - 2
         elif mat == "lm_head" and self.vocab:
@@ -359,9 +435,9 @@ class TensorParallel:
         computed whole for split heads, the router on the rank's tokens."""
         if self.m == 1:
             return False
-        parent, mat = _names(names)
+        parent, mat, _ = _names(names)
         return (parent == "attn" and mat in ("wk", "wv") and self.heads and not self.kv
-                or mat == "router")
+                and not self.kv_cols or mat == "router")
 
     def _mesh_dims(self, placements):
         """[(mesh dim, tensor dim, size)] of the placements' shards, major to
@@ -438,6 +514,16 @@ class TensorParallel:
                 all_reduce(vec, group)
         return torch.sqrt(sum(v / c for v, c in zip(vec, keys)))
 
+    def kv_whole(self, t: torch.Tensor, all_heads: bool = False) -> torch.Tensor:
+        """K or V (..., columns) from this rank's compute leaf of wk or wv ->
+        the columns its heads need: every column, gathered over "model",
+        under ``kv_cols`` (a shard's columns cut heads) and, when
+        ``all_heads`` (the decode step's write into a cache that holds
+        every KV head), under ``kv``; else ``t``."""
+        if self.kv_cols or self.kv and all_heads:
+            return gather_columns(t, self, t.ndim - 1)
+        return t
+
     def mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
         if self.d > 1:
             all_reduce(t, self.data_group)
@@ -458,13 +544,17 @@ class TensorParallel:
     def kv_for_heads(self, k: torch.Tensor, H: int) -> torch.Tensor:
         """K or V (B, S, heads, hd) -> the KV heads this rank's ``H / m`` q
         heads read, in the order ``blocked_attention`` groups them: the
-        local heads when K/V were computed split, else, from the whole
-        KV heads, the slice (or, when neither of ``H / m`` and the group
-        size divides the other, one KV head per q head) of each local q
-        head's global index ``h // (H / KV)``."""
-        if self.kv:
-            return k
+        local heads when K/V were computed split (from all the KV heads,
+        the local ones), else, from the whole KV heads, the slice (or, when
+        neither of ``H / m`` and the group size divides the other, one KV
+        head per q head) of each local q head's global index
+        ``h // (H / KV)``."""
         KV = k.shape[2]
+        if self.kv:
+            if KV == self.cfg.num_kv_heads:
+                n = KV // self.m
+                return k.narrow(2, self.mrank * n, n)
+            return k
         n, G = H // self.m, H // KV
         a = self.mrank * n
         if G % n == 0:

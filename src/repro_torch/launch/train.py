@@ -41,11 +41,11 @@ from __future__ import annotations
 import argparse
 import math
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.dist import elastic
-from repro_torch.dist.sharding import shard_profile
+from repro_torch.dist.tp import refusal
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, cosine_schedule
@@ -53,7 +53,7 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
 from repro_torch.train.train_step import (init_state, make_dp_train_step, make_tp_train_step,
-                                          make_train_step)
+                                          make_train_step, tp_step_refusal)
 from repro_torch.train.trainer import Trainer
 
 
@@ -95,16 +95,10 @@ def make_mesh(args, cfg, device):
     if not args.mesh:
         return None
     if tensor_parallel(args, cfg):
-        model = args.mesh[1] if len(args.mesh) > 1 else 1
-        if model > 1 and cfg.family not in ("dense", "moe"):
-            raise not_ported(f"--mesh {args.mesh[0]},{model} for the {cfg.family} family "
-                             f"({cfg.name})", "item 11b-iv")
-        if model > 1 and shard_profile() != "tp":
-            raise not_ported(f"the {shard_profile()} profile at --mesh ...,{model}",
-                             "item 11b-iv")
-        if args.opt8 and math.prod(args.mesh) > 1:
-            raise not_ported(f"--opt8 under the tensor-parallel step at --mesh "
-                             f"{','.join(map(str, args.mesh))}", "item 11b-iv")
+        err = refusal(cfg, dict(zip(("data", "model"), args.mesh))) or tp_step_refusal(
+            AdamW(moments="int8" if args.opt8 else "fp32"), math.prod(args.mesh))
+        if err is not None:
+            raise err
     return make_host_mesh(args.mesh, ("data", "model")[:len(args.mesh)], device)
 
 

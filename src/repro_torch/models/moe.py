@@ -36,7 +36,9 @@ Under an active ``dist.tp`` context (the tensor-parallel train step, at
 any mesh, ``(D, 1)`` included) :func:`moe_ffn` takes :func:`moe_ep`, the
 reference's expert-parallel ``_moe_ep``: a rank's tokens are routed
 flattened, with capacity from their count, and its aux loss is averaged
-over the ranks, which the meshless per-sequence path does not compute.
+over the ranks, which the meshless per-sequence path does not compute;
+a decode step's one token takes ``_moe_ep``'s fallback (the tokens whole
+on every model rank).
 """
 from __future__ import annotations
 
@@ -188,8 +190,15 @@ def moe_ep(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float, no_drop:
     experts, sends the outputs back, combines them, and the slices are
     gathered back into the sequence.  The aux loss is averaged over "model"
     (and over "data" by the step's mean).  At m = 1 it is the rank-local
-    flattened routing of the reference's ``(D, 1)`` mesh.  -> (y (B, S, D)
-    in x's dtype, aux)."""
+    flattened routing of the reference's ``(D, 1)`` mesh.
+
+    The reference's decode fallback: when ``m`` does not divide S (a decode
+    step's one token), the tokens stay whole on every model rank (``T =
+    B·S``), so each expert's rank takes the same rows from each of the
+    ``m`` ranks (the reference's "tiny redundant compute over model"), and
+    the aux loss is the rank's own.  The reference runs it for serving
+    only; under autograd it is refused (the m copies would each carry the
+    whole gradient).  -> (y (B, S, D) in x's dtype, aux)."""
     from repro_torch import not_ported
     from repro_torch.dist import tp as tpm
 
@@ -197,16 +206,17 @@ def moe_ep(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float, no_drop:
     E, m = p["router"].shape[1], tp.m
     if E % m:
         raise ValueError(f"experts {E} must divide model axis {m}")
-    if S % m:
-        # the reference keeps the tokens whole over "model" there (its
-        # decode fallback), with no training path of its own
-        raise not_ported(f"expert parallelism over a sequence of {S} tokens that model axis "
-                         f"{m} does not divide", "item 11b-iv")
-    xs = tpm.scatter_to_model(x, tp, 1)
-    T = B * (S // m)
+    split = S % m == 0
+    if not split and torch.is_grad_enabled() and x.requires_grad:
+        raise not_ported(f"the gradient of expert parallelism over a sequence of {S} tokens "
+                         f"that model axis {m} does not divide", "item 11b-iv")
+    xs = tpm.scatter_to_model(x, tp, 1) if split else x
+    T = B * (S // m if split else S)
     x2 = xs.reshape(1, T, D)
     gates, gate_k, idx_k = _route(x2, p["router"], k)
-    aux = tpm.reduce_from_model(_aux_loss(gates, idx_k, E, k), tp) / m
+    aux = _aux_loss(gates, idx_k, E, k)
+    if split:
+        aux = tpm.reduce_from_model(aux, tp) / m
     C = capacity(T, k, E, capacity_factor, no_drop)
     buf, meta = _dispatch(x2, idx_k, E, C, k)                      # (1, E, C, D)
     recv = tpm.all_to_all_model(buf.reshape(m, E // m, C, D), tp)   # (m, E/m, C, D) by source
@@ -214,6 +224,8 @@ def moe_ep(x: torch.Tensor, p: dict, *, k: int, capacity_factor: float, no_drop:
     ye = _expert_ffn(xe, p, x.dtype).reshape(E // m, m, C, D).permute(1, 0, 2, 3)
     back = tpm.all_to_all_model(ye, tp)                              # (m, E/m, C, D) by owner
     y = _undispatch(back.reshape(1, E, C, D), gate_k, meta, T, k)
+    if not split:
+        return y.reshape(B, S, D).to(x.dtype), aux
     return tpm.gather_from_model(y.reshape(B, S // m, D).to(x.dtype), tp, 1), aux
 
 

@@ -58,6 +58,14 @@ subtree per sub ``s``; the serving layout (``train.serve.
 quantize_for_serving``) holds a per-layer list there, with ``Packed``
 matrices (an expert bank's planes with a leading E axis) and a ``QDQ``
 embedding.
+
+Under an active ``dist.tp`` context (the dense and moe families) the
+training ``forward`` and ``loss``, and ``decode_step`` over a contiguous
+cache of the rank's rows, split heads, MLP and vocab over "model"
+(``dist.tp``'s docstring); the forward gathers a sequence-sharded batch
+first (``TensorParallel.seq_shard``), and the logits are the rank's
+``V / m`` columns where the vocab splits.  A paged or quantized-KV pool
+under it is ROADMAP item 11b-iii.
 """
 from __future__ import annotations
 
@@ -69,7 +77,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import resolve_device
+from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import tp as tpm
 from repro_torch.kernels import ops as kops
@@ -276,6 +284,12 @@ class TransformerLM:
                                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
             return x + apply_linear(out.reshape(B, S, H * hd), p["attn"]["wo"])
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        tp = tpm.split("heads")
+        if tp is not None:
+            if "block_tables" in cache or "kv_qmax" in cache:
+                raise not_ported("a paged or quantized-KV pool under tensor parallelism",
+                                 "item 11b-iii")
+            return x + self._decode_attn_split(h, p["attn"], positions, cache, layer, tp)
         if (S == 1 and "k_scale" in cache and cfg.sliding_window is None
                 and cfg.rope == "rope"
                 and all(isinstance(p["attn"][m], Packed) for m in ("wq", "wk", "wv"))):
@@ -341,12 +355,39 @@ class TransformerLM:
         n, hd = cfg.num_heads // tp.m, cfg.hd
         h = tpm.copy_to_model(h, tp)
         q = self._rotate(apply_linear(h, pa["wq"]).reshape(B, S, n, hd), positions)
-        k, v = (tp.kv_for_heads(apply_linear(h, pa[m]).reshape(B, S, -1, hd), cfg.num_heads)
-                for m in ("wk", "wv"))
+        k, v = (tp.kv_for_heads(tp.kv_whole(apply_linear(h, pa[m])).reshape(B, S, -1, hd),
+                                cfg.num_heads) for m in ("wk", "wv"))
         out = blocked_attention(q, self._rotate(k, positions), v, causal=True,
                                 window=cfg.sliding_window, q_chunk=cfg.q_chunk,
                                 kv_chunk=cfg.kv_chunk)
         return tpm.reduce_from_model(apply_linear(out.reshape(B, S, n * hd), pa["wo"]), tp)
+
+    def _decode_attn_split(self, h, pa, positions, cache, layer, tp):
+        """The one-token decode attention with its heads split over "model"
+        (``dist.tp``), over a contiguous cache of this data rank's rows that
+        holds every KV head (``dist.sharding.cache_specs``): the new token's
+        K/V of every KV head written at the row's slot, this rank's ``H /
+        m`` q heads attending the KV heads they read, and its wo rows'
+        partial output summed over the ranks.  -> (B, 1, D), whole on every
+        rank."""
+        cfg = self.cfg
+        B = h.shape[0]
+        n, KV, hd = cfg.num_heads // tp.m, cfg.num_kv_heads, cfg.hd
+        h = tpm.copy_to_model(h, tp)
+        q = self._rotate(apply_linear(h, pa["wq"]).reshape(B, 1, n, hd), positions)
+        k, v = (tp.kv_whole(apply_linear(h, pa[m]), all_heads=True).reshape(B, 1, KV, hd)
+                for m in ("wk", "wv"))
+        k = self._rotate(k, positions)
+        kc, vc, length = cache["k"][layer], cache["v"][layer], cache["length"]
+        Tc = kc.shape[1]
+        rows = torch.arange(B, device=h.device)
+        slot = self._slot(length, Tc)
+        kc[rows, slot] = k[:, 0].to(kc.dtype)
+        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        out = decode_attention(q, tp.kv_for_heads(kc, cfg.num_heads),
+                               tp.kv_for_heads(vc, cfg.num_heads),
+                               torch.clamp(length + 1, max=Tc))
+        return tpm.reduce_from_model(apply_linear(out.reshape(B, 1, n * hd), pa["wo"]), tp)
 
     def _ffn(self, x, p, exact: bool = False):
         """Residual FFN sublayer -> (x + y, aux loss f32, or None for a
@@ -474,6 +515,14 @@ class TransformerLM:
         cfg = self.cfg
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+        tp = tpm.current()
+        if tp is not None and tp.seq_shard:
+            # the batch's sequence arrives split over "model": gathered
+            # whole where the replicated residual starts
+            tokens, embeds = (None if t is None else tpm.gather_from_model(t, tp, 1)
+                              for t in (tokens, embeds))
+            if positions is not None:
+                positions = tpm.gather_from_model(positions, tp, positions.ndim - 1)
         h = self._embed_in(params, tokens, embeds)
         B, S, _ = h.shape
         if positions is None:

@@ -95,9 +95,16 @@ def _map_state(fn, tree, *like):
 
 def local_rows(batch: dict, rank: int, n: int) -> dict:
     """Rows ``[rank·B/n, (rank+1)·B/n)`` of every leaf of a global batch (the
-    batch dim: dim 1 of a 3-D ``positions``, dim 0 elsewhere)."""
+    batch dim: dim 1 of a 3-D ``positions``, dim 0 elsewhere).  A leaf
+    placed as a DTensor (``dist.sharding.batch_specs``) is this rank's
+    shard already: its local tensor."""
+    from torch.distributed.tensor import DTensor
+
     out = {}
     for k, v in batch.items():
+        if isinstance(v, DTensor):
+            out[k] = v.to_local()
+            continue
         v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
         bdim = 1 if k == "positions" and v.ndim == 3 else 0
         B = v.shape[bdim]
@@ -202,15 +209,14 @@ def make_tp_train_step(model, optimizer: AdamW, mesh, *, remat: str = "none"):
     batch, bits_map)`` returns (metrics, the stored shards' gradients in
     leaf order, the global norm) without the update, and ``step.tp`` is the
     ``TensorParallel``."""
-    from repro_torch import not_ported
     from repro_torch.dist import tp as tpm
     from repro_torch.dist.sharding import named_leaves
     from repro_torch.quant.qat import _paths_index
 
     tp = tpm.TensorParallel(model.cfg, mesh)
-    if optimizer.moments == "int8" and tp.m * tp.d > 1:
-        raise not_ported("8-bit moments (--opt8) under the tensor-parallel step on more than "
-                         "one rank", "item 11b-iv")
+    err = tp_step_refusal(optimizer, tp.m * tp.d)
+    if err is not None:
+        raise err
     groups = model.quant_groups()
     paths = _paths_index(groups)
 
@@ -250,6 +256,18 @@ def make_tp_train_step(model, optimizer: AdamW, mesh, *, remat: str = "none"):
     step.grads = grads
     step.tp = tp
     return step
+
+
+def tp_step_refusal(optimizer: AdamW, ranks: int):
+    """The error :func:`make_tp_train_step` raises for ``optimizer`` over
+    ``ranks`` ranks, or None: 8-bit moments across ranks, whose 256-wide
+    blocks a column-parallel shard cuts (ROADMAP item 11b-iv)."""
+    from repro_torch import not_ported
+
+    if optimizer.moments == "int8" and ranks > 1:
+        return not_ported("8-bit moments (--opt8) under the tensor-parallel step on more than "
+                          "one rank", "item 11b-iv")
+    return None
 
 
 def init_dp_state(model, optimizer: AdamW, seed: int, mesh, axis: str = "data") -> dict:

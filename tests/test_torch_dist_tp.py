@@ -28,10 +28,24 @@ ranks run the port:
   ``test_moe_ep_matches_meshless`` (B, S, D, F, E, k = 4, 8, 16, 24, 8, 2,
   no drops) within 1e-5; the split per-column QDQ and its STE of every
   quant-group leaf of glm4 (vocab 256) and moonshot on its stored shard,
-  bitwise the whole leaf's, sliced.
+  bitwise the whole leaf's, sliced; and glm4 smoke at (2, 4) in f32, whose
+  2 KV heads do not split 4 ways, so wk and wv stay column-sharded, their
+  K/V columns gathered and their gradient reduce-scattered: one step's
+  loss, nll, aux and every stored shard's gradient within 1e-5 of the
+  reference's, as at 4 ranks.
 
 Inside a (1, 2) or (2, 1) case on 4 ranks, each row of the world's (2, 2)
 mesh runs the case.
+
+Tensor-parallel serving, on 2 ranks at (1, 2) in f32, against the one-rank
+port: the forward's logits with the prompt arriving sequence-sharded
+(glm4 smoke with its KV heads split; with one KV head, whose columns
+split and are gathered; with a vocab of 256, split), and 4 greedy decode
+steps over a contiguous cache after a full-prompt prefill (the same three
+and moonshot, whose MoE layers take ``_moe_ep``'s decode fallback), the
+logits and the cache within 1e-5; the step at a (1, 1, 2) ("pod", "data",
+"model") mesh equal to (1, 2)'s; and the fallback's output and aux loss at
+S = 1 against the reference's ``_moe_ep`` on 2 fake JAX devices.
 """
 import dataclasses
 import os
@@ -82,7 +96,9 @@ CASES = [
     _case("moonshot-1x2-bf16", MOON, (1, 2), "bfloat16", "full", False),
     _case("moonshot-2x2-bf16", MOON, (2, 2), "bfloat16", "full", False),
 ]
-GRADS = [c for c in CASES if c["grads"]]
+# cases of the 8-rank spawn
+EIGHT = [_case("glm4-2x4", GLM, (2, 4))]
+GRADS = [c for c in CASES + EIGHT if c["grads"]]
 BF16 = [c for c in CASES if not c["grads"]]
 DROPS = [c for c in CASES if c.get("cf")]
 
@@ -208,7 +224,7 @@ def runs(tmp_path_factory):
                        MOON: _f32_params(MOON), MAV: _f32_params(MAV)},
             "batch": {v: SyntheticLMData(seed=0, global_batch=B, seq_len=S,
                                          vocab=v or 251).next() for v in (0, 256)},
-            "cases": CASES}
+            "cases": CASES + EIGHT}
     path, ref_path = str(tmp / "data.pkl"), str(tmp / "ref.pkl")
     with open(path, "wb") as f:
         pickle.dump(data, f)
@@ -224,13 +240,111 @@ def runs(tmp_path_factory):
                              cases=[{**c, "batch": None} for c in CASES],
                              launch_steps=LAUNCH_STEPS)
         eight = workers.spawn("tp_eight", 8, str(tmp), params=path, moe_inputs=moe_path,
-                              steps=TP_STEPS)
+                              steps=TP_STEPS, cases=[{**c, "batch": None} for c in EIGHT])
     finally:
         stdout, stderr = proc.communicate(timeout=900)
     assert proc.returncode == 0 and "OK" in stdout, stderr[-3000:]
     with open(ref_path, "rb") as f:
         ref = pickle.load(f)
     return four, eight, ref, data
+
+
+_FALLBACK_REF = """
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.models import moe
+
+inp = np.load(sys.argv[1])
+p = {k: jnp.asarray(inp[k]) for k in ("router", "wg", "wu", "wd")}
+mesh = jax.make_mesh((1, 2), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+with jax.set_mesh(mesh):
+    y, aux = jax.jit(lambda x, p: moe.moe_ffn(x, p, k=int(inp["k"]), no_drop=True))(
+        jnp.asarray(inp["x"]), p)
+np.savez(sys.argv[2], y=np.asarray(y), aux=np.asarray(aux))
+print("OK")
+"""
+
+
+def _fallback_inputs(path):
+    """A MoE layer's inputs at S = 1 (a decode step): B, D, F, E, k = 4, 16,
+    24, 8, 2, f32, drawn from a numpy seed."""
+    Bm, D, F, E, k = 4, 16, 24, 8, 2
+    rng = np.random.default_rng(5)
+    np.savez(path, x=rng.standard_normal((Bm, 1, D)).astype(np.float32),
+             router=(rng.standard_normal((D, E)) * D ** -0.5).astype(np.float32),
+             wg=(rng.standard_normal((E, D, F)) * D ** -0.5).astype(np.float32),
+             wu=(rng.standard_normal((E, D, F)) * D ** -0.5).astype(np.float32),
+             wd=(rng.standard_normal((E, F, D)) * F ** -0.5).astype(np.float32), k=k)
+
+
+@pytest.fixture(scope="module")
+def serve_runs(tmp_path_factory):
+    """(the 2-rank results of ``torch_dist_workers.tp_serve``, the
+    reference's fallback output)."""
+    tmp = tmp_path_factory.mktemp("tp_serve")
+    inputs, ref_path = str(tmp / "fallback.npz"), str(tmp / "fallback_ref.npz")
+    _fallback_inputs(inputs)
+    env = {**os.environ, "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
+           "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu", "REPRO_SHARD_PROFILE": "tp"}
+    proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(_FALLBACK_REF), inputs,
+                             ref_path], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        two = workers.spawn("tp_serve", 2, str(tmp), moe_inputs=inputs)
+    finally:
+        stdout, stderr = proc.communicate(timeout=600)
+    assert proc.returncode == 0 and "OK" in stdout, stderr[-3000:]
+    return two, dict(np.load(ref_path))
+
+
+SERVE = ["glm4", "glm4-kv1", "glm4-v256"]
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_tp_prefill_logits_match_one_rank(serve_runs, name):
+    """The forward under ``TensorParallel(seq_shard=True)`` at (1, 2), each
+    rank given its half of the prompt, within 1e-5 of the one-rank forward
+    (relative to the largest logit); the split each case exercises."""
+    two, _ = serve_runs
+    for r in range(2):
+        got = two[r][f"prefill/{name}"]
+        assert got["err"] <= 1e-5, (r, got)
+        assert (got["kv"], got["kv_cols"], got["vocab"]) == {
+            "glm4": (True, False, False), "glm4-kv1": (False, True, False),
+            "glm4-v256": (True, False, True)}[name], got
+
+
+@pytest.mark.parametrize("name", SERVE + ["moonshot"])
+def test_tp_decode_matches_one_rank(serve_runs, name):
+    """4 tensor-parallel decode steps at (1, 2) over a contiguous cache of
+    every KV head: each step's logits within 1e-5 of the one-rank step's
+    (relative to the largest) and the cache's K/V within 1e-5."""
+    two, _ = serve_runs
+    for r in range(2):
+        got = two[r][f"decode/{name}"]
+        assert len(got["logits"]) == workers.SERVE_STEPS and got["heads"], got
+        assert max(got["logits"]) <= 1e-5 and max(got["kv"]) <= 1e-5, (r, got)
+
+
+def test_pod_axis_step_equals_the_data_model_mesh(serve_runs):
+    """The tensor-parallel step at (1, 1, 2) over ("pod", "data", "model")
+    gives (1, 2)'s loss, metrics, norm and every stored-shard gradient."""
+    two, _ = serve_runs
+    for r in range(2):
+        got = two[r]["pod"]
+        assert got["leaves"] > 0 and got["metrics"] == got["grads"] == got["norm"] == 0.0, got
+
+
+def test_moe_decode_fallback_matches_reference(serve_runs):
+    """``moe_ep`` at S = 1, which model axis 2 does not divide, keeps the
+    tokens whole on both ranks: its output within 1e-5 and its aux loss
+    within 1e-6 of the reference's ``_moe_ep`` on 2 fake devices, on every
+    rank."""
+    two, ref = serve_runs
+    for r in range(2):
+        got = two[r]["fallback"]
+        assert np.abs(got["y"] - ref["y"]).max() <= 1e-5 * np.abs(ref["y"]).max(), r
+        assert abs(got["aux"] - float(ref["aux"])) <= 1e-6, (r, got["aux"], ref["aux"])
 
 
 def _shard(whole: np.ndarray, slices) -> np.ndarray:
@@ -244,11 +358,14 @@ def _shard(whole: np.ndarray, slices) -> np.ndarray:
 def test_tp_step_loss_and_gradients_match_reference(runs, case):
     """f32: loss, nll and aux within 1e-5, and every rank's gradient of
     every stored shard within 1e-5 of the reference's (relative to the
-    leaf's largest); the global norm within 1e-5."""
-    four, _, ref, _ = runs
+    leaf's largest); the global norm within 1e-5.  glm4 at (2, 4) takes
+    the column-sharded K/V route (``kv_cols``), the others do not."""
+    four, eight, ref, _ = runs
     want = ref[case["name"]]
-    for r in range(4):
-        got = four[r][case["name"]]
+    ranks = eight if case in EIGHT else four
+    for r in range(len(ranks)):
+        got = ranks[r][case["name"]]
+        assert got["kv_cols"] == (case["name"] == "glm4-2x4"), (r, got["kv_cols"])
         for key in ("loss", "nll", "aux"):
             assert rel_err(got[key], want[key]) <= 1e-5, (r, key, got[key], want[key])
         assert len(got["grads"]) == len(want["grads"])

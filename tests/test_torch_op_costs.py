@@ -23,6 +23,11 @@ against the JAX package's ``launch.hlo_analysis``, on the CPU.
 - ``launch/autotune.py --hw hlo`` runs two episodes at smoke size.
 - ``launch.specs``' stand-ins and parameter counts equal the reference's;
   the QAT fake-quant ops on meta charge their kernels' contracts.
+- ``count_costs``' memory count on a known function: arguments, an
+  argument updated in place (alias), a new output, a freed transient
+  (temp) and the peak; a tensor-parallel train step's collectives, read
+  off the dispatcher on rank 0 of a fake group of 8, equal ``dist.tp.stats``'
+  bytes and calls kind by kind.
 """
 import sys
 from pathlib import Path
@@ -349,3 +354,53 @@ def test_grouped_fake_quant_on_meta_charges_its_contract():
     costs = count_costs(step)
     assert costs.kernels["fake_quant_group"] == [1, 0.0, 2 * nbytes + 8 * len(ws)]
     assert costs.kernels["fake_quant_group_bwd"] == [1, 0.0, 3 * nbytes + 4 * len(ws)]
+
+
+# ------------------------------------------------------------ collectives and memory
+def test_memory_count_of_a_known_function():
+    """The memory count on meta: an in-place update of an argument is an
+    alias, a new product is an output, a transient freed before the end is
+    temp; the peak is arguments + temp + the outputs made."""
+    a, b = sds((64, 64), "float32"), sds((64, 32), "float32")
+    n = 64 * 4
+
+    def f(x, y):
+        t = x * 2.0                      # 64 x 64 transient, freed before the end
+        z = t @ y                        # 64 x 32 output
+        del t
+        x.add_(1.0)                      # the argument, updated in place
+        return x, z
+
+    m = count_costs(f, a, b).memory
+    assert m == {"argument_bytes": 64 * n + 32 * n, "output_bytes": 64 * n + 32 * n,
+                 "alias_bytes": 64 * n, "temp_bytes": 64 * n,
+                 "peak_bytes": 64 * n + 32 * n + 64 * n + 32 * n}
+
+
+def test_tp_step_collectives_equal_tp_stats():
+    """A counted tensor-parallel train step (glm4 and moonshot smoke, rank
+    0 of a fake group on a (2, 4) mesh, meta shards): the collectives
+    ``count_costs`` reads off the dispatcher equal ``dist.tp.stats``'
+    bytes and calls for the same step, kind by kind."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import tp as tpm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group
+
+    names = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "all_to_all": "all-to-all", "reduce_scatter": "reduce-scatter"}
+    with fake_process_group(8):
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        for arch in ("glm4-9b", "moonshot-v1-16b-a3b"):
+            cfg = get_config(arch, smoke=True)
+            with dryrun.shard_profile("tp"):
+                step, args, _, _ = dryrun.cell_step(mesh, cfg, ShapeConfig("t", "train", 16, 4))
+                tpm.stats.reset()
+                costs = count_costs(step, *args)
+            want = {names[k]: v for k, v in tpm.stats.bytes.items()}
+            calls = {names[k]: v for k, v in tpm.stats.calls.items()}
+            assert costs.coll_bytes_by_kind == want and costs.coll_count_by_kind == calls, arch
+            assert costs.coll_bytes > 0

@@ -389,7 +389,7 @@ def tp_case(case: dict, tree, batch, world: int) -> dict:
     step = make_tp_train_step(model, AdamW(lr=DP_LR), mesh, remat=case["remat"])
     means, grads, norm = step.grads(params, batch, bm)
     out = {k: float(v) for k, v in means.items()}
-    out["norm"] = float(norm)
+    out["norm"], out["kv_cols"] = float(norm), step.tp.kv_cols
     out["grads"] = [("/".join(names), shard_slices(mesh, t.placements, t.ndim), _np(g))
                     for (names, t), g in zip(named_leaves(params), grads)]
     return out
@@ -448,16 +448,16 @@ def restore_check(directory: str, arch: str, shape) -> dict:
     return {"step": step, "saved_step": saved_step, "bad": bad, "leaves": n}
 
 
-def tp_eight(rank, world, workdir, params, moe_inputs, steps):
+def tp_eight(rank, world, workdir, params, moe_inputs, steps, cases):
     """At 8 ranks on a (2, 4) mesh: moonshot smoke (bf16) trained ``steps``
     steps on one batch by ``make_tp_train_step`` from the reference's
     params (the twin of the reference's small-mesh train step); the
     expert-parallel MoE layer against the meshless one
-    (``moe_inputs``); and the split per-column QDQ of every quant-group
+    (``moe_inputs``); the split per-column QDQ of every quant-group
     leaf of glm4-9b and moonshot smoke (and a vocab-256 embed) on its
-    stored shard, against the whole leaf's."""
+    stored shard, against the whole leaf's; and every case of ``cases``
+    (:func:`tp_case`)."""
     from repro_torch.dist.elastic import place
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW
     from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
@@ -465,8 +465,9 @@ def tp_eight(rank, world, workdir, params, moe_inputs, steps):
 
     with open(params, "rb") as f:
         data = pickle.load(f)
-    mesh = make_host_mesh((2, 4), device="cpu")
-    out = {}
+    mesh = tp_mesh((2, 4), world)
+    out = {c["name"]: tp_case(c, data["params"][c["params"]], data["batch"][c.get("vocab") or 0],
+                              world) for c in cases}
     case = {"arch": "moonshot-v1-16b-a3b", "dtype": "bfloat16"}
     model = build_model(tp_config(case))
     bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
@@ -579,5 +580,163 @@ def split_qdq_case(mesh, arch: str, vocab) -> dict:
     return {"bad": bad, "split": sorted(split), "leaves": len(bm), "n_split": n_split}
 
 
+# ---- tensor-parallel prefill and decode, the "pod" axis, the MoE decode fallback ----
+SERVE_B, SERVE_S, SERVE_PROMPT, SERVE_STEPS = 2, 16, 8, 4
+
+
+def _serve_config(arch: str, **kw):
+    import dataclasses
+
+    return dataclasses.replace(f32_smoke(arch), **kw)
+
+
+def _gather_vocab(logits, tp):
+    """Logits whose vocab dim is split over "model" gathered whole."""
+    from repro_torch.dist import tp as tpm
+
+    return tpm.all_gather(logits.contiguous(), tp.model_group, tp.m, logits.ndim - 1) \
+        if tp.vocab else logits
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def prefill_case(mesh, cfg) -> dict:
+    """The forward's logits under the tensor-parallel context at ``mesh``,
+    the tokens arriving with their sequence split over "model", against the
+    one-rank forward on the whole batch: the largest difference relative to
+    the largest logit."""
+    from repro_torch.dist import tp as tpm
+    from repro_torch.dist.elastic import place
+    from repro_torch.launch.dryrun import compute_tree
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(np.int32))
+    with torch.no_grad():
+        want, _ = model.forward(params, tokens=tokens)
+    tp = tpm.TensorParallel(cfg, mesh, seq_shard=True)
+    w = SERVE_S // tp.m
+    comp = compute_tree(tp, place(params, mesh))
+    with tpm.active(tp), torch.no_grad():
+        got, _ = model.forward(comp, tokens=tokens[:, tp.mrank * w:(tp.mrank + 1) * w])
+    return {"err": _rel(_gather_vocab(got, tp), want), "kv": tp.kv, "kv_cols": tp.kv_cols,
+            "vocab": tp.vocab, "gathers": tpm.stats.calls.get("all_gather", 0)}
+
+
+def decode_case(mesh, cfg) -> dict:
+    """``SERVE_STEPS`` greedy decode steps of packed 4-bit serving params
+    after a full-prompt prefill, under the tensor-parallel context at
+    ``mesh`` (a contiguous cache of every KV head) against the one-rank
+    ``decode_step`` on the same cache: each step's logits (relative to the
+    largest) and the cache's K/V after it (largest difference)."""
+    from repro_torch.dist import tp as tpm
+    from repro_torch.dist.elastic import place
+    from repro_torch.launch.dryrun import compute_tree
+    from repro_torch.models import build_model
+    from repro_torch.quant.qat import policy_for
+    from repro_torch.train.serve import quantize_for_serving
+
+    model = build_model(cfg)
+    sparams = quantize_for_serving(model, model.init(0, device="cpu"), policy_for(model, 4),
+                                   device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32))
+    with torch.no_grad():
+        logits, cache = model.prefill(sparams, tokens=prompt, max_len=SERVE_PROMPT + SERVE_STEPS)
+    mine = {k: v.clone() for k, v in cache.items()}
+    tp = tpm.TensorParallel(cfg, mesh)
+    comp = compute_tree(tp, place(sparams, mesh))
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    errs, kv = [], []
+    for _ in range(SERVE_STEPS):
+        with torch.no_grad():
+            want, cache = model.decode_step(sparams, cache, tok)
+        with tpm.active(tp), torch.no_grad():
+            got, mine = model.decode_step(comp, mine, tok)
+        errs.append(_rel(_gather_vocab(got, tp), want))
+        kv.append(max(float((mine[k] - cache[k]).abs().max()) for k in ("k", "v")))
+        assert torch.equal(mine["length"], cache["length"])
+        tok = want.argmax(-1).to(torch.int32)
+    return {"logits": errs, "kv": kv, "heads": tp.heads, "kv_split": tp.kv,
+            "kv_cols": tp.kv_cols}
+
+
+def pod_case(arch: str) -> dict:
+    """One tensor-parallel step's loss, metrics and stored-shard gradients
+    at a (1, 2) ("data", "model") mesh and at a (1, 1, 2) ("pod", "data",
+    "model") one, from the same params and batch: the largest difference."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist.elastic import place
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.quant.qat import bits_assignment, bits_to_device, policy_for
+    from repro_torch.train.train_step import make_tp_train_step
+
+    cfg = f32_smoke(arch)
+    model = build_model(cfg)
+    bm = bits_to_device(bits_assignment(model.quant_groups(), policy_for(model, 8)), "cpu")
+    params = model.init(0, device="cpu")
+    batch = SyntheticLMData(seed=0, global_batch=4, seq_len=16, vocab=cfg.vocab_size).next()
+    got = {}
+    for shape, axes in (((1, 2), ("data", "model")), ((1, 1, 2), ("pod", "data", "model"))):
+        mesh = make_host_mesh(shape, axes, device="cpu")
+        step = make_tp_train_step(model, AdamW(lr=DP_LR), mesh)
+        got[len(shape)] = step.grads(place(params, mesh), batch, bm)
+    (m2, g2, n2), (m3, g3, n3) = got[2], got[3]
+    return {"metrics": max(abs(float(m2[k]) - float(m3[k])) for k in m2),
+            "grads": max(float((a - b).abs().max()) for a, b in zip(g2, g3)),
+            "norm": abs(float(n2) - float(n3)), "leaves": len(g2)}
+
+
+def fallback_case(mesh, inp) -> dict:
+    """``moe_ep`` at S = 1 (its decode fallback: the tokens whole on both
+    model ranks) on this rank's experts: its output and aux loss."""
+    import dataclasses
+
+    from repro_torch.dist import tp as tpm
+    from repro_torch.models import moe
+
+    x = torch.from_numpy(inp["x"])
+    p = {k: torch.from_numpy(inp[k]) for k in ("router", "wg", "wu", "wd")}
+    cfg = dataclasses.replace(f32_smoke("moonshot-v1-16b-a3b"), num_experts=p["wg"].shape[0],
+                              d_ff=p["wg"].shape[2], d_model=p["wg"].shape[1])
+    tp = tpm.TensorParallel(cfg, mesh)
+    E_loc = p["wg"].shape[0] // tp.m
+    local = {k: (v if k == "router" else v[tp.mrank * E_loc:(tp.mrank + 1) * E_loc])
+             for k, v in p.items()}
+    with tpm.active(tp), torch.no_grad():
+        y, aux = moe.moe_ffn(x, local, k=int(inp["k"]), no_drop=True)
+    return {"y": y.numpy(), "aux": float(aux)}
+
+
+def tp_serve(rank, world, workdir, moe_inputs):
+    """At 2 ranks on a (1, 2) mesh: tensor-parallel prefill (glm4 smoke in
+    f32: KV heads split; one KV head, its columns split; a vocab of 256,
+    split) and decode (the same, and moonshot's MoE decode fallback)
+    against one rank; the step at (1, 1, 2) against (1, 2); the fallback
+    on the reference's layer inputs."""
+    from repro_torch.dist import tp as tpm
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh((1, 2), device="cpu")
+    glm, moon = "glm4-9b", "moonshot-v1-16b-a3b"
+    cases = {"glm4": _serve_config(glm), "glm4-kv1": _serve_config(glm, num_kv_heads=1),
+             "glm4-v256": _serve_config(glm, vocab_size=256)}
+    out = {}
+    for name, cfg in cases.items():
+        tpm.stats.reset()
+        out[f"prefill/{name}"] = prefill_case(mesh, cfg)
+    for name, cfg in {**cases, "moonshot": _serve_config(moon)}.items():
+        out[f"decode/{name}"] = decode_case(mesh, cfg)
+    out["pod"] = pod_case(glm)
+    out["fallback"] = fallback_case(mesh, np.load(moe_inputs))
+    return out
+
+
 BODIES = {"collectives": collectives, "dp": dp, "elastic": elastic, "tp_four": tp_four,
-          "tp_eight": tp_eight}
+          "tp_eight": tp_eight, "tp_serve": tp_serve}
